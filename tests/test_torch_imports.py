@@ -1,0 +1,49 @@
+"""The port stands alone: nothing in `repro_torch` or `chip_smoke.py`
+imports JAX or the JAX package (`repro`), and importing the whole slice
+leaves `jax` out of `sys.modules`."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0 and _forbidden(node.module):
+            bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_whole_slice_imports_without_jax():
+    mods = sorted(
+        ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("").parts)
+        .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro was imported'\n"
+            "print(len(%r))\n" % (mods,))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == len(mods) >= 15
