@@ -37,19 +37,39 @@ class ActQuant(NamedTuple):
 
 def quantize_act(x: torch.Tensor, r_in: int, *,
                  segment_ids: Optional[torch.Tensor] = None,
+                 num_segments: Optional[int] = None,
                  eps: float = 1e-8) -> ActQuant:
-    """Unsigned asymmetric activation quantization with a tensor-global
-    dynamic swing (scale/zero from the tensor's own min/max).
+    """Unsigned asymmetric activation quantization with a dynamic swing
+    (scale/zero from the tensor's own min/max).
 
-    `segment_ids` (per-segment statistics) belongs to request isolation,
-    which this port does not carry yet: passing it raises."""
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "segment-wise activation quantization is not ported yet")
+    `segment_ids` (optional, shape (x.shape[0],) int, values in
+    [0, num_segments)) switches the min/max from tensor-global to
+    *per-segment* over the leading axis: rows sharing an id share one
+    swing, rows of different segments never see each other's statistics.
+    Min and max are exact, so a row's segment statistics equal its solo
+    statistics bit for bit, whatever its batchmates.  scale/zero then
+    broadcast per row, shape (x.shape[0], 1, ...).  `num_segments`
+    defaults to x.shape[0]."""
     levels = 2.0 ** r_in - 1.0
-    zero = torch.min(x)
-    scale = torch.clamp_min(torch.max(x) - zero, eps) \
-        * _static_reciprocal(levels)
+    inv_levels = _static_reciprocal(levels)
+    if segment_ids is None:
+        zero = torch.min(x)
+        scale = torch.clamp_min(torch.max(x) - zero, eps) * inv_levels
+    else:
+        n_seg = x.shape[0] if num_segments is None else num_segments
+        ids = segment_ids.to(device=x.device, dtype=torch.int64).reshape(-1)
+        rows = x.reshape(x.shape[0], -1)
+        # per-row extrema, then per-segment extrema gathered back per row
+        seg_max = torch.full((n_seg,), float("-inf"), dtype=x.dtype,
+                             device=x.device).scatter_reduce(
+            0, ids, torch.amax(rows, dim=1), "amax")
+        seg_min = torch.full((n_seg,), float("inf"), dtype=x.dtype,
+                             device=x.device).scatter_reduce(
+            0, ids, torch.amin(rows, dim=1), "amin")
+        bshape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        zero = seg_min[ids].reshape(bshape)
+        scale = torch.clamp_min(seg_max[ids].reshape(bshape) - zero, eps) \
+            * inv_levels
     q = torch.round(torch.clamp((x - zero) / scale, 0.0, levels))
     return ActQuant(q=q, scale=scale, zero=zero)
 

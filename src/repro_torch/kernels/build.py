@@ -28,9 +28,11 @@ BUILD_DIR = _HERE / "_build"
 # kernel name -> its CUDA source
 SOURCES: Dict[str, Path] = {
     "cim_mbiw": _HERE / "cim_mbiw" / "csrc" / "cim_mbiw.cu",
+    "ring_decode": _HERE / "flash_attn" / "csrc" / "ring_decode.cu",
 }
 
-# no --use_fast_math: the ADC epilogue relies on IEEE rounding intrinsics
+# no --use_fast_math: the ADC epilogue and the decode softmax rely on IEEE
+# rounding intrinsics and the accurate expf
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -16,10 +16,11 @@ Numerics: the kernel path is bit-exact with the plain reference path at
 every supported precision, and both are bit-exact with the JAX package.
 The activation zero-point is folded into the per-channel ABN beta inside
 the ADC floor (beta_eff = beta + gamma*g0*zp_dp), exactly what the chip's
-signed-to-unsigned conversion + beta block does.  Every divide of the
-quant/dequant chain has a tensor on the operand's device as its divisor:
-PyTorch's CUDA divide by a Python scalar multiplies by the reciprocal
-instead, which is not the same float.
+signed-to-unsigned conversion + beta block does; under segment-wise
+quantization (per-request isolation) the zero-point is per row, and so is
+beta_eff.  Every divide of the quant/dequant chain has a tensor on the
+operand's device as its divisor: PyTorch's CUDA divide by a Python scalar
+multiplies by the reciprocal instead, which is not the same float.
 
 Units: `dp`/`dp_hat` are integer dot-product units, `*_codes` ADC output
 codes in [0, 2^r_out), `g0` codes per dp unit at gamma=1, activations in
@@ -315,7 +316,10 @@ def _tile_schedule(lp: LayerPlan, q_rows: torch.Tensor, zp: torch.Tensor,
     """One block of GEMM rows through the (k, n) tile schedule.
 
     `matmul` evaluates one macro tile (kernel variant or plain oracle) and
-    returns int32 ADC codes.  Returns dp_hat (rows, n_pad) in dp units."""
+    returns int32 ADC codes.  `zp` is the activation zero-point in code
+    units: a scalar, or per row (rows, 1) under segment-wise quantization,
+    which makes the folded ADC offset beta_eff per GEMM row (rows, n).
+    Returns dp_hat (rows, n_pad) in dp units."""
     mid = 2.0 ** (lp.spec.r_out - 1)
     g0 = lp.g0
     tsz = lp.tile_n
@@ -346,22 +350,33 @@ def _schedule_rows(lp: LayerPlan, cfg: EngineConfig, q_rows: torch.Tensor,
                    zp: torch.Tensor, wqq: torch.Tensor, gamma: torch.Tensor,
                    beta: torch.Tensor, *, matmul) -> torch.Tensor:
     """Stream `q_rows` through the tile schedule in cfg.stream_rows chunks
-    (the im2col streaming stage).  Quantization stays global, so chunking
-    is bit-invariant."""
+    (the im2col streaming stage).  Quantization stays global (or
+    per-segment - `zp` is then per-row (M, 1) and chunks alongside the
+    rows), so chunking is bit-invariant."""
     m = q_rows.shape[0]
     chunk = cfg.stream_rows if cfg.stream_rows > 0 else max(m, 1)
-    parts = [_tile_schedule(lp, q_rows[s:s + chunk], zp, wqq, gamma, beta,
-                            matmul=matmul)
+    parts = [_tile_schedule(lp, q_rows[s:s + chunk],
+                            zp if zp.dim() == 0 else zp[s:s + chunk],
+                            wqq, gamma, beta, matmul=matmul)
              for s in range(0, max(m, 1), chunk)]
     return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
 
 
 def _layer_tiles(lp: LayerPlan, bind: Dict[str, torch.Tensor],
-                 x2: torch.Tensor, cfg: EngineConfig, *,
-                 matmul) -> torch.Tensor:
-    """Run one layer's tile schedule over (M, K) GEMM rows: global
-    activation quantization, the tile schedule, dequant and activation."""
-    aq = quantize_act(x2, lp.spec.r_in)
+                 x2: torch.Tensor, cfg: EngineConfig, *, matmul,
+                 seg_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run one layer's tile schedule over (M, K) GEMM rows: activation
+    quantization, the tile schedule, dequant and activation.
+
+    `seg_rows` (optional, (M,) int) switches the activation quantization
+    to per-segment statistics: the zero-point becomes per-row and folds
+    into a per-row beta_eff inside the ADC floor, so rows of different
+    segments never share swing state."""
+    if seg_rows is None:
+        aq = quantize_act(x2, lp.spec.r_in)
+    else:
+        aq = quantize_act(x2, lp.spec.r_in, segment_ids=seg_rows,
+                          num_segments=x2.shape[0])
     zp = aq.zero / aq.scale
     dp_hat = _schedule_rows(lp, cfg, aq.q, zp, bind["wqq"], bind["gamma_p"],
                             bind["beta_p"], matmul=matmul)
@@ -374,10 +389,14 @@ def _layer_tiles(lp: LayerPlan, bind: Dict[str, torch.Tensor],
 
 
 def _run_layer(lp: LayerPlan, bind: Dict[str, torch.Tensor],
-               x: torch.Tensor, cfg: EngineConfig, *,
-               matmul) -> torch.Tensor:
+               x: torch.Tensor, cfg: EngineConfig, *, matmul,
+               seg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One planned layer end-to-end: im2col (conv), tile schedule,
-    activation, pooling, and the reshape back to the next layer's view."""
+    activation, pooling, and the reshape back to the next layer's view.
+
+    `seg` holds per *batch sample* (B,) segment ids; a conv layer's im2col
+    expansion repeats them across the sample's out_h*out_w GEMM rows, a
+    dense layer uses them as they are."""
     g = lp.spec.conv
     if g is not None:
         if x.dim() != 4 or tuple(x.shape[1:]) != g.spatial_in:
@@ -385,13 +404,16 @@ def _run_layer(lp: LayerPlan, bind: Dict[str, torch.Tensor],
                 f"conv layer expects (B, {g.h}, {g.w}, {g.c_in}) "
                 f"activations, got {tuple(x.shape)}")
         b = x.shape[0]
-        x2 = im2col_patches(x, g).reshape(b * g.out_h * g.out_w, lp.spec.k)
+        rep = g.out_h * g.out_w
+        x2 = im2col_patches(x, g).reshape(b * rep, lp.spec.k)
+        seg_rows = None if seg is None else torch.repeat_interleave(seg, rep)
     else:
         x2 = x.reshape(x.shape[0], -1)        # conv -> dense flatten (NHWC)
         if x2.shape[-1] != lp.spec.k:
             raise ValueError(f"dense layer expects {lp.spec.k} features, "
                              f"got {x2.shape[-1]} from {tuple(x.shape)}")
-    y = _layer_tiles(lp, bind, x2, cfg, matmul=matmul)
+        seg_rows = seg
+    y = _layer_tiles(lp, bind, x2, cfg, matmul=matmul, seg_rows=seg_rows)
     if g is not None:
         y = y.reshape(b, g.out_h, g.out_w, g.c_out)
     if lp.pool > 1:
@@ -422,17 +444,23 @@ def _reference_matmul(lp: LayerPlan, cfg: EngineConfig):
 
 def _forward(plan: NetworkPlan, binds: Sequence[Dict[str, torch.Tensor]],
              x: torch.Tensor, reference: bool,
-             m_valid: Optional[int] = None) -> torch.Tensor:
+             m_valid: Optional[int] = None,
+             seg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The whole schedule over a canonical batch: (B, H, W, C) images for a
     conv-first plan, (B, K0) rows for a dense-first one.  `m_valid` marks
     the live rows of a bucket-padded batch (pad rows are re-pinned to
-    copies of row 0 before every layer)."""
+    copies of row 0 before every layer).  `seg` ((B,) int, optional) are
+    the per-sample segment ids of segment-wise activation quantization."""
     xc = x.to(torch.float32)
+    if seg is not None and seg.shape[0] != xc.shape[0]:
+        raise ValueError(f"segments extent {seg.shape[0]} != canonical "
+                         f"batch extent {xc.shape[0]}")
     mk = _reference_matmul if reference else _kernel_matmul
     for lp, bind in zip(plan.layers, binds):
         if m_valid is not None:
             xc = _mask_pad_rows(xc, m_valid)
-        xc = _run_layer(lp, bind, xc, plan.cfg, matmul=mk(lp, plan.cfg))
+        xc = _run_layer(lp, bind, xc, plan.cfg, matmul=mk(lp, plan.cfg),
+                        seg=seg)
     return xc
 
 

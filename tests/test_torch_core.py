@@ -54,8 +54,17 @@ def test_quantize_act_matches_jax(r_in, seed):
 
 
 def test_quantize_act_segments_not_ported():
-    with pytest.raises(NotImplementedError):
-        tq.quantize_act(torch.zeros(4, 3), 4, segment_ids=torch.zeros(4))
+    """Segment-wise quantization is ported now (held to the JAX package in
+    tests/test_torch_segments.py): a segment's statistics are its own, so
+    rows of a 100x-swing batchmate leave its codes untouched."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(4, 7)).astype(np.float32)
+    x[2:] *= 100.0
+    seg = tq.quantize_act(_t(x), 4, segment_ids=torch.tensor([0, 0, 1, 1]))
+    solo = tq.quantize_act(_t(x[:2]), 4)
+    assert torch.equal(seg.q[:2], solo.q)
+    assert torch.equal(seg.scale[:2], solo.scale.expand(2, 1))
+    assert not torch.equal(tq.quantize_act(_t(x), 4).q[:2], solo.q)
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -214,10 +214,11 @@ def test_serve_batch_equals_serve_of_concatenation():
     assert [tuple(o.shape) for o in outs] == [(1, 7), (4, 7), (6, 7)]
     assert torch.equal(torch.cat(outs), whole)
     assert bound.serve_batch([]) == []
+    # isolate=True makes each request its own segment: equal to solo serves
+    for out, req in zip(bound.serve_batch(reqs, isolate=True), reqs):
+        assert torch.equal(out, bound.serve(req))
     with pytest.raises(NotImplementedError):
-        bound.serve_batch(reqs, isolate=True)
-    with pytest.raises(NotImplementedError):
-        bound.serve(reqs[0], segments=torch.zeros(1))
+        bound.serve(reqs[0], noise_ids=torch.zeros(1))
     with pytest.raises(ValueError, match="batch-major"):
         bound.serve_batch([reqs[0], torch.zeros(2, 5)])
 
