@@ -17,7 +17,13 @@ a result:
                 rtol = atol = 1e-5 over R {1,3,4,8} x H {1,16} x hd {12,128}
                 x L {1,37,2048} with ragged valid-slot counts, on strided
                 views of a decode-state slab, and each row of an R-row call
-                bit for bit equal to a one-row call.
+                bit for bit equal to a one-row call.  flash forward, dq
+                and dk/dv: within rtol = atol = 2e-5 (forward) and 5e-5
+                (backward) in float32, 2e-2 in bfloat16, over causal /
+                non-causal x window {0, 256} x rep {1, 2, 16} x D {64,
+                128}, ragged Sq and Sk in {1, 77, 512, 4096}, q_off {0,
+                100}, and the train shape; each backward run twice, bit
+                for bit equal.
   3. lenet    - the first main path: LeNet (28x28x1 -> conv16 -> pool ->
                 conv32 -> pool -> fc 1568->128 -> fc 128->10) served at full
                 width through compile_program(...).bind(...).serve at
@@ -39,14 +45,32 @@ a result:
                 its card reference.  Bind seconds, median fused-step
                 latency per point, tokens/s, and the profiler's device
                 time and busy share of one fused step per point.
-  5. times    - CUDA-event times of each kernel, its plain version and a
+  5. train    - the third main path: OLMo-1B (16 layers, d 2048, 16
+                heads of 128, d_ff 8192, vocab 50304, tied head, bf16,
+                remat) trained through launch/steps.make_train_step with
+                CIM-aware fakequant projections (r_in 8, r_w 4, r_out 8,
+                max_gamma 2^16) and attn_impl "pallas" (the flash
+                kernels), sequence 4096 (SHAPES["train_4k"]) at batch 2
+                (cut from 256), SyntheticLM batches (seed 1234), AdamW lr
+                3e-4 with launch/train.py's warmup and cosine schedule, 3
+                steps, weights from a seeded torch.Generator on the card.
+                Every loss finite; flash launches = 16 forward + 16
+                recompute + 16 dq + 16 dk/dv per step; TF32 off.  One step
+                from the same weights and batch with attn_impl "jnp" (plain
+                attention) gives the same loss within TRAIN_JNP_RTOL and
+                grad norm within TRAIN_JNP_GNORM_RTOL.  Host ms per step
+                (ending in a sync), tokens/s, peak memory, and a profiled
+                step's device time and flash share.
+  6. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
-                ring_decode: yardsticks the port never calls), beside the
-                least time the card could take (the larger of operations
-                over the peak rate of their type and bytes / 3.35 TB/s, the
-                H100 SXM's published peaks), at the LeNet tiles, the decode
-                tiles and the decode attention shape.
+                ring_decode and the flash kernels: yardsticks the port
+                never calls), beside the least time the card could take
+                (the larger of operations over the peak rate of their type
+                and bytes / 3.35 TB/s, the H100 SXM's published peaks), at
+                the LeNet tiles, the decode tiles, the decode attention
+                shape and the train attention shape (B 2, H 16, S 4096,
+                D 128, causal, bf16).
 
 Then the `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and last the JSON result line.  Detailed numbers
@@ -81,6 +105,18 @@ DECODE_DEPTH = 6
 DECODE_POINTS = {"": (4, 2), "quality": (8, 4)}
 DECODE_CAPACITY = 4
 DECODE_REQUESTS = 8
+PEAK_BF16_OPS = 989e12         # H100 SXM dense bf16 tensor-core rate
+# the train path: OLMo-1B at full width and depth, SHAPES["train_4k"]'s
+# sequence, global batch cut from 256 to 2
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 2
+TRAIN_STEPS = 3
+TRAIN_LR = 3e-4
+# flash (pallas) against plain (jnp) attention from the same weights: the
+# two differ by float32 rounding, which moves a few bf16 activations by an
+# ulp and with them a few fakequant codes
+TRAIN_JNP_RTOL = 5e-3
+TRAIN_JNP_GNORM_RTOL = 5e-2
 
 
 def check(ok: bool, what: str) -> None:
@@ -112,13 +148,14 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_profile(fn, reps: int, cpu: bool = True) -> dict:
+def device_profile(fn, reps: int, cpu: bool = True,
+                   groups=("cim_mbiw", "ring_decode")) -> dict:
     """torch.profiler over `reps` calls: device microseconds per call (all
-    kernels, those of cim_mbiw and of ring_decode, and the eight largest
-    by name) and the host wall time per call under the profiler.  With
-    `cpu=False` only the device is traced (fewer events for a call that
-    launches many thousand kernels).  Empty dict when the profiler saw no
-    device time."""
+    kernels, those whose name holds each of `groups`, and the eight
+    largest by name) and the host wall time per call under the profiler.
+    With `cpu=False` only the device is traced (fewer events for a call
+    that launches many thousand kernels).  Empty dict when the profiler
+    saw no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -137,11 +174,10 @@ def device_profile(fn, reps: int, cpu: bool = True) -> dict:
     total = sum(by_name.values())
     if total <= 0:
         return {}
-    mbiw = sum(v for k, v in by_name.items() if "cim_mbiw" in k)
-    ring = sum(v for k, v in by_name.items() if "ring_decode" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"device_us": total / reps, "cim_mbiw_us": mbiw / reps,
-            "ring_decode_us": ring / reps, "wall_us": 1e6 * wall / reps,
+    out = {f"{g}_us": sum(v for k, v in by_name.items() if g in k) / reps
+           for g in groups}
+    return {"device_us": total / reps, **out, "wall_us": 1e6 * wall / reps,
             "device_busy": total / (1e6 * wall),
             "top_kernels_us": {k[:80]: v / reps for k, v in top}}
 
@@ -195,6 +231,298 @@ def decode_requests(vocab: int) -> list:
         max_new = int(rng.integers(1, 7))
         out.append((int(rng.integers(0, 7)), uid, prompt, max_new,
                     "" if uid % 2 == 0 else "quality"))
+    return out
+
+
+FLASH_PAIRS = ((1, 77), (77, 77), (512, 512), (4096, 4096), (77, 4096),
+               (4096, 77), (512, 1), (77, 512))
+# the train path's attention: B, H, G, S, D (causal, bf16)
+FLASH_TRAIN = (TRAIN_BATCH, 16, 16, TRAIN_SEQ, 128)
+
+
+def flash_cases() -> list:
+    """(b, h, g, sq, sk, d, causal, window, q_off, dtype): every causal x
+    window {0, 256} x rep {1, 2, 16} x D {64, 128}, each at one (Sq, Sk)
+    pair (cycling through ragged sizes in {1, 77, 512, 4096}), q_off and
+    dtype alternating; then the train shape in bf16 and float32."""
+    out = []
+    i = 0
+    for causal in (True, False):
+        for window in (0, 256):
+            for rep in (1, 2, 16):
+                for d in (64, 128):
+                    sq, sk = FLASH_PAIRS[i % len(FLASH_PAIRS)]
+                    g = 1 if rep == 16 else 2
+                    dtype = (torch.float32, torch.bfloat16)[(i // 2) % 2]
+                    out.append((1, g * rep, g, sq, sk, d, causal, window,
+                                (0, 100)[i % 2], dtype))
+                    i += 1
+    b, h, g, s, d = FLASH_TRAIN
+    out.append((b, h, g, s, s, d, True, 0, 0, torch.bfloat16))
+    out.append((b, h, g, s, s, d, True, 0, 0, torch.float32))
+    return out
+
+
+def flash_inputs(b, h, g, sq, sk, d, dtype, seed, dev) -> list:
+    """q, dO (B, H, Sq, D) and k, v (B, G, Sk, D) as transposed views of
+    (B, S, heads, D) tensors, the layout the model passes."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(s_, heads):
+        return torch.randn((b, s_, heads, d), generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype).transpose(1, 2)
+    return [rand(sq, h), rand(sk, g), rand(sk, g), rand(sq, h)]
+
+
+def flash_kept_pairs(sq, sk, causal, window, q_off=0) -> int:
+    """(query, key) pairs the mask keeps, per (batch, head)."""
+    qp = q_off + np.arange(sq)
+    hi = np.minimum(sk - 1, qp) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, qp - window + 1) if window > 0 else np.zeros(sq)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_bound_ms(kind, b, h, g, sq, sk, d, causal, window, elt) -> tuple:
+    """Least time (ms) of one flash kernel call and what bounds it: the
+    products over the kept pairs (forward 2, dq 3, dk/dv 4 products of
+    2*D operations a pair) at the bf16 tensor-core rate, against each
+    input read once and each output written once (`elt` bytes an element
+    of q/k/v/dO; lse, delta and the gradients float32)."""
+    pairs = b * h * flash_kept_pairs(sq, sk, causal, window)
+    ops = {"fwd": 2, "dq": 3, "dkv": 4}[kind] * 2.0 * d * pairs
+    qb, kb = b * h * sq * d, b * g * sk * d
+    if kind == "fwd":
+        nbytes = elt * (2 * qb + 2 * kb) + 4 * b * h * sq
+    elif kind == "dq":
+        nbytes = elt * (2 * qb + 2 * kb) + 8 * b * h * sq + 4 * qb
+    else:
+        nbytes = elt * (2 * qb + 2 * kb) + 8 * b * h * sq \
+            + 8 * b * h * sk * d
+    t_ops, t_bytes = ops / PEAK_BF16_OPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def flash_checks(fk, fref, dev) -> dict:
+    """Each flash kernel against its plain version on every case of
+    flash_cases(); each backward twice, bit for bit equal."""
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    cases = flash_cases()
+    for i, (b, h, g, sq, sk, d, causal, window, off, dtype) in \
+            enumerate(cases):
+        q, k, v, do = flash_inputs(b, h, g, sq, sk, d, dtype, 100 + i, dev)
+        q_off = torch.full((1, 1), off, dtype=torch.int32, device=dev)
+        kw = dict(causal=causal, window=window)
+        f32 = dtype == torch.float32
+        tf_, tb = (2e-5, 5e-5) if f32 else (2e-2, 2e-2)
+        what = (f"b={b} h={h} g={g} sq={sq} sk={sk} d={d} causal={causal} "
+                f"window={window} q_off={off} {dtype}")
+        o, lse = fk.flash_fwd(q, k, v, q_off, **kw)
+        o_ref, lse_ref = fref.flash_fwd_ref(q, k, v, q_off, **kw)
+        torch.cuda.synchronize()
+        check(torch.allclose(o.float(), o_ref.float(), rtol=tf_, atol=tf_)
+              and torch.allclose(lse, lse_ref, rtol=tf_, atol=tf_),
+              f"flash_fwd != plain at {what}")
+        errs["fwd"] = max(errs["fwd"],
+                          float((o.float() - o_ref.float()).abs().max()))
+        delta = torch.sum(do.float() * o_ref.float(), dim=-1)
+        args = (q, k, v, do, lse_ref, delta, q_off)
+        dq = fk.flash_bwd_dq(*args, **kw)
+        dk, dv = fk.flash_bwd_dkv(*args, **kw)
+        dq_ref = fref.flash_bwd_dq_ref(*args, **kw)
+        dk_ref, dv_ref = fref.flash_bwd_dkv_ref(*args, **kw)
+        torch.cuda.synchronize()
+        check(torch.allclose(dq, dq_ref, rtol=tb, atol=tb),
+              f"flash_bwd_dq != plain at {what}")
+        check(torch.allclose(dk, dk_ref, rtol=tb, atol=tb)
+              and torch.allclose(dv, dv_ref, rtol=tb, atol=tb),
+              f"flash_bwd_dkv != plain at {what}")
+        errs["dq"] = max(errs["dq"], float((dq - dq_ref).abs().max()))
+        errs["dkv"] = max(errs["dkv"], float((dk - dk_ref).abs().max()),
+                          float((dv - dv_ref).abs().max()))
+        dk2, dv2 = fk.flash_bwd_dkv(*args, **kw)
+        check(torch.equal(dq, fk.flash_bwd_dq(*args, **kw))
+              and torch.equal(dk, dk2) and torch.equal(dv, dv2),
+              f"flash backward not bit-reproducible at {what}")
+        del q, k, v, do, o, o_ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
+    return {"cases": len(cases), "max_abs_err": errs}
+
+
+def train_phase(dev, tag) -> dict:
+    """The train path (module docstring, phase 5).  Returns its record,
+    with the flash launch counts of the TRAIN_STEPS steps."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.cim_layers import CIMConfig
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamWConfig, global_norm
+    from repro_torch.optim.adamw import tree_leaves
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the fakequant products must be exact float32")
+    check(SHAPES["train_4k"].seq_len == TRAIN_SEQ, "train_4k changed")
+    cfg = get_config("olmo_1b").replace(
+        cim=CIMConfig(mode="fakequant", max_gamma=2.0**16),
+        attn_impl="pallas")
+    check(cfg.remat and cfg.dtype == "bfloat16" and cfg.n_layers == 16,
+          "OLMo-1B config is not the repo's")
+    data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    batches = []
+    for i in range(TRAIN_STEPS):
+        toks, labels = data.batch_at(i)
+        batches.append({"tokens": torch.from_numpy(toks).long().to(dev),
+                        "labels": torch.from_numpy(labels).long().to(dev)})
+    # launch/train.py's schedule for a run of TRAIN_STEPS steps
+    sched = dict(total_steps=TRAIN_STEPS, warmup=min(20, TRAIN_STEPS // 10
+                                                     + 1))
+    t0 = time.perf_counter()
+    state = steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    init = [p.detach().clone() for p in tree_leaves(state["params"])]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in init)
+    step_fn = steps.make_train_step(cfg, AdamWConfig(lr=TRAIN_LR), **sched)
+
+    kerns = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
+    torch.cuda.reset_peak_memory_stats()
+    for f in kerns:
+        f.launches = 0
+    step_ms, metrics = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        m = {k: float(v) for k, v in m.items()}     # waits for the card
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append(m)
+    launches = [f.launches for f in kerns]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = cfg.n_layers * TRAIN_STEPS
+    check(launches == [2 * per_step, per_step, per_step],
+          f"flash launches {launches} over {TRAIN_STEPS} steps != "
+          f"{[2 * per_step, per_step, per_step]} (16 forward + 16 "
+          f"recompute, 16 dq, 16 dk/dv a step)")
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+              for m in metrics), f"non-finite loss or grad norm: {metrics}")
+
+    # the same weights and first batch through the plain attention: the
+    # loss and the (pre-clip) grad norm of step 0
+    leaves = tree_leaves(state["params"])
+    with torch.no_grad():
+        for p, p0 in zip(leaves, init):
+            p.copy_(p0)
+    del init
+    before = list(f.launches for f in kerns)
+    loss, _ = steps.loss_fn(cfg.replace(attn_impl="jnp"), state["params"],
+                            batches[0])
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    pm = {"loss": float(loss.detach()), "grad_norm": float(global_norm(
+        [g for g in grads if g is not None]))}
+    del loss, grads
+    check([f.launches for f in kerns] == before,
+          "the plain-attention step launched a flash kernel")
+    d_loss = abs(pm["loss"] - metrics[0]["loss"]) / abs(metrics[0]["loss"])
+    d_gnorm = abs(pm["grad_norm"] - metrics[0]["grad_norm"]) \
+        / abs(metrics[0]["grad_norm"])
+    check(d_loss <= TRAIN_JNP_RTOL and d_gnorm <= TRAIN_JNP_GNORM_RTOL,
+          f"flash vs plain attention: loss {metrics[0]['loss']} vs "
+          f"{pm['loss']} (rel {d_loss:.3g}), grad norm "
+          f"{metrics[0]['grad_norm']} vs {pm['grad_norm']} "
+          f"(rel {d_gnorm:.3g})")
+
+    # one more flash step under the profiler (device only)
+    prof = device_profile(lambda: step_fn(state, batches[0])[1]["loss"]
+                          .item(), 1, cpu=False,
+                          groups=("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv", "gemm", "elementwise"))
+    torch.cuda.synchronize()
+    med = statistics.median(step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flash_us = sum(prof.get(f"{g}_us", 0.0) for g in
+                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    rec = {"n_params": n_params, "init_s": init_s, "step_ms": step_ms,
+           "median_step_ms": med, "tokens_per_s": tokens / (med / 1e3),
+           "peak_memory_gb": peak_gb, "metrics": metrics,
+           "plain_attention_step0": pm, "rel_diff_vs_plain": {
+               "loss": d_loss, "grad_norm": d_gnorm},
+           "launches": dict(zip(("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv"), launches)),
+           "profile": prof,
+           "flash_share": flash_us / prof["device_us"] if prof else None}
+    busy = (f"profiled step: device {prof['device_us'] / 1e3:.1f} ms, "
+            f"flash {flash_us / 1e3:.1f} ms "
+            f"({100 * rec['flash_share']:.1f}%), busy "
+            f"{100 * prof['device_busy']:.1f}%" if prof
+            else "device time not measured (profiler saw none)")
+    print(f"train {tag}: OLMo-1B {n_params / 1e9:.3f} B params, fakequant "
+          f"(8,4,8), flash attention, seq {TRAIN_SEQ} x batch "
+          f"{TRAIN_BATCH}, {TRAIN_STEPS} AdamW steps: losses "
+          + ", ".join(f"{m['loss']:.4f}" for m in metrics)
+          + ", grad norms " + ", ".join(f"{m['grad_norm']:.3f}"
+                                         for m in metrics)
+          + f"; flash launches {launches} (16+16 fwd, 16 dq, 16 dk/dv a "
+          f"step); plain attention step 0 loss {pm['loss']:.4f} (rel "
+          f"{d_loss:.2g}), grad norm {pm['grad_norm']:.3f} (rel "
+          f"{d_gnorm:.2g}); median step {med:.1f} ms, "
+          f"{rec['tokens_per_s']:.0f} tokens/s, peak memory {peak_gb:.1f} "
+          f"GB, init {init_s:.1f} s; {busy}", flush=True)
+    del state
+    return rec
+
+
+def flash_times(fk, fref, dev, tag) -> dict:
+    """CUDA-event ms of the three flash kernels, their plain versions and
+    SDPA forward / backward at the train attention shape, with bounds."""
+    b, h, g, s, d = FLASH_TRAIN
+    q, k, v, do = flash_inputs(b, h, g, s, s, d, torch.bfloat16, 7, dev)
+    q_off = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    kw = dict(causal=True, window=0)
+    o, lse = fk.flash_fwd(q, k, v, q_off, **kw)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, lse, delta, q_off)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qs, ks, vs), do)
+    check(torch.allclose(sdpa().float(), o.float(), rtol=2e-2, atol=2e-2),
+          "the SDPA yardstick computes another function than flash_fwd")
+    launches = [f.launches for f in (fk.flash_fwd, fk.flash_bwd_dq,
+                                     fk.flash_bwd_dkv)]
+    fns = {"fwd": (lambda: fk.flash_fwd(q, k, v, q_off, **kw),
+                   lambda: fref.flash_fwd_ref(q, k, v, q_off, **kw)),
+           "dq": (lambda: fk.flash_bwd_dq(*args, **kw),
+                  lambda: fref.flash_bwd_dq_ref(*args, **kw)),
+           "dkv": (lambda: fk.flash_bwd_dkv(*args, **kw),
+                   lambda: fref.flash_bwd_dkv_ref(*args, **kw))}
+    sdpa_fwd = cuda_ms(sdpa, 10)
+    sdpa_bwd = cuda_ms(sdpa_fwd_bwd, 10) - sdpa_fwd
+    out = {"shape": {"b": b, "h": h, "g": g, "s": s, "d": d,
+                     "causal": True, "dtype": "bfloat16"},
+           "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd}
+    for kind, (kern, plain) in fns.items():
+        bnd, by = flash_bound_ms(kind, b, h, g, s, s, d, True, 0, 2)
+        out[kind] = {"ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 2),
+                     "bound_ms": bnd, "bound_by": by,
+                     "library_ms": sdpa_fwd if kind == "fwd" else sdpa_bwd}
+        r = out[kind]
+        print(f"time {tag} flash_{kind} B={b} H={h} S={s} D={d} causal "
+              f"bf16: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"SDPA {'forward' if kind == 'fwd' else 'backward (dq, dk, dv)'}"
+              f" {r['library_ms']:.3f} ms, bound {bnd:.4f} ms ({by})",
+              flush=True)
+    # timing launches are not main-path launches
+    for f, n in zip((fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv),
+                    launches):
+        f.launches = n
     return out
 
 
@@ -347,6 +675,17 @@ def main() -> int:
           f"{{1,37,2048}}, ragged valid slots, strided state views), "
           f"max_abs_err {rmax:.3g}; every row bit-equal to its one-row "
           f"call", flush=True)
+
+    flash = flash_checks(rmod, rref, dev)
+    report["flash_vs_plain"] = flash
+    print(f"kernels: flash_fwd / flash_bwd_dq / flash_bwd_dkv within "
+          f"tolerance of plain on {flash['cases']} cases (causal x window "
+          f"{{0,256}} x rep {{1,2,16}} x D {{64,128}}, ragged Sq/Sk in "
+          f"{{1,77,512,4096}}, q_off {{0,100}}, f32 2e-5/5e-5 and bf16 "
+          f"2e-2, the train shape in both); max_abs_err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in
+                      flash["max_abs_err"].items())
+          + "; every backward bit-equal on a second run", flush=True)
 
     phase_s["kernels"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -518,7 +857,14 @@ def main() -> int:
     phase_s["decode"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 5. times -----------------------------------------------------------
+    # -- 5. training at full OLMo-1B width (the third main path) -------------
+    train = train_phase(dev, tag)
+    report["train"] = train
+    torch.cuda.empty_cache()
+    phase_s["train"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 6. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -612,6 +958,8 @@ def main() -> int:
           f"{r_ms:.4f} ms, plain {r_plain:.4f} ms, SDPA {r_lib:.4f} ms, "
           f"bound {r_bnd:.4f} ms ({r_by}); device us per call (profiler): "
           f"{dev_txt}", flush=True)
+    ftimes = flash_times(rmod, rref, dev, tag)
+    report["flash_times"] = ftimes
     phase_s["times"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
@@ -664,10 +1012,24 @@ def main() -> int:
         "launches": dec_ring, "max_abs_err": rmax, "ms": r_ms,
         "plain_ms": r_plain, "bound_ms": r_bnd, "bound_by": r_by,
         "library_ms": r_lib}]}
+    # flash: the train path's launches; times at its attention shape
+    for kind, line in (("fwd", 41), ("dq", 134), ("dkv", 168)):
+        name = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
+        src = "flash_fwd.cu" if kind == "fwd" else "flash_bwd.cu"
+        t = ftimes[kind]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/flash_attn/csrc/{src}",
+            "replaces": f"src/repro/kernels/flash_attn/kernel.py:{line}",
+            "launches": train["launches"][name],
+            "max_abs_err": flash["max_abs_err"][kind], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     report["kernels"] = kernels
     report["launches_by_path"] = {
         "lenet": {"cim_mbiw": main_launches},
-        "decode": {"cim_mbiw": dec_cim, "ring_decode": dec_ring}}
+        "decode": {"cim_mbiw": dec_cim, "ring_decode": dec_ring},
+        "train": train["launches"]}
     report["total_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -4,7 +4,9 @@ The layouts match, so nothing is transposed: each CIM layer is
 {"w": (K, N) with K in (kh, kw, c_in) order for a conv, "abn_log_gamma":
 (N,), "abn_beta": (N,)}.  `params_from_numpy` converts layer params;
 `decode_lm_from_numpy` builds a whole in-flight decode model from the fp32
-masters of its projections, so both packages can serve the same weights.
+masters of its projections, so both packages can serve the same weights;
+`train_params_from_numpy` turns the JAX LM parameter tree into the
+port's, so both packages can train the same weights.
 """
 from __future__ import annotations
 
@@ -78,3 +80,39 @@ def decode_lm_from_numpy(embed, blocks: Sequence[Mapping[str, Layer]], *,
         emb, masters, n_heads=n_heads, window=window, rope_theta=rope_theta,
         r_in=r_in, r_w=r_w, points=dict(points) if points else None,
         device=device)
+
+
+def train_params_from_numpy(tree: Mapping, device="cpu") -> Dict:
+    """The port's LM parameter tree (`models/transformer.init_params`)
+    from the JAX package's (`repro.models.transformer.init_params`, leaves
+    as numpy arrays).
+
+    The JAX tree stacks each per-layer leaf along a leading layer axis
+    under "layers"; the port keeps one dict per layer there, so leaf i of
+    the result's `layers` list is slice i of each stacked leaf.  Every
+    other leaf keeps its shape.  Leaves become float32 tensors on
+    `device`, copied, never shared."""
+    def leaf(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    def convert(node):
+        if isinstance(node, Mapping):
+            return {k: convert(v) for k, v in node.items()}
+        return leaf(node)
+
+    def layer(node, i):
+        if isinstance(node, Mapping):
+            return {k: layer(v, i) for k, v in node.items()}
+        return leaf(np.asarray(node)[i])
+
+    def depth(node):
+        if isinstance(node, Mapping):
+            return next((d for d in map(depth, node.values())
+                         if d is not None), None)
+        return np.asarray(node).shape[0]
+
+    out = {k: convert(v) for k, v in tree.items() if k != "layers"}
+    if "layers" in tree:
+        n = depth(tree["layers"])
+        out["layers"] = [layer(tree["layers"], i) for i in range(n or 0)]
+    return out

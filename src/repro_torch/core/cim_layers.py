@@ -1,10 +1,20 @@
-"""CIM layer configuration and initialisation.
+"""CIM-quantized layers: the paper's technique as a composable module.
 
-Counterpart of `repro/core/cim_layers.py` for what the engine path reads:
-the per-layer `CIMConfig`, the distribution-aware initialisation and the
-unity-gain code gain.  The layer execution modes (bypass, fakequant, sim,
-engine) are not ported yet; a whole network runs through
-`runtime.program.compile_program` instead.
+Counterpart of `repro/core/cim_layers.py`: the per-layer `CIMConfig`, the
+distribution-aware initialisation, the unity-gain code gain, and
+`cim_linear_apply`, the entry every projection of the LM path goes
+through, in two of its modes:
+
+  * "bypass"    : plain matmul in the input's dtype (the non-CIM baseline);
+  * "fakequant" : the CIM-aware training path.  Exact digital-equivalent
+                  integer math (odd-integer weights, unsigned activations,
+                  the ABN-scaled floor ADC per <= 1152-row tile) with the
+                  JAX package's STE gradients; its forward equals JAX's
+                  bit for bit.
+
+The voltage-domain "sim" mode, the "engine" and "deploy" modes and noise
+injection are not ported (they raise NotImplementedError); a whole
+network is served through `runtime.program.compile_program` instead.
 
 Parameters per layer: {"w": (K, N) fp32 master weights,
                        "abn_log_gamma": (N,), "abn_beta": (N,)}.
@@ -17,20 +27,25 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core import digital_ref
+from repro_torch.core import abn as abn_lib
+from repro_torch.core import digital_ref, mapping
 from repro_torch.core.hw import CIMMacroConfig, DEFAULT_MACRO
+from repro_torch.core.noise_model import NO_NOISE, NoiseConfig
+from repro_torch.core.quantization import (adc_quantize, quantize_act,
+                                           quantize_weight, rounding_barrier)
 
 
 @dataclasses.dataclass(frozen=True)
 class CIMConfig:
     """Per-layer CIM execution configuration."""
-    mode: str = "fakequant"          # only "engine" runs in this port
+    mode: str = "fakequant"          # bypass | fakequant (cim_linear_apply)
     r_in: int = 8
     r_w: int = 4
     r_out: int = 8
     adaptive_swing: bool = True      # serial-split DPL swing adaptation
     gamma_bits: int = -1             # -1: continuous gamma; >=0: HW quant
     max_gamma: float = 32.0          # resistive-ladder limit
+    noise: NoiseConfig = NO_NOISE    # injection not ported (raises)
     macro: CIMMacroConfig = DEFAULT_MACRO
 
     def replace(self, **kw) -> "CIMConfig":
@@ -56,16 +71,19 @@ def analytic_log_gamma_init(k: int, cfg: CIMConfig,
 def init_cim_linear(generator: torch.Generator, k: int, n: int,
                     w_init_scale: Optional[float] = None,
                     cfg: Optional[CIMConfig] = None) -> Dict:
-    """Init one CIM linear on the host: fan-in-scaled weights drawn from
-    `generator`, plus the per-output-column ABN gain/offset (gamma seeded
-    analytically when `cfg` is given, else unity)."""
+    """Init one CIM linear on the generator's device: fan-in-scaled
+    weights drawn from `generator`, plus the per-output-column ABN
+    gain/offset (gamma seeded analytically when `cfg` is given, else
+    unity)."""
     scale = w_init_scale if w_init_scale is not None else (1.0 / k) ** 0.5
     lg = 0.0 if cfg is None else analytic_log_gamma_init(k, cfg)
+    dev = generator.device
     return {
         "w": scale * torch.randn((k, n), generator=generator,
-                                 dtype=torch.float32),
-        "abn_log_gamma": torch.full((n,), lg, dtype=torch.float32),
-        "abn_beta": torch.zeros((n,), dtype=torch.float32),
+                                 dtype=torch.float32, device=dev),
+        "abn_log_gamma": torch.full((n,), lg, dtype=torch.float32,
+                                    device=dev),
+        "abn_beta": torch.zeros((n,), dtype=torch.float32, device=dev),
     }
 
 
@@ -94,3 +112,64 @@ def _engine_config(cfg: CIMConfig):
     from repro_torch.runtime import engine as rt
     return rt.EngineConfig(macro=cfg.macro, adaptive_swing=cfg.adaptive_swing,
                            gamma_bits=cfg.gamma_bits, max_gamma=cfg.max_gamma)
+
+
+def cim_linear_apply(params: Dict, x: torch.Tensor,
+                     cfg: CIMConfig) -> torch.Tensor:
+    """y ~= x @ w, executed through the configured CIM path.
+
+    x: (..., K).  Returns (..., N) in x's dtype.  Noise is not ported:
+    fakequant with cfg.noise enabled raises NotImplementedError."""
+    w = params["w"]
+    if cfg.mode == "bypass":
+        return x @ w.to(x.dtype)
+    if cfg.mode == "fakequant":
+        if cfg.noise.enabled:
+            raise NotImplementedError(
+                "CIM noise injection is not ported yet")
+        return _fakequant_forward(params, x, cfg)
+    if cfg.mode in ("sim", "engine", "deploy"):
+        raise NotImplementedError(
+            f"CIM mode {cfg.mode!r} of cim_linear_apply is not ported; "
+            "serve through runtime.program.compile_program")
+    raise ValueError(f"unknown CIM mode {cfg.mode!r}")
+
+
+def _fakequant_forward(params: Dict, x: torch.Tensor,
+                       cfg: CIMConfig) -> torch.Tensor:
+    """The JAX package's `_fakequant_forward` with noise off, op for op."""
+    w = params["w"]
+    k_dim, n = w.shape
+    x32 = rounding_barrier(x.to(torch.float32))
+
+    aq = quantize_act(x32, cfg.r_in)
+    wq = quantize_weight(w, cfg.r_w, axis=0)
+
+    gamma = abn_lib.abn_gamma(
+        abn_lib.ABNParams(params["abn_log_gamma"], params["abn_beta"]),
+        gamma_bits=cfg.gamma_bits, max_gamma=cfg.max_gamma)
+    g0 = _code_gain(cfg, k_dim)
+    mid = 2.0 ** (cfg.r_out - 1)
+
+    # K > n_rows splits into even row tiles, each with its own ADC
+    # conversion; partial codes are dequantized and summed digitally
+    row_tiles = -(-k_dim // cfg.macro.n_rows)
+    gain = rounding_barrier(gamma * g0)
+    zp = aq.zero / aq.scale
+    dp_hat = torch.zeros(x32.shape[:-1] + (n,), dtype=torch.float32,
+                         device=x.device)
+    for ks, ksz in mapping.split_k_slices(k_dim, row_tiles):
+        ke = ks + ksz
+        # integer dot product, exact in fp32 for one macro row tile
+        # (|dp| <= 1152*255*15 < 2^24; TF32 must stay off)
+        dp = aq.q[..., ks:ke] @ wq.q[ks:ke, :]
+        # zero-point x = q*s + z: the z*colsum term folds into the ABN
+        # offset inside the ADC floor (beta_eff = beta + gamma*g0*zp_dp)
+        zp_dp = zp * torch.sum(wq.q[ks:ke, :], dim=0)
+        beta_eff = params["abn_beta"] + rounding_barrier(gain * zp_dp)
+        code = adc_quantize(dp, r_out=cfg.r_out, gain=gain,
+                            beta_codes=beta_eff)
+        dp_hat = dp_hat + (code - mid - params["abn_beta"]) / gain
+
+    y = rounding_barrier(dp_hat * aq.scale * wq.scale.reshape(-1))
+    return y.to(x.dtype)

@@ -1,10 +1,10 @@
-"""Activation and weight quantizers of the CIM datapath.
+"""Straight-through-estimator quantizers of the CIM datapath.
 
-Counterpart of `repro/core/quantization.py` for the inference path:
-activations are quantized to r_in unsigned bits with an *adaptive swing*
-(the dynamic scale plays the role of the serial-split DPL configuration +
-signed-to-unsigned conversion), weights to the macro's odd-integer +/-1
-bit-plane grid.
+Counterpart of `repro/core/quantization.py`: activations are quantized to
+r_in unsigned bits with an *adaptive swing* (the dynamic scale plays the
+role of the serial-split DPL configuration + signed-to-unsigned
+conversion), weights to the macro's odd-integer +/-1 bit-plane grid, and
+outputs to r_out ADC codes through the ABN-scaled floor of Eq. (7).
 
 The float chain is held bit for bit to the JAX package: scales multiply by
 the f32-rounded reciprocal of the level count (`_static_reciprocal`), the
@@ -12,7 +12,12 @@ activation divide `(x - zero) / scale` is an IEEE divide whose divisor is a
 tensor on the operand's device, and rounding is half-to-even
 (`torch.round`, like `jnp.round`).  Eager PyTorch runs each operator as its
 own kernel and never fuses or contracts them, so the JAX package's
-`rounding_barrier` has no counterpart here.
+`rounding_barrier` is the identity here.
+
+Gradients follow the JAX package's: rounding and flooring pass the
+gradient straight through (`ste`), swing and weight scales are constants
+(computed from detached tensors), and every clip is `_clip`, whose
+gradient is 1/2 at either bound, as `jnp.clip`'s (`torch.clamp`'s is 1).
 """
 from __future__ import annotations
 
@@ -20,6 +25,32 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+
+def ste(fwd: torch.Tensor, grad_of: torch.Tensor) -> torch.Tensor:
+    """Forward `fwd`, but gradient flows as if it were `grad_of`."""
+    return grad_of + (fwd - grad_of).detach()
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    return ste(torch.round(x), x)
+
+
+def ste_floor(x: torch.Tensor) -> torch.Tensor:
+    return ste(torch.floor(x), x)
+
+
+def rounding_barrier(x: torch.Tensor) -> torch.Tensor:
+    """The identity: eager PyTorch never fuses or contracts the float ops
+    around it (see the module docstring)."""
+    return x
+
+
+def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """jnp.clip with its gradient: min(max(x, lo), hi) with tensor bounds,
+    whose gradient is 1/2 where x equals a bound (torch.clamp gives 1)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
 
 
 def _static_reciprocal(levels: float) -> float:
@@ -40,7 +71,8 @@ def quantize_act(x: torch.Tensor, r_in: int, *,
                  num_segments: Optional[int] = None,
                  eps: float = 1e-8) -> ActQuant:
     """Unsigned asymmetric activation quantization with a dynamic swing
-    (scale/zero from the tensor's own min/max).
+    (scale/zero from the tensor's own min/max, constants to the gradient;
+    the STE flows through the rounding only).
 
     `segment_ids` (optional, shape (x.shape[0],) int, values in
     [0, num_segments)) switches the min/max from tensor-global to
@@ -52,13 +84,14 @@ def quantize_act(x: torch.Tensor, r_in: int, *,
     defaults to x.shape[0]."""
     levels = 2.0 ** r_in - 1.0
     inv_levels = _static_reciprocal(levels)
+    xd = x.detach()
     if segment_ids is None:
-        zero = torch.min(x)
-        scale = torch.clamp_min(torch.max(x) - zero, eps) * inv_levels
+        zero = torch.min(xd)
+        scale = torch.clamp_min(torch.max(xd) - zero, eps) * inv_levels
     else:
         n_seg = x.shape[0] if num_segments is None else num_segments
         ids = segment_ids.to(device=x.device, dtype=torch.int64).reshape(-1)
-        rows = x.reshape(x.shape[0], -1)
+        rows = xd.reshape(x.shape[0], -1)
         # per-row extrema, then per-segment extrema gathered back per row
         seg_max = torch.full((n_seg,), float("-inf"), dtype=x.dtype,
                              device=x.device).scatter_reduce(
@@ -70,7 +103,7 @@ def quantize_act(x: torch.Tensor, r_in: int, *,
         zero = seg_min[ids].reshape(bshape)
         scale = torch.clamp_min(seg_max[ids].reshape(bshape) - zero, eps) \
             * inv_levels
-    q = torch.round(torch.clamp((x - zero) / scale, 0.0, levels))
+    q = ste_round(_clip((x - zero) / scale, 0.0, levels))
     return ActQuant(q=q, scale=scale, zero=zero)
 
 
@@ -89,10 +122,20 @@ def quantize_weight(w: torch.Tensor, r_w: int, *, axis: int = 0,
     (reduction over `axis`).
     """
     full = 2.0 ** r_w - 1.0
-    amax = torch.amax(torch.abs(w), dim=axis, keepdim=True)
+    amax = torch.amax(torch.abs(w.detach()), dim=axis, keepdim=True)
     scale = torch.clamp_min(amax, eps) * _static_reciprocal(full)
-    u = torch.clamp(w / scale, -full, full)
-    # nearest odd integer: 2*round((u-1)/2)+1 (the divide by 2 is exact)
-    q = 2.0 * torch.round((u - 1.0) * 0.5) + 1.0
-    q = torch.clamp(q, -full, full)
+    u = _clip(w / scale, -full, full)
+    # nearest odd integer with STE: 2*round((u-1)/2)+1 (the divide by 2 is
+    # exact)
+    q = 2.0 * ste_round((u - 1.0) * 0.5) + 1.0
+    q = _clip(q, -full, full)
     return WeightQuant(q=q, scale=scale)
+
+
+def adc_quantize(dp: torch.Tensor, *, r_out: int, gain: torch.Tensor,
+                 beta_codes: torch.Tensor) -> torch.Tensor:
+    """Eq. (7) in code space with STE: code = floor(mid + gain*dp + beta),
+    clipped to [0, 2^r_out - 1], plus 0.5 (the code's centre)."""
+    mid = 2.0 ** (r_out - 1)
+    code = ste_floor(mid + rounding_barrier(gain * dp) + beta_codes)
+    return _clip(code, 0.0, 2.0 ** r_out - 1.0) + 0.5

@@ -29,9 +29,11 @@ BUILD_DIR = _HERE / "_build"
 SOURCES: Dict[str, Path] = {
     "cim_mbiw": _HERE / "cim_mbiw" / "csrc" / "cim_mbiw.cu",
     "ring_decode": _HERE / "flash_attn" / "csrc" / "ring_decode.cu",
+    "flash_fwd": _HERE / "flash_attn" / "csrc" / "flash_fwd.cu",
+    "flash_bwd": _HERE / "flash_attn" / "csrc" / "flash_bwd.cu",
 }
 
-# no --use_fast_math: the ADC epilogue and the decode softmax rely on IEEE
+# no --use_fast_math: the ADC epilogue and the softmaxes rely on IEEE
 # rounding intrinsics and the accurate expf
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -66,7 +68,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
+    # the source and the headers beside it (a header edit rebuilds)
+    src = SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,2 +1,3 @@
 """Attention kernels: ring-buffer decode attention (the in-flight decode
-step); the flash forward and backward kernels are not ported yet."""
+step) and flash attention forward and backward (the cache-free training
+forward)."""

@@ -1,15 +1,16 @@
-"""Ring-buffer decode attention on Hopper.
+"""Attention kernels on Hopper: ring-buffer decode and flash attention.
 
-Counterpart of `repro/kernels/flash_attn/ops.py:_ring_decode_kernel`.  The
-kernel itself is CUDA C++ (`csrc/ring_decode.cu`, built by
-`kernels/build.py` and called through a plain C interface with ctypes);
-this module is its wrapper.
+Counterparts of `repro/kernels/flash_attn/ops.py:_ring_decode_kernel` and
+of `repro/kernels/flash_attn/kernel.py`'s `_flash_kernel`,
+`_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`.  The kernels are CUDA
+C++ (`csrc/ring_decode.cu`, `csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`,
+built by `kernels/build.py` and called through a plain C interface with
+ctypes); this module holds their wrappers.
 
-`ring_decode` launches the CUDA kernel for tensors on a CUDA device and
-runs the plain PyTorch version (`ref.ring_decode_attention_ref`) for
-tensors on the CPU.  A CUDA tensor never reaches the plain version: a
-launch either happens or raises.  `ring_decode.launches` counts the
-kernel launches.
+Each wrapper launches its CUDA kernel for tensors on a CUDA device and
+runs its plain PyTorch version (`ref.py`) for tensors on the CPU.  A CUDA
+tensor never reaches the plain version: a launch either happens or
+raises.  `<wrapper>.launches` counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -114,3 +115,209 @@ def ring_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 ring_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# flash attention forward and backward
+# ---------------------------------------------------------------------------
+
+FLASH_MAX_HEAD_DIM = 128     # the kernels hold D / 16 values per thread
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _flash_library(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
+    fns = {"flash_fwd": ("flash_fwd_launch",),
+           "flash_bwd": ("flash_bwd_dq_launch", "flash_bwd_dkv_launch")}[name]
+    for fn_name in fns:
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            n_ptr = {"flash_fwd_launch": 6, "flash_bwd_dq_launch": 8,
+                     "flash_bwd_dkv_launch": 9}[fn_name]
+            fn.argtypes = ([_I] + [_P] * n_ptr               # dtype, tensors
+                           + [ctypes.POINTER(_L)]            # strides
+                           + [_I] * 8                        # B .. window
+                           + [ctypes.c_float, _P])           # scale, stream
+            fn.restype = ctypes.c_int
+    err_fn = getattr(lib, f"{name}_error_string")
+    err_fn.argtypes = [ctypes.c_int]
+    err_fn.restype = ctypes.c_char_p
+    return lib
+
+
+def _bshd_strides(t: torch.Tensor) -> tuple:
+    """(b, s, h) element strides of a (B, H, S, D)-indexed tensor."""
+    return t.stride(0), t.stride(2), t.stride(1)
+
+
+def _check_flash(q, k, v, q_off, extra=()) -> None:
+    """Shapes, dtypes and devices the flash kernels take: q (B, H, Sq, D),
+    k/v (B, G, Sk, D) with G dividing H, q/k/v/extra of one float dtype
+    (float32 or bfloat16) with the head dimension contiguous, q_off one
+    int32 on the same device."""
+    if q.dim() != 4 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"need q (B, H, Sq, D), k/v (B, G, Sk, D); got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    b, h, _, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or k.shape[1] < 1 \
+            or h % k.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         "fit (batch, head dim, or kv heads dividing heads)")
+    if k.shape[2] < 1:
+        raise ValueError("attention needs at least one key")
+    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(extra):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; q is "
+                             f"{q.dtype} on {q.device}")
+    if q_off.numel() != 1 or q_off.dtype != torch.int32 \
+            or q_off.device != q.device:
+        raise ValueError(f"q_off must be one int32 on {q.device}, got "
+                         f"{tuple(q_off.shape)} {q_off.dtype} on "
+                         f"{q_off.device}")
+
+
+def _check_cuda_flash(q, tensors) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {q.device}")
+    if q.dtype not in _FLASH_DTYPES:
+        raise ValueError(f"the flash kernels take float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if q.shape[3] > FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"head dim {q.shape[3]} > {FLASH_MAX_HEAD_DIM}, "
+                         "more than the kernels' registers hold")
+    for name, t in tensors:
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a contiguous last dimension, "
+                             f"got strides {t.stride()}")
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, name: str, what: str) -> None:
+    if err:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({msg})")
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              q_off: torch.Tensor, *, causal: bool, window: int = 0):
+    """Flash attention forward (`_flash_kernel`).
+
+    q (B, H, Sq, D), k/v (B, G, Sk, D) float32 or bfloat16, any strides
+    with D contiguous (the model passes (B, S, H, D) tensors transposed);
+    q_off one int32, the global position of query row 0.  Returns O
+    (B, H, Sq, D) in q's dtype, a view of a contiguous (B, Sq, H, D)
+    buffer, and the row logsumexp lse (B, H, Sq) float32."""
+    _check_flash(q, k, v, q_off)
+    if q.device.type == "cpu":
+        from repro_torch.kernels.flash_attn.ref import flash_fwd_ref
+        return flash_fwd_ref(q, k, v, q_off, causal=causal, window=window)
+    _check_cuda_flash(q, (("q", q), ("k", k), ("v", v)))
+    b, h, sq, d = q.shape
+    g, sk = k.shape[1], k.shape[2]
+    o = torch.empty((b, sq, h, d), dtype=q.dtype,
+                    device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if b == 0 or h == 0 or sq == 0:
+        return o, lse
+    lib = _flash_library("flash_fwd")
+    st = (ctypes.c_longlong * 12)(*(_bshd_strides(q) + _bshd_strides(k)
+                                    + _bshd_strides(v) + _bshd_strides(o)))
+    err = lib.flash_fwd_launch(
+        _FLASH_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q_off.data_ptr(), o.data_ptr(), lse.data_ptr(), st, b, h, h // g,
+        sq, sk, d, int(causal), int(window), 1.0 / (d ** 0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, lib, "flash_fwd", "flash forward")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def _bwd_operands(q, k, v, do, lse, delta, q_off):
+    _check_flash(q, k, v, q_off, extra=(("do", do),))
+    if tuple(do.shape) != tuple(q.shape) \
+            or tuple(lse.shape) != tuple(q.shape[:3]) \
+            or tuple(delta.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"do must be shaped like q {tuple(q.shape)} and "
+                         f"lse/delta (B, H, Sq); got do {tuple(do.shape)}, "
+                         f"lse {tuple(lse.shape)}, delta "
+                         f"{tuple(delta.shape)}")
+    if q.device.type != "cpu":
+        _check_cuda_flash(q, (("q", q), ("k", k), ("v", v), ("do", do)))
+        for name, t in (("lse", lse), ("delta", delta)):
+            if t.dtype != torch.float32 or not t.is_contiguous() \
+                    or t.device != q.device:
+                raise ValueError(f"{name} must be contiguous float32 on "
+                                 f"{q.device}")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, q_off, *, causal: bool,
+                 window: int = 0) -> torch.Tensor:
+    """dq of flash attention (`_flash_bwd_dq_kernel`): q, do (B, H, Sq, D)
+    and k/v (B, G, Sk, D) as `flash_fwd` takes them, lse and delta =
+    rowsum(dO * O) (B, H, Sq) float32.  Returns dq (B, H, Sq, D) float32,
+    a view of a contiguous (B, Sq, H, D) buffer."""
+    _bwd_operands(q, k, v, do, lse, delta, q_off)
+    if q.device.type == "cpu":
+        from repro_torch.kernels.flash_attn.ref import flash_bwd_dq_ref
+        return flash_bwd_dq_ref(q, k, v, do, lse, delta, q_off,
+                                causal=causal, window=window)
+    b, h, sq, d = q.shape
+    g, sk = k.shape[1], k.shape[2]
+    dq = torch.empty((b, sq, h, d), dtype=torch.float32,
+                     device=q.device).transpose(1, 2)
+    if b == 0 or h == 0 or sq == 0:
+        return dq
+    lib = _flash_library("flash_bwd")
+    st = (ctypes.c_longlong * 21)(*(
+        _bshd_strides(q) + _bshd_strides(k) + _bshd_strides(v)
+        + _bshd_strides(do) + _bshd_strides(dq) + (0,) * 6))
+    err = lib.flash_bwd_dq_launch(
+        _FLASH_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(),
+        dq.data_ptr(), st, b, h, h // g, sq, sk, d, int(causal), int(window),
+        1.0 / (d ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, lib, "flash_bwd", "flash dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, q_off, *, causal: bool,
+                  window: int = 0):
+    """dk and dv of flash attention per query head
+    (`_flash_bwd_dkv_kernel`), operands as `flash_bwd_dq`.  Returns dk, dv
+    (B, H, Sk, D) float32, views of contiguous (B, Sk, H, D) buffers; the
+    caller sums each kv group's rep heads."""
+    _bwd_operands(q, k, v, do, lse, delta, q_off)
+    if q.device.type == "cpu":
+        from repro_torch.kernels.flash_attn.ref import flash_bwd_dkv_ref
+        return flash_bwd_dkv_ref(q, k, v, do, lse, delta, q_off,
+                                 causal=causal, window=window)
+    b, h, sq, d = q.shape
+    g, sk = k.shape[1], k.shape[2]
+    dk = torch.empty((b, sk, h, d), dtype=torch.float32,
+                     device=q.device).transpose(1, 2)
+    dv = torch.empty_like(dk)
+    if b == 0 or h == 0:
+        return dk, dv
+    if sq == 0:
+        return dk.zero_(), dv.zero_()
+    lib = _flash_library("flash_bwd")
+    st = (ctypes.c_longlong * 21)(*(
+        _bshd_strides(q) + _bshd_strides(k) + _bshd_strides(v)
+        + _bshd_strides(do) + (0,) * 3 + _bshd_strides(dk)
+        + _bshd_strides(dv)))
+    err = lib.flash_bwd_dkv_launch(
+        _FLASH_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), st, b, h, h // g, sq, sk, d,
+        int(causal), int(window), 1.0 / (d ** 0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, lib, "flash_bwd", "flash dk/dv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0

@@ -1,0 +1,83 @@
+"""train_step builder and training state.
+
+Counterpart of the training half of `repro/launch/steps.py`.  The state
+is {"params": tree, "opt": {"m", "v", "step"}}; a step computes the loss
+and its gradients with autograd, then AdamW updates the state in place
+(`optim/adamw.py`) and returns it with the step's metrics, as device
+tensors (reading one waits for the card).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tf
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.adamw import tree_leaves
+from repro_torch.optim.schedules import cosine_schedule
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE; logits (B, S, V) in any float dtype."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.take_along_dim(lf, labels[..., None].long(), dim=-1)[..., 0]
+    return torch.mean(lse - ll)
+
+
+def loss_fn(cfg: ModelConfig, params: Dict,
+            batch: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Mean next-token CE of the dense LM (no MoE aux loss: its weight
+    times zero leaves the JAX package's loss equal to the CE)."""
+    ce = cross_entropy(tf.forward(cfg, params, batch["tokens"]),
+                       batch["labels"])
+    return ce, {"ce": ce}
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
+                    total_steps: int = 10000, warmup: int = 100,
+                    compress_grads: bool = False):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    The state is updated in place and returned; metrics are {"loss",
+    "ce", "grad_norm", "lr"} as detached device tensors."""
+    if compress_grads:
+        raise NotImplementedError(
+            "gradient compression (optim/compression.py) is not ported")
+
+    def train_step(state, batch):
+        params = state["params"]
+        leaves = tree_leaves(params)
+        loss, parts = loss_fn(cfg, params, batch)
+        # a leaf the loss does not reach (the ABN params in bypass mode)
+        # gets a zero gradient, as under jax.grad
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        lr_scale = cosine_schedule(state["opt"]["step"], warmup, total_steps)
+        _, new_opt, om = adamw_update(
+            params, grads, state["opt"], opt_cfg, lr_scale,
+            decay_mask=tf.stacked_decay_mask(params))
+        state["opt"] = new_opt
+        metrics = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in parts.items()}, **om}
+        return state, metrics
+
+    return train_step
+
+
+def train_state(params: Dict) -> Dict:
+    """A fresh training state over `params`, whose leaves become leaf
+    tensors that require grad."""
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    return {"params": params, "opt": adamw_init(params)}
+
+
+def init_train_state(cfg: ModelConfig, generator: torch.Generator,
+                     compress_grads: bool = False) -> Dict:
+    """Params from `generator` (on its device) and zeroed AdamW moments."""
+    if compress_grads:
+        raise NotImplementedError(
+            "gradient compression (optim/compression.py) is not ported")
+    return train_state(tf.init_params(cfg, generator))

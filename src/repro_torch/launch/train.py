@@ -1,0 +1,108 @@
+"""Training launcher.
+
+Counterpart of `repro/launch/train.py`: the model of `--arch` (or its
+smoke config) with CIM-aware projections (`--cim-mode fakequant`), trained
+with AdamW on `SyntheticLM` batches.  It runs on CUDA by default and
+raises without a card; `--device cpu` runs it on the host, with the
+kernels' plain versions.  `--attn-impl pallas` puts the attention on the
+hand-written flash kernels (the JAX package's name for its Pallas
+kernels), `jnp` on the plain attention.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --smoke \
+      --steps 20 --cim-mode fakequant --attn-impl pallas
+
+Checkpointing (`--ckpt-dir`), noise (`--cim-noise`) and gradient
+compression (`--compress-grads`) are not ported and raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.cim_layers import CIMConfig
+from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+from repro_torch.launch.steps import init_train_state, make_train_step
+from repro_torch.optim import AdamWConfig
+from repro_torch.optim.adamw import tree_leaves
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device to train on; CUDA must be there when asked for."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to train on "
+                           "the host")
+    return dev
+
+
+def build(args):
+    """(cfg, state, step_fn, batch_fn) for the parsed arguments."""
+    if args.ckpt_dir:
+        raise NotImplementedError("checkpointing is not ported")
+    if args.cim_noise:
+        raise NotImplementedError("CIM noise is not ported")
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = cfg.replace(cim=CIMConfig(mode=args.cim_mode, max_gamma=2.0**16),
+                      attn_impl=args.attn_impl)
+    data = SyntheticLM(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+        global_batch=args.batch))
+
+    def batch_fn(step: int):
+        toks, labels = data.batch_at(step)
+        return {"tokens": torch.from_numpy(toks).long().to(dev),
+                "labels": torch.from_numpy(labels).long().to(dev)}
+
+    step_fn = make_train_step(
+        cfg, AdamWConfig(lr=args.lr), total_steps=args.steps,
+        warmup=min(20, args.steps // 10 + 1),
+        compress_grads=args.compress_grads)
+    state = init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed))
+    return cfg, state, step_fn, batch_fn
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced per-arch config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cim-mode", default="bypass",
+                    choices=["bypass", "fakequant"])
+    ap.add_argument("--cim-noise", action="store_true")
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--attn-impl", default="jnp", choices=["jnp", "pallas"],
+                    help="pallas: the flash kernels; jnp: plain attention")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    cfg, state, step_fn, batch_fn = build(args)
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    print(f"arch={cfg.name} params={n_params/1e6:.1f}M cim={cfg.cim.mode} "
+          f"attn={cfg.attn_impl} device={args.device}")
+    t0 = time.time()
+    for step in range(args.steps):
+        state, metrics = step_fn(state, batch_fn(step))
+        if step % 10 == 0 or step == args.steps - 1:
+            print(f"step {step:4d} loss={float(metrics['loss']):.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"({time.time()-t0:.1f}s)")
+
+
+if __name__ == "__main__":
+    main()

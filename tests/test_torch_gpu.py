@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA cim_mbiw and ring_decode kernels against
-their plain versions, LeNet on the card against the host run, and fused
-in-flight decode at full OLMo-1B width against solo decode.
+"""The port on the card: the CUDA cim_mbiw, ring_decode and flash kernels
+against their plain versions, LeNet on the card against the host run,
+fused in-flight decode at full OLMo-1B width against solo decode, and a
+train step at full OLMo-1B width through the flash kernels.
 
 These tests need an NVIDIA GPU (marker `gpu`) and skip without one.  They
 import neither JAX nor the JAX package, so they run where only PyTorch
@@ -198,3 +199,123 @@ def test_decode_full_width_depth2_fused_equals_sequential(cuda_device):
     for _, r in reqs:
         assert out[r.uid] == decode_sequential(model, r)
         assert len(out[r.uid]) == r.max_new_tokens
+
+
+# b, sq, sk, h, g, d, causal, window, q_off
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0, 0),
+    (1, 77, 77, 16, 1, 128, True, 0, 0),
+    (1, 100, 513, 2, 2, 128, False, 256, 100),
+    (2, 512, 512, 16, 16, 128, True, 256, 0),
+    (1, 1, 77, 2, 1, 64, True, 0, 100),
+    (1, 400, 77, 4, 2, 64, True, 256, 0),    # rows that keep no key
+]
+
+
+def _flash_inputs(case, dtype, device):
+    b, sq, sk, h, g, d, causal, window, off = case
+    rng = np.random.default_rng(sq * 31 + sk + h)
+    q, do = (torch.from_numpy(rng.standard_normal((b, h, sq, d),
+                                                  dtype=np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, g, sk, d),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    q_off = torch.full((1, 1), off, dtype=torch.int32)
+    return [t.to(device=device, dtype=dtype) for t in (q, k, v, do)] + [
+        q_off.to(device)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernels_match_plain(cuda_device, case, dtype):
+    """Forward within 2e-5 (f32) of the plain version, dq/dk/dv within 5e-5
+    (the JAX tests' tolerances), bf16 within 2e-2; each kernel launched
+    once per call, and the backward repeats bit for bit."""
+    causal, window = case[6], case[7]
+    q, k, v, do, q_off = _flash_inputs(case, dtype, cuda_device)
+    kw = dict(causal=causal, window=window)
+    f_tol = 2e-5 if dtype == torch.float32 else 2e-2
+    b_tol = 5e-5 if dtype == torch.float32 else 2e-2
+    counts = [f.launches for f in (rkernel.flash_fwd, rkernel.flash_bwd_dq,
+                                   rkernel.flash_bwd_dkv)]
+    o, lse = rkernel.flash_fwd(q, k, v, q_off, **kw)
+    o_ref, lse_ref = rref.flash_fwd_ref(q, k, v, q_off, **kw)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=f_tol,
+                               atol=f_tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=f_tol, atol=f_tol)
+    delta = torch.sum(do.float() * o_ref.float(), dim=-1)
+    args = (q, k, v, do, lse_ref, delta, q_off)
+    dq = rkernel.flash_bwd_dq(*args, **kw)
+    dk, dv = rkernel.flash_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dq, rref.flash_bwd_dq_ref(*args, **kw),
+                               rtol=b_tol, atol=b_tol)
+    for got, want in zip((dk, dv), rref.flash_bwd_dkv_ref(*args, **kw)):
+        torch.testing.assert_close(got, want, rtol=b_tol, atol=b_tol)
+    assert torch.equal(dq, rkernel.flash_bwd_dq(*args, **kw))
+    dk2, dv2 = rkernel.flash_bwd_dkv(*args, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert [f.launches for f in (rkernel.flash_fwd, rkernel.flash_bwd_dq,
+                                 rkernel.flash_bwd_dkv)] == \
+        [counts[0] + 1, counts[1] + 2, counts[2] + 2]
+
+
+@pytest.mark.gpu
+def test_flash_attention_grads_on_card(cuda_device):
+    """The autograd Function on the card against autograd through the
+    plain softmax oracle, (B, S, H, D) layout, GQA, causal window."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((2, 200, 4, 64),
+                                             dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 200, 2, 64),
+                                                 dtype=np.float32))
+            for _ in range(2))
+    grads = []
+    for fn in (lambda a, b_, c: flash_attention(a, b_, c, True, 64),
+               lambda a, b_, c: rref.attention_ref(
+                   a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2),
+                   causal=True, window=64).transpose(1, 2)):
+        ts = [t.to(cuda_device).requires_grad_() for t in (q, k, v)]
+        torch.sin(fn(*ts)).sum().backward()
+        grads.append([t.grad for t in ts])
+    for a, b_ in zip(*grads):
+        torch.testing.assert_close(a, b_, rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.gpu
+def test_train_step_full_width_depth2(cuda_device):
+    """OLMo-1B widths (d 2048, 16 heads of 128, d_ff 8192, vocab 50304) at
+    depth 2, fakequant projections, flash attention, remat, sequence 1024:
+    one AdamW step with a finite loss and grad norm, the flash kernels
+    launched 2 (forward) + 2 (recompute) times and the backward kernels
+    twice each, and TF32 off (the fakequant products are exact integers
+    in float32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamWConfig
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("olmo_1b").replace(
+        n_layers=2, cim=CIMConfig(mode="fakequant", max_gamma=2.0**16),
+        attn_impl="pallas")
+    state = steps.init_train_state(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
+                                    global_batch=1))
+    toks, labels = data.batch_at(0)
+    batch = {"tokens": torch.from_numpy(toks).long().to(cuda_device),
+             "labels": torch.from_numpy(labels).long().to(cuda_device)}
+    step = steps.make_train_step(cfg, AdamWConfig(), total_steps=3,
+                                 warmup=1)
+    kerns = (rkernel.flash_fwd, rkernel.flash_bwd_dq, rkernel.flash_bwd_dkv)
+    before = [f.launches for f in kerns]
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(kerns, before)] == [4, 2, 2]
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))
+    assert int(state["opt"]["step"]) == 1
