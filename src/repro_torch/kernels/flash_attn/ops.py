@@ -68,17 +68,14 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0, bq: int = 512,
-                    bk: int = 512,
+                    causal: bool = True, window: int = 0,
                     q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Sq, H, D); k/v (B, Sk, G, D) with G dividing H.  Returns
     (B, Sq, H, D) in q's dtype, differentiable in q, k and v.
 
     `q_offset` is the global position of query row 0, a (1, 1) int32 on
-    q's device (default 0).  `bq`/`bk` are the TPU kernel's block sizes,
-    kept for the same signature: the CUDA kernels tile by 64, and a block
-    size changes nothing but float rounding."""
-    del bq, bk
+    q's device (default 0).  The CUDA kernels tile by 64, so the TPU
+    kernel's block sizes `bq`/`bk` have no counterpart here."""
     if q_offset is None:
         q_offset = torch.zeros((1, 1), dtype=torch.int32, device=q.device)
     return _FlashAttention.apply(q, k, v, q_offset, bool(causal),

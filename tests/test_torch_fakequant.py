@@ -66,9 +66,12 @@ def _layer_case(k, n, r_w, seed):
     return x, {"w": w, "abn_log_gamma": lg, "abn_beta": beta}
 
 
-@pytest.mark.parametrize("k", (64, 1152, 2500))
-@pytest.mark.parametrize("r_in,r_w", [(8, 4), (4, 2), (1, 1)])
-def test_fakequant_forward_bit_exact_and_grads(r_in, r_w, k):
+def _fakequant_layer(r_in, r_w, k, dtype):
+    """One fakequant layer on `_layer_case` inputs, the activation in
+    `dtype` and the parameters float32 as the model holds them: the
+    forward bit for bit against jitted JAX, the gradients within
+    `_close_grad`; a bfloat16 input gradient also within one bfloat16 ulp
+    (2^-7 relative), as the two round the same float32 sum."""
     x, p = _layer_case(k, 48, r_w, k + 10 * r_in)
     jc = jcl.CIMConfig(mode="fakequant", r_in=r_in, r_w=r_w,
                        max_gamma=2.0**16)
@@ -77,19 +80,42 @@ def test_fakequant_forward_bit_exact_and_grads(r_in, r_w, k):
     gy = np.random.default_rng(k).standard_normal((3, 5, 48)) \
         .astype(np.float32)
     jp = {kk: jnp.asarray(v) for kk, v in p.items()}
-    jy = jax.jit(lambda p_, x_: jcl.cim_linear_apply(p_, x_, jc))(
-        jp, jnp.asarray(x))
+    jx = jnp.asarray(x).astype(dtype)
+    jy = jax.jit(lambda p_, x_: jcl.cim_linear_apply(p_, x_, jc))(jp, jx)
     jgp, jgx = jax.jit(jax.grad(
-        lambda p_, x_: jnp.sum(jcl.cim_linear_apply(p_, x_, jc) * gy),
-        argnums=(0, 1)))(jp, jnp.asarray(x))
+        lambda p_, x_: jnp.sum(jcl.cim_linear_apply(p_, x_, jc)
+                               .astype(jnp.float32) * gy),
+        argnums=(0, 1)))(jp, jx)
     tp = {kk: _t(v, grad=True) for kk, v in p.items()}
-    tx = _t(x, grad=True)
+    tx = _t(x).to(getattr(torch, dtype)).requires_grad_()
     ty = tcl.cim_linear_apply(tp, tx, tc)
-    _bits_equal(jy, ty)
-    (ty * _t(gy)).sum().backward()
-    _close_grad(tx.grad, jgx)
+    assert ty.dtype == tx.dtype
+    _bits_equal(jy.astype(jnp.float32), ty.float())
+    (ty.float() * _t(gy)).sum().backward()
+    if dtype == "float32":
+        _close_grad(tx.grad, jgx)
+    else:
+        want = np.asarray(jgx.astype(jnp.float32))
+        np.testing.assert_allclose(
+            tx.grad.float().numpy(), want, rtol=2.0**-7,
+            atol=1e-5 * np.abs(want).max())
     for name in p:
         _close_grad(tp[name].grad, jgp[name])
+
+
+@pytest.mark.parametrize("k", (64, 1152, 2500))
+@pytest.mark.parametrize("r_in,r_w", [(8, 4), (4, 2), (1, 1)])
+def test_fakequant_forward_bit_exact_and_grads(r_in, r_w, k):
+    _fakequant_layer(r_in, r_w, k, "float32")
+
+
+@pytest.mark.parametrize("k", (64, 1152, 2500))
+@pytest.mark.parametrize("r_in,r_w", [(8, 4), (4, 2), (1, 1)])
+def test_fakequant_bf16_forward_bit_exact_and_grads(r_in, r_w, k):
+    """A bfloat16 activation, as the model feeds every projection: the
+    codes agree with JAX's, so the ABN gradients (the codes' quantization
+    residuals) are held as tightly as in float32."""
+    _fakequant_layer(r_in, r_w, k, "bfloat16")
 
 
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))

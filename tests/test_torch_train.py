@@ -25,6 +25,14 @@ the codes) follow those codes closely.  After a step AdamW's normalized
 update turns every gradient difference into a parameter difference of up
 to 2 lr.  The tolerances below are those measured effects with margin;
 `tests/test_torch_fakequant.py` holds one layer bit for bit.
+
+The ABN gradients are held leaf by leaf in float32 (at most 0.12 read
+against 0.3).  In bfloat16 a leaf whose residuals nearly cancel (w_down's
+gains, a norm 30x below the others) reads as noise against JAX, so there
+each kind (all gains, all offsets) is held as one vector, at 0.3 (0.15
+read): a zero or sign-flipped ABN gradient reads 1 or 2 and fails.  The
+bfloat16 ABN gradients of a layer whose codes agree with JAX are held
+tightly by `tests/test_torch_fakequant.py`.
 """
 import functools
 
@@ -55,17 +63,18 @@ STEPS = 3
 SEQ, BATCH = 32, 4
 
 # (mode, dtype) -> tolerances: loss and grad norm (rel), per-leaf grad
-# rel norm error for weights (w, embed) and for ABN leaves, params max /
-# mean abs
+# rel norm error for weights (w, embed) and for ABN leaves (None: held
+# per kind instead, `abn_kind`), params max / mean abs
 TOLS = {
-    ("bypass", "float32"): dict(loss=1e-5, gnorm=1e-5, w=1e-4, abn=None,
+    ("bypass", "float32"): dict(loss=1e-5, gnorm=1e-5, w=1e-4,
                                 p_max=1e-4, p_mean=1e-6),
-    ("bypass", "bfloat16"): dict(loss=1e-3, gnorm=2e-3, w=5e-2, abn=None,
+    ("bypass", "bfloat16"): dict(loss=1e-3, gnorm=2e-3, w=5e-2,
                                  p_max=2 * LR * STEPS, p_mean=5e-5),
     ("fakequant", "float32"): dict(loss=5e-3, gnorm=2e-2, w=5e-2, abn=0.3,
                                    p_max=2 * LR * STEPS, p_mean=1e-4),
-    ("fakequant", "bfloat16"): dict(loss=5e-3, gnorm=3e-2, w=0.25, abn=3.0,
-                                    p_max=2 * LR * STEPS, p_mean=2e-4),
+    ("fakequant", "bfloat16"): dict(loss=5e-3, gnorm=3e-2, w=0.25, abn=None,
+                                    abn_kind=0.3, p_max=2 * LR * STEPS,
+                                    p_mean=2e-4),
 }
 
 
@@ -172,16 +181,25 @@ def test_train_step_grads_match_jax(mode, dtype):
     tols = TOLS[(mode, dtype)]
     run = _runs(mode, dtype)
     bad = []
-    for name, j, t in zip(run["names"], run["jgrads"], run["tgrads"]):
+
+    def hold(name, j, t, tol):
         norm = float(j.norm())
-        abn = "abn_" in name
-        tol = tols["abn"] if abn else tols["w"]
-        if abn and tol is None:       # bypass: the ABN params are unused
-            assert float(j.abs().max()) == 0.0 == float(t.abs().max())
-            continue
         err = float((j - t).norm()) / max(norm, 1e-30)
         if err > tol:
             bad.append((name, err, norm))
+
+    for name, j, t in zip(run["names"], run["jgrads"], run["tgrads"]):
+        abn = "abn_" in name
+        if abn and mode == "bypass":        # the ABN params are unused
+            assert float(j.abs().max()) == 0.0 == float(t.abs().max())
+        elif not abn or tols["abn"] is not None:
+            hold(name, j, t, tols["abn"] if abn else tols["w"])
+    if "abn_kind" in tols:
+        for kind in ("abn_log_gamma", "abn_beta"):
+            js, ts = ([g.flatten() for n, g in zip(run["names"], run[key])
+                       if n.endswith(kind)] for key in ("jgrads", "tgrads"))
+            hold(f"every {kind}", torch.cat(js), torch.cat(ts),
+                 tols["abn_kind"])
     assert not bad, bad
 
 
