@@ -24,8 +24,13 @@ a result:
                 one bf16 ulp away (rtol 2^-7, atol 2e-5), over causal /
                 non-causal x window {0, 256} x rep {1, 2, 16} x D {64,
                 128}, ragged Sq and Sk in {1, 77, 512, 4096}, q_off {0,
-                100}, and the train shape; each backward run twice, bit
-                for bit equal.
+                100}, the train shape, and long flat bf16 rows (q x 0.01,
+                S 4096); each backward run twice, bit for bit equal; every
+                bf16 case at D 64 or 128 through the tensor-core forward
+                and dk/dv kernels (their `.launches_tc` rise).  Peaked
+                bf16 rows (q and k x 8, D 128), where float32 itself
+                misses these limits, are held to float64 within the
+                limits plus the plain version's own float32 distance.
   3. lenet    - the first main path: LeNet (28x28x1 -> conv16 -> pool ->
                 conv32 -> pool -> fc 1568->128 -> fc 128->10) served at full
                 width through compile_program(...).bind(...).serve at
@@ -58,7 +63,8 @@ a result:
                 launch/steps.make_train_step, weights from a seeded
                 torch.Generator on the card.  Every loss finite; flash
                 launches = 16 forward + 16 recompute + 16 dq + 16 dk/dv
-                per step; TF32 off.  From the initial weights and batch,
+                per step, every forward and dk/dv one on the tensor-core
+                kernels; TF32 off.  From the initial weights and batch,
                 step 0 with attn_impl "jnp" (plain attention) gives the
                 flash step's loss, grad norm and gradient within
                 TRAIN_JNP_RTOL, and a control with an off-by-one causal
@@ -74,7 +80,8 @@ a result:
                 and bytes / 3.35 TB/s, the H100 SXM's published peaks), at
                 the LeNet tiles, the decode tiles, the decode attention
                 shape and the train attention shape (B 2, H 16, S 4096,
-                D 128, causal, bf16).
+                D 128, causal, bf16), where the forward and dk/dv
+                CUDA-core kernels of the earlier design are timed too.
 
 Then the `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and last the JSON result line.  Detailed numbers
@@ -270,15 +277,53 @@ def flash_cases() -> list:
     return out
 
 
-def flash_inputs(b, h, g, sq, sk, d, dtype, seed, dev) -> list:
+def flash_inputs(b, h, g, sq, sk, d, dtype, seed, dev, q_scale=1.0,
+                 k_scale=1.0) -> list:
     """q, dO (B, H, Sq, D) and k, v (B, G, Sk, D) as transposed views of
-    (B, S, heads, D) tensors, the layout the model passes."""
+    (B, S, heads, D) tensors, the layout the model passes; standard
+    normals, q and k times their scales before the cast to `dtype`."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def rand(s_, heads):
-        return torch.randn((b, s_, heads, d), generator=gen, device=dev,
-                           dtype=torch.float32).to(dtype).transpose(1, 2)
-    return [rand(sq, h), rand(sk, g), rand(sk, g), rand(sq, h)]
+    def rand(s_, heads, scale=1.0):
+        return (torch.randn((b, s_, heads, d), generator=gen, device=dev,
+                            dtype=torch.float32) * scale).to(dtype) \
+            .transpose(1, 2)
+    return [rand(sq, h, q_scale), rand(sk, g, k_scale), rand(sk, g),
+            rand(sq, h)]
+
+
+# two bf16 cases at D 128 that stress the hi/lo split of P and dS: peaked
+# rows (q and k times 8, so one key takes p ~ 1; |s| reaches ~200) and
+# long flat rows (q times 0.01: p ~ 1 / i over up to 4096 keys).
+# (name, (b, h, g, sq, sk, d, causal, window, q_off, dtype), q and k scale)
+FLASH_STRESS = (
+    ("peaked", (1, 16, 16, 1024, 1024, 128, True, 0, 0, torch.bfloat16),
+     8.0, 8.0),
+    ("flat", (1, 16, 16, 4096, 4096, 128, True, 0, 0, torch.bfloat16),
+     0.01, 1.0),
+)
+
+
+def flash_exact(q, k, v, do, lse, delta, q_off, causal, window) -> dict:
+    """The flash kernels' functions in float64 from the same inputs (lse
+    and delta are inputs of the backward): O, lse, dk, dv."""
+    from repro_torch.kernels.flash_attn.ref import flash_keep_mask
+    rep = q.shape[1] // k.shape[1]
+    qd, dod = q.double(), do.double()
+    kd, vd = (t.double().repeat_interleave(rep, dim=1) for t in (k, v))
+    scale = 1.0 / q.shape[3] ** 0.5
+    keep = flash_keep_mask(q.shape[2], k.shape[2], q_off, causal=causal,
+                           window=window)
+    s = scale * torch.matmul(qd, kd.transpose(-1, -2))
+    masked = torch.where(keep, s, -1e30)
+    out = {"o": torch.matmul(torch.softmax(masked, -1), vd),
+           "lse": torch.logsumexp(masked, -1)}
+    p = torch.where(keep, torch.exp(s - lse.double()[..., None]), 0.0)
+    ds = p * (torch.matmul(dod, vd.transpose(-1, -2))
+              - delta.double()[..., None]) * scale
+    out["dk"] = torch.matmul(ds.transpose(-1, -2), qd)
+    out["dv"] = torch.matmul(p.transpose(-1, -2), dod)
+    return out
 
 
 def flash_kept_pairs(sq, sk, causal, window, q_off=0) -> int:
@@ -312,36 +357,44 @@ def flash_bound_ms(kind, b, h, g, sq, sk, d, causal, window, elt) -> tuple:
 
 def flash_checks(fk, fref, dev) -> dict:
     """Each flash kernel against its plain version on every case of
-    flash_cases(); each backward twice, bit for bit equal.  Returns the
-    largest absolute error of each kernel per input dtype.
+    flash_cases() and the FLASH_STRESS cases; each backward twice, bit for
+    bit equal; every bf16 case with D in FLASH_TC_HEAD_DIMS on the
+    tensor-core forward and dk/dv kernels (`.launches_tc` rises).  Returns
+    the largest absolute error of each kernel per input dtype.
 
     Both sides compute in float32 or wider from the same inputs, so lse,
     dq, dk and dv (float32 outputs) keep the float32 limits whatever the
     input dtype.  A bfloat16 O is rounded from two float32 sums that
     differ in their last bits, so it may sit one bf16 ulp apart: at most
-    2^-7 of |O|."""
+    2^-7 of |O|.
+
+    The peaked case is held to the exact (float64) answer instead: there
+    |s| reaches ~200, where float32 itself moves s by ~1e-4 whatever the
+    order of the sum, and the plain float32 version misses the limits
+    against float64 (O, dk, dv).  Each output must sit within its limit
+    plus the plain version's own largest distance from float64 (the
+    float32 noise floor of these inputs, measured in the same run)."""
     errs = {kind: {"float32": 0.0, "bfloat16": 0.0}
             for kind in ("fwd", "dq", "dkv")}
     tf_, tb = 2e-5, 5e-5
-    cases = flash_cases()
-    for i, (b, h, g, sq, sk, d, causal, window, off, dtype) in \
-            enumerate(cases):
-        q, k, v, do = flash_inputs(b, h, g, sq, sk, d, dtype, 100 + i, dev)
+    cases = [(c, 1.0, 1.0, "") for c in flash_cases()] + [
+        (c, qs, ks, name) for name, c, qs, ks in FLASH_STRESS]
+    stress = {}
+    for i, ((b, h, g, sq, sk, d, causal, window, off, dtype), qs, ks,
+            name) in enumerate(cases):
+        q, k, v, do = flash_inputs(b, h, g, sq, sk, d, dtype, 100 + i, dev,
+                                   qs, ks)
         q_off = torch.full((1, 1), off, dtype=torch.int32, device=dev)
         kw = dict(causal=causal, window=window)
         dt = str(dtype).split(".")[-1]
+        tc = dtype == torch.bfloat16 and d in fk.FLASH_TC_HEAD_DIMS
+        tc0 = (fk.flash_fwd.launches_tc, fk.flash_bwd_dkv.launches_tc)
         o_rtol = tf_ if dtype == torch.float32 else 2.0**-7
         what = (f"b={b} h={h} g={g} sq={sq} sk={sk} d={d} causal={causal} "
-                f"window={window} q_off={off} {dtype}")
+                f"window={window} q_off={off} {dtype}"
+                + (f" ({name}: q x{qs}, k x{ks})" if name else ""))
         o, lse = fk.flash_fwd(q, k, v, q_off, **kw)
         o_ref, lse_ref = fref.flash_fwd_ref(q, k, v, q_off, **kw)
-        torch.cuda.synchronize()
-        check(torch.allclose(o.float(), o_ref.float(), rtol=o_rtol,
-                             atol=tf_)
-              and torch.allclose(lse, lse_ref, rtol=tf_, atol=tf_),
-              f"flash_fwd != plain at {what}")
-        errs["fwd"][dt] = max(errs["fwd"][dt],
-                              float((o.float() - o_ref.float()).abs().max()))
         delta = torch.sum(do.float() * o_ref.float(), dim=-1)
         args = (q, k, v, do, lse_ref, delta, q_off)
         dq = fk.flash_bwd_dq(*args, **kw)
@@ -349,22 +402,61 @@ def flash_checks(fk, fref, dev) -> dict:
         dq_ref = fref.flash_bwd_dq_ref(*args, **kw)
         dk_ref, dv_ref = fref.flash_bwd_dkv_ref(*args, **kw)
         torch.cuda.synchronize()
+        if name == "peaked":
+            exact = flash_exact(*args, causal, window)
+            o32, _ = fref.flash_fwd_ref(q.float(), k.float(), v.float(),
+                                        q_off, **kw)
+            rec = {}
+            for key, got, plain, rtol, tol in (
+                    ("o", o, o32, o_rtol, tf_), ("lse", lse, lse_ref, tf_,
+                                                 tf_),
+                    ("dk", dk, dk_ref, tb, tb), ("dv", dv, dv_ref, tb, tb)):
+                floor = float((plain.double() - exact[key]).abs().max())
+                dist = (got.double() - exact[key]).abs()
+                # the largest share of its tolerance an element uses
+                used = float((dist / (rtol * exact[key].abs() + tol + floor))
+                             .max())
+                rec[key] = {"kernel_vs_f64": float(dist.max()),
+                            "plain_vs_f64": floor, "tolerance_used": used}
+                check(used <= 1.0,
+                      f"{key} farther from float64 than its limit plus the "
+                      f"plain version's float32 noise at {what}: {rec}")
+            stress[name] = rec
+            del exact, o32
+        else:
+            check(torch.allclose(o.float(), o_ref.float(), rtol=o_rtol,
+                                 atol=tf_)
+                  and torch.allclose(lse, lse_ref, rtol=tf_, atol=tf_),
+                  f"flash_fwd != plain at {what}")
+            check(torch.allclose(dk, dk_ref, rtol=tb, atol=tb)
+                  and torch.allclose(dv, dv_ref, rtol=tb, atol=tb),
+                  f"flash_bwd_dkv != plain at {what}")
+            errs["fwd"][dt] = max(errs["fwd"][dt], float(
+                (o.float() - o_ref.float()).abs().max()))
+            errs["dkv"][dt] = max(errs["dkv"][dt],
+                                  float((dk - dk_ref).abs().max()),
+                                  float((dv - dv_ref).abs().max()))
+            if name:
+                stress[name] = {"o": float((o.float() - o_ref.float())
+                                           .abs().max()),
+                                "dk": float((dk - dk_ref).abs().max()),
+                                "dv": float((dv - dv_ref).abs().max())}
         check(torch.allclose(dq, dq_ref, rtol=tb, atol=tb),
               f"flash_bwd_dq != plain at {what}")
-        check(torch.allclose(dk, dk_ref, rtol=tb, atol=tb)
-              and torch.allclose(dv, dv_ref, rtol=tb, atol=tb),
-              f"flash_bwd_dkv != plain at {what}")
         errs["dq"][dt] = max(errs["dq"][dt],
                              float((dq - dq_ref).abs().max()))
-        errs["dkv"][dt] = max(errs["dkv"][dt],
-                              float((dk - dk_ref).abs().max()),
-                              float((dv - dv_ref).abs().max()))
         dk2, dv2 = fk.flash_bwd_dkv(*args, **kw)
         check(torch.equal(dq, fk.flash_bwd_dq(*args, **kw))
               and torch.equal(dk, dk2) and torch.equal(dv, dv2),
               f"flash backward not bit-reproducible at {what}")
+        tc1 = (fk.flash_fwd.launches_tc, fk.flash_bwd_dkv.launches_tc)
+        check((tc1[0] - tc0[0], tc1[1] - tc0[1]) == ((1, 2) if tc
+                                                     else (0, 0)),
+              f"tensor-core launches {tc1[0] - tc0[0]} forward, "
+              f"{tc1[1] - tc0[1]} dk/dv at {what}; expected "
+              f"{'1 and 2' if tc else 'none'}")
         del q, k, v, do, o, o_ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
-    return {"cases": len(cases), "max_abs_err": errs}
+    return {"cases": len(cases), "max_abs_err": errs, "stress": stress}
 
 
 def train_phase(dev, tag) -> dict:
@@ -404,6 +496,7 @@ def train_phase(dev, tag) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for f in kerns:
         f.launches = 0
+    fk.flash_fwd.launches_tc = fk.flash_bwd_dkv.launches_tc = 0
     step_ms, metrics = [], []
     for batch in batches:
         torch.cuda.synchronize()
@@ -414,12 +507,17 @@ def train_phase(dev, tag) -> dict:
         step_ms.append(1e3 * (time.perf_counter() - t0))
         metrics.append(m)
     launches = [f.launches for f in kerns]
+    launches_tc = [fk.flash_fwd.launches_tc, fk.flash_bwd_dkv.launches_tc]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_step = cfg.n_layers * TRAIN_STEPS
     check(launches == [2 * per_step, per_step, per_step],
           f"flash launches {launches} over {TRAIN_STEPS} steps != "
           f"{[2 * per_step, per_step, per_step]} (16 forward + 16 "
           f"recompute, 16 dq, 16 dk/dv a step)")
+    check(launches_tc == [launches[0], launches[2]],
+          f"tensor-core launches {launches_tc} != every forward and dk/dv "
+          f"launch {[launches[0], launches[2]]}: the bf16 train path must "
+          f"run the tensor-core kernels")
     check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
               for m in metrics), f"non-finite loss or grad norm: {metrics}")
 
@@ -495,6 +593,8 @@ def train_phase(dev, tag) -> dict:
            "vs_plain_limits": TRAIN_JNP_RTOL,
            "launches": dict(zip(("flash_fwd", "flash_bwd_dq",
                                  "flash_bwd_dkv"), launches)),
+           "launches_tc": dict(zip(("flash_fwd", "flash_bwd_dkv"),
+                                   launches_tc)),
            "profile": prof,
            "flash_share": flash_us / prof["device_us"] if prof else None}
     busy = (f"profiled step: device {prof['device_us'] / 1e3:.1f} ms, "
@@ -509,7 +609,8 @@ def train_phase(dev, tag) -> dict:
           + ", grad norms " + ", ".join(f"{m['grad_norm']:.3f}"
                                          for m in metrics)
           + f"; flash launches {launches} (16+16 fwd, 16 dq, 16 dk/dv a "
-          f"step); median step {med:.1f} ms, "
+          f"step; tensor-core forward and dk/dv {launches_tc}); median step "
+          f"{med:.1f} ms, "
           f"{rec['tokens_per_s']:.0f} tokens/s, peak memory {peak_gb:.1f} "
           f"GB ({resident_gb:.1f} GB of it resident before the phase), "
           f"build {init_s:.1f} s; {busy}", flush=True)
@@ -517,9 +618,47 @@ def train_phase(dev, tag) -> dict:
     return rec
 
 
+def cuda_core_fns(fk, q, k, v, do, lse, delta, q_off, causal) -> dict:
+    """The CUDA-core forward and dk/dv kernels (flash_fwd.cu, flash_bwd.cu:
+    the earlier design, which bf16 inputs at D 64 and 128 no longer reach)
+    on the same bf16 inputs, called through their C entry points, to time
+    them beside the tensor-core kernels in one run."""
+    import ctypes
+    b, h, sq, d = q.shape
+    g, sk = k.shape[1], k.shape[2]
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device) \
+        .transpose(1, 2)
+    o_lse = torch.empty_like(lse)
+    dk = torch.empty((b, sk, h, d), dtype=torch.float32,
+                     device=q.device).transpose(1, 2)
+    dv = torch.empty_like(dk)
+    st = fk._bshd_strides
+    fwd_st = (ctypes.c_longlong * 12)(*(st(q) + st(k) + st(v) + st(o)))
+    dkv_st = (ctypes.c_longlong * 21)(*(st(q) + st(k) + st(v) + st(do)
+                                         + (0,) * 3 + st(dk) + st(dv)))
+    rest = (b, h, h // g, sq, sk, d, int(causal), 0, 1.0 / d ** 0.5,
+            torch.cuda.current_stream().cuda_stream)
+    lf, lb = fk._flash_library("flash_fwd"), fk._flash_library("flash_bwd")
+
+    def fwd():
+        check(lf.flash_fwd_launch(1, q.data_ptr(), k.data_ptr(),
+                                  v.data_ptr(), q_off.data_ptr(),
+                                  o.data_ptr(), o_lse.data_ptr(), fwd_st,
+                                  *rest) == 0, "CUDA-core forward launch")
+
+    def dkv():
+        check(lb.flash_bwd_dkv_launch(
+            1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dkv_st, *rest) == 0, "CUDA-core dk/dv launch")
+    return {"fwd": fwd, "dkv": dkv}
+
+
 def flash_times(fk, fref, dev, tag) -> dict:
     """CUDA-event ms of the three flash kernels, their plain versions and
-    SDPA forward / backward at the train attention shape, with bounds."""
+    SDPA forward / backward at the train attention shape, with bounds;
+    and, for the forward and dk/dv, the CUDA-core kernels of the earlier
+    design on the same inputs."""
     b, h, g, s, d = FLASH_TRAIN
     q, k, v, do = flash_inputs(b, h, g, s, s, d, torch.bfloat16, 7, dev)
     q_off = torch.zeros((1, 1), dtype=torch.int32, device=dev)
@@ -539,6 +678,8 @@ def flash_times(fk, fref, dev, tag) -> dict:
           "the SDPA yardstick computes another function than flash_fwd")
     launches = [f.launches for f in (fk.flash_fwd, fk.flash_bwd_dq,
                                      fk.flash_bwd_dkv)]
+    launches_tc = [fk.flash_fwd.launches_tc, fk.flash_bwd_dkv.launches_tc]
+    core = cuda_core_fns(fk, *args, causal=True)
     fns = {"fwd": (lambda: fk.flash_fwd(q, k, v, q_off, **kw),
                    lambda: fref.flash_fwd_ref(q, k, v, q_off, **kw)),
            "dq": (lambda: fk.flash_bwd_dq(*args, **kw),
@@ -552,19 +693,25 @@ def flash_times(fk, fref, dev, tag) -> dict:
            "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd}
     for kind, (kern, plain) in fns.items():
         bnd, by = flash_bound_ms(kind, b, h, g, s, s, d, True, 0, 2)
-        out[kind] = {"ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 2),
+        out[kind] = {"ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 2),
                      "bound_ms": bnd, "bound_by": by,
                      "library_ms": sdpa_fwd if kind == "fwd" else sdpa_bwd}
         r = out[kind]
+        if kind in core:
+            r["cuda_core_ms"] = cuda_ms(core[kind], 2)
+        earlier = (f", CUDA-core kernel (earlier design) "
+                   f"{r['cuda_core_ms']:.3f} ms" if kind in core else "")
         print(f"time {tag} flash_{kind} B={b} H={h} S={s} D={d} causal "
-              f"bf16: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-              f"SDPA {'forward' if kind == 'fwd' else 'backward (dq, dk, dv)'}"
+              f"bf16: kernel {r['ms']:.3f} ms{earlier}, plain "
+              f"{r['plain_ms']:.3f} ms, SDPA "
+              f"{'forward' if kind == 'fwd' else 'backward (dq, dk, dv)'}"
               f" {r['library_ms']:.3f} ms, bound {bnd:.4f} ms ({by})",
               flush=True)
     # timing launches are not main-path launches
     for f, n in zip((fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv),
                     launches):
         f.launches = n
+    fk.flash_fwd.launches_tc, fk.flash_bwd_dkv.launches_tc = launches_tc
     return out
 
 
@@ -607,7 +754,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.split("ptxas info    :")[-1].strip()
                     for ln in info.log.splitlines()
-                    if "registers" in ln or "Used" in ln]
+                    if "Used" in ln or ("spill" in ln and " 0 bytes spill"
+                                        not in ln)]
              for name, info in infos.items()}
     report["build"] = {"seconds": build_s, "ptxas": ptxas,
                        "per_kernel_s": {n: i.seconds
@@ -720,15 +868,20 @@ def main() -> int:
 
     flash = flash_checks(rmod, rref, dev)
     report["flash_vs_plain"] = flash
+    pk = flash["stress"]["peaked"]
     print(f"kernels: flash_fwd / flash_bwd_dq / flash_bwd_dkv within "
           f"tolerance of plain on {flash['cases']} cases (causal x window "
           f"{{0,256}} x rep {{1,2,16}} x D {{64,128}}, ragged Sq/Sk in "
           f"{{1,77,512,4096}}, q_off {{0,100}}, the train shape in f32 "
-          f"and bf16; 2e-5 forward, 5e-5 backward, bf16 O one ulp); "
-          f"max_abs_err f32 / bf16 "
+          f"and bf16, bf16 flat rows at S 4096; 2e-5 forward, 5e-5 "
+          f"backward, bf16 O one ulp); max_abs_err f32 / bf16 "
           + ", ".join(f"{k} {v['float32']:.3g} / {v['bfloat16']:.3g}"
                       for k, v in flash["max_abs_err"].items())
-          + "; every backward bit-equal on a second run", flush=True)
+          + "; bf16 peaked rows against float64, kernel / plain float32 "
+          + ", ".join(f"{k} {v['kernel_vs_f64']:.3g} / "
+                      f"{v['plain_vs_f64']:.3g}" for k, v in pk.items())
+          + "; every bf16 D 64/128 case on the tensor-core forward and "
+          "dk/dv; every backward bit-equal on a second run", flush=True)
 
     phase_s["kernels"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -1056,15 +1209,18 @@ def main() -> int:
         "plain_ms": r_plain, "bound_ms": r_bnd, "bound_by": r_by,
         "library_ms": r_lib}]}
     # flash: the train path's launches; times at its attention shape
-    for kind, line in (("fwd", 41), ("dq", 134), ("dkv", 168)):
+    # (bf16: the tensor-core forward and dk/dv kernels; dq on CUDA cores)
+    for kind, line, src in (("fwd", 41, "flash_fwd_tc.cu"),
+                            ("dq", 134, "flash_bwd.cu"),
+                            ("dkv", 168, "flash_bwd_dkv_tc.cu")):
         name = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
-        src = "flash_fwd.cu" if kind == "fwd" else "flash_bwd.cu"
         t = ftimes[kind]
         kernels["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/flash_attn/csrc/{src}",
             "replaces": f"src/repro/kernels/flash_attn/kernel.py:{line}",
-            "launches": train["launches"][name],
+            "launches": train["launches_tc"].get(name,
+                                                 train["launches"][name]),
             "max_abs_err": max(flash["max_abs_err"][kind].values()),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

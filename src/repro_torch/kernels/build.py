@@ -31,6 +31,9 @@ SOURCES: Dict[str, Path] = {
     "ring_decode": _HERE / "flash_attn" / "csrc" / "ring_decode.cu",
     "flash_fwd": _HERE / "flash_attn" / "csrc" / "flash_fwd.cu",
     "flash_bwd": _HERE / "flash_attn" / "csrc" / "flash_bwd.cu",
+    "flash_fwd_tc": _HERE / "flash_attn" / "csrc" / "flash_fwd_tc.cu",
+    "flash_bwd_dkv_tc":
+        _HERE / "flash_attn" / "csrc" / "flash_bwd_dkv_tc.cu",
 }
 
 # no --use_fast_math: the ADC epilogue and the softmaxes rely on IEEE

@@ -1,4 +1,8 @@
-// flash_bwd.cu - flash attention backward for NVIDIA Hopper (sm_90a).
+// flash_bwd.cu - flash attention backward for NVIDIA Hopper (sm_90a), on
+// the CUDA cores: dq for every input, and dk/dv for float32 inputs and for
+// bfloat16 inputs at head dimensions other than 64 and 128.  bfloat16 dk/dv
+// at D 64 or 128 (the train path) runs on the tensor cores in
+// flash_bwd_dkv_tc.cu.
 //
 // Replaces the two TPU kernels of repro/kernels/flash_attn/kernel.py
 // (entry flash_attention_bwd_bhsd):
@@ -32,7 +36,7 @@
 // Bound on an H100 SXM: operations.  At B 2, H 16, S 4096, D 128, causal,
 // dq does three products (3*B*H*S*S*D = 206 GFLOP, 0.21 ms at the bf16
 // tensor-core rate) and dk/dv four (275 GFLOP, 0.28 ms); the bytes are
-// under 0.06 ms.  Like the forward, this first kernel runs the products as
+// under 0.06 ms.  Like flash_fwd.cu, these kernels run the products as
 // float32 FMAs on the CUDA cores, far from that bound.
 
 #include "flash_common.cuh"

@@ -1,4 +1,7 @@
-// flash_fwd.cu - flash attention forward for NVIDIA Hopper (sm_90a).
+// flash_fwd.cu - flash attention forward for NVIDIA Hopper (sm_90a), on
+// the CUDA cores: the kernel for float32 inputs, and for bfloat16 inputs
+// at head dimensions other than 64 and 128.  bfloat16 at D 64 or 128 (the
+// train path) runs on the tensor cores in flash_fwd_tc.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attn/kernel.py:_flash_kernel
 // (entry flash_attention_bhsd).  For batch b, query head h and its kv head
@@ -29,10 +32,11 @@
 //
 // Bound on an H100 SXM: operations.  At B 2, H 16, S 4096, D 128, causal,
 // the two products are 2*B*H*S*S*D = 137 GFLOP, 0.14 ms at the bf16
-// tensor-core rate, against 67 MB of q/k/v/O (0.02 ms).  This first kernel
-// runs the products as float32 FMAs on the CUDA cores (no mma/wgmma, no
-// TMA or cp.async pipeline), so it is far from that bound; tensor cores
-// are the next step.
+// tensor-core rate, against 67 MB of q/k/v/O (0.02 ms).  This kernel runs
+// the products as float32 FMAs on the CUDA cores (no mma/wgmma, no TMA or
+// cp.async pipeline), so it is far from that bound; it keeps float32
+// inputs to their float32 limits, which one bf16 tensor-core pass over
+// float32 operands could not.
 
 #include "flash_common.cuh"
 

@@ -3,14 +3,19 @@
 Counterparts of `repro/kernels/flash_attn/ops.py:_ring_decode_kernel` and
 of `repro/kernels/flash_attn/kernel.py`'s `_flash_kernel`,
 `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`.  The kernels are CUDA
-C++ (`csrc/ring_decode.cu`, `csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`,
+C++ (`csrc/ring_decode.cu`, `csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, and
+the tensor-core `csrc/flash_fwd_tc.cu` and `csrc/flash_bwd_dkv_tc.cu`,
 built by `kernels/build.py` and called through a plain C interface with
 ctypes); this module holds their wrappers.
 
 Each wrapper launches its CUDA kernel for tensors on a CUDA device and
 runs its plain PyTorch version (`ref.py`) for tensors on the CPU.  A CUDA
 tensor never reaches the plain version: a launch either happens or
-raises.  `<wrapper>.launches` counts the kernel launches.
+raises.  `<wrapper>.launches` counts the kernel launches.  `flash_fwd`
+and `flash_bwd_dkv` route bfloat16 inputs with D in `FLASH_TC_HEAD_DIMS`
+to the tensor-core kernels (counted again in `<wrapper>.launches_tc`) and
+everything else to the CUDA-core kernels of `flash_fwd.cu` and
+`flash_bwd.cu`.
 """
 from __future__ import annotations
 
@@ -123,18 +128,25 @@ ring_decode.launches = 0
 
 FLASH_MAX_HEAD_DIM = 128     # the kernels hold D / 16 values per thread
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# head dimensions the tensor-core kernels are built for (bf16 inputs)
+FLASH_TC_HEAD_DIMS = (64, 128)
+
+# entry point -> (leading dtype argument?, tensor pointers)
+_FLASH_ENTRIES = {
+    "flash_fwd": {"flash_fwd_launch": (True, 6)},
+    "flash_bwd": {"flash_bwd_dq_launch": (True, 8),
+                  "flash_bwd_dkv_launch": (True, 9)},
+    "flash_fwd_tc": {"flash_fwd_tc_launch": (False, 6)},
+    "flash_bwd_dkv_tc": {"flash_bwd_dkv_tc_launch": (False, 9)},
+}
 
 
 def _flash_library(name: str) -> ctypes.CDLL:
     lib = build.load(name)
-    fns = {"flash_fwd": ("flash_fwd_launch",),
-           "flash_bwd": ("flash_bwd_dq_launch", "flash_bwd_dkv_launch")}[name]
-    for fn_name in fns:
+    for fn_name, (dtype_arg, n_ptr) in _FLASH_ENTRIES[name].items():
         fn = getattr(lib, fn_name)
         if fn.argtypes is None:
-            n_ptr = {"flash_fwd_launch": 6, "flash_bwd_dq_launch": 8,
-                     "flash_bwd_dkv_launch": 9}[fn_name]
-            fn.argtypes = ([_I] + [_P] * n_ptr               # dtype, tensors
+            fn.argtypes = ([_I] * dtype_arg + [_P] * n_ptr   # dtype, tensors
                            + [ctypes.POINTER(_L)]            # strides
                            + [_I] * 8                        # B .. window
                            + [ctypes.c_float, _P])           # scale, stream
@@ -192,6 +204,22 @@ def _check_cuda_flash(q, tensors) -> None:
                              f"got strides {t.stride()}")
 
 
+def _tensor_core_route(q: torch.Tensor, tensors) -> bool:
+    """Whether a CUDA call goes to the tensor-core kernels: bfloat16 with D
+    in FLASH_TC_HEAD_DIMS.  Their TMA loads need each bf16 operand 16-byte
+    aligned with (b, s, h) strides that are multiples of 8 elements; a call
+    on that route that does not meet this raises."""
+    if q.dtype != torch.bfloat16 or q.shape[3] not in FLASH_TC_HEAD_DIMS:
+        return False
+    for name, t in tensors:
+        if t.data_ptr() % 16 or any(st % 8 for st in _bshd_strides(t)):
+            raise ValueError(
+                f"{name} (strides {t.stride()}) is not aligned for the "
+                "tensor-core kernels' TMA loads: 16-byte base, batch, "
+                "sequence and head strides multiples of 8")
+    return True
+
+
 def _raise_on(err: int, lib: ctypes.CDLL, name: str, what: str) -> None:
     if err:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
@@ -207,7 +235,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with D contiguous (the model passes (B, S, H, D) tensors transposed);
     q_off one int32, the global position of query row 0.  Returns O
     (B, H, Sq, D) in q's dtype, a view of a contiguous (B, Sq, H, D)
-    buffer, and the row logsumexp lse (B, H, Sq) float32."""
+    buffer, and the row logsumexp lse (B, H, Sq) float32.  bfloat16 at D
+    64 or 128 runs on the tensor cores (`flash_fwd_tc.cu`), anything else
+    on the CUDA cores (`flash_fwd.cu`)."""
     _check_flash(q, k, v, q_off)
     if q.device.type == "cpu":
         from repro_torch.kernels.flash_attn.ref import flash_fwd_ref
@@ -220,15 +250,21 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b == 0 or h == 0 or sq == 0:
         return o, lse
-    lib = _flash_library("flash_fwd")
     st = (ctypes.c_longlong * 12)(*(_bshd_strides(q) + _bshd_strides(k)
                                     + _bshd_strides(v) + _bshd_strides(o)))
-    err = lib.flash_fwd_launch(
-        _FLASH_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        q_off.data_ptr(), o.data_ptr(), lse.data_ptr(), st, b, h, h // g,
-        sq, sk, d, int(causal), int(window), 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, lib, "flash_fwd", "flash forward")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_off.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), st, b, h, h // g, sq, sk, d,
+            int(causal), int(window), 1.0 / (d ** 0.5),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if _tensor_core_route(q, (("q", q), ("k", k), ("v", v))):
+        lib = _flash_library("flash_fwd_tc")
+        _raise_on(lib.flash_fwd_tc_launch(*args), lib, "flash_fwd_tc",
+                  "flash forward (tensor cores)")
+        flash_fwd.launches_tc += 1
+    else:
+        lib = _flash_library("flash_fwd")
+        _raise_on(lib.flash_fwd_launch(_FLASH_DTYPES[q.dtype], *args), lib,
+                  "flash_fwd", "flash forward")
     flash_fwd.launches += 1
     return o, lse
 
@@ -287,7 +323,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_off, *, causal: bool,
     """dk and dv of flash attention per query head
     (`_flash_bwd_dkv_kernel`), operands as `flash_bwd_dq`.  Returns dk, dv
     (B, H, Sk, D) float32, views of contiguous (B, Sk, H, D) buffers; the
-    caller sums each kv group's rep heads."""
+    caller sums each kv group's rep heads.  bfloat16 at D 64 or 128 runs
+    on the tensor cores (`flash_bwd_dkv_tc.cu`), anything else on the CUDA
+    cores (`flash_bwd.cu`)."""
     _bwd_operands(q, k, v, do, lse, delta, q_off)
     if q.device.type == "cpu":
         from repro_torch.kernels.flash_attn.ref import flash_bwd_dkv_ref
@@ -302,22 +340,34 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_off, *, causal: bool,
         return dk, dv
     if sq == 0:
         return dk.zero_(), dv.zero_()
-    lib = _flash_library("flash_bwd")
-    st = (ctypes.c_longlong * 21)(*(
-        _bshd_strides(q) + _bshd_strides(k) + _bshd_strides(v)
-        + _bshd_strides(do) + (0,) * 3 + _bshd_strides(dk)
-        + _bshd_strides(dv)))
-    err = lib.flash_bwd_dkv_launch(
-        _FLASH_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), st, b, h, h // g, sq, sk, d,
-        int(causal), int(window), 1.0 / (d ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, lib, "flash_bwd", "flash dk/dv")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(),
+            dk.data_ptr(), dv.data_ptr())
+    rest = (b, h, h // g, sq, sk, d, int(causal), int(window),
+            1.0 / (d ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    strides = (_bshd_strides(q) + _bshd_strides(k) + _bshd_strides(v)
+               + _bshd_strides(do))
+    if _tensor_core_route(q, (("q", q), ("k", k), ("v", v), ("do", do))):
+        lib = _flash_library("flash_bwd_dkv_tc")
+        st = (ctypes.c_longlong * 18)(*(strides + _bshd_strides(dk)
+                                        + _bshd_strides(dv)))
+        _raise_on(lib.flash_bwd_dkv_tc_launch(*ptrs, st, *rest), lib,
+                  "flash_bwd_dkv_tc", "flash dk/dv (tensor cores)")
+        flash_bwd_dkv.launches_tc += 1
+    else:
+        lib = _flash_library("flash_bwd")
+        st = (ctypes.c_longlong * 21)(*(strides + (0,) * 3
+                                        + _bshd_strides(dk)
+                                        + _bshd_strides(dv)))
+        _raise_on(lib.flash_bwd_dkv_launch(_FLASH_DTYPES[q.dtype], *ptrs, st,
+                                           *rest), lib, "flash_bwd",
+                  "flash dk/dv")
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_tc = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_tc = 0

@@ -74,8 +74,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Sq, H, D) in q's dtype, differentiable in q, k and v.
 
     `q_offset` is the global position of query row 0, a (1, 1) int32 on
-    q's device (default 0).  The CUDA kernels tile by 64, so the TPU
-    kernel's block sizes `bq`/`bk` have no counterpart here."""
+    q's device (default 0).  The CUDA kernels choose their own tiles, so
+    the TPU kernel's block sizes `bq`/`bk` have no counterpart here."""
     if q_offset is None:
         q_offset = torch.zeros((1, 1), dtype=torch.int32, device=q.device)
     return _FlashAttention.apply(q, k, v, q_offset, bool(causal),

@@ -1,0 +1,161 @@
+"""The arithmetic of the tensor-core flash kernels (`flash_fwd_tc.cu`,
+`flash_bwd_dkv_tc.cu`), emulated in plain PyTorch on the CPU, against the
+port's plain versions (`ref.flash_fwd_ref`, `ref.flash_bwd_dkv_ref`).
+
+The kernels multiply bf16 inputs on the tensor cores: a bf16 x bf16
+product is exact in float32 and the sums are float32.  The softmax
+probabilities P and the score gradients dS are float32, and the kernels
+feed them to the tensor cores as two bf16 pieces, hi = bf16(x) and lo =
+bf16(x - hi), leaving at most 2^-18 of each term.  The emulation does the
+same: float32 products of bf16-exact values, the pieces rounded with
+torch's bf16 rounding (round to nearest even, as the kernels' cvt.rn),
+the forward as the kernels' online softmax over 128-key tiles with the
+scale applied after the product.
+
+Two pieces hold the float32 limits the card is held to (2e-5 forward,
+5e-5 dk/dv).  One piece, the control, does not: it shows that the limit
+is sharp enough to need the split.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attn import ref as tref
+
+NEG_INF = tref.NEG_INF
+KEY_TILE = 128   # the forward kernel's key tile
+F_TOL, B_TOL = 2e-5, 5e-5
+
+# sq, sk, rep, causal, window (B 1, H 2, D 64)
+CASES = [
+    (77, 77, 1, True, 0),
+    (128, 128, 2, False, 0),
+    (256, 256, 1, True, 64),
+    (100, 256, 2, False, 0),
+]
+
+
+def _inputs(sq, sk, rep, seed):
+    """q, dO (1, 2, Sq, 64) and k, v (1, 2 / rep, Sk, 64): float32 holding
+    bf16-exact values, so both sides multiply the same numbers."""
+    rng = np.random.default_rng(seed)
+    h, g, d = 2, 2 // rep, 64
+
+    def bf16(shape):
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+        return x.to(torch.bfloat16).float()
+    return (bf16((1, h, sq, d)), bf16((1, g, sk, d)), bf16((1, g, sk, d)),
+            bf16((1, h, sq, d)))
+
+
+def _pieces(x, n):
+    """x as the sum of n bf16 pieces (n = 1: one rounding)."""
+    out, rest = [], x
+    for _ in range(n):
+        piece = rest.to(torch.bfloat16).float()
+        out.append(piece)
+        rest = rest - piece
+    return out
+
+
+def _split_matmul(a, b, n):
+    """a . b with a cut into n bf16 pieces and b bf16-exact: one float32
+    product per piece, summed in float32, as the tensor cores run it."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for piece in _pieces(a, n):
+        acc = acc + torch.matmul(piece, b)
+    return acc
+
+
+def _kv_heads(t, rep):
+    return t.repeat_interleave(rep, dim=1) if rep > 1 else t
+
+
+def _emulated_fwd(q, k, v, q_off, causal, window, n):
+    """The forward kernel's arithmetic: per 128-key tile s = scale *
+    (q . k), masked (-1e30) or absent (-inf past Sk), the online softmax
+    in float32, O += P . V with P in n bf16 pieces; O / max(l, 1e-30)."""
+    rep = q.shape[1] // k.shape[1]
+    kf, vf = _kv_heads(k, rep), _kv_heads(v, rep)
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    scale = 1.0 / d ** 0.5
+    keep = tref.flash_keep_mask(sq, sk, q_off, causal=causal, window=window)
+    m = torch.full(q.shape[:3] + (1,), NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, sk, KEY_TILE):
+        k1 = min(k0 + KEY_TILE, sk)
+        s = scale * torch.matmul(q, kf[:, :, k0:k1].transpose(-1, -2))
+        s = torch.where(keep[:, k0:k1], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + _split_matmul(p, vf[:, :, k0:k1], n)
+        m = m_new
+    l_safe = torch.clamp_min(l, 1e-30)
+    return acc / l_safe, (m + torch.log(l_safe))[..., 0]
+
+
+def _emulated_dkv(q, k, v, do, lse, delta, q_off, causal, window, n):
+    """The dk/dv kernel's arithmetic: P^T = exp(scale * (k . q) - lse)
+    where kept, dS^T = P^T (dP^T - delta) scale, then dV = P^T . dO and
+    dK = dS^T . Q with P^T and dS^T in n bf16 pieces."""
+    rep = q.shape[1] // k.shape[1]
+    kf, vf = _kv_heads(k, rep), _kv_heads(v, rep)
+    scale = 1.0 / q.shape[3] ** 0.5
+    keep = tref.flash_keep_mask(q.shape[2], k.shape[2], q_off,
+                                causal=causal, window=window)
+    st = scale * torch.matmul(kf, q.transpose(-1, -2))
+    pt = torch.where(keep.T, torch.exp(st - lse[..., None, :]), 0.0)
+    dpt = torch.matmul(vf, do.transpose(-1, -2))
+    dst = pt * (dpt - delta[..., None, :]) * scale
+    return _split_matmul(dst, q, n), _split_matmul(pt, do, n)
+
+
+def _case(sq, sk, rep, causal, window, seed):
+    q, k, v, do = _inputs(sq, sk, rep, seed)
+    q_off = torch.zeros((1, 1), dtype=torch.int32)
+    kw = dict(causal=causal, window=window)
+    o_ref, lse_ref = tref.flash_fwd_ref(q, k, v, q_off, **kw)
+    delta = torch.sum(do * o_ref, dim=-1)
+    bwd = (q, k, v, do, lse_ref, delta, q_off)
+    return q, k, v, do, q_off, kw, o_ref, lse_ref, bwd
+
+
+def _outside(got, want, tol):
+    return not torch.allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("sq,sk,rep,causal,window", CASES)
+def test_two_piece_forward_within_float32_limits(sq, sk, rep, causal,
+                                                 window):
+    q, k, v, _, q_off, kw, o_ref, lse_ref, _ = _case(sq, sk, rep, causal,
+                                                     window, sq + sk)
+    o, lse = _emulated_fwd(q, k, v, q_off, causal, window, 2)
+    torch.testing.assert_close(o, o_ref, rtol=F_TOL, atol=F_TOL)
+    torch.testing.assert_close(lse, lse_ref, rtol=F_TOL, atol=F_TOL)
+
+
+@pytest.mark.parametrize("sq,sk,rep,causal,window", CASES)
+def test_two_piece_dkv_within_float32_limits(sq, sk, rep, causal, window):
+    *_, kw, _, _, bwd = _case(sq, sk, rep, causal, window, sq + sk)
+    dk, dv = _emulated_dkv(*bwd, causal, window, 2)
+    dk_ref, dv_ref = tref.flash_bwd_dkv_ref(*bwd, **kw)
+    torch.testing.assert_close(dk, dk_ref, rtol=B_TOL, atol=B_TOL)
+    torch.testing.assert_close(dv, dv_ref, rtol=B_TOL, atol=B_TOL)
+
+
+@pytest.mark.parametrize("sq,sk,rep,causal,window", CASES)
+def test_one_piece_breaks_the_limits(sq, sk, rep, causal, window):
+    """The control: P and dS rounded to bf16 once put O outside 2e-5 and
+    dk and dv outside 5e-5 (dv by more than 20x), so the limits see the
+    rounding the split removes."""
+    q, k, v, _, q_off, kw, o_ref, _, bwd = _case(sq, sk, rep, causal,
+                                                 window, sq + sk)
+    o, _ = _emulated_fwd(q, k, v, q_off, causal, window, 1)
+    dk, dv = _emulated_dkv(*bwd, causal, window, 1)
+    dk_ref, dv_ref = tref.flash_bwd_dkv_ref(*bwd, **kw)
+    assert _outside(o, o_ref, F_TOL)
+    assert _outside(dk, dk_ref, B_TOL) and _outside(dv, dv_ref, B_TOL)
+    assert float((dv - dv_ref).abs().max()) > 20 * B_TOL
