@@ -14,11 +14,14 @@ a result:
                 shapes, both ADC modes, ragged shapes, the LeNet tiles at
                 batch 256 and an FMA canary (inputs where a fused
                 multiply-add would move codes).  ring_decode: within
-                rtol = atol = 1e-5 over R {1,3,4,8} x H {1,16} x hd {12,128}
-                x L {1,37,2048} with ragged valid-slot counts, on strided
-                views of a decode-state slab, and each row of an R-row call
-                bit for bit equal to a one-row call.  flash forward, dq
-                and dk/dv: within rtol = atol = 2e-5 (forward) and 5e-5
+                rtol = atol = 1e-5 over R {1,3,4,8} x H {1,16} x hd
+                {12,128,130,256} x L {1,37,129,300,2048} (below, across
+                and on the edges of its 128-slot chunks) with ragged
+                valid-slot counts, the valid slots first or (L > 128)
+                only in the last chunk, on strided views of a
+                decode-state slab, and each row of an R-row call bit for
+                bit equal to a one-row call.  flash forward, dq and
+                dk/dv: within rtol = atol = 2e-5 (forward) and 5e-5
                 (backward, float32 outputs) from float32 and bfloat16
                 inputs, except the bfloat16 forward output, which may sit
                 one bf16 ulp away (rtol 2^-7, atol 2e-5), over causal /
@@ -26,8 +29,8 @@ a result:
                 128}, ragged Sq and Sk in {1, 77, 512, 4096}, q_off {0,
                 100}, the train shape, and long flat bf16 rows (q x 0.01,
                 S 4096); each backward run twice, bit for bit equal; every
-                bf16 case at D 64 or 128 through the tensor-core forward
-                and dk/dv kernels (their `.launches_tc` rise).  Peaked
+                bf16 case at D 64 or 128 through the tensor-core forward,
+                dq and dk/dv kernels (their `.launches_tc` rise).  Peaked
                 bf16 rows (q and k x 8, D 128), where float32 itself
                 misses these limits, are held to float64 within the
                 limits plus the plain version's own float32 distance.
@@ -63,8 +66,8 @@ a result:
                 launch/steps.make_train_step, weights from a seeded
                 torch.Generator on the card.  Every loss finite; flash
                 launches = 16 forward + 16 recompute + 16 dq + 16 dk/dv
-                per step, every forward and dk/dv one on the tensor-core
-                kernels; TF32 off.  From the initial weights and batch,
+                per step, every one on the tensor-core kernels; TF32
+                off.  From the initial weights and batch,
                 step 0 with attn_impl "jnp" (plain attention) gives the
                 flash step's loss, grad norm and gradient within
                 TRAIN_JNP_RTOL, and a control with an off-by-one causal
@@ -80,7 +83,7 @@ a result:
                 and bytes / 3.35 TB/s, the H100 SXM's published peaks), at
                 the LeNet tiles, the decode tiles, the decode attention
                 shape and the train attention shape (B 2, H 16, S 4096,
-                D 128, causal, bf16), where the forward and dk/dv
+                D 128, causal, bf16), where the forward, dq and dk/dv
                 CUDA-core kernels of the earlier design are timed too.
 
 Then the `kernels` JSON line, the card's name and power limit as
@@ -218,18 +221,66 @@ def ring_bound_ms(r: int, l: int, h: int, hd: int) -> tuple:
                                        else "bytes")
 
 
-def ring_inputs(r: int, l: int, h: int, hd: int, seed: int, dev) -> list:
+def ring_inputs(r: int, l: int, h: int, hd: int, seed: int, dev,
+                tail_chunk: int = 0) -> list:
     """q (R, H, hd); k, v as block 1 of a (R, 2, L, H, hd) state slab
     (strided views, as the scheduler passes them); bias with 1..L valid
-    slots per row."""
+    slots per row, the first ones, or with `tail_chunk` > 0 only slots of
+    the last tail_chunk-slot chunk (the earlier chunks all masked)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((r, h, hd), generator=g, device=dev)
     k = torch.randn((r, 2, l, h, hd), generator=g, device=dev)[:, 1]
     v = torch.randn((r, 2, l, h, hd), generator=g, device=dev)[:, 1]
-    valid = torch.randint(1, l + 1, (r,), generator=g, device=dev)
-    bias = torch.where(torch.arange(l, device=dev)[None, :]
-                       < valid[:, None], 0.0, -1e9).to(torch.float32)
+    slot = torch.arange(l, device=dev)[None, :]
+    if tail_chunk:
+        last = l - tail_chunk * ((l - 1) // tail_chunk)
+        valid = torch.randint(1, last + 1, (r,), generator=g, device=dev)
+        keep = slot >= l - valid[:, None]
+    else:
+        valid = torch.randint(1, l + 1, (r,), generator=g, device=dev)
+        keep = slot < valid[:, None]
+    bias = torch.where(keep, 0.0, -1e9).to(torch.float32)
     return [q, k, v, bias]
+
+
+RING_LENGTHS = (1, 37, 129, 300, 2048)
+
+
+def ring_checks(rk, rref, dev) -> dict:
+    """ring_decode (`rk.ring_decode`) against its plain version within
+    rtol = atol = 1e-5 over R {1,3,4,8} x H {1,16} x hd {12,128,130,256}
+    (130: 4-byte copies; above 128: 8 values a lane) x RING_LENGTHS, the
+    valid slots first and, where L spans more than one
+    chunk, only in the last chunk; each row of an R-row call bit for bit
+    equal to its one-row call.  Returns the case count and the largest
+    absolute error."""
+    ring, chunk = rk.ring_decode, rk.RING_CHUNK
+    rcases, rmax = 0, 0.0
+    for r in (1, 3, 4, 8):
+        for h in (1, 16):
+            for hd in (12, 128, 130, 256):
+                for l in RING_LENGTHS:
+                    for tail in ((0, chunk) if l > chunk else (0,)):
+                        args = ring_inputs(r, l, h, hd, rcases, dev, tail)
+                        got = ring(*args)
+                        want = rref.ring_decode_attention_ref(*args)
+                        torch.cuda.synchronize()
+                        err = float((got - want).abs().max())
+                        what = (f"R={r} H={h} hd={hd} L={l}"
+                                + (" (valid slots in the last chunk only)"
+                                   if tail else ""))
+                        check(torch.allclose(got, want, rtol=1e-5,
+                                             atol=1e-5),
+                              f"ring_decode != plain at {what} (max abs "
+                              f"err {err})")
+                        for i in range(r):
+                            one = ring(*(a[i:i + 1] for a in args))
+                            check(torch.equal(got[i:i + 1], one),
+                                  f"ring_decode row {i} of {what} != its "
+                                  f"one-row call")
+                        rmax = max(rmax, err)
+                        rcases += 1
+    return {"cases": rcases, "max_abs_err": rmax}
 
 
 def decode_requests(vocab: int) -> list:
@@ -306,7 +357,7 @@ FLASH_STRESS = (
 
 def flash_exact(q, k, v, do, lse, delta, q_off, causal, window) -> dict:
     """The flash kernels' functions in float64 from the same inputs (lse
-    and delta are inputs of the backward): O, lse, dk, dv."""
+    and delta are inputs of the backward): O, lse, dq, dk, dv."""
     from repro_torch.kernels.flash_attn.ref import flash_keep_mask
     rep = q.shape[1] // k.shape[1]
     qd, dod = q.double(), do.double()
@@ -321,6 +372,7 @@ def flash_exact(q, k, v, do, lse, delta, q_off, causal, window) -> dict:
     p = torch.where(keep, torch.exp(s - lse.double()[..., None]), 0.0)
     ds = p * (torch.matmul(dod, vd.transpose(-1, -2))
               - delta.double()[..., None]) * scale
+    out["dq"] = torch.matmul(ds, kd)
     out["dk"] = torch.matmul(ds.transpose(-1, -2), qd)
     out["dv"] = torch.matmul(p.transpose(-1, -2), dod)
     return out
@@ -359,7 +411,8 @@ def flash_checks(fk, fref, dev) -> dict:
     """Each flash kernel against its plain version on every case of
     flash_cases() and the FLASH_STRESS cases; each backward twice, bit for
     bit equal; every bf16 case with D in FLASH_TC_HEAD_DIMS on the
-    tensor-core forward and dk/dv kernels (`.launches_tc` rises).  Returns
+    tensor-core forward, dq and dk/dv kernels (`.launches_tc` rises).
+    Returns
     the largest absolute error of each kernel per input dtype.
 
     Both sides compute in float32 or wider from the same inputs, so lse,
@@ -371,7 +424,7 @@ def flash_checks(fk, fref, dev) -> dict:
     The peaked case is held to the exact (float64) answer instead: there
     |s| reaches ~200, where float32 itself moves s by ~1e-4 whatever the
     order of the sum, and the plain float32 version misses the limits
-    against float64 (O, dk, dv).  Each output must sit within its limit
+    against float64 (O, dq, dk, dv).  Each output must sit within its limit
     plus the plain version's own largest distance from float64 (the
     float32 noise floor of these inputs, measured in the same run)."""
     errs = {kind: {"float32": 0.0, "bfloat16": 0.0}
@@ -388,7 +441,8 @@ def flash_checks(fk, fref, dev) -> dict:
         kw = dict(causal=causal, window=window)
         dt = str(dtype).split(".")[-1]
         tc = dtype == torch.bfloat16 and d in fk.FLASH_TC_HEAD_DIMS
-        tc0 = (fk.flash_fwd.launches_tc, fk.flash_bwd_dkv.launches_tc)
+        tc_fns = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
+        tc0 = [f.launches_tc for f in tc_fns]
         o_rtol = tf_ if dtype == torch.float32 else 2.0**-7
         what = (f"b={b} h={h} g={g} sq={sq} sk={sk} d={d} causal={causal} "
                 f"window={window} q_off={off} {dtype}"
@@ -410,7 +464,8 @@ def flash_checks(fk, fref, dev) -> dict:
             for key, got, plain, rtol, tol in (
                     ("o", o, o32, o_rtol, tf_), ("lse", lse, lse_ref, tf_,
                                                  tf_),
-                    ("dk", dk, dk_ref, tb, tb), ("dv", dv, dv_ref, tb, tb)):
+                    ("dq", dq, dq_ref, tb, tb), ("dk", dk, dk_ref, tb, tb),
+                    ("dv", dv, dv_ref, tb, tb)):
                 floor = float((plain.double() - exact[key]).abs().max())
                 dist = (got.double() - exact[key]).abs()
                 # the largest share of its tolerance an element uses
@@ -441,20 +496,20 @@ def flash_checks(fk, fref, dev) -> dict:
                                            .abs().max()),
                                 "dk": float((dk - dk_ref).abs().max()),
                                 "dv": float((dv - dv_ref).abs().max())}
-        check(torch.allclose(dq, dq_ref, rtol=tb, atol=tb),
-              f"flash_bwd_dq != plain at {what}")
-        errs["dq"][dt] = max(errs["dq"][dt],
-                             float((dq - dq_ref).abs().max()))
+            check(torch.allclose(dq, dq_ref, rtol=tb, atol=tb),
+                  f"flash_bwd_dq != plain at {what}")
+            errs["dq"][dt] = max(errs["dq"][dt],
+                                 float((dq - dq_ref).abs().max()))
+            if name:
+                stress[name]["dq"] = float((dq - dq_ref).abs().max())
         dk2, dv2 = fk.flash_bwd_dkv(*args, **kw)
         check(torch.equal(dq, fk.flash_bwd_dq(*args, **kw))
               and torch.equal(dk, dk2) and torch.equal(dv, dv2),
               f"flash backward not bit-reproducible at {what}")
-        tc1 = (fk.flash_fwd.launches_tc, fk.flash_bwd_dkv.launches_tc)
-        check((tc1[0] - tc0[0], tc1[1] - tc0[1]) == ((1, 2) if tc
-                                                     else (0, 0)),
-              f"tensor-core launches {tc1[0] - tc0[0]} forward, "
-              f"{tc1[1] - tc0[1]} dk/dv at {what}; expected "
-              f"{'1 and 2' if tc else 'none'}")
+        tc1 = [f.launches_tc - n for f, n in zip(tc_fns, tc0)]
+        check(tc1 == ([1, 2, 2] if tc else [0, 0, 0]),
+              f"tensor-core launches {tc1} (forward, dq, dk/dv) at {what}; "
+              f"expected {'[1, 2, 2]' if tc else 'none'}")
         del q, k, v, do, o, o_ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
     return {"cases": len(cases), "max_abs_err": errs, "stress": stress}
 
@@ -496,7 +551,8 @@ def train_phase(dev, tag) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for f in kerns:
         f.launches = 0
-    fk.flash_fwd.launches_tc = fk.flash_bwd_dkv.launches_tc = 0
+    for f in kerns:
+        f.launches_tc = 0
     step_ms, metrics = [], []
     for batch in batches:
         torch.cuda.synchronize()
@@ -507,17 +563,17 @@ def train_phase(dev, tag) -> dict:
         step_ms.append(1e3 * (time.perf_counter() - t0))
         metrics.append(m)
     launches = [f.launches for f in kerns]
-    launches_tc = [fk.flash_fwd.launches_tc, fk.flash_bwd_dkv.launches_tc]
+    launches_tc = [f.launches_tc for f in kerns]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_step = cfg.n_layers * TRAIN_STEPS
     check(launches == [2 * per_step, per_step, per_step],
           f"flash launches {launches} over {TRAIN_STEPS} steps != "
           f"{[2 * per_step, per_step, per_step]} (16 forward + 16 "
           f"recompute, 16 dq, 16 dk/dv a step)")
-    check(launches_tc == [launches[0], launches[2]],
-          f"tensor-core launches {launches_tc} != every forward and dk/dv "
-          f"launch {[launches[0], launches[2]]}: the bf16 train path must "
-          f"run the tensor-core kernels")
+    check(launches_tc == launches,
+          f"tensor-core launches {launches_tc} != every forward, dq and "
+          f"dk/dv launch {launches}: the bf16 train path must run the "
+          f"tensor-core kernels")
     check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
               for m in metrics), f"non-finite loss or grad norm: {metrics}")
 
@@ -593,8 +649,8 @@ def train_phase(dev, tag) -> dict:
            "vs_plain_limits": TRAIN_JNP_RTOL,
            "launches": dict(zip(("flash_fwd", "flash_bwd_dq",
                                  "flash_bwd_dkv"), launches)),
-           "launches_tc": dict(zip(("flash_fwd", "flash_bwd_dkv"),
-                                   launches_tc)),
+           "launches_tc": dict(zip(("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"), launches_tc)),
            "profile": prof,
            "flash_share": flash_us / prof["device_us"] if prof else None}
     busy = (f"profiled step: device {prof['device_us'] / 1e3:.1f} ms, "
@@ -609,7 +665,7 @@ def train_phase(dev, tag) -> dict:
           + ", grad norms " + ", ".join(f"{m['grad_norm']:.3f}"
                                          for m in metrics)
           + f"; flash launches {launches} (16+16 fwd, 16 dq, 16 dk/dv a "
-          f"step; tensor-core forward and dk/dv {launches_tc}); median step "
+          f"step; on the tensor cores {launches_tc}); median step "
           f"{med:.1f} ms, "
           f"{rec['tokens_per_s']:.0f} tokens/s, peak memory {peak_gb:.1f} "
           f"GB ({resident_gb:.1f} GB of it resident before the phase), "
@@ -619,21 +675,25 @@ def train_phase(dev, tag) -> dict:
 
 
 def cuda_core_fns(fk, q, k, v, do, lse, delta, q_off, causal) -> dict:
-    """The CUDA-core forward and dk/dv kernels (flash_fwd.cu, flash_bwd.cu:
-    the earlier design, which bf16 inputs at D 64 and 128 no longer reach)
-    on the same bf16 inputs, called through their C entry points, to time
-    them beside the tensor-core kernels in one run."""
+    """The CUDA-core forward, dq and dk/dv kernels (flash_fwd.cu,
+    flash_bwd.cu: the earlier design, which bf16 inputs at D 64 and 128 no
+    longer reach) on the same bf16 inputs, called through their C entry
+    points, to time them beside the tensor-core kernels in one run."""
     import ctypes
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device) \
         .transpose(1, 2)
     o_lse = torch.empty_like(lse)
+    dq = torch.empty((b, sq, h, d), dtype=torch.float32,
+                     device=q.device).transpose(1, 2)
     dk = torch.empty((b, sk, h, d), dtype=torch.float32,
                      device=q.device).transpose(1, 2)
     dv = torch.empty_like(dk)
     st = fk._bshd_strides
     fwd_st = (ctypes.c_longlong * 12)(*(st(q) + st(k) + st(v) + st(o)))
+    dq_st = (ctypes.c_longlong * 21)(*(st(q) + st(k) + st(v) + st(do)
+                                        + st(dq) + (0,) * 6))
     dkv_st = (ctypes.c_longlong * 21)(*(st(q) + st(k) + st(v) + st(do)
                                          + (0,) * 3 + st(dk) + st(dv)))
     rest = (b, h, h // g, sq, sk, d, int(causal), 0, 1.0 / d ** 0.5,
@@ -646,19 +706,24 @@ def cuda_core_fns(fk, q, k, v, do, lse, delta, q_off, causal) -> dict:
                                   o.data_ptr(), o_lse.data_ptr(), fwd_st,
                                   *rest) == 0, "CUDA-core forward launch")
 
+    def dq_():
+        check(lb.flash_bwd_dq_launch(
+            1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(), dq.data_ptr(),
+            dq_st, *rest) == 0, "CUDA-core dq launch")
+
     def dkv():
         check(lb.flash_bwd_dkv_launch(
             1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dkv_st, *rest) == 0, "CUDA-core dk/dv launch")
-    return {"fwd": fwd, "dkv": dkv}
+    return {"fwd": fwd, "dq": dq_, "dkv": dkv}
 
 
 def flash_times(fk, fref, dev, tag) -> dict:
     """CUDA-event ms of the three flash kernels, their plain versions and
     SDPA forward / backward at the train attention shape, with bounds;
-    and, for the forward and dk/dv, the CUDA-core kernels of the earlier
-    design on the same inputs."""
+    and the CUDA-core kernels of the earlier design on the same inputs."""
     b, h, g, s, d = FLASH_TRAIN
     q, k, v, do = flash_inputs(b, h, g, s, s, d, torch.bfloat16, 7, dev)
     q_off = torch.zeros((1, 1), dtype=torch.int32, device=dev)
@@ -678,7 +743,8 @@ def flash_times(fk, fref, dev, tag) -> dict:
           "the SDPA yardstick computes another function than flash_fwd")
     launches = [f.launches for f in (fk.flash_fwd, fk.flash_bwd_dq,
                                      fk.flash_bwd_dkv)]
-    launches_tc = [fk.flash_fwd.launches_tc, fk.flash_bwd_dkv.launches_tc]
+    launches_tc = [f.launches_tc for f in (fk.flash_fwd, fk.flash_bwd_dq,
+                                           fk.flash_bwd_dkv)]
     core = cuda_core_fns(fk, *args, causal=True)
     fns = {"fwd": (lambda: fk.flash_fwd(q, k, v, q_off, **kw),
                    lambda: fref.flash_fwd_ref(q, k, v, q_off, **kw)),
@@ -708,10 +774,9 @@ def flash_times(fk, fref, dev, tag) -> dict:
               f" {r['library_ms']:.3f} ms, bound {bnd:.4f} ms ({by})",
               flush=True)
     # timing launches are not main-path launches
-    for f, n in zip((fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv),
-                    launches):
-        f.launches = n
-    fk.flash_fwd.launches_tc, fk.flash_bwd_dkv.launches_tc = launches_tc
+    for f, n, n_tc in zip((fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv),
+                          launches, launches_tc):
+        f.launches, f.launches_tc = n, n_tc
     return out
 
 
@@ -839,32 +904,16 @@ def main() -> int:
           f"FMA canary with {flips} codes an FMA would move), "
           f"max_abs_err {max_err}", flush=True)
 
-    rcases, rmax = 0, 0.0
-    for r in (1, 3, 4, 8):
-        for h in (1, 16):
-            for hd in (12, 128):
-                for l in (1, 37, 2048):
-                    args = ring_inputs(r, l, h, hd, rcases, dev)
-                    got = ring(*args)
-                    want = rref.ring_decode_attention_ref(*args)
-                    torch.cuda.synchronize()
-                    err = float((got - want).abs().max())
-                    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-                          f"ring_decode != plain at R={r} H={h} hd={hd} "
-                          f"L={l} (max abs err {err})")
-                    for i in range(r):
-                        one = ring(*(a[i:i + 1] for a in args))
-                        check(torch.equal(got[i:i + 1], one),
-                              f"ring_decode row {i} of R={r} != its "
-                              f"one-row call (H={h} hd={hd} L={l})")
-                    rmax = max(rmax, err)
-                    rcases += 1
-    report["ring_vs_plain"] = {"cases": rcases, "max_abs_err": rmax}
-    print(f"kernels: ring_decode within rtol=atol=1e-5 of plain on {rcases} "
-          f"cases (R {{1,3,4,8}} x H {{1,16}} x hd {{12,128}} x L "
-          f"{{1,37,2048}}, ragged valid slots, strided state views), "
-          f"max_abs_err {rmax:.3g}; every row bit-equal to its one-row "
-          f"call", flush=True)
+    rc = ring_checks(rmod, rref, dev)
+    rmax = rc["max_abs_err"]
+    report["ring_vs_plain"] = rc
+    print(f"kernels: ring_decode within rtol=atol=1e-5 of plain on "
+          f"{rc['cases']} cases (R {{1,3,4,8}} x H {{1,16}} x hd "
+          f"{{12,128,130,256}} "
+          f"x L {{{','.join(map(str, RING_LENGTHS))}}}, ragged valid slots "
+          f"first or only in the last {rmod.RING_CHUNK}-slot chunk, strided "
+          f"state views), max_abs_err {rmax:.3g}; every row bit-equal to "
+          f"its one-row call", flush=True)
 
     flash = flash_checks(rmod, rref, dev)
     report["flash_vs_plain"] = flash
@@ -880,8 +929,8 @@ def main() -> int:
           + "; bf16 peaked rows against float64, kernel / plain float32 "
           + ", ".join(f"{k} {v['kernel_vs_f64']:.3g} / "
                       f"{v['plain_vs_f64']:.3g}" for k, v in pk.items())
-          + "; every bf16 D 64/128 case on the tensor-core forward and "
-          "dk/dv; every backward bit-equal on a second run", flush=True)
+          + "; every bf16 D 64/128 case on the tensor-core forward, dq "
+          "and dk/dv; every backward bit-equal on a second run", flush=True)
 
     phase_s["kernels"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -1208,10 +1257,10 @@ def main() -> int:
         "launches": dec_ring, "max_abs_err": rmax, "ms": r_ms,
         "plain_ms": r_plain, "bound_ms": r_bnd, "bound_by": r_by,
         "library_ms": r_lib}]}
-    # flash: the train path's launches; times at its attention shape
-    # (bf16: the tensor-core forward and dk/dv kernels; dq on CUDA cores)
+    # flash: the train path's launches (all on the tensor-core kernels);
+    # times at its attention shape in bf16
     for kind, line, src in (("fwd", 41, "flash_fwd_tc.cu"),
-                            ("dq", 134, "flash_bwd.cu"),
+                            ("dq", 134, "flash_bwd_dq_tc.cu"),
                             ("dkv", 168, "flash_bwd_dkv_tc.cu")):
         name = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
         t = ftimes[kind]
@@ -1219,8 +1268,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/flash_attn/csrc/{src}",
             "replaces": f"src/repro/kernels/flash_attn/kernel.py:{line}",
-            "launches": train["launches_tc"].get(name,
-                                                 train["launches"][name]),
+            "launches": train["launches_tc"][name],
             "max_abs_err": max(flash["max_abs_err"][kind].values()),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -1,7 +1,7 @@
 // flash_bwd.cu - flash attention backward for NVIDIA Hopper (sm_90a), on
-// the CUDA cores: dq for every input, and dk/dv for float32 inputs and for
-// bfloat16 inputs at head dimensions other than 64 and 128.  bfloat16 dk/dv
-// at D 64 or 128 (the train path) runs on the tensor cores in
+// the CUDA cores: dq and dk/dv for float32 inputs and for bfloat16 inputs
+// at head dimensions other than 64 and 128.  bfloat16 at D 64 or 128 (the
+// train path) runs on the tensor cores, in flash_bwd_dq_tc.cu and
 // flash_bwd_dkv_tc.cu.
 //
 // Replaces the two TPU kernels of repro/kernels/flash_attn/kernel.py

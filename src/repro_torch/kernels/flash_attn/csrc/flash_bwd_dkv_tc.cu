@@ -4,9 +4,10 @@
 //
 // Replaces the TPU kernel
 // repro/kernels/flash_attn/kernel.py:_flash_bwd_dkv_kernel for the train
-// path's type; flash_bwd.cu keeps float32 inputs, other head dimensions,
-// and dq.  Per query head (the caller sums each kv group's rep heads), in
-// float32 and in the JAX kernel's order (the dot first, then the scale):
+// path's type (dq: flash_bwd_dq_tc.cu); flash_bwd.cu keeps float32
+// inputs and other head dimensions.  Per query head (the caller sums
+// each kv group's rep heads), in float32 and in the JAX kernel's order
+// (the dot first, then the scale):
 //
 //   s[i, j]  = scale * (q[i] . k[j])
 //   p[i, j]  = exp(s[i, j] - lse[i])  where the mask keeps (i, j), else 0

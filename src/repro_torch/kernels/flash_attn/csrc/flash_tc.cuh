@@ -1,7 +1,8 @@
 // flash_tc.cuh - what the tensor-core flash kernels (flash_fwd_tc.cu,
-// flash_bwd_dkv_tc.cu) share: TMA tile loads, mbarriers, wgmma and its
-// shared-memory descriptors, the bf16 hi/lo split, and the host side that
-// builds the TMA tensor maps.  PTX written by hand, for sm_90a.
+// flash_bwd_dq_tc.cu, flash_bwd_dkv_tc.cu) share: TMA tile loads,
+// mbarriers, wgmma and its shared-memory descriptors, the bf16 hi/lo
+// split, and the host side that builds the TMA tensor maps.  PTX written
+// by hand, for sm_90a.
 //
 // Tiles.  Every bf16 tile (rows x D) sits in shared memory as D / 64
 // column blocks of rows x 64 values (128 bytes a row), each block written

@@ -4,18 +4,20 @@ Counterparts of `repro/kernels/flash_attn/ops.py:_ring_decode_kernel` and
 of `repro/kernels/flash_attn/kernel.py`'s `_flash_kernel`,
 `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`.  The kernels are CUDA
 C++ (`csrc/ring_decode.cu`, `csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`, and
-the tensor-core `csrc/flash_fwd_tc.cu` and `csrc/flash_bwd_dkv_tc.cu`,
-built by `kernels/build.py` and called through a plain C interface with
-ctypes); this module holds their wrappers.
+the tensor-core `csrc/flash_fwd_tc.cu`, `csrc/flash_bwd_dq_tc.cu` and
+`csrc/flash_bwd_dkv_tc.cu`, built by `kernels/build.py` and called
+through a plain C interface with ctypes); this module holds their
+wrappers.
 
 Each wrapper launches its CUDA kernel for tensors on a CUDA device and
 runs its plain PyTorch version (`ref.py`) for tensors on the CPU.  A CUDA
 tensor never reaches the plain version: a launch either happens or
-raises.  `<wrapper>.launches` counts the kernel launches.  `flash_fwd`
-and `flash_bwd_dkv` route bfloat16 inputs with D in `FLASH_TC_HEAD_DIMS`
-to the tensor-core kernels (counted again in `<wrapper>.launches_tc`) and
-everything else to the CUDA-core kernels of `flash_fwd.cu` and
-`flash_bwd.cu`.
+raises.  `<wrapper>.launches` counts the calls that launched
+(`ring_decode` runs a chunk kernel and a merge kernel a call and counts
+one).  `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` route bfloat16
+inputs with D in `FLASH_TC_HEAD_DIMS` to the tensor-core kernels (counted
+again in `<wrapper>.launches_tc`) and everything else to the CUDA-core
+kernels of `flash_fwd.cu` and `flash_bwd.cu`.
 """
 from __future__ import annotations
 
@@ -26,16 +28,19 @@ import torch
 
 from repro_torch.kernels import build
 
-# the design keeps a row's L scores in dynamic shared memory, without the
-# opt-in above 48 KB, and q spread over at most 8 values per lane
-MAX_WINDOW = 48 * 1024 // 4
+# ring_decode splits a row's slots into chunks of RING_CHUNK (the CHUNK of
+# csrc/ring_decode.cu, which checks the partials' size it is given); its
+# merge keeps one weight a chunk in shared memory (96 of them), and a lane
+# holds at most 8 values of q, k, v and the output
+RING_CHUNK = 128
+MAX_WINDOW = 96 * RING_CHUNK
 MAX_HEAD_DIM = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_SIGNATURE = ([_P] * 5                      # q, k, v, bias, out
-              + [_I] * 4                    # R, L, H, hd
+_SIGNATURE = ([_P] * 6                      # q, k, v, bias, out, work
+              + [_L] + [_I] * 4             # work floats, R, L, H, hd
               + [_L] * 11                   # strides
               + [ctypes.c_float, _P])       # sqrt(hd), cudaStream_t
 
@@ -97,16 +102,20 @@ def ring_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}, more than the "
                          "kernel's per-lane q registers hold")
     if win > MAX_WINDOW:
-        raise ValueError(f"KV window {win} > {MAX_WINDOW}, more scores than "
-                         "the kernel's shared memory holds")
+        raise ValueError(f"KV window {win} > {MAX_WINDOW}, more chunks than "
+                         "the merge kernel's shared memory holds")
     out = torch.empty((r, h, hd), dtype=torch.float32, device=q.device)
     if r == 0 or h == 0 or hd == 0:
         return out
+    # the chunk partials: o (hd floats), max and sum per (row, head, chunk)
+    n_chunks = -(-win // RING_CHUNK)
+    work = torch.empty(r * h * n_chunks * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.ring_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), r, win, h, hd,
+        out.data_ptr(), work.data_ptr(), work.numel(), r, win, h, hd,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), bias.stride(0),
         out.stride(0), out.stride(1),
@@ -138,6 +147,7 @@ _FLASH_ENTRIES = {
                   "flash_bwd_dkv_launch": (True, 9)},
     "flash_fwd_tc": {"flash_fwd_tc_launch": (False, 6)},
     "flash_bwd_dkv_tc": {"flash_bwd_dkv_tc_launch": (False, 9)},
+    "flash_bwd_dq_tc": {"flash_bwd_dq_tc_launch": (False, 8)},
 }
 
 
@@ -292,7 +302,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_off, *, causal: bool,
     """dq of flash attention (`_flash_bwd_dq_kernel`): q, do (B, H, Sq, D)
     and k/v (B, G, Sk, D) as `flash_fwd` takes them, lse and delta =
     rowsum(dO * O) (B, H, Sq) float32.  Returns dq (B, H, Sq, D) float32,
-    a view of a contiguous (B, Sq, H, D) buffer."""
+    a view of a contiguous (B, Sq, H, D) buffer.  bfloat16 at D 64 or 128
+    runs on the tensor cores (`flash_bwd_dq_tc.cu`), anything else on the
+    CUDA cores (`flash_bwd.cu`)."""
     _bwd_operands(q, k, v, do, lse, delta, q_off)
     if q.device.type == "cpu":
         from repro_torch.kernels.flash_attn.ref import flash_bwd_dq_ref
@@ -304,16 +316,25 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_off, *, causal: bool,
                      device=q.device).transpose(1, 2)
     if b == 0 or h == 0 or sq == 0:
         return dq
-    lib = _flash_library("flash_bwd")
-    st = (ctypes.c_longlong * 21)(*(
-        _bshd_strides(q) + _bshd_strides(k) + _bshd_strides(v)
-        + _bshd_strides(do) + _bshd_strides(dq) + (0,) * 6))
-    err = lib.flash_bwd_dq_launch(
-        _FLASH_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(),
-        dq.data_ptr(), st, b, h, h // g, sq, sk, d, int(causal), int(window),
-        1.0 / (d ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, lib, "flash_bwd", "flash dq")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(),
+            dq.data_ptr())
+    rest = (b, h, h // g, sq, sk, d, int(causal), int(window),
+            1.0 / (d ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
+    strides = (_bshd_strides(q) + _bshd_strides(k) + _bshd_strides(v)
+               + _bshd_strides(do) + _bshd_strides(dq))
+    if _tensor_core_route(q, (("q", q), ("k", k), ("v", v), ("do", do))):
+        lib = _flash_library("flash_bwd_dq_tc")
+        st = (ctypes.c_longlong * 15)(*strides)
+        _raise_on(lib.flash_bwd_dq_tc_launch(*ptrs, st, *rest), lib,
+                  "flash_bwd_dq_tc", "flash dq (tensor cores)")
+        flash_bwd_dq.launches_tc += 1
+    else:
+        lib = _flash_library("flash_bwd")
+        st = (ctypes.c_longlong * 21)(*(strides + (0,) * 6))
+        _raise_on(lib.flash_bwd_dq_launch(_FLASH_DTYPES[q.dtype], *ptrs, st,
+                                          *rest), lib, "flash_bwd",
+                  "flash dq")
     flash_bwd_dq.launches += 1
     return dq
 
@@ -369,5 +390,6 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_off, *, causal: bool,
 flash_fwd.launches = 0
 flash_fwd.launches_tc = 0
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_tc = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_dkv.launches_tc = 0

@@ -1,6 +1,7 @@
 """The arithmetic of the tensor-core flash kernels (`flash_fwd_tc.cu`,
-`flash_bwd_dkv_tc.cu`), emulated in plain PyTorch on the CPU, against the
-port's plain versions (`ref.flash_fwd_ref`, `ref.flash_bwd_dkv_ref`).
+`flash_bwd_dq_tc.cu`, `flash_bwd_dkv_tc.cu`), emulated in plain PyTorch
+on the CPU, against the port's plain versions (`ref.flash_fwd_ref`,
+`ref.flash_bwd_dq_ref`, `ref.flash_bwd_dkv_ref`).
 
 The kernels multiply bf16 inputs on the tensor cores: a bf16 x bf16
 product is exact in float32 and the sums are float32.  The softmax
@@ -10,11 +11,12 @@ bf16(x - hi), leaving at most 2^-18 of each term.  The emulation does the
 same: float32 products of bf16-exact values, the pieces rounded with
 torch's bf16 rounding (round to nearest even, as the kernels' cvt.rn),
 the forward as the kernels' online softmax over 128-key tiles with the
-scale applied after the product.
+scale applied after the product, the backward's scores as two chains over
+the halves of D added in float32.
 
 Two pieces hold the float32 limits the card is held to (2e-5 forward,
-5e-5 dk/dv).  One piece, the control, does not: it shows that the limit
-is sharp enough to need the split.
+5e-5 dq, dk and dv).  One piece, the control, does not: it shows that the
+limit is sharp enough to need the split.
 """
 import numpy as np
 import pytest
@@ -113,6 +115,25 @@ def _emulated_dkv(q, k, v, do, lse, delta, q_off, causal, window, n):
     return _split_matmul(dst, q, n), _split_matmul(pt, do, n)
 
 
+def _emulated_dq(q, k, v, do, lse, delta, q_off, causal, window, n):
+    """The dq kernel's arithmetic: s = scale * (q . k) with q . k as two
+    float32 chains over the halves of D, added; P = exp(s - lse) where
+    kept, dS = P (dP - delta) scale, then dQ = dS . K with dS in n bf16
+    pieces."""
+    rep = q.shape[1] // k.shape[1]
+    kf, vf = _kv_heads(k, rep), _kv_heads(v, rep)
+    half = q.shape[3] // 2
+    scale = 1.0 / q.shape[3] ** 0.5
+    keep = tref.flash_keep_mask(q.shape[2], k.shape[2], q_off,
+                                causal=causal, window=window)
+    dot = (torch.matmul(q[..., :half], kf[..., :half].transpose(-1, -2))
+           + torch.matmul(q[..., half:], kf[..., half:].transpose(-1, -2)))
+    p = torch.where(keep, torch.exp(scale * dot - lse[..., None]), 0.0)
+    dp = torch.matmul(do, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    return _split_matmul(ds, kf, n)
+
+
 def _case(sq, sk, rep, causal, window, seed):
     q, k, v, do = _inputs(sq, sk, rep, seed)
     q_off = torch.zeros((1, 1), dtype=torch.int32)
@@ -147,12 +168,31 @@ def test_two_piece_dkv_within_float32_limits(sq, sk, rep, causal, window):
 
 
 @pytest.mark.parametrize("sq,sk,rep,causal,window", CASES)
-def test_one_piece_breaks_the_limits(sq, sk, rep, causal, window):
+def test_two_piece_dq_within_float32_limits(sq, sk, rep, causal, window):
+    *_, kw, _, _, bwd = _case(sq, sk, rep, causal, window, sq + sk)
+    dq = _emulated_dq(*bwd, causal, window, 2)
+    torch.testing.assert_close(dq, tref.flash_bwd_dq_ref(*bwd, **kw),
+                               rtol=B_TOL, atol=B_TOL)
+
+
+# the forward and dk/dv (ids as the cases), and dq
+ONE_PIECE = ([pytest.param(*c, "fwd_dkv", id="-".join(map(str, c)))
+              for c in CASES]
+             + [pytest.param(*c, "dq", id="dq-" + "-".join(map(str, c)))
+                for c in CASES])
+
+
+@pytest.mark.parametrize("sq,sk,rep,causal,window,kernel", ONE_PIECE)
+def test_one_piece_breaks_the_limits(sq, sk, rep, causal, window, kernel):
     """The control: P and dS rounded to bf16 once put O outside 2e-5 and
-    dk and dv outside 5e-5 (dv by more than 20x), so the limits see the
-    rounding the split removes."""
+    dq, dk and dv outside 5e-5 (dv by more than 20x), so the limits see
+    the rounding the split removes."""
     q, k, v, _, q_off, kw, o_ref, _, bwd = _case(sq, sk, rep, causal,
                                                  window, sq + sk)
+    if kernel == "dq":
+        dq = _emulated_dq(*bwd, causal, window, 1)
+        assert _outside(dq, tref.flash_bwd_dq_ref(*bwd, **kw), B_TOL)
+        return
     o, _ = _emulated_fwd(q, k, v, q_off, causal, window, 1)
     dk, dv = _emulated_dkv(*bwd, causal, window, 1)
     dk_ref, dv_ref = tref.flash_bwd_dkv_ref(*bwd, **kw)

@@ -102,30 +102,46 @@ def test_lenet_on_card_matches_host(cuda_device, r_in, r_w):
     assert torch.equal(y.cpu(), cpu.serve(x))
 
 
-def _ring_inputs(r, l, h, hd, seed, device):
+def _ring_inputs(r, l, h, hd, seed, device, last_chunk=False):
     """q, k/v as block 1 of a (R, 2, L, H, hd) state slab (strided views,
-    as the scheduler passes them), and a bias with 1..L valid slots."""
+    as the scheduler passes them), and a bias with 1..L valid slots: the
+    first ones, or with `last_chunk` only slots of the kernel's last
+    chunk of RING_CHUNK slots (the chunks before it all masked)."""
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((r, h, hd), generator=g)
     slab_k = torch.randn((r, 2, l, h, hd), generator=g)
     slab_v = torch.randn((r, 2, l, h, hd), generator=g)
-    valid = torch.randint(1, l + 1, (r,), generator=g)
-    bias = torch.where(torch.arange(l)[None, :] < valid[:, None], 0.0, -1e9)
+    slot = torch.arange(l)[None, :]
+    if last_chunk:
+        c = rkernel.RING_CHUNK
+        valid = torch.randint(1, l - c * ((l - 1) // c) + 1, (r,),
+                              generator=g)
+        keep = slot >= l - valid[:, None]
+    else:
+        valid = torch.randint(1, l + 1, (r,), generator=g)
+        keep = slot < valid[:, None]
+    bias = torch.where(keep, 0.0, -1e9)
     q, slab_k, slab_v, bias = (t.to(device) for t in (q, slab_k, slab_v,
                                                       bias))
     return q, slab_k[:, 1], slab_v[:, 1], bias
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("l", (1, 37, 2048))
-@pytest.mark.parametrize("hd", (12, 128))
+@pytest.mark.parametrize("last_chunk", (False, True),
+                         ids=("first_slots", "last_chunk"))
+@pytest.mark.parametrize("l", (1, 37, 129, 300, 2048))
+@pytest.mark.parametrize("hd", (12, 128, 130, 256))
 @pytest.mark.parametrize("h", (1, 16))
 @pytest.mark.parametrize("r", (1, 3, 4, 8))
-def test_ring_decode_kernel_matches_plain(cuda_device, r, h, hd, l):
+def test_ring_decode_kernel_matches_plain(cuda_device, r, h, hd, l,
+                                          last_chunk):
     """Within rtol = atol = 1e-5 of the plain version (the sums run in
-    another order), and each row bit for bit equal to a one-row call."""
+    another order), and each row bit for bit equal to a one-row call; L
+    below, across and on the edges of the kernel's chunks, the valid
+    slots first or only in the last chunk; hd 130 takes the kernel's
+    4-byte copies, hd above 128 its 8 values a lane."""
     q, k, v, bias = _ring_inputs(r, l, h, hd, r * 1000 + l + hd,
-                                 cuda_device)
+                                 cuda_device, last_chunk)
     before = rkernel.ring_decode.launches
     got = rkernel.ring_decode(q, k, v, bias)
     torch.cuda.synchronize()
@@ -236,7 +252,7 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
     JAX tests' tolerances, float32 outputs whatever the input dtype), a
     bf16 O within one bf16 ulp (rtol 2^-7, atol 2e-5: two float32 sums
     that differ in their last bits may round apart); each kernel launched
-    once per call, bf16 at D 64 and 128 on the tensor-core forward and
+    once per call, bf16 at D 64 and 128 on the tensor-core forward, dq and
     dk/dv kernels, and the backward repeats bit for bit."""
     causal, window = case[6], case[7]
     q, k, v, do, q_off = _flash_inputs(case, dtype, cuda_device)
@@ -247,6 +263,7 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
     counts = [f.launches for f in (rkernel.flash_fwd, rkernel.flash_bwd_dq,
                                    rkernel.flash_bwd_dkv)]
     counts_tc = [rkernel.flash_fwd.launches_tc,
+                 rkernel.flash_bwd_dq.launches_tc,
                  rkernel.flash_bwd_dkv.launches_tc]
     o, lse = rkernel.flash_fwd(q, k, v, q_off, **kw)
     o_ref, lse_ref = rref.flash_fwd_ref(q, k, v, q_off, **kw)
@@ -268,9 +285,10 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
     assert [f.launches for f in (rkernel.flash_fwd, rkernel.flash_bwd_dq,
                                  rkernel.flash_bwd_dkv)] == \
         [counts[0] + 1, counts[1] + 2, counts[2] + 2]
-    assert [rkernel.flash_fwd.launches_tc,
+    assert [rkernel.flash_fwd.launches_tc, rkernel.flash_bwd_dq.launches_tc,
             rkernel.flash_bwd_dkv.launches_tc] == \
-        ([counts_tc[0] + 1, counts_tc[1] + 2] if tc else counts_tc)
+        ([counts_tc[0] + 1, counts_tc[1] + 2, counts_tc[2] + 2] if tc
+         else counts_tc)
 
 
 @pytest.mark.gpu

@@ -1,5 +1,7 @@
 """Ring-buffer decode attention: the port's plain version against the JAX
-package's Pallas kernel (interpret mode), and its row invariance.
+package's Pallas kernel (interpret mode), and its row invariance; and the
+CUDA kernel's split-L order (`csrc/ring_decode.cu`), emulated, against
+both.
 
 Tolerance: rtol = atol = 1e-5.  Both sides compute in float32, but XLA and
 PyTorch sum the dot products and the softmax denominator in other orders
@@ -14,6 +16,8 @@ import pytest
 import torch
 
 from repro.kernels.flash_attn.ops import ring_decode_attention as jring
+from repro.kernels.flash_attn.ops import \
+    ring_decode_attention_ref as jring_ref
 from repro_torch.kernels.flash_attn import kernel as tkernel
 from repro_torch.kernels.flash_attn import ops as tops
 
@@ -95,3 +99,88 @@ def test_wrapper_rejects_bad_shapes_and_devices():
     before = tkernel.ring_decode.launches
     tkernel.ring_decode(q, k, v, bias)      # CPU: the plain version
     assert tkernel.ring_decode.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split-L order, emulated
+# ---------------------------------------------------------------------------
+
+
+def _split_l(q, k, v, bias, chunk):
+    """ring_decode in the CUDA kernel's order, one row at a time: per
+    chunk of `chunk` slots its max m_c, sum l_c = sum exp(s - m_c) and
+    unnormalised output o_c = sum exp(s - m_c) v; then the chunks merged in
+    ascending order, w_c = exp(m_c - m) with m = max m_c, out =
+    (sum o_c w_c) / (sum l_c w_c)."""
+    scale = torch.tensor(q.shape[-1] ** 0.5, dtype=torch.float32)
+    outs = []
+    for r in range(q.shape[0]):
+        s = torch.einsum("hd,lhd->hl", q[r], k[r]) / scale + bias[r]
+        parts = []
+        for j0 in range(0, s.shape[1], chunk):
+            sc = s[:, j0:j0 + chunk]
+            m_c = sc.amax(dim=1)
+            e = torch.exp(sc - m_c[:, None])
+            parts.append((m_c, e.sum(dim=1),
+                          torch.einsum("hl,lhd->hd", e, v[r, j0:j0 + chunk])))
+        m = parts[0][0]
+        for m_c, _, _ in parts[1:]:
+            m = torch.maximum(m, m_c)
+        l = torch.zeros_like(m)
+        o = torch.zeros_like(q[r])
+        for m_c, l_c, o_c in parts:
+            w = torch.exp(m_c - m)
+            l = l + l_c * w
+            o = o + o_c * w[:, None]
+        outs.append(o / l[:, None])
+    return torch.stack(outs)
+
+
+def _ring_case(r, l, h, hd, seed, chunk, last_chunk):
+    """_inputs, with the valid slots first or, with `last_chunk`, only in
+    the last chunk of `chunk` slots (every earlier chunk fully masked)."""
+    q, k, v, bias = _inputs(r, l, h, hd, seed)
+    if last_chunk:
+        rng = np.random.default_rng(seed + 1)
+        tail = l - chunk * ((l - 1) // chunk)
+        valid = rng.integers(1, tail + 1, size=r)
+        bias = np.where(np.arange(l)[None, :] >= l - valid[:, None], 0.0,
+                        -1e9).astype(np.float32)
+    return q, k, v, bias
+
+
+# (chunk, L): below, on and across the chunk edges; 128 is the kernel's
+SPLIT_CASES = [(128, l) for l in (1, 100, 128, 129, 300)] + [
+    (16, l) for l in (1, 15, 16, 17, 50)]
+
+
+@pytest.mark.parametrize("last_chunk", (False, True),
+                         ids=("first_slots", "last_chunk"))
+@pytest.mark.parametrize("chunk,l", SPLIT_CASES)
+def test_split_l_order_matches_plain_and_jax(chunk, l, last_chunk):
+    """Within 1e-5 of the port's plain version and of JAX's
+    ring_decode_attention_ref, and every row of a 3-row call bit for bit
+    equal to its one-row call.  A fully masked chunk (bias -1e9) gets
+    weight exp(m_c - m) = 0 exactly."""
+    args = _ring_case(3, l, 4, 16, chunk + l, chunk, last_chunk)
+    t_args = [torch.from_numpy(a) for a in args]
+    got = _split_l(*t_args, chunk)
+    plain = tops.ring_decode_attention_ref(*t_args)
+    want = np.asarray(jring_ref(*(jnp.asarray(a) for a in args)))
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    for i in range(3):
+        one = _split_l(*(a[i:i + 1] for a in t_args), chunk)
+        assert torch.equal(got[i:i + 1], one)
+
+
+def test_split_l_masked_chunks_contribute_nothing():
+    """With the valid slots in the last chunk only, what the masked chunks
+    hold changes no bit of the split-L result."""
+    q, k, v, bias = (torch.from_numpy(a)
+                     for a in _ring_case(2, 300, 2, 8, 5, 128, True))
+    out = _split_l(q, k, v, bias, 128)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :256] = 3.0
+    v2[:, :256] = -9.0
+    assert torch.equal(out, _split_l(q, k2, v2, bias, 128))
