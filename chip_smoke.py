@@ -12,8 +12,12 @@ a result:
   2. kernels  - each kernel against its plain PyTorch version on the card.
                 cim_mbiw: torch.equal over the precision grid, both beta
                 shapes, both ADC modes, ragged shapes, the LeNet tiles at
-                batch 256 and an FMA canary (inputs where a fused
-                multiply-add would move codes).  ring_decode: within
+                batch 256, the edges of its three routes (M {1,4,63,64,
+                65,129} x N {10,16,33,64,128,256} x K {37,48,144,1040} x
+                one and two planes; each call on the route route_for
+                names, by the route counters) and an FMA canary (inputs
+                where a fused multiply-add would move codes) through the
+                tensor-core route.  ring_decode: within
                 rtol = atol = 1e-5 over R {1,3,4,8} x H {1,16} x hd
                 {12,128,130,256} x L {1,37,129,300,2048} (below, across
                 and on the edges of its 128-slot chunks) with ragged
@@ -41,7 +45,9 @@ a result:
                 torch.Generator, images from pseudo-MNIST; logits equal the
                 reference on the card and the port's CPU run bit for bit,
                 serve_batch equals serve of the concatenation, and the
-                kernel ran once per planned macro tile.  Median latency
+                kernel ran once per planned macro tile, each tile on the
+                route route_for names for it (conv1 on the CUDA cores,
+                the K >= 32 tiles on the tensor cores).  Median latency
                 and images/s at 256.
   4. decode   - the second main path: in-flight decode serving
                 (InflightScheduler over CIMDecodeLM) at OLMo-1B widths
@@ -50,8 +56,9 @@ a result:
                 and "quality" = (8, 4), weights from a seeded
                 torch.Generator.  8 requests from numpy seed 0 at capacity
                 4; every fused stream equals its solo decode_sequential,
-                cim_mbiw launched planned tiles x model calls and
-                ring_decode depth x model calls, a bound projection equals
+                cim_mbiw launched planned tiles x model calls, every one
+                on the split-K route, and ring_decode depth x model
+                calls, a bound projection equals
                 its card reference.  Bind seconds, median fused-step
                 latency per point, tokens/s, and the profiler's device
                 time and busy share of one fused step per point.
@@ -81,10 +88,16 @@ a result:
                 never calls), beside the least time the card could take
                 (the larger of operations over the peak rate of their type
                 and bytes / 3.35 TB/s, the H100 SXM's published peaks), at
-                the LeNet tiles, the decode tiles, the decode attention
-                shape and the train attention shape (B 2, H 16, S 4096,
-                D 128, causal, bf16), where the forward, dq and dk/dv
-                CUDA-core kernels of the earlier design are timed too.
+                the LeNet tiles, the decode tiles, the full-macro tile,
+                the decode attention shape and the train attention shape
+                (B 2, H 16, S 4096, D 128, causal, bf16), where the
+                forward, dq and dk/dv CUDA-core kernels of the earlier
+                design are timed too.  For cim_mbiw also: the route, the
+                first port's kernel (cim_mbiw.cu at BN 64) on the same
+                inputs, device microseconds per call of the kernel, that
+                earlier design and _int_mm from 20 calls replayed in one
+                CUDA graph, and the wrapper's host microseconds per
+                launch.
 
 Then the `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and last the JSON result line.  Detailed numbers
@@ -108,6 +121,13 @@ PEAK_INT8_OPS = 1979e12        # H100 SXM dense int8 tensor-core rate
 PEAK_F32_OPS = 67e12           # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3 bandwidth
 LENET_BATCH = 256
+# the edges of cim_mbiw's routes (kernel.route_for): M around the split-K
+# limit (63) and the tensor-core tiles (64, 128), N around the tile
+# widths, K unaligned for TMA (37), one stage (48), across a 128-value
+# stage (144) and past the decode tiles' 1024
+ROUTE_M = (1, 4, 63, 64, 65, 129)
+ROUTE_N = (10, 16, 33, 64, 128, 256)
+ROUTE_K = (37, 48, 144, 1040)
 REQUESTS = (1, 7, 100)
 PRECISIONS = ((4, 2), (8, 4))
 # OLMo-1B's widths (arXiv:2402.00838); depth is the only cut: 6 of its 16
@@ -163,6 +183,47 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_us(fn, calls: int = 20) -> float:
+    """Device microseconds per call: `calls` calls captured in one CUDA
+    graph, the graph replayed between CUDA events (after a warm-up call on
+    a side stream, so that allocations and workspaces exist first)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(g.replay, 5)
+    del g
+    return 1e3 * ms / calls
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host microseconds per call spent in `fn` (an asynchronous launch
+    returns once the kernel is queued)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * total / calls
+
+
+def kernel_counts(kern) -> tuple:
+    """(all, tensor-core, split-K) launch counters of cim_mbiw."""
+    return kern.launches, kern.launches_tc, kern.launches_splitk
+
+
+def reset_counts(kern) -> None:
+    kern.launches = kern.launches_tc = kern.launches_splitk = 0
 
 
 def device_profile(fn, reps: int, cpu: bool = True,
@@ -855,15 +916,22 @@ def main() -> int:
         g0 = digital_ref.adc_gain_factor(r_in, r_w, r_out,
                                          36 * -(-min(k, 1152) // 36))
         kw = dict(plane_shift=shift, g0=g0, r_out=r_out, fuse_adc=fuse_adc)
+        route = kmod.route_for(m, n, k, args[0].shape[1] // k).name
+        before = kernel_counts(kern)
         got = kern(*args, **kw)
         want = kref.cim_mbiw_matmul_planes_ref(*args, **kw)
         torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f"cim_mbiw != plain at {(m, k, n, r_in, r_w, r_out)} "
-              f"beta_rows={beta_rows} fuse_adc={fuse_adc}")
+        what = (f"{(m, k, n, r_in, r_w, r_out)} beta_rows={beta_rows} "
+                f"fuse_adc={fuse_adc} (route {route})")
+        rose = tuple(a - b for a, b in zip(kernel_counts(kern), before))
+        check(rose == (1, int(route == "tc"), int(route == "splitk")),
+              f"cim_mbiw counters rose by {rose} at {what}")
+        check(torch.equal(got, want), f"cim_mbiw != plain at {what}")
+        route_cases[route] += 1
         return int((got.long() - want.long()).abs().max())
 
     cases, max_err = 0, 0
+    route_cases = {"tc": 0, "splitk": 0, "cuda_core": 0}
     for r_in in (1, 2, 3, 4, 8):
         for r_w in (1, 2, 4):
             for r_out in (1, 4, 8):
@@ -887,22 +955,38 @@ def main() -> int:
                 max_err = max(max_err, compare(m, k, n, r_in, r_w, 8,
                                                beta_rows, fuse))
                 cases += 1
+    # the routes' edges: one and two planes ((4, 2) and (8, 4))
+    for m in ROUTE_M:
+        for n in ROUTE_N:
+            for k in ROUTE_K:
+                for i, (r_in, r_w) in enumerate(PRECISIONS):
+                    for beta_rows in (False, True):
+                        max_err = max(max_err, compare(
+                            m, k, n, r_in, r_w, 8, beta_rows,
+                            (i + beta_rows) % 2 == 0))
+                        cases += 1
     canary = kref.fma_canary(0)
     c_args = [torch.from_numpy(canary[k]).to(dev)
               for k in ("x", "w", "gamma", "beta")]
+    before = kernel_counts(kern)
     got = kops.cim_matmul(*c_args, r_in=8, r_out=canary["r_out"],
                           g0=canary["g0"]).cpu().numpy()
+    check(kernel_counts(kern)[1] == before[1] + 1,
+          "FMA canary: not on the tensor-core route")
     flips = int(np.sum(canary["codes"] != canary["codes_fma"]))
     check(np.array_equal(got, canary["codes"]),
           "FMA canary: kernel codes differ from the rounded chain")
     cases += 1
     report["kernel_vs_plain"] = {"cases": cases, "max_abs_err": max_err,
+                                 "route_cases": route_cases,
                                  "canary_fma_flips": flips}
     print(f"kernels: cim_mbiw == plain on {cases} cases (grid r_in "
           f"{{1,2,3,4,8}} x r_w {{1,2,4}} x r_out {{1,4,8}} x beta (1,N)/"
           f"(M,N) x fuse_adc, ragged, LeNet tiles at batch {LENET_BATCH}, "
-          f"FMA canary with {flips} codes an FMA would move), "
-          f"max_abs_err {max_err}", flush=True)
+          f"route edges M {ROUTE_M} x N {ROUTE_N} x K {ROUTE_K}; per "
+          f"route {route_cases}, each on the route route_for names; FMA "
+          f"canary through the tensor-core route with {flips} codes an "
+          f"FMA would move), max_abs_err {max_err}", flush=True)
 
     rc = ring_checks(rmod, rref, dev)
     rmax = rc["max_abs_err"]
@@ -944,7 +1028,7 @@ def main() -> int:
     for b in REQUESTS:
         reqs.append(images[s:s + b])
         s += b
-    main_launches = 0
+    main_routes = {"all": 0, "tc": 0, "splitk": 0}
     lenet = {}
     for r_in, r_w in PRECISIONS:
         cim = CIMConfig(r_in=r_in, r_w=r_w)
@@ -954,18 +1038,31 @@ def main() -> int:
         check(prog.device.type == "cuda", "program is not on the card")
         bound = prog.bind(params)
         per_fwd = prog.plan.total_macro_evals
-        kern.launches = 0
+        reset_counts(kern)
         y = bound.serve(x)
         torch.cuda.synchronize()
-        launches_serve = kern.launches
-        kern.launches = 0
+        counts_serve = kernel_counts(kern)
+        reset_counts(kern)
         ys = bound.serve_batch(reqs)
         torch.cuda.synchronize()
-        launches_batch = kern.launches
-        main_launches += launches_serve + launches_batch
+        counts_batch = kernel_counts(kern)
+        launches_serve, launches_batch = counts_serve[0], counts_batch[0]
+        for c in (counts_serve, counts_batch):
+            for r, n_ in zip(("all", "tc", "splitk"), c):
+                main_routes[r] += n_
         check(launches_serve == per_fwd and launches_batch == per_fwd,
               f"kernel launches per forward {launches_serve}/"
               f"{launches_batch} != planned tiles {per_fwd}")
+        # each tile on the route route_for names for it (serve_batch
+        # dispatches the concatenated requests at their bucket)
+        for got_c, rows in ((counts_serve, LENET_BATCH),
+                            (counts_batch,
+                             prog.buckets.bucket_for(sum(REQUESTS)))):
+            want_c = kmod.route_counts(prog.plan.tile_calls(rows))
+            check(got_c == (sum(want_c.values()), want_c["tc"],
+                            want_c["splitk"]),
+                  f"LeNet ({r_in},{r_w}) at {rows} rows: launches (all, "
+                  f"tc, splitk) {got_c} != route_for's {want_c}")
         check(tuple(y.shape) == (LENET_BATCH, 10) and y.is_cuda
               and bool(torch.isfinite(y).all()), "logits shape/finiteness")
         before = kern.launches
@@ -988,6 +1085,8 @@ def main() -> int:
         prof = device_profile(lambda: bound.serve(x), 10)
         lenet[f"{r_in},{r_w}"] = {
             "launches_per_forward": launches_serve,
+            "routes_per_forward": kmod.route_counts(
+                prog.plan.tile_calls(LENET_BATCH)),
             "planned_tiles": per_fwd, "median_latency_ms": 1e3 * med,
             "images_per_s": LENET_BATCH / med,
             "latencies_ms": [1e3 * t for t in lat], "profile": prof}
@@ -998,7 +1097,9 @@ def main() -> int:
         print(f"lenet ({r_in},{r_w}) {tag}: batch {LENET_BATCH} logits == "
               f"card reference == CPU run (bit for bit), serve_batch "
               f"{list(REQUESTS)} == serve(concat); {launches_serve} kernel "
-              f"launches per forward (= planned tiles); median serve "
+              f"launches per forward (= planned tiles; routes "
+              f"{lenet[f'{r_in},{r_w}']['routes_per_forward']} as "
+              f"route_for names them); median serve "
               f"{1e3 * med:.3f} ms, {LENET_BATCH / med:.0f} images/s; "
               f"{busy}", flush=True)
     report["lenet"] = lenet
@@ -1036,19 +1137,25 @@ def main() -> int:
                 1e3 * (time.perf_counter() - t))
         return out
     model.step_rows = timed_step
-    kern.launches = ring.launches = 0
+    reset_counts(kern)
+    ring.launches = 0
     sched = InflightScheduler(model, capacity=DECODE_CAPACITY)
     t0 = time.perf_counter()
     streams = sched.run(arrivals)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     dec_cim, dec_ring = kern.launches, ring.launches
+    dec_splitk = kern.launches_splitk
     del model.step_rows
     calls = {p: sum(len(r.prompt) for r in reqs.values() if r.point == p)
              + sched.points_served.get(p, 0) for p in model.points}
     planned = sum(tiles[p] * calls[p] for p in calls)
     check(dec_cim == planned, f"decode cim_mbiw launches {dec_cim} != "
           f"planned tiles x calls {planned}")
+    check(dec_splitk == dec_cim,
+          f"decode: {dec_cim - dec_splitk} of {dec_cim} cim_mbiw launches "
+          f"not on the split-K route (every decode tile has M <= "
+          f"{DECODE_CAPACITY})")
     check(dec_ring == depth * sum(calls.values()),
           f"decode ring_decode launches {dec_ring} != depth x calls "
           f"{depth * sum(calls.values())}")
@@ -1083,13 +1190,15 @@ def main() -> int:
         "solo_check_s": solo_s, "requests": sched_in,
         "streams": {str(u): t for u, t in streams.items()},
         "calls": calls, "tiles_per_call": tiles,
-        "launches": {"cim_mbiw": dec_cim, "ring_decode": dec_ring},
+        "launches": {"cim_mbiw": dec_cim, "cim_mbiw_splitk": dec_splitk,
+                     "ring_decode": dec_ring},
         "step_ms": step_ms, "median_step_ms": med, "metrics": met}
     print(f"decode [{card}]: OLMo-1B widths, depth {depth}, points "
           f"{DECODE_POINTS}; bind {bind_s:.1f} s; {len(reqs)} requests at "
           f"capacity {DECODE_CAPACITY}: every fused stream == "
           f"decode_sequential; launches cim_mbiw {dec_cim} (= planned "
-          f"tiles x calls), ring_decode {dec_ring} (= depth x calls "
+          f"tiles x calls, all {dec_splitk} split-K), ring_decode "
+          f"{dec_ring} (= depth x calls "
           f"{calls}); qkv serve == card reference at both points",
           flush=True)
     print(f"decode metrics [{card}]: tokens/s {met['tokens_per_s']:.3f}, "
@@ -1123,6 +1232,7 @@ def main() -> int:
         return a, b
 
     timing = []
+    CORE_64 = kmod.Route("cuda_core", 64, 64, 0, ())
     shapes = [("lenet", p, t) for p, tiles in lenet_tiles.items()
               for t in tiles]
     shapes.append(("full-macro tile", (8, 1), (16384, 1152, 256)))
@@ -1136,7 +1246,18 @@ def main() -> int:
         p = args[0].shape[1] // k
         kw = dict(plane_shift=shift, g0=0.01, r_out=8)
         reps = 50 if m * n * k * p < 5e8 else 20
-        ms = cuda_ms(lambda: kern(*args, **kw), reps)
+        route = kmod.route_for(m, n, k, p)
+        out = torch.empty((m, n), dtype=torch.int32, device=dev)
+
+        def first_port():
+            # the first port's design on the same inputs: cim_mbiw.cu at
+            # its 64 x 64 tile (route C), called past the route choice
+            kmod.launch(CORE_64, *args, out, fuse_adc=True, **kw)
+
+        def kernel():
+            return kern(*args, **kw)
+        ms = cuda_ms(kernel, reps)
+        first_ms = cuda_ms(first_port, reps)
         plain = cuda_ms(
             lambda: kref.cim_mbiw_matmul_planes_ref(*args, **kw), reps)
         a, b = int_mm_inputs(args[0], args[1], p)
@@ -1144,22 +1265,30 @@ def main() -> int:
         bnd, by = bound_ms(m, k, n, p, rows)
         dev_us = {name: device_profile(fn, 20).get("device_us")
                   for name, fn in (
-                      ("kernel", lambda: kern(*args, **kw)),
+                      ("kernel", kernel),
                       ("plain", lambda: kref.cim_mbiw_matmul_planes_ref(
                           *args, **kw)),
                       ("library", lambda: torch._int_mm(a, b)))}
+        g_us = {"kernel": graph_us(kernel), "first_port": graph_us(first_port),
+                "library": graph_us(lambda: torch._int_mm(a, b))}
         row = {"shape": label, "r_in": r_in, "r_w": r_w, "m": m, "k": k,
-               "n": n, "planes": p, "beta_rows": rows, "ms": ms,
-               "plain_ms": plain,
+               "n": n, "planes": p, "beta_rows": rows,
+               "route": route.name, "tile": [route.bm, route.bn, route.kc],
+               "ms": ms, "first_port_ms": first_ms, "plain_ms": plain,
                "library_ms": lib, "bound_ms": bnd, "bound_by": by,
-               "device_us": dev_us}
+               "device_us": dev_us, "graph_us": g_us,
+               "host_us_per_launch": host_us(kernel)}
         timing.append(row)
         dev_txt = ", ".join(f"{k_} {v:.1f}" if v is not None else
                             f"{k_} not measured" for k_, v in dev_us.items())
-        print(f"time {tag} {label} ({r_in},{r_w}) M={m} K={k} N={n} P={p}: "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, _int_mm "
+        print(f"time {tag} {label} ({r_in},{r_w}) M={m} K={k} N={n} P={p} "
+              f"[{route.name}]: kernel {ms:.4f} ms, first port's kernel "
+              f"{first_ms:.4f} ms, plain {plain:.4f} ms, _int_mm "
               f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}); device us per "
-              f"call (profiler): {dev_txt}", flush=True)
+              f"call, graph of 20: kernel {g_us['kernel']:.2f}, first "
+              f"port's {g_us['first_port']:.2f}, _int_mm "
+              f"{g_us['library']:.2f}; profiler: {dev_txt}; wrapper host "
+              f"{row['host_us_per_launch']:.1f} us a launch", flush=True)
     report["times"] = timing
 
     # ring_decode at the decode path's shape: the scheduler's own rings
@@ -1233,24 +1362,44 @@ def main() -> int:
     phase_s["profile"] = time.perf_counter() - t_phase
 
     # -- the kernels line ----------------------------------------------------
-    # cim_mbiw: launches over both main paths (LeNet and decode); times are
-    # per-forward sums over the (4, 2) LeNet tiles at batch 256 (fc1 runs
-    # its 784-row tile twice).  ring_decode: the decode path's shape.
+    # cim_mbiw, one entry a route: launches over both main paths (LeNet
+    # and decode); times per (4, 2) LeNet forward at batch 256 summed over
+    # the route's tiles (fc1 runs its 784-row tile twice) for the
+    # tensor-core and CUDA-core routes, and one (4, 2) decode tile at M 4
+    # for split-K.  ring_decode: the decode path's shape.
     fwd = [r for r in timing if r["shape"] == "lenet" and r["r_in"] == 4]
-    mult = [2 if r["k"] == 784 else 1 for r in fwd]
+    dec = [r for r in timing if r["shape"] == "decode" and r["r_in"] == 4
+           and r["m"] == DECODE_CAPACITY]
+    route_launches = {
+        "tc": main_routes["tc"],
+        "splitk": main_routes["splitk"] + dec_splitk,
+        "cuda_core": main_routes["all"] - main_routes["tc"]
+        - main_routes["splitk"] + dec_cim - dec_splitk}
 
-    def fsum(key):
-        return sum(c * r[key] for c, r in zip(mult, fwd))
-    by = "bytes" if sum(r["bound_by"] == "bytes" for r in fwd) * 2 >= \
-        len(fwd) else "operations"
-    kernels = {"kernels": [{
-        "name": "cim_mbiw", "route": "cuda",
-        "source": "src/repro_torch/kernels/cim_mbiw/csrc/cim_mbiw.cu",
-        "replaces": "src/repro/kernels/cim_mbiw/kernel.py:54",
-        "launches": main_launches + dec_cim, "max_abs_err": max_err,
-        "ms": fsum("ms"), "plain_ms": fsum("plain_ms"),
-        "bound_ms": fsum("bound_ms"), "bound_by": by,
-        "library_ms": fsum("library_ms")}, {
+    def route_entry(name, route, src, rows):
+        mult = [2 if r["k"] == 784 and r["shape"] == "lenet" else 1
+                for r in rows]
+
+        def fsum(key):
+            return sum(c * r[key] for c, r in zip(mult, rows))
+        check(bool(rows) and all(r["route"] == route for r in rows),
+              f"no timed {route} tiles: {[r['route'] for r in rows]}")
+        by = "bytes" if sum(r["bound_by"] == "bytes" for r in rows) * 2 \
+            >= len(rows) else "operations"
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/cim_mbiw/csrc/{src}",
+                "replaces": "src/repro/kernels/cim_mbiw/kernel.py:54",
+                "launches": route_launches[route], "max_abs_err": max_err,
+                "ms": fsum("ms"), "plain_ms": fsum("plain_ms"),
+                "bound_ms": fsum("bound_ms"), "bound_by": by,
+                "library_ms": fsum("library_ms")}
+    kernels = {"kernels": [
+        route_entry("cim_mbiw_tc", "tc", "cim_mbiw_tc.cu",
+                    [r for r in fwd if r["route"] == "tc"]),
+        route_entry("cim_mbiw_splitk", "splitk", "cim_mbiw_splitk.cu",
+                    dec),
+        route_entry("cim_mbiw", "cuda_core", "cim_mbiw.cu",
+                    [r for r in fwd if r["route"] == "cuda_core"]), {
         "name": "ring_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attn/csrc/ring_decode.cu",
         "replaces": "src/repro/kernels/flash_attn/ops.py:197",
@@ -1273,10 +1422,15 @@ def main() -> int:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    idle = [k["name"] for k in kernels["kernels"] if k["launches"] < 1]
+    check(not idle, f"kernels the main paths never launched: {idle}")
     report["kernels"] = kernels
     report["launches_by_path"] = {
-        "lenet": {"cim_mbiw": main_launches},
-        "decode": {"cim_mbiw": dec_cim, "ring_decode": dec_ring},
+        "lenet": {"cim_mbiw": main_routes["all"],
+                  "cim_mbiw_tc": main_routes["tc"],
+                  "cim_mbiw_splitk": main_routes["splitk"]},
+        "decode": {"cim_mbiw": dec_cim, "cim_mbiw_splitk": dec_splitk,
+                   "ring_decode": dec_ring},
         "train": train["launches"]}
     report["total_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s

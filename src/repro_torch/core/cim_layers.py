@@ -21,9 +21,10 @@ Parameters per layer: {"w": (K, N) fp32 master weights,
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -135,6 +136,36 @@ def cim_linear_apply(params: Dict, x: torch.Tensor,
     raise ValueError(f"unknown CIM mode {cfg.mode!r}")
 
 
+@contextlib.contextmanager
+def exact_float32_matmul() -> Iterator[None]:
+    """Float32 matmuls in full float32 (no TF32) inside the block, and the
+    caller's matmul precision as it was afterwards, whichever API set it.
+
+    Fakequant's integer products must come out exact (|dp| <= 1152 * 255
+    * 15 < 2^24); TF32 rounds each operand to 10 mantissa bits, which
+    today's 8-bit codes and 4-bit weights survive, but the exactness
+    should rest on neither that nor a process-wide flag.  The pin goes
+    through the legacy `set_float32_matmul_precision("highest")`, which
+    keeps the legacy and the per-backend settings
+    (`torch.backends.cuda.matmul.fp32_precision`, where this PyTorch has
+    it) in agreement, so that no reader of either raises inside the
+    block; both are put back as they were."""
+    mm = torch.backends.cuda.matmul
+    prev_backend = getattr(mm, "fp32_precision", None)
+    try:
+        prev = torch.get_float32_matmul_precision()
+    except RuntimeError:      # set through the per-backend API only
+        prev = None
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if prev is not None:
+            torch.set_float32_matmul_precision(prev)
+        if prev_backend is not None:
+            mm.fp32_precision = prev_backend
+
+
 def _fakequant_forward(params: Dict, x: torch.Tensor,
                        cfg: CIMConfig) -> torch.Tensor:
     """The JAX package's `_fakequant_forward` with noise off, op for op."""
@@ -161,8 +192,11 @@ def _fakequant_forward(params: Dict, x: torch.Tensor,
     for ks, ksz in mapping.split_k_slices(k_dim, row_tiles):
         ke = ks + ksz
         # integer dot product, exact in fp32 for one macro row tile
-        # (|dp| <= 1152*255*15 < 2^24; TF32 must stay off)
-        dp = aq.q[..., ks:ke] @ wq.q[ks:ke, :]
+        # (|dp| <= 1152*255*15 < 2^24) as long as TF32 stays off, whatever
+        # the caller set; the backward's products keep the caller's
+        # precision (they are not exact in the reference either)
+        with exact_float32_matmul():
+            dp = aq.q[..., ks:ke] @ wq.q[ks:ke, :]
         # zero-point x = q*s + z: the z*colsum term folds into the ABN
         # offset inside the ADC floor (beta_eff = beta + gamma*g0*zp_dp)
         zp_dp = zp * torch.sum(wq.q[ks:ke, :], dim=0)

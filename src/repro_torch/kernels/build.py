@@ -28,6 +28,8 @@ BUILD_DIR = _HERE / "_build"
 # kernel name -> its CUDA source
 SOURCES: Dict[str, Path] = {
     "cim_mbiw": _HERE / "cim_mbiw" / "csrc" / "cim_mbiw.cu",
+    "cim_mbiw_tc": _HERE / "cim_mbiw" / "csrc" / "cim_mbiw_tc.cu",
+    "cim_mbiw_splitk": _HERE / "cim_mbiw" / "csrc" / "cim_mbiw_splitk.cu",
     "ring_decode": _HERE / "flash_attn" / "csrc" / "ring_decode.cu",
     "flash_fwd": _HERE / "flash_attn" / "csrc" / "flash_fwd.cu",
     "flash_bwd": _HERE / "flash_attn" / "csrc" / "flash_bwd.cu",
@@ -72,10 +74,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    # the source and the headers beside it (a header edit rebuilds)
+    # the source and every kernel header (a source may include another
+    # kernel's header, as cim_mbiw_tc.cu includes flash_tc.cuh; a header
+    # edit rebuilds)
     src = SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
-    for hdr in sorted(src.parent.glob("*.cuh")):
+    for hdr in sorted(_HERE.glob("*/csrc/*.cuh")):
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -1,18 +1,34 @@
 """The CIM-MBIW quantized matmul with fused DSCI-ADC, on Hopper.
 
-Counterpart of `repro/kernels/cim_mbiw/kernel.py`.  The kernel itself is
-CUDA C++ (`csrc/cim_mbiw.cu`, built by `kernels/build.py` and called
-through a plain C interface with ctypes); this module is its wrapper.
+Counterpart of `repro/kernels/cim_mbiw/kernel.py`.  The kernels are CUDA
+C++ (`csrc/`, built by `kernels/build.py` and called through a plain C
+interface with ctypes); this module is their wrapper.
 
-`cim_mbiw_matmul_planes` launches the CUDA kernel for tensors on a CUDA
-device and runs the plain PyTorch version
-(`ref.cim_mbiw_matmul_planes_ref`) for tensors on the CPU.  A CUDA tensor
-never reaches the plain version: a launch either happens or raises.
-`cim_mbiw_matmul_planes.launches` counts the kernel launches.
+`cim_mbiw_matmul_planes` picks one of three routes from the shape, up
+front (`route_for`), and launches it for tensors on a CUDA device:
+
+  * "tc"        (route A, `csrc/cim_mbiw_tc.cu`): int8 `wgmma` on the
+                tensor cores, x by TMA, for M >= 64, K >= 32 with K a
+                multiple of 16 (TMA's 16-byte strides) and at most two
+                planes;
+  * "splitk"    (route B, `csrc/cim_mbiw_splitk.cu`): the grid split over
+                K, for M < 64 and K >= 32 (every decode tile);
+  * "cuda_core" (route C, `csrc/cim_mbiw.cu`): the first port's
+                `__dp4a` kernel with a tile width fitted to N, for the rest
+                (K < 32: LeNet's conv1).
+
+Tensors on the CPU run the plain PyTorch version
+(`ref.cim_mbiw_matmul_planes_ref`).  A CUDA tensor never reaches the plain
+version or another route: a launch of the chosen route either happens or
+raises.  `cim_mbiw_matmul_planes.launches` counts every launch,
+`.launches_tc` and `.launches_splitk` those of routes A and B.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+from typing import Dict
 
 import torch
 
@@ -33,23 +49,143 @@ def plane_layout(r_in: int) -> tuple[int, int]:
     return shift, -(-r_in // shift)
 
 
+# route A: tile heights (one or two consumer warpgroups) and widths of the
+# int8 wgmma (one accumulator of BN / 2 registers a plane, at most 64
+# registers: BN 128 at one plane, 64 at two), K values a stage, the
+# alignment TMA needs of K (its plane and row strides)
+TC_BM = (128, 64)
+TC_BN = (16, 32, 64, 128)
+TC_BK = 128
+TC_K_ALIGN = 16
+TC_MAX_PLANES = 2
+# one wave of blocks (the H100's SM count): route A's tile and route B's
+# K chunks aim at it
+WAVE = 132
+# route B: columns a block, K rows a chunk; M below SPLITK_MAX_M
+SPLITK_BN = 64
+SPLITK_KC = (8, 128)
+SPLITK_MAX_M = 63
+# route C: tile widths (the tile is 256 threads x 4 x 4 outputs)
+CORE_BN = (16, 32, 64)
+# routes A and B need a K of at least one k-step of 32
+MIN_K = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """One launch plan: the route and its tile.  `bm` rows and `bn`
+    columns a block (route B puts every row in a block, bm = 0); `kc` the
+    K rows of a chunk (route B only); `grid` the blocks, (N tiles, M
+    tiles) on route A, (N tiles, K chunks) on B, (M tiles, N tiles) on
+    C."""
+    name: str
+    bm: int
+    bn: int
+    kc: int
+    grid: tuple
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def route_for(m: int, n: int, k: int, planes: int) -> Route:
+    """The route and tile for an (M, K) x (K, N) call over `planes` input
+    planes, from the shape alone:
+
+      "tc"        M >= 64, K >= 32, K % 16 == 0, planes <= 2: the largest
+                  BM x BN (BM 64, or 128 from M 128 up; BN 16..128, no
+                  wider than the width that holds N, at most 128 //
+                  planes; the wider BN first at equal size) whose grid
+                  has a wave of 132 blocks, or the smallest, 64 x 16,
+                  when no tile fills the card (a block walks all of K,
+                  so a small grid wants narrow tiles);
+      "splitk"    M < 64, K >= 32: 64 columns a block, K in ceil(K / KC)
+                  chunks of KC rows (8..128) so that the grid has about
+                  132 blocks;
+      "cuda_core" everything else: BN 16, 32 or 64 from N, BM = 4 * 256 /
+                  (BN / 4).
+    """
+    if min(m, n, k) < 1 or planes < 0:
+        raise ValueError(f"no route for M={m} N={n} K={k} P={planes}")
+    if m >= 64 and k >= MIN_K and k % TC_K_ALIGN == 0 \
+            and 1 <= planes <= TC_MAX_PLANES:
+        top = next((b for b in TC_BN if b >= n), TC_BN[-1])
+        tiles = sorted(((bm * bn, bn, bm) for bm in TC_BM
+                        for bn in TC_BN if (bm == 64 or m >= 128)
+                        and bn <= top and bn * planes <= TC_BN[-1]),
+                       reverse=True)
+        _, bn, bm = next((t for t in tiles
+                          if _cdiv(m, t[2]) * _cdiv(n, t[1]) >= WAVE),
+                         tiles[-1])
+        return Route("tc", bm, bn, 0, (_cdiv(n, bn), _cdiv(m, bm)))
+    if m <= SPLITK_MAX_M and k >= MIN_K:
+        tiles = _cdiv(n, SPLITK_BN)
+        lo, hi = SPLITK_KC
+        chunks = max(1, min(_cdiv(k, lo), _cdiv(WAVE, tiles)))
+        kc = min(hi, _cdiv(k, chunks))
+        return Route("splitk", 0, SPLITK_BN, kc, (tiles, _cdiv(k, kc)))
+    bn = next((b for b in CORE_BN if b >= n), CORE_BN[-1])
+    bm = 4 * 256 // (bn // 4)
+    return Route("cuda_core", bm, bn, 0, (_cdiv(m, bm), _cdiv(n, bn)))
+
+
+def route_counts(tiles) -> Dict[str, int]:
+    """Launches per route for an iterable of (m, n, k, planes) calls."""
+    out = {"tc": 0, "splitk": 0, "cuda_core": 0}
+    for t in tiles:
+        out[route_for(*t).name] += 1
+    return out
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = [_P, _P, _P, _P, _P,          # x, w, gamma, beta, out
-              _I, _I, _I, _I, _I,          # M, N, K, P, plane_shift
-              ctypes.c_float, _I, _I, _I,  # g0, r_out, fuse_adc, beta_rows
-              _P]                          # cudaStream_t
+_F = ctypes.c_float
+# library -> (entry point, its argument types after the five tensors x, w,
+# gamma, beta, out)
+_ENTRIES = {
+    "cim_mbiw": ("cim_mbiw_launch",
+                 [_I] * 5 + [_F] + [_I] * 4),     # M N K P shift g0 r_out
+                                                  # fuse beta_rows bn
+    "cim_mbiw_tc": ("cim_mbiw_tc_launch",
+                    [_I] * 5 + [_F] + [_I] * 6),  # .. bm bn wvec
+    "cim_mbiw_splitk": ("cim_mbiw_splitk_launch",
+                        [_P, _P] + [_I] * 5 + [_F] + [_I] * 5),
+                                                  # ws tickets .. kc wvec
+}
+_LIBRARY = {"tc": "cim_mbiw_tc", "splitk": "cim_mbiw_splitk",
+            "cuda_core": "cim_mbiw"}
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("cim_mbiw")
-    fn = lib.cim_mbiw_launch
+def _library(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
+    entry, args = _ENTRIES[name]
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = _SIGNATURE
+        fn.argtypes = [_P] * 5 + args + [_P]      # .. cudaStream_t
         fn.restype = ctypes.c_int
-        lib.cim_mbiw_error_string.argtypes = [ctypes.c_int]
-        lib.cim_mbiw_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
     return lib
+
+
+# route B's int32 workspace per device: tickets and partial sums, zero
+# between calls (each call leaves it zero); grown, never shrunk
+_WORKSPACE: Dict[torch.device, torch.Tensor] = {}
+
+
+def _splitk_workspace(device: torch.device, numel: int) -> torch.Tensor:
+    """At least `numel` zero int32 on `device`, the same tensor for every
+    call that fits.  Allocate it (a first call) before a CUDA graph
+    captures route B."""
+    ws = _WORKSPACE.get(device)
+    if ws is None or ws.numel() < numel:
+        ws = torch.zeros(max(numel, 2 * (0 if ws is None else ws.numel())),
+                         dtype=torch.int32, device=device)
+        _WORKSPACE[device] = ws
+    return ws
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -60,11 +196,49 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
 
 
+def launch(route: Route, x_planes: torch.Tensor, w_q: torch.Tensor,
+           gamma: torch.Tensor, beta: torch.Tensor, out: torch.Tensor, *,
+           plane_shift: int, g0: float, r_out: int, fuse_adc: bool) -> None:
+    """Launch `route` on checked CUDA tensors (the wrapper's shapes) into
+    `out`; raises on a refused launch or a tensor map that cannot be
+    built.  Counts nothing: `cim_mbiw_matmul_planes` counts its launches,
+    and a caller that forces a route (to time one beside another) is not
+    the main path."""
+    m, pk = x_planes.shape
+    k_dim, n = w_q.shape
+    p = pk // k_dim
+    beta_rows = int(beta.shape[0] == m and m != 1)
+    lib_name = _LIBRARY[route.name]
+    lib = _library(lib_name)
+    stream = torch.cuda.current_stream(x_planes.device).cuda_stream
+    tensors = (x_planes.data_ptr(), w_q.data_ptr(), gamma.data_ptr(),
+               beta.data_ptr(), out.data_ptr())
+    common = (m, n, k_dim, p, plane_shift, ctypes.c_float(g0), r_out,
+              int(fuse_adc), beta_rows)
+    wvec = int(n % 16 == 0 and w_q.data_ptr() % 16 == 0)
+    if route.name == "tc":
+        if x_planes.data_ptr() % 16:
+            raise ValueError("x_planes must be 16-byte aligned for TMA")
+        err = lib.cim_mbiw_tc_launch(*tensors, *common, route.bm, route.bn,
+                                     wvec, stream)
+    elif route.name == "splitk":
+        tiles = route.grid[0]
+        ws = _splitk_workspace(x_planes.device, tiles + m * n).data_ptr()
+        err = lib.cim_mbiw_splitk_launch(
+            *tensors, ws + 4 * tiles, ws, *common, route.kc, wvec, stream)
+    else:
+        err = lib.cim_mbiw_launch(*tensors, *common, route.bn, stream)
+    if err:
+        msg = getattr(lib, f"{lib_name}_error_string")(err).decode()
+        raise RuntimeError(f"cim_mbiw {route.name} launch failed: error "
+                           f"{err} ({msg})")
+
+
 def cim_mbiw_matmul_planes(x_planes: torch.Tensor, w_q: torch.Tensor,
                            gamma: torch.Tensor, beta: torch.Tensor, *,
                            plane_shift: int, g0: float, r_out: int,
                            fuse_adc: bool = True) -> torch.Tensor:
-    """CIM matmul over input planes (any M, N, K: the kernel masks edges).
+    """CIM matmul over input planes (any M, N, K: the kernels mask edges).
 
     x_planes : (M, P*K) int8 - P planes laid out plane-major along the last
                axis; plane p carries bits [p*plane_shift, ...).
@@ -98,18 +272,18 @@ def cim_mbiw_matmul_planes(x_planes: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
     if m == 0 or n == 0:
         return out
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.cim_mbiw_launch(
-        x_planes.data_ptr(), w_q.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), out.data_ptr(), m, n, k_dim, pk // k_dim,
-        plane_shift, ctypes.c_float(g0), r_out, int(fuse_adc),
-        int(beta.shape[0] == m and m != 1), stream)
-    if err:
-        raise RuntimeError(f"cim_mbiw kernel launch failed: CUDA error {err} "
-                           f"({lib.cim_mbiw_error_string(err).decode()})")
-    cim_mbiw_matmul_planes.launches += 1
+    route = route_for(m, n, k_dim, pk // k_dim)
+    launch(route, x_planes, w_q, gamma, beta, out, plane_shift=plane_shift,
+           g0=g0, r_out=r_out, fuse_adc=fuse_adc)
+    fn = cim_mbiw_matmul_planes
+    fn.launches += 1
+    if route.name == "tc":
+        fn.launches_tc += 1
+    elif route.name == "splitk":
+        fn.launches_splitk += 1
     return out
 
 
 cim_mbiw_matmul_planes.launches = 0
+cim_mbiw_matmul_planes.launches_tc = 0
+cim_mbiw_matmul_planes.launches_splitk = 0

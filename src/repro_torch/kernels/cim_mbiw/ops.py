@@ -13,8 +13,9 @@ r_out); `kernel_variant` returns a callable specialized to that point
 (plane walk + accumulator shift from r_in, ADC epilogue from r_out) and
 caches it.  `kernel_variant_for_tile` clamps the preferred block sizes to
 one dispatched tile, exactly as the JAX package does, and keys the cache
-on them; the blocks are the schedule's tuning space, but this version of
-the Hopper kernel runs one fixed 64x64 CTA tile, so they change no launch.
+on them; the blocks are the schedule's tuning space, but the Hopper
+kernels take their route and tile from the shape alone
+(`kernel.route_for`), so the blocks change no launch.
 
 Units: inputs/weights are integer codes (unsigned < 2^r_in / odd ints in
 +/-(2^r_w - 1)); outputs are int32 ADC codes in [0, 2^r_out) - or raw

@@ -113,6 +113,23 @@ class NetworkPlan:
         stream_rows=0 this is the kernel launch count of one forward)."""
         return sum(lp.macro_evals for lp in self.layers)
 
+    def tile_calls(self, batch: int) -> List[Tuple[int, int, int, int]]:
+        """(m, n, k, planes) of every kernel call of one forward over
+        `batch` samples (the bucketed extent), in launch order; m counts
+        GEMM rows (a conv layer's batch x out_h x out_w, chunked by
+        cfg.stream_rows)."""
+        calls = []
+        for lp in self.layers:
+            g = lp.spec.conv
+            rows = batch * (g.out_h * g.out_w if g is not None else 1)
+            chunk = self.cfg.stream_rows if self.cfg.stream_rows > 0 \
+                else max(rows, 1)
+            for s in range(0, max(rows, 1), chunk):
+                m = min(chunk, rows - s)
+                calls += [(m, lp.tile_n, ksz, lp.precision.n_planes)
+                          for _ in lp.n_slices for _, ksz in lp.k_slices]
+        return calls
+
 
 def _layer_g0(spec: mapping.LayerSpec, mp: mapping.MacroMapping,
               cfg: EngineConfig) -> float:

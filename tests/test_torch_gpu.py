@@ -78,10 +78,54 @@ def test_cuda_kernel_matches_plain(cuda_device, m, k, n, r_in, r_w, r_out,
 @pytest.mark.gpu
 def test_cuda_kernel_fma_canary(cuda_device):
     c = tref.fma_canary(0)
+    before = tkernel.cim_mbiw_matmul_planes.launches_tc
     got = tops.cim_matmul(*(torch.from_numpy(c[k]).to(cuda_device)
                             for k in ("x", "w", "gamma", "beta")),
                           r_in=8, r_out=c["r_out"], g0=c["g0"])
+    # 64 x 144 @ 144 x 64 at two nibble planes: the tensor-core route
+    assert tkernel.cim_mbiw_matmul_planes.launches_tc == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), c["codes"])
+
+
+# the edges of the routes (kernel.route_for): M around route A's 64 and
+# 128-row tiles and route B's 63, N around the tile widths, K unaligned
+# (no TMA: route C at M >= 64), across route A's 128-value stages and
+# route B's chunks, and past 1024
+ROUTE_M = (1, 4, 63, 64, 65, 129)
+ROUTE_N = (10, 16, 33, 64, 128, 256)
+ROUTE_K = (37, 48, 144, 1040)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", ROUTE_N)
+@pytest.mark.parametrize("m", ROUTE_M)
+def test_cuda_routes_match_plain(cuda_device, m, n):
+    """torch.equal against the plain version at each route's edges, over
+    K in ROUTE_K, one and two planes, both beta shapes and both ADC modes;
+    each call raises the counter of the route route_for names."""
+    kern = tkernel.cim_mbiw_matmul_planes
+    for k in ROUTE_K:
+        for r_in, r_w in ((4, 2), (8, 4)):
+            for beta_rows in (False, True):
+                for fuse_adc in (True, False):
+                    shift, args = _case(m, k, n, r_in, r_w,
+                                        m * 7 + n * 3 + k, beta_rows)
+                    p = args[0].shape[1] // k
+                    route = tkernel.route_for(m, n, k, p).name
+                    kw = dict(plane_shift=shift, g0=0.003, r_out=8,
+                              fuse_adc=fuse_adc)
+                    dev_args = [a.to(cuda_device) for a in args]
+                    counts = (kern.launches, kern.launches_tc,
+                              kern.launches_splitk)
+                    got = kern(*dev_args, **kw)
+                    torch.cuda.synchronize()
+                    assert (kern.launches - counts[0],
+                            kern.launches_tc - counts[1],
+                            kern.launches_splitk - counts[2]) == \
+                        (1, int(route == "tc"), int(route == "splitk"))
+                    want = tref.cim_mbiw_matmul_planes_ref(*dev_args, **kw)
+                    assert torch.equal(got, want), \
+                        (route, m, k, n, p, beta_rows, fuse_adc)
 
 
 @pytest.mark.gpu
@@ -100,6 +144,30 @@ def test_lenet_on_card_matches_host(cuda_device, r_in, r_w):
         gpu.plan.total_macro_evals
     assert torch.equal(y, gpu.reference(x))
     assert torch.equal(y.cpu(), cpu.serve(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", (256, 1))
+@pytest.mark.parametrize("r_in,r_w", [(4, 2), (8, 4)])
+def test_lenet_on_card_routes(cuda_device, r_in, r_w, batch):
+    """A LeNet forward launches each route as route_for names it for the
+    plan's tiles: conv1 on the CUDA cores, every K >= 32 tile on the
+    tensor cores (batch 256) or split-K (the fc layers at batch 1)."""
+    cim = CIMConfig(r_in=r_in, r_w=r_w)
+    params = cnn.lenet_params_list(
+        cnn.init_lenet(torch.Generator().manual_seed(3), cim=cim))
+    x = torch.from_numpy(make_dataset(1, batch, seed=2)[2][..., None])
+    gpu = cnn.lenet_program(batch, cim=cim).bind(params)
+    want = tkernel.route_counts(gpu.plan.tile_calls(batch))
+    assert want["cuda_core"] == 1
+    kern = tkernel.cim_mbiw_matmul_planes
+    counts = (kern.launches, kern.launches_tc, kern.launches_splitk)
+    y = gpu.serve(x)
+    torch.cuda.synchronize()
+    got = (kern.launches - counts[0], kern.launches_tc - counts[1],
+           kern.launches_splitk - counts[2])
+    assert got == (sum(want.values()), want["tc"], want["splitk"])
+    assert torch.equal(y, gpu.reference(x))
 
 
 def _ring_inputs(r, l, h, hd, seed, device, last_chunk=False):
@@ -199,7 +267,8 @@ def test_decode_full_width_depth2_fused_equals_sequential(cuda_device):
             (1, Request(2, (42, 9), 2)),
             (2, Request(3, (50000,), 3))]
     kern = tkernel.cim_mbiw_matmul_planes
-    kern.launches = rkernel.ring_decode.launches = 0
+    kern.launches = kern.launches_splitk = 0
+    rkernel.ring_decode.launches = 0
     sched = InflightScheduler(model, capacity=4)
     out = sched.run(reqs)
     torch.cuda.synchronize()
@@ -211,6 +280,7 @@ def test_decode_full_width_depth2_fused_equals_sequential(cuda_device):
                     + b.down.plan.total_macro_evals
                     for b in model.blocks_for(p)) for p in model.points}
     assert kern.launches == sum(tiles[p] * calls[p] for p in calls)
+    assert kern.launches_splitk == kern.launches     # every tile: M <= 4
     assert rkernel.ring_decode.launches == 2 * sum(calls.values())
     for _, r in reqs:
         assert out[r.uid] == decode_sequential(model, r)
@@ -347,3 +417,45 @@ def test_train_step_full_width_depth2(cuda_device):
     assert np.isfinite(float(m["loss"])) and np.isfinite(
         float(m["grad_norm"]))
     assert int(state["opt"]["step"]) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("api", ("flag", "precision"))
+def test_fakequant_forward_exact_with_tf32_on(cuda_device, api):
+    """With TF32 turned on by the caller, the fakequant forward on the card
+    equals its forward with TF32 off bit for bit, and the caller's setting
+    reads as it was.  A control with 12-bit integer operands (more than
+    TF32's 11-bit significand holds; every sum below 2^24, so exact in
+    float32) shows that TF32 was on and that the pin inside the forward
+    (`exact_float32_matmul`) undoes it."""
+    from repro_torch.core.cim_layers import (cim_linear_apply,
+                                             exact_float32_matmul)
+    g = torch.Generator().manual_seed(4)
+    k, n = 1152, 256
+    x = torch.randn((8, k), generator=g).to(cuda_device)
+    p = {"w": (torch.randn((k, n), generator=g) / k ** 0.5).to(cuda_device),
+         "abn_log_gamma": torch.rand(n, generator=g).to(cuda_device) * 9,
+         "abn_beta": (torch.rand(n, generator=g).to(cuda_device) - 0.5) * 6}
+    cfg = CIMConfig(mode="fakequant", max_gamma=2.0**16)
+    mm = torch.backends.cuda.matmul
+    assert not mm.allow_tf32
+    want = cim_linear_apply(p, x, cfg)
+    a = torch.randint(0, 2**12, (64, 256), generator=g).double()
+    b = torch.randint(-8, 8, (256, n), generator=g).double()
+    exact = (a @ b).to(cuda_device)          # float64 on the host: exact
+    a, b = a.float().to(cuda_device), b.float().to(cuda_device)
+    try:
+        if api == "flag":
+            mm.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision("high")
+        got = cim_linear_apply(p, x, cfg)
+        assert mm.allow_tf32
+        assert not torch.equal((a @ b).double(), exact)
+        with exact_float32_matmul():
+            pinned = a @ b
+        assert mm.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    assert torch.equal(got, want)
+    assert torch.equal(pinned.double(), exact)
