@@ -38,6 +38,11 @@ a result:
                 bf16 rows (q and k x 8, D 128), where float32 itself
                 misses these limits, are held to float64 within the
                 limits plus the plain version's own float32 distance.
+                threefry_normal: torch.equal over streams {1, 3, 1568} x
+                n {1, 127, 128, 129, 2048, 2^22} (at most 2^24 normals a
+                case), keys from key, fold_in (an id above 2^31) and
+                split, and equal to the host's plain draw where that is
+                at most 2^22 normals; one launch a call.
   3. lenet    - the first main path: LeNet (28x28x1 -> conv16 -> pool ->
                 conv32 -> pool -> fc 1568->128 -> fc 128->10) served at full
                 width through compile_program(...).bind(...).serve at
@@ -49,7 +54,22 @@ a result:
                 route route_for names for it (conv1 on the CUDA cores,
                 the K >= 32 tiles on the tensor cores).  Median latency
                 and images/s at 256.
-  4. decode   - the second main path: in-flight decode serving
+  4. noise    - the noise slice's main path: LeNet as in phase 3 with
+                EngineConfig(noise=NoiseConfig()) (the post-silicon noise
+                model; the planned cim_mbiw tiles in raw-dp mode, each on
+                its route, and the ADC epilogue outside the kernel), key
+                prng.key(1), at (4, 2) and (8, 4), batch 256: logits ==
+                the card reference == the port's CPU run bit for bit; the
+                same key repeats, key 2 and the clean run differ;
+                serve_batch(requests, key, isolate=True) == each request's
+                solo serve under request_noise_ids; threefry_normal once
+                a layer.  A Monte-Carlo sweep of 8 trials over
+                split(key, 8) at noise scales {0.25, 1, 4} (thermal RMS
+                and SA-offset sigma scaled) prints top-1 agreement with
+                the clean logits (only reproducibility is asserted).
+                Median noisy and clean serve latency, and a profiled noisy
+                forward's device time with the draw kernel's share.
+  5. decode   - the second main path: in-flight decode serving
                 (InflightScheduler over CIMDecodeLM) at OLMo-1B widths
                 (d 2048, 16 heads, d_ff 8192, vocab 50304, window 2048,
                 RoPE theta 1e4; depth DECODE_DEPTH), points "" = (4, 2)
@@ -62,7 +82,12 @@ a result:
                 its card reference.  Bind seconds, median fused-step
                 latency per point, tokens/s, and the profiler's device
                 time and busy share of one fused step per point.
-  5. train    - the third main path: OLMo-1B (16 layers, d 2048, 16
+  6. noise decode - in-flight decode as in phase 5 with noise, depth
+                2, point (4, 2), 4 requests at capacity 4 under
+                prng.key(0): every fused stream == its solo
+                decode_sequential(..., key), and the streams differ from
+                the clean model's; threefry_normal once a projection call.
+  7. train    - the third main path: OLMo-1B (16 layers, d 2048, 16
                 heads of 128, d_ff 8192, vocab 50304, tied head, bf16,
                 remat) built by launch/train.build as `--arch olmo-1b
                 --cim-mode fakequant --attn-impl pallas` (r_in 8, r_w 4,
@@ -80,8 +105,14 @@ a result:
                 TRAIN_JNP_RTOL, and a control with an off-by-one causal
                 mask falls outside it.  Host ms per step (ending in a
                 sync), tokens/s, peak memory, and a profiled step's
-                device time and flash share.
-  6. times    - CUDA-event times of each kernel, its plain version and a
+                device time and flash share.  The noisy step: the same
+                weights and batch under CIMConfig(noise=NoiseConfig()) and
+                the launcher's step-0 key; loss and gradient twice, bit
+                for bit equal, finite and off the clean step 0's;
+                threefry_normal once per row tile of every projection and
+                once for its residues, forward and recompute; host ms of
+                a noisy step against the clean median.
+  8. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
                 ring_decode and the flash kernels: yardsticks the port
@@ -97,7 +128,9 @@ a result:
                 inputs, device microseconds per call of the kernel, that
                 earlier design and _int_mm from 20 calls replayed in one
                 CUDA graph, and the wrapper's host microseconds per
-                launch.
+                launch.  For threefry_normal: at the noisy LeNet's conv1
+                draw (1569 streams of 2048), with torch.randn of as many
+                normals as a yardstick of another function.
 
 Then the `kernels` JSON line, the card's name and power limit as
 nvidia-smi reports them, and last the JSON result line.  Detailed numbers
@@ -130,12 +163,12 @@ ROUTE_N = (10, 16, 33, 64, 128, 256)
 ROUTE_K = (37, 48, 144, 1040)
 REQUESTS = (1, 7, 100)
 PRECISIONS = ((4, 2), (8, 4))
-# OLMo-1B's widths (arXiv:2402.00838); depth is the only cut: 6 of its 16
+# OLMo-1B's widths (arXiv:2402.00838); depth is the only cut: 4 of its 16
 # blocks keep the whole script well inside its time limit, since the
 # decode phase's cost grows with depth (PERF.md has the full depth's run)
 DECODE_WIDTHS = dict(d=2048, n_heads=16, d_ff=8192, vocab=50304,
                      window=2048, rope_theta=1e4)
-DECODE_DEPTH = 6
+DECODE_DEPTH = 4
 DECODE_POINTS = {"": (4, 2), "quality": (8, 4)}
 DECODE_CAPACITY = 4
 DECODE_REQUESTS = 8
@@ -154,6 +187,26 @@ TRAIN_LR = 3e-4
 # in PERF.md.  A control step with an off-by-one causal mask must break
 # one: at random weights only the gradient limit tells it apart
 TRAIN_JNP_RTOL = {"loss": 5e-4, "grad_norm": 5e-3, "grad": 5e-2}
+# the draw kernel's checks: streams x lengths (2048 = 128 x 16, a LeNet
+# conv1 block), each case of at most DRAW_MAX normals (1568 x 2^22 would
+# be 26 GB), those of at most DRAW_HOST_MAX drawn on the host too
+DRAW_STREAMS = (1, 3, 1568)
+DRAW_LENGTHS = (1, 127, 128, 129, 2048, 1 << 22)
+DRAW_MAX = 1 << 24
+DRAW_HOST_MAX = 1 << 22
+# per normal: about 84 int32 operations (the threefry rounds and key
+# injections, the bit moves) and about 97 float32 operations (an fma
+# counted as two: uniform, both log1p branches, erf_inv)
+DRAW_INT_OPS = 84
+DRAW_F32_OPS = 97
+PEAK_INT32_OPS = 16.7e12       # H100 SXM: 64 INT32 lanes x 132 SMs x 1.98 GHz
+# Monte-Carlo sweep of noisy LeNet: trials per scale; a scale multiplies
+# the random terms (thermal RMS and SA-offset sigma)
+MC_TRIALS = 8
+MC_SCALES = (0.25, 1.0, 4.0)
+# noisy decode: OLMo-1B widths at depth 2, 4 requests at capacity 4
+NOISE_DECODE_DEPTH = 2
+NOISE_DECODE_REQUESTS = 4
 
 
 def check(ok: bool, what: str) -> None:
@@ -342,6 +395,242 @@ def ring_checks(rk, rref, dev) -> dict:
                         rmax = max(rmax, err)
                         rcases += 1
     return {"cases": rcases, "max_abs_err": rmax}
+
+
+def draw_bound_ms(streams: int, n: int) -> tuple:
+    """Least time (ms) of one threefry_normal call and what bounds it: the
+    keys read and the normals written once, against the int32 and float32
+    operations per normal at their peak rates."""
+    total = streams * n
+    t_bytes = (16 * streams + 4 * total) / PEAK_BYTES
+    t_ops = max(DRAW_INT_OPS * total / PEAK_INT32_OPS,
+                DRAW_F32_OPS * total / PEAK_F32_OPS)
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def draw_checks(dev) -> dict:
+    """threefry_normal against its plain version on the card (and the
+    host's run where it is small enough), bit for bit, one launch a call,
+    over DRAW_STREAMS x DRAW_LENGTHS; keys from key, fold_in (an id above
+    2^31) and split."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.prng import kernel as pk
+    from repro_torch.kernels.prng.ref import threefry_normal_ref
+    base = prng.key(7)
+    keys = torch.cat([base[None], prng.fold_in(base, 2**31 + 5)[None],
+                      prng.split(base, max(DRAW_STREAMS) - 2)])
+    cases, host = 0, 0
+    for streams in DRAW_STREAMS:
+        for n in DRAW_LENGTHS:
+            if streams * n > DRAW_MAX:
+                continue
+            k = keys[:streams]
+            before = pk.threefry_normal.launches
+            got = pk.threefry_normal(k.to(dev), n)
+            torch.cuda.synchronize()
+            check(pk.threefry_normal.launches == before + 1,
+                  f"threefry_normal ({streams}, {n}): launches rose by "
+                  f"{pk.threefry_normal.launches - before}")
+            check(torch.equal(got, threefry_normal_ref(k.to(dev), n)),
+                  f"threefry_normal != plain on the card at ({streams}, {n})")
+            if streams * n <= DRAW_HOST_MAX:
+                check(torch.equal(got.cpu(), threefry_normal_ref(k, n)),
+                      f"threefry_normal != the host's draw at "
+                      f"({streams}, {n})")
+                host += 1
+            cases += 1
+            del got
+    return {"cases": cases, "host_cases": host, "max_abs_err": 0.0}
+
+
+def lenet_noise_phase(dev, tag, make_dataset, cnn, kern, kmod) -> dict:
+    """Noisy LeNet serving at full width (module docstring, phase 4)."""
+    from repro_torch.core import prng
+    from repro_torch.core.cim_layers import CIMConfig
+    from repro_torch.core.noise_model import NoiseConfig
+    from repro_torch.kernels.prng import kernel as pk
+    from repro_torch.runtime.program import request_noise_ids
+    draw = pk.threefry_normal
+    n_img = LENET_BATCH + sum(REQUESTS)
+    images = torch.from_numpy(make_dataset(n_train=1, n_test=n_img,
+                                           seed=0)[2][..., None])
+    x = images[:LENET_BATCH]
+    reqs, s = [], LENET_BATCH
+    for b in REQUESTS:
+        reqs.append(images[s:s + b])
+        s += b
+    key, key2 = prng.key(1), prng.key(2)
+    out = {"launches": {"cim_mbiw": 0, "cim_mbiw_tc": 0,
+                        "cim_mbiw_splitk": 0, "threefry_normal": 0}}
+    for r_in, r_w in PRECISIONS:
+        cim = CIMConfig(r_in=r_in, r_w=r_w, noise=NoiseConfig())
+        params = cnn.lenet_params_list(
+            cnn.init_lenet(torch.Generator().manual_seed(0), cim=cim))
+        prog = cnn.lenet_program(LENET_BATCH, cim=cim)
+        bound = prog.bind(params)
+        plan = prog.plan
+        # the main path: every count to 0 just before, read just after
+        reset_counts(kern)
+        draw.launches = 0
+        y = bound.serve(x, key)
+        torch.cuda.synchronize()
+        got = kernel_counts(kern) + (draw.launches,)
+        want = kmod.route_counts(plan.tile_calls(LENET_BATCH))
+        check(got == (plan.total_macro_evals, want["tc"], want["splitk"],
+                      len(plan.layers)),
+              f"noisy LeNet ({r_in},{r_w}): launches (cim_mbiw, tc, splitk, "
+              f"threefry_normal) {got} != planned tiles {want} and one draw "
+              f"a layer ({len(plan.layers)})")
+        for name, v in zip(out["launches"], got):
+            out["launches"][name] += v
+        check(tuple(y.shape) == (LENET_BATCH, 10)
+              and bool(torch.isfinite(y).all()), "noisy logits")
+        check(torch.equal(y, bound.reference(x, key)),
+              f"noisy LeNet ({r_in},{r_w}): card != card reference")
+        host = cnn.lenet_program(LENET_BATCH, cim=cim, device="cpu")
+        check(torch.equal(y.cpu(), host.bind(params).serve(x, key)),
+              f"noisy LeNet ({r_in},{r_w}): card != CPU run")
+        check(torch.equal(y, bound.serve(x, key)), "same key, other logits")
+        clean_prog = cnn.lenet_program(
+            LENET_BATCH, cim=cim.replace(noise=NoiseConfig(enabled=False)))
+        clean = clean_prog.bind(params)
+        y0 = clean.serve(x)
+        check(not torch.equal(y, bound.serve(x, key2))
+              and not torch.equal(y, y0),
+              "a second key or the clean run gave the same logits")
+        # identity-keyed isolation: each request as it is served alone
+        reset_counts(kern)
+        draw.launches = 0
+        ys = bound.serve_batch(reqs, key, isolate=True)
+        torch.cuda.synchronize()
+        got_b = kernel_counts(kern) + (draw.launches,)
+        for name, v in zip(out["launches"], got_b):
+            out["launches"][name] += v
+        check(got_b[3] == len(plan.layers),
+              f"isolated serve_batch: {got_b[3]} draws != one a layer")
+        for i, (yi, xi) in enumerate(zip(ys, reqs)):
+            solo = bound.serve(xi, key, segments=torch.zeros(
+                xi.shape[0], dtype=torch.int64),
+                noise_ids=request_noise_ids(i, xi.shape[0]))
+            check(torch.equal(yi, solo),
+                  f"isolated request {i} != its solo noisy serve")
+        # Monte-Carlo sweep over split(key, MC_TRIALS), as the JAX
+        # engine's monte_carlo loops, at noise scales MC_SCALES
+        top0 = torch.argmax(y0, dim=-1)
+        trials = prng.split(key, MC_TRIALS)
+        agree = {}
+        for sc in MC_SCALES:
+            point = NoiseConfig(thermal_rms_lsb8=0.52 * sc,
+                                sa_sigma_v=0.020 * sc)
+            ys_mc = [bound.serve(x, k, point) for k in trials]
+            check(torch.equal(ys_mc[0], bound.serve(x, trials[0], point)),
+                  f"MC trial 0 at scale {sc} did not repeat")
+            agree[str(sc)] = [float((torch.argmax(t, -1) == top0).float()
+                                    .mean()) for t in ys_mc]
+        lat = {"noisy": [], "clean": []}
+        for _ in range(15):
+            for name, fn in (("noisy", lambda: bound.serve(x, key)),
+                             ("clean", lambda: clean.serve(x))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                lat[name].append(1e3 * (time.perf_counter() - t0))
+        med = {k: statistics.median(v[3:]) for k, v in lat.items()}
+        prof = device_profile(lambda: bound.serve(x, key), 5,
+                              groups=("cim_mbiw", "threefry_normal"))
+        rec = {"median_ms": med, "latencies_ms": lat, "profile": prof,
+               "mc_top1_agreement": agree,
+               "launches_per_forward": dict(zip(
+                   ("cim_mbiw", "cim_mbiw_tc", "cim_mbiw_splitk",
+                    "threefry_normal"), got))}
+        out[f"{r_in},{r_w}"] = rec
+        share = (f"profiled noisy forward: device {prof['device_us']:.1f} "
+                 f"us, threefry_normal {prof['threefry_normal_us']:.1f} us "
+                 f"({100 * prof['threefry_normal_us'] / prof['device_us']:.1f}"
+                 f"%), cim_mbiw {prof['cim_mbiw_us']:.1f} us" if prof
+                 else "device time not measured (profiler saw none)")
+        print(f"noise lenet ({r_in},{r_w}) {tag}: batch {LENET_BATCH} noisy "
+              f"logits == card reference == CPU run (bit for bit), same key "
+              f"repeats, key 2 and clean differ; isolated serve_batch "
+              f"{list(REQUESTS)} == solo serves; launches per forward "
+              f"{rec['launches_per_forward']} (tiles in raw-dp mode on "
+              f"route_for's routes, one draw a layer); MC top-1 agreement "
+              f"with clean over {MC_TRIALS} trials, scale: " + "; ".join(
+                  f"{sc} mean {np.mean(v):.4f}" for sc, v in agree.items())
+              + f"; median serve noisy {med['noisy']:.3f} ms, clean "
+              f"{med['clean']:.3f} ms; {share}", flush=True)
+    return out
+
+
+def noisy_decode_phase(dev, tag, kern) -> dict:
+    """Noisy in-flight decode at OLMo-1B widths, depth NOISE_DECODE_DEPTH
+    (module docstring, phase 6): every fused stream == its solo decode
+    under the key, the streams differ from the clean model's."""
+    from repro_torch.core import prng
+    from repro_torch.core.noise_model import NoiseConfig
+    from repro_torch.kernels.prng import kernel as pk
+    from repro_torch.runtime import engine as rt
+    from repro_torch.runtime.scheduler import (CIMDecodeLM,
+                                               InflightScheduler, Request,
+                                               decode_sequential)
+    draw = pk.threefry_normal
+    key = prng.key(0)
+    models = {}
+    for name, noise in (("noisy", NoiseConfig()),
+                        ("clean", NoiseConfig(enabled=False))):
+        models[name] = CIMDecodeLM.toy(
+            torch.Generator().manual_seed(0), depth=NOISE_DECODE_DEPTH,
+            r_in=DECODE_POINTS[""][0], r_w=DECODE_POINTS[""][1],
+            cfg=rt.EngineConfig(noise=noise), **DECODE_WIDTHS)
+    model = models["noisy"]
+    rng = np.random.default_rng(1)
+    reqs = [Request(u, tuple(int(t) for t in rng.integers(
+        0, model.vocab, size=int(rng.integers(1, 4)))),
+        int(rng.integers(2, 5))) for u in range(NOISE_DECODE_REQUESTS)]
+    arrivals = [(i // 2, r) for i, r in enumerate(reqs)]
+    reset_counts(kern)
+    draw.launches = 0
+    sched = InflightScheduler(model, capacity=DECODE_CAPACITY, key=key)
+    t0 = time.perf_counter()
+    streams = sched.run(arrivals)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"cim_mbiw": kern.launches,
+                "cim_mbiw_splitk": kern.launches_splitk,
+                "threefry_normal": draw.launches}
+    calls = sum(len(r.prompt) for r in reqs) + sched.decode_steps
+    projections = 4 * NOISE_DECODE_DEPTH
+    check(launches["threefry_normal"] == projections * calls,
+          f"noisy decode: {launches['threefry_normal']} draws != one a "
+          f"projection call ({projections} x {calls} calls)")
+    check(launches["cim_mbiw_splitk"] == launches["cim_mbiw"] > 0,
+          "noisy decode tiles off the split-K route")
+    for r in reqs:
+        check(decode_sequential(model, r, key) == streams[r.uid],
+              f"noisy request {r.uid}: fused stream != solo decode")
+    clean = InflightScheduler(models["clean"], capacity=DECODE_CAPACITY)
+    clean_streams = clean.run(arrivals)
+    check(clean_streams != streams, "noisy streams equal the clean ones")
+    met = sched.metrics()
+    rec = {"depth": NOISE_DECODE_DEPTH, "requests": [
+        (r.uid, r.prompt, r.max_new_tokens) for r in reqs],
+        "streams": {str(u): t for u, t in streams.items()},
+        "clean_streams": {str(u): t for u, t in clean_streams.items()},
+        "launches": launches, "run_s": run_s, "metrics": met,
+        "clean_metrics": clean.metrics()}
+    print(f"noise decode {tag}: OLMo-1B widths, depth {NOISE_DECODE_DEPTH}, "
+          f"point {DECODE_POINTS['']}, {len(reqs)} requests at capacity "
+          f"{DECODE_CAPACITY} under key(0): every fused stream == "
+          f"decode_sequential(..., key), streams differ from the clean "
+          f"model's; launches {launches} (one draw per projection call); "
+          f"fused steps {met['decode_steps']:.0f} in "
+          f"{met['decode_wall_s']:.1f} s noisy, "
+          f"{rec['clean_metrics']['decode_wall_s']:.1f} s clean "
+          f"({rec['clean_metrics']['decode_steps']:.0f} steps)", flush=True)
+    del models, model, sched
+    return rec
 
 
 def decode_requests(vocab: int) -> list:
@@ -576,7 +865,7 @@ def flash_checks(fk, fref, dev) -> dict:
 
 
 def train_phase(dev, tag) -> dict:
-    """The train path (module docstring, phase 5).  Returns its record,
+    """The train path (module docstring, phase 7).  Returns its record,
     with the flash launch counts of the TRAIN_STEPS steps."""
     from repro_torch.configs import SHAPES
     from repro_torch.kernels.flash_attn import kernel as fk
@@ -648,8 +937,8 @@ def train_phase(dev, tag) -> dict:
             p.copy_(p0)
     del init
 
-    def loss_grads(c):
-        loss, _ = steps.loss_fn(c, state["params"], batches[0])
+    def loss_grads(c, key=None):
+        loss, _ = steps.loss_fn(c, state["params"], batches[0], key)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         return float(loss.detach()), [torch.zeros_like(p) if g is None
                                       else g for p, g in zip(leaves, grads)]
@@ -691,6 +980,8 @@ def train_phase(dev, tag) -> dict:
     check(any(vs["control"]["rel"][m] > lim
               for m, lim in TRAIN_JNP_RTOL.items()),
           f"an off-by-one causal mask passes {TRAIN_JNP_RTOL}: {vs}")
+    noisy = noisy_train_step(cfg, state, batches, loss_grads, vs, step_ms,
+                             tag)
 
     # one more flash step under the profiler (device only)
     prof = device_profile(lambda: step_fn(state, batches[0])[1]["loss"]
@@ -712,7 +1003,7 @@ def train_phase(dev, tag) -> dict:
                                  "flash_bwd_dkv"), launches)),
            "launches_tc": dict(zip(("flash_fwd", "flash_bwd_dq",
                                     "flash_bwd_dkv"), launches_tc)),
-           "profile": prof,
+           "profile": prof, "noisy": noisy,
            "flash_share": flash_us / prof["device_us"] if prof else None}
     busy = (f"profiled step: device {prof['device_us'] / 1e3:.1f} ms, "
             f"flash {flash_us / 1e3:.1f} ms "
@@ -732,6 +1023,74 @@ def train_phase(dev, tag) -> dict:
           f"GB ({resident_gb:.1f} GB of it resident before the phase), "
           f"build {init_s:.1f} s; {busy}", flush=True)
     del state
+    return rec
+
+
+def noisy_train_step(cfg, state, batches, loss_grads, vs, step_ms,
+                     tag) -> dict:
+    """The noisy train step (module docstring, phase 7): the train phase's
+    weights (at their initial values) and first batch under
+    CIMConfig(noise=NoiseConfig()) and the launcher's step-0 key.  Loss
+    and gradient twice, bit-equal; the draw kernel launched once per row
+    tile of every projection and once for its SA residues, forward and
+    recompute; then one timed noisy step of make_train_step.  Leaves the
+    weights one noisy step on."""
+    from repro_torch.core.cim_layers import CIMConfig
+    from repro_torch.core.noise_model import NoiseConfig
+    from repro_torch.kernels.prng import kernel as pk
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import AdamWConfig
+    draw = pk.threefry_normal
+    ncfg = cfg.replace(cim=cfg.cim.replace(noise=NoiseConfig()))
+    nargs = train.parser().parse_args(["--arch", "olmo-1b", "--cim-noise"])
+    key = train.step_key(nargs, 0)
+    n_rows = CIMConfig().macro.n_rows
+
+    def row_tiles(k):
+        return -(-k // n_rows)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    # a draw per row tile of each of the 7 projections, one per
+    # projection for its residues
+    per_layer = (3 * row_tiles(d) + row_tiles(cfg.n_heads * hd)
+                 + 2 * row_tiles(d) + row_tiles(cfg.d_ff)) + 7
+    # forward, and the recompute of a checkpointed layer
+    want = (1 + int(cfg.remat)) * cfg.n_layers * per_layer
+    draw.launches = 0
+    loss1, g1 = loss_grads(ncfg, key)
+    launches = draw.launches
+    loss2, g2 = loss_grads(ncfg, key)
+    check(launches == want,
+          f"noisy step: {launches} draws != projections x (row tiles + 1) "
+          f"x 2 ({want})")
+    check(np.isfinite(loss1) and loss1 == loss2
+          and all(torch.equal(a, b) for a, b in zip(g1, g2)),
+          "noisy step did not repeat bit for bit")
+    check(loss1 != vs["flash"]["loss"],
+          "the noisy loss equals the clean step 0's")
+    del g1, g2
+    nstep = steps.make_train_step(ncfg, AdamWConfig(lr=TRAIN_LR),
+                                  total_steps=TRAIN_STEPS,
+                                  warmup=min(20, TRAIN_STEPS // 10 + 1))
+    draw.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = nstep(state, batches[0], key)
+    loss_step = float(m["loss"])
+    torch.cuda.synchronize()
+    noisy_ms = 1e3 * (time.perf_counter() - t0)
+    check(draw.launches == want, "the timed noisy step's draws")
+    rec = {"loss": loss1, "clean_loss": vs["flash"]["loss"],
+           "launches": launches + draw.launches, "per_step": want,
+           "step_ms": noisy_ms, "clean_median_step_ms":
+           statistics.median(step_ms), "step_loss": loss_step}
+    print(f"noise train {tag}: OLMo-1B step 0 under NoiseConfig() and "
+          f"step_key(0): loss {loss1:.6f} (clean {vs['flash']['loss']:.6f}), "
+          f"loss and gradient bit-equal on a second run; threefry_normal "
+          f"{want} launches a step ({cfg.n_layers} layers x {per_layer} "
+          f"(projection row tiles + one residue draw a projection) x "
+          f"{1 + int(cfg.remat)}, with the recompute); host "
+          f"{noisy_ms:.1f} ms a noisy step "
+          f"against {rec['clean_median_step_ms']:.1f} ms clean", flush=True)
     return rec
 
 
@@ -779,6 +1138,31 @@ def cuda_core_fns(fk, q, k, v, do, lse, delta, q_off, causal) -> dict:
             lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dkv_st, *rest) == 0, "CUDA-core dk/dv launch")
     return {"fwd": fwd, "dq": dq_, "dkv": dkv}
+
+
+def draw_times(dev, tag) -> dict:
+    """CUDA-event ms of threefry_normal and its plain version at the noisy
+    LeNet's conv1 draw (batch 256: the residue stream and 1568 blocks of
+    128 rows x 16 channels), its bound, and torch.randn of as many normals
+    as a yardstick (not the same function: PyTorch's Philox normals)."""
+    from repro_torch.core import prng
+    from repro_torch.kernels.prng import kernel as pk
+    from repro_torch.kernels.prng.ref import threefry_normal_ref
+    streams, n = 1 + LENET_BATCH * 784 // 128, 128 * 16
+    keys = prng.fold_in(prng.key(1)[None], torch.arange(streams)).to(dev)
+    before = pk.threefry_normal.launches
+    ms = cuda_ms(lambda: pk.threefry_normal(keys, n), 50)
+    pk.threefry_normal.launches = before     # timing is not the main path
+    plain = cuda_ms(lambda: threefry_normal_ref(keys, n), 3)
+    randn = cuda_ms(lambda: torch.randn((streams, n), device=dev), 50)
+    bnd, by = draw_bound_ms(streams, n)
+    print(f"time {tag} torch.randn of {streams} x {n} normals (a yardstick "
+          f"only: PyTorch's Philox normals, not JAX's threefry ones): "
+          f"{randn:.4f} ms", flush=True)
+    print(f"time {tag} threefry_normal S={streams} n={n}: kernel {ms:.4f} "
+          f"ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+    return {"streams": streams, "n": n, "ms": ms, "plain_ms": plain,
+            "randn_ms": randn, "bound_ms": bnd, "bound_by": by}
 
 
 def flash_times(fk, fref, dev, tag) -> dict:
@@ -1016,6 +1400,15 @@ def main() -> int:
           + "; every bf16 D 64/128 case on the tensor-core forward, dq "
           "and dk/dv; every backward bit-equal on a second run", flush=True)
 
+    draws = draw_checks(dev)
+    report["draw_vs_plain"] = draws
+    print(f"kernels: threefry_normal == plain on the card on "
+          f"{draws['cases']} cases (streams {DRAW_STREAMS} x n "
+          f"{DRAW_LENGTHS}, at most {DRAW_MAX} normals a case; keys from "
+          f"key, fold_in (an id above 2^31) and split), == the host's draw "
+          f"on the {draws['host_cases']} cases of at most {DRAW_HOST_MAX}; "
+          f"one launch a call", flush=True)
+
     phase_s["kernels"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
@@ -1104,6 +1497,12 @@ def main() -> int:
               f"{busy}", flush=True)
     report["lenet"] = lenet
     phase_s["lenet"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 4. noisy LeNet serving (the noise slice's main path) ----------------
+    noise = lenet_noise_phase(dev, tag, make_dataset, cnn, kern, kmod)
+    report["noise_lenet"] = noise
+    phase_s["noise"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
     # -- 4. in-flight decode serving at OLMo-1B widths (the second path) -----
@@ -1211,14 +1610,21 @@ def main() -> int:
     phase_s["decode"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 5. training at full OLMo-1B width (the third main path) -------------
+    # -- 6. noisy in-flight decode -----------------------------------------
+    ndec = noisy_decode_phase(dev, tag, kern)
+    report["noise_decode"] = ndec
+    phase_s["noise_decode"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 7. training at full OLMo-1B width (the third main path), with the
+    #       noisy step ---------------------------------------------------------
     train = train_phase(dev, tag)
     report["train"] = train
     torch.cuda.empty_cache()
     phase_s["train"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 6. times -----------------------------------------------------------
+    # -- 8. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -1334,6 +1740,8 @@ def main() -> int:
           f"{dev_txt}", flush=True)
     ftimes = flash_times(rmod, rref, dev, tag)
     report["flash_times"] = ftimes
+    dtimes = draw_times(dev, tag)
+    report["draw_times"] = dtimes
     phase_s["times"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
@@ -1370,11 +1778,15 @@ def main() -> int:
     fwd = [r for r in timing if r["shape"] == "lenet" and r["r_in"] == 4]
     dec = [r for r in timing if r["shape"] == "decode" and r["r_in"] == 4
            and r["m"] == DECODE_CAPACITY]
+    nl, nd = noise["launches"], ndec["launches"]
     route_launches = {
-        "tc": main_routes["tc"],
-        "splitk": main_routes["splitk"] + dec_splitk,
+        "tc": main_routes["tc"] + nl["cim_mbiw_tc"],
+        "splitk": main_routes["splitk"] + dec_splitk + nl["cim_mbiw_splitk"]
+        + nd["cim_mbiw_splitk"],
         "cuda_core": main_routes["all"] - main_routes["tc"]
-        - main_routes["splitk"] + dec_cim - dec_splitk}
+        - main_routes["splitk"] + dec_cim - dec_splitk + nl["cim_mbiw"]
+        - nl["cim_mbiw_tc"] - nl["cim_mbiw_splitk"] + nd["cim_mbiw"]
+        - nd["cim_mbiw_splitk"]}
 
     def route_entry(name, route, src, rows):
         mult = [2 if r["k"] == 784 and r["shape"] == "lenet" else 1
@@ -1422,6 +1834,17 @@ def main() -> int:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    draw_launches = (noise["launches"]["threefry_normal"]
+                     + ndec["launches"]["threefry_normal"]
+                     + train["noisy"]["launches"])
+    kernels["kernels"].append({
+        "name": "threefry_normal", "route": "cuda",
+        "source": "src/repro_torch/kernels/prng/csrc/threefry_normal.cu",
+        "replaces": "src/repro/runtime/engine.py:587",
+        "launches": draw_launches, "max_abs_err": draws["max_abs_err"],
+        "ms": dtimes["ms"], "plain_ms": dtimes["plain_ms"],
+        "bound_ms": dtimes["bound_ms"], "bound_by": dtimes["bound_by"],
+        "library_ms": None})
     idle = [k["name"] for k in kernels["kernels"] if k["launches"] < 1]
     check(not idle, f"kernels the main paths never launched: {idle}")
     report["kernels"] = kernels
@@ -1431,7 +1854,10 @@ def main() -> int:
                   "cim_mbiw_splitk": main_routes["splitk"]},
         "decode": {"cim_mbiw": dec_cim, "cim_mbiw_splitk": dec_splitk,
                    "ring_decode": dec_ring},
-        "train": train["launches"]}
+        "noise_lenet": noise["launches"],
+        "noise_decode": ndec["launches"],
+        "train": train["launches"],
+        "noise_train": {"threefry_normal": train["noisy"]["launches"]}}
     report["total_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -6,7 +6,9 @@ The layouts match, so nothing is transposed: each CIM layer is
 `decode_lm_from_numpy` builds a whole in-flight decode model from the fp32
 masters of its projections, so both packages can serve the same weights;
 `train_params_from_numpy` turns the JAX LM parameter tree into the
-port's, so both packages can train the same weights.
+port's, so both packages can train the same weights; `key_from_numpy`
+turns JAX key data into the port's PRNG key, so both draw the same
+noise.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ def decode_lm_from_numpy(embed, blocks: Sequence[Mapping[str, Layer]], *,
                          rope_theta: float = 10000.0, r_in: int = 4,
                          r_w: int = 2,
                          points: Optional[Mapping[str, Sequence]] = None,
-                         device=None):
+                         cfg=None, device=None):
     """A port `CIMDecodeLM` serving the given fp32 masters.
 
     Args:
@@ -60,6 +62,8 @@ def decode_lm_from_numpy(embed, blocks: Sequence[Mapping[str, Layer]], *,
       r_in, r_w: the base operating point.
       points: other operating points over the same masters, each one
         (r_in, r_w) pair or four in (qkv, o, gate_up, down) order.
+      cfg: the programs' `runtime.engine.EngineConfig` (its `noise` makes
+        a noisy model); None is the default config.
       device: where the model runs (None means CUDA, as compile_program).
     Returns:
       The bound `repro_torch.runtime.scheduler.CIMDecodeLM`.
@@ -78,7 +82,7 @@ def decode_lm_from_numpy(embed, blocks: Sequence[Mapping[str, Layer]], *,
     emb = torch.from_numpy(np.array(embed, dtype=np.float32))
     return CIMDecodeLM.from_masters(
         emb, masters, n_heads=n_heads, window=window, rope_theta=rope_theta,
-        r_in=r_in, r_w=r_w, points=dict(points) if points else None,
+        r_in=r_in, r_w=r_w, cfg=cfg, points=dict(points) if points else None,
         device=device)
 
 
@@ -116,3 +120,15 @@ def train_params_from_numpy(tree: Mapping, device="cpu") -> Dict:
         n = depth(tree["layers"])
         out["layers"] = [layer(tree["layers"], i) for i in range(n or 0)]
     return out
+
+
+def key_from_numpy(key_data) -> torch.Tensor:
+    """The port's PRNG key (`core/prng`: a (..., 2) int64 host tensor of
+    uint32 words) from JAX key data: a raw uint32 key such as
+    `jax.random.PRNGKey(s)`, or `jax.random.key_data` of a typed key, as
+    numpy."""
+    a = np.asarray(key_data)
+    if a.shape[-1:] != (2,) or a.dtype.kind not in "ui":
+        raise ValueError(f"JAX key data is a (..., 2) uint32 array, got "
+                         f"{a.dtype} {a.shape}")
+    return torch.from_numpy(a.astype(np.uint32).astype(np.int64))

@@ -9,12 +9,14 @@ through, in two of its modes:
   * "fakequant" : the CIM-aware training path.  Exact digital-equivalent
                   integer math (odd-integer weights, unsigned activations,
                   the ABN-scaled floor ADC per <= 1152-row tile) with the
-                  JAX package's STE gradients; its forward equals JAX's
-                  bit for bit.
+                  JAX package's STE gradients, and with cfg.noise enabled
+                  and a PRNG key the post-silicon noise model (calibrated
+                  SA-offset residues inside the ADC floor, thermal noise on
+                  the dp); its forward equals JAX's bit for bit.
 
-The voltage-domain "sim" mode, the "engine" and "deploy" modes and noise
-injection are not ported (they raise NotImplementedError); a whole
-network is served through `runtime.program.compile_program` instead.
+The voltage-domain "sim" mode and the "engine" and "deploy" modes are not
+ported (they raise NotImplementedError); a whole network is served
+through `runtime.program.compile_program` instead.
 
 Parameters per layer: {"w": (K, N) fp32 master weights,
                        "abn_log_gamma": (N,), "abn_beta": (N,)}.
@@ -30,10 +32,13 @@ import torch
 
 from repro_torch.core import abn as abn_lib
 from repro_torch.core import digital_ref, mapping
+from repro_torch.core import noise_model as nm
+from repro_torch.core import prng
 from repro_torch.core.hw import CIMMacroConfig, DEFAULT_MACRO
 from repro_torch.core.noise_model import NO_NOISE, NoiseConfig
-from repro_torch.core.quantization import (adc_quantize, quantize_act,
-                                           quantize_weight, rounding_barrier)
+from repro_torch.core.quantization import (_static_reciprocal, adc_quantize,
+                                           quantize_act, quantize_weight,
+                                           rounding_barrier)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +51,8 @@ class CIMConfig:
     adaptive_swing: bool = True      # serial-split DPL swing adaptation
     gamma_bits: int = -1             # -1: continuous gamma; >=0: HW quant
     max_gamma: float = 32.0          # resistive-ladder limit
-    noise: NoiseConfig = NO_NOISE    # injection not ported (raises)
+    noise: NoiseConfig = NO_NOISE    # fakequant: injected under a key;
+                                     # engine programs: their noise mode
     macro: CIMMacroConfig = DEFAULT_MACRO
 
     def replace(self, **kw) -> "CIMConfig":
@@ -112,23 +118,22 @@ def _engine_config(cfg: CIMConfig):
     layer configs hit one program-cache entry)."""
     from repro_torch.runtime import engine as rt
     return rt.EngineConfig(macro=cfg.macro, adaptive_swing=cfg.adaptive_swing,
-                           gamma_bits=cfg.gamma_bits, max_gamma=cfg.max_gamma)
+                           gamma_bits=cfg.gamma_bits, max_gamma=cfg.max_gamma,
+                           noise=cfg.noise)
 
 
-def cim_linear_apply(params: Dict, x: torch.Tensor,
-                     cfg: CIMConfig) -> torch.Tensor:
+def cim_linear_apply(params: Dict, x: torch.Tensor, cfg: CIMConfig,
+                     key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y ~= x @ w, executed through the configured CIM path.
 
-    x: (..., K).  Returns (..., N) in x's dtype.  Noise is not ported:
-    fakequant with cfg.noise enabled raises NotImplementedError."""
+    x: (..., K).  Returns (..., N) in x's dtype.  `key` (a host
+    `core/prng` key) seeds fakequant's noise when cfg.noise is enabled;
+    without one the forward runs clean, as the JAX package's does."""
     w = params["w"]
     if cfg.mode == "bypass":
         return x @ w.to(x.dtype)
     if cfg.mode == "fakequant":
-        if cfg.noise.enabled:
-            raise NotImplementedError(
-                "CIM noise injection is not ported yet")
-        return _fakequant_forward(params, x, cfg)
+        return _fakequant_forward(params, x, cfg, key)
     if cfg.mode in ("sim", "engine", "deploy"):
         raise NotImplementedError(
             f"CIM mode {cfg.mode!r} of cim_linear_apply is not ported; "
@@ -166,9 +171,19 @@ def exact_float32_matmul() -> Iterator[None]:
             mm.fp32_precision = prev_backend
 
 
-def _fakequant_forward(params: Dict, x: torch.Tensor,
-                       cfg: CIMConfig) -> torch.Tensor:
-    """The JAX package's `_fakequant_forward` with noise off, op for op."""
+def _fakequant_forward(params: Dict, x: torch.Tensor, cfg: CIMConfig,
+                       key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's `_fakequant_forward`, op for op.
+
+    Under noise (cfg.noise enabled and a key) the key splits once for the
+    SA-offset residues (sampled per physical column, gathered per
+    channel, added to beta inside the ADC floor) and once per row tile
+    for that tile's thermal field of dp's shape.  The residues are one
+    launch of the draw kernel and each row tile's field another, dropped
+    before the next tile's (the residues' 256 normals drawn at a field's
+    length, to share its launch, would add a field's worth of draws).
+    The noise config's fields are Python floats here, so its scalars
+    fold in double, as in JAX with the config static."""
     w = params["w"]
     k_dim, n = w.shape
     x32 = rounding_barrier(x.to(torch.float32))
@@ -181,15 +196,41 @@ def _fakequant_forward(params: Dict, x: torch.Tensor,
         gamma_bits=cfg.gamma_bits, max_gamma=cfg.max_gamma)
     g0 = _code_gain(cfg, k_dim)
     mid = 2.0 ** (cfg.r_out - 1)
+    noisy = cfg.noise.enabled and key is not None
+    out_shape = x32.shape[:-1] + (n,)
+    numel = 1
+    for d in out_shape:
+        numel *= d
 
     # K > n_rows splits into even row tiles, each with its own ADC
     # conversion; partial codes are dequantized and summed digitally
     row_tiles = -(-k_dim // cfg.macro.n_rows)
+    slices = mapping.split_k_slices(k_dim, row_tiles)
+    offset_codes = 0.0
+    tile_keys = []
+    if noisy:
+        from repro_torch.kernels.prng.kernel import threefry_normal
+        # JAX: key, k2 = split(key); then key, k1 = split(key) per tile
+        k = prng.key_ints(key)
+        k, k2 = prng.threefry2x32(*k, 0, 0), prng.threefry2x32(*k, 0, 1)
+        for _ in slices:
+            k, k1 = prng.threefry2x32(*k, 0, 0), prng.threefry2x32(*k, 0, 1)
+            tile_keys.append(k1)
+        z = threefry_normal(torch.tensor([k2], dtype=torch.int64,
+                                         device=x.device), cfg.macro.n_cols)
+        # residual SA offset in code units, static per layer call
+        res_v = nm.column_residues_from_offsets(
+            nm.sa_offsets_from_normal(z[0], cfg.noise), n, cfg.r_w,
+            cfg.noise, cfg.macro)
+        lsb_v = cfg.macro.alpha_adc() * cfg.macro.vddh \
+            / 2.0 ** (cfg.r_out - 1)
+        offset_codes = rounding_barrier(gamma * res_v
+                                        * _static_reciprocal(lsb_v))
+        sigma_dp = nm.thermal_sigma_dp(cfg.noise, cfg.r_out, g0)
     gain = rounding_barrier(gamma * g0)
     zp = aq.zero / aq.scale
-    dp_hat = torch.zeros(x32.shape[:-1] + (n,), dtype=torch.float32,
-                         device=x.device)
-    for ks, ksz in mapping.split_k_slices(k_dim, row_tiles):
+    dp_hat = torch.zeros(out_shape, dtype=torch.float32, device=x.device)
+    for t, (ks, ksz) in enumerate(slices):
         ke = ks + ksz
         # integer dot product, exact in fp32 for one macro row tile
         # (|dp| <= 1152*255*15 < 2^24) as long as TF32 stays off, whatever
@@ -200,7 +241,15 @@ def _fakequant_forward(params: Dict, x: torch.Tensor,
         # zero-point x = q*s + z: the z*colsum term folds into the ABN
         # offset inside the ADC floor (beta_eff = beta + gamma*g0*zp_dp)
         zp_dp = zp * torch.sum(wq.q[ks:ke, :], dim=0)
-        beta_eff = params["abn_beta"] + rounding_barrier(gain * zp_dp)
+        if noisy:
+            field = threefry_normal(
+                torch.tensor([tile_keys[t]], dtype=torch.int64,
+                             device=x.device), numel).reshape(out_shape)
+            # thermal noise referred to dp units through the code gain
+            dp = dp + sigma_dp * field
+            field = None
+        beta_eff = (params["abn_beta"] + offset_codes) \
+            + rounding_barrier(gain * zp_dp)
         code = adc_quantize(dp, r_out=cfg.r_out, gain=gain,
                             beta_codes=beta_eff)
         dp_hat = dp_hat + (code - mid - params["abn_beta"]) / gain

@@ -75,6 +75,11 @@ class CIMMacroConfig:
         n_dp = n_units_on * self.rows_per_unit
         return n_dp * self.alpha_eff(n_units_on)
 
+    def alpha_mb(self) -> float:
+        """Multi-bit attenuation (Eq. 5): C_acc is sized to equal the
+        remaining DPL load (C_mb + C_adc), giving ~1/2."""
+        return 0.5
+
     def alpha_adc(self) -> float:
         """SAR attenuation alpha_adc = C_sar / (C_sar + C_p,sar)  (Eq. 7)."""
         return self.c_sar / (self.c_sar + self.c_par_sar)

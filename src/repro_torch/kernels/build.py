@@ -37,6 +37,7 @@ SOURCES: Dict[str, Path] = {
     "flash_bwd_dkv_tc":
         _HERE / "flash_attn" / "csrc" / "flash_bwd_dkv_tc.cu",
     "flash_bwd_dq_tc": _HERE / "flash_attn" / "csrc" / "flash_bwd_dq_tc.cu",
+    "threefry_normal": _HERE / "prng" / "csrc" / "threefry_normal.cu",
 }
 
 # no --use_fast_math: the ADC epilogue and the softmaxes rely on IEEE

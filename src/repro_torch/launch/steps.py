@@ -8,7 +8,7 @@ tensors (reading one waits for the card).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,11 +26,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - ll)
 
 
-def loss_fn(cfg: ModelConfig, params: Dict,
-            batch: Dict) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
+            key: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
     """Mean next-token CE of the dense LM (no MoE aux loss: its weight
-    times zero leaves the JAX package's loss equal to the CE)."""
-    ce = cross_entropy(tf.forward(cfg, params, batch["tokens"]),
+    times zero leaves the JAX package's loss equal to the CE).  `key`
+    seeds the CIM noise model when cfg.cim.noise is enabled (the JAX
+    package's loss_fn takes none and so trains clean under --cim-noise;
+    the port threads it, see ROADMAP Queue 3)."""
+    ce = cross_entropy(tf.forward(cfg, params, batch["tokens"], key=key),
                        batch["labels"])
     return ce, {"ce": ce}
 
@@ -38,18 +41,19 @@ def loss_fn(cfg: ModelConfig, params: Dict,
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                     total_steps: int = 10000, warmup: int = 100,
                     compress_grads: bool = False):
-    """Returns train_step(state, batch) -> (state, metrics).
+    """Returns train_step(state, batch, key=None) -> (state, metrics).
 
     The state is updated in place and returned; metrics are {"loss",
-    "ce", "grad_norm", "lr"} as detached device tensors."""
+    "ce", "grad_norm", "lr"} as detached device tensors.  `key` is the
+    step's noise key (the launcher passes fold_in(key(seed), step))."""
     if compress_grads:
         raise NotImplementedError(
             "gradient compression (optim/compression.py) is not ported")
 
-    def train_step(state, batch):
+    def train_step(state, batch, key=None):
         params = state["params"]
         leaves = tree_leaves(params)
-        loss, parts = loss_fn(cfg, params, batch)
+        loss, parts = loss_fn(cfg, params, batch, key)
         # a leaf the loss does not reach (the ABN params in bypass mode)
         # gets a zero gradient, as under jax.grad
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(

@@ -11,9 +11,10 @@ kernels), `jnp` on the plain attention.
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --smoke \
       --steps 20 --cim-mode fakequant --attn-impl pallas
 
-Checkpointing (`--ckpt-dir`), noise (`--cim-noise`) and gradient
-compression (`--compress-grads`) are not ported and raise
-NotImplementedError.
+`--cim-noise` trains under the post-silicon noise model
+(`NoiseConfig()`), with step s drawing under fold_in(key(--seed), s).
+Checkpointing (`--ckpt-dir`) and gradient compression
+(`--compress-grads`) are not ported and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ import time
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import prng
 from repro_torch.core.cim_layers import CIMConfig
+from repro_torch.core.noise_model import NO_NOISE, NoiseConfig
 from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.optim import AdamWConfig
@@ -43,11 +46,11 @@ def build(args):
     """(cfg, state, step_fn, batch_fn) for the parsed arguments."""
     if args.ckpt_dir:
         raise NotImplementedError("checkpointing is not ported")
-    if args.cim_noise:
-        raise NotImplementedError("CIM noise is not ported")
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cfg = cfg.replace(cim=CIMConfig(mode=args.cim_mode, max_gamma=2.0**16),
+    noise = NoiseConfig() if args.cim_noise else NO_NOISE
+    cfg = cfg.replace(cim=CIMConfig(mode=args.cim_mode, max_gamma=2.0**16,
+                                    noise=noise),
                       attn_impl=args.attn_impl)
     data = SyntheticLM(LMDataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
@@ -65,6 +68,14 @@ def build(args):
     state = init_train_state(
         cfg, torch.Generator(device=dev).manual_seed(args.seed))
     return cfg, state, step_fn, batch_fn
+
+
+def step_key(args, step: int):
+    """Step `step`'s noise key, fold_in(key(--seed), step), or None when
+    --cim-noise is off (a host tensor: keys never wait on the card)."""
+    if not args.cim_noise:
+        return None
+    return prng.fold_in(prng.key(args.seed), step)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -94,10 +105,11 @@ def main(argv=None):
     cfg, state, step_fn, batch_fn = build(args)
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M cim={cfg.cim.mode} "
-          f"attn={cfg.attn_impl} device={args.device}")
+          f"noise={cfg.cim.noise.enabled} attn={cfg.attn_impl} "
+          f"device={args.device}")
     t0 = time.time()
     for step in range(args.steps):
-        state, metrics = step_fn(state, batch_fn(step))
+        state, metrics = step_fn(state, batch_fn(step), step_key(args, step))
         if step % 10 == 0 or step == args.steps - 1:
             print(f"step {step:4d} loss={float(metrics['loss']):.4f} "
                   f"gnorm={float(metrics['grad_norm']):.3f} "

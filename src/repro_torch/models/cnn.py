@@ -70,11 +70,13 @@ def lenet_params_list(params: Dict) -> List[Dict]:
 
 
 def lenet_forward(params: Dict, x: torch.Tensor, cim: CIMConfig,
+                  key: Optional[torch.Tensor] = None,
                   device: Device = None) -> torch.Tensor:
     """x (B, 28, 28, C) -> logits, with cim.mode == "engine": the whole
     network through one cached program, dispatched through its bucket
-    ladder (weights bound per call).  The other layer modes are not
-    ported."""
+    ladder (weights bound per call).  With cim.noise enabled the engine
+    runs in its noise-injected mode and `key` (`core/prng.key`) seeds
+    the noise model.  The other layer modes are not ported."""
     if cim.mode != "engine":
         raise NotImplementedError(
             f"lenet_forward mode {cim.mode!r} is not ported; use "
@@ -82,4 +84,4 @@ def lenet_forward(params: Dict, x: torch.Tensor, cim: CIMConfig,
     b, h, w, c = x.shape
     prog = lenet_program(DEFAULT_BUCKETS.bucket_for(b), h, w, c,
                          params["fc2"]["w"].shape[1], cim, device=device)
-    return prog.serve(lenet_params_list(params), x)
+    return prog.serve(lenet_params_list(params), x, key)

@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
 from repro_torch.core.cim_layers import (CIMConfig, cim_linear_apply,
                                          init_cim_linear)
 
@@ -152,20 +153,25 @@ def init_attention(generator: torch.Generator, cfg: AttnConfig,
 
 
 def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
-                    cim: CIMConfig, *, positions: torch.Tensor
-                    ) -> torch.Tensor:
+                    cim: CIMConfig, *, positions: torch.Tensor,
+                    key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal (or, with cfg.causal False, bidirectional) self-attention
     without a KV cache: x (B, S, d_model) -> (B, S, d_model).
 
     With cfg.impl == "pallas" and more than one query position the
     attention runs on the flash kernels (forward and backward), with masks
-    from the positions 0..S-1; otherwise on `plain_attention`."""
+    from the positions 0..S-1; otherwise on `plain_attention`.  `key`
+    seeds the CIM noise model of the four projections (fold_in(key, i)
+    for q, k, v, o); None keeps them clean."""
     b, s, _ = x.shape
     h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kq = kk = kv = ko = None
+    if key is not None:
+        kq, kk, kv, ko = (prng.fold_in(key, i) for i in range(4))
 
-    q = cim_linear_apply(params["wq"], x, cim)
-    k = cim_linear_apply(params["wk"], x, cim)
-    v = cim_linear_apply(params["wv"], x, cim)
+    q = cim_linear_apply(params["wq"], x, cim, key=kq)
+    k = cim_linear_apply(params["wk"], x, cim, key=kk)
+    v = cim_linear_apply(params["wv"], x, cim, key=kv)
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(b, s, h, hd)
@@ -188,7 +194,8 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
         out = plain_attention(q, k, v, q_pos=pos, k_pos=pos,
                               causal=cfg.causal and s > 1,
                               window=cfg.window)
-    return cim_linear_apply(params["wo"], out.reshape(b, s, h * hd), cim)
+    return cim_linear_apply(params["wo"], out.reshape(b, s, h * hd), cim,
+                            key=ko)
 
 
 # ---------------------------------------------------------------------------
@@ -244,13 +251,19 @@ def init_mlp(generator: torch.Generator, d: int, f: int, gated: bool,
 
 
 def mlp_block(params: Dict, x: torch.Tensor, cim: CIMConfig,
-              act: str = "silu") -> torch.Tensor:
-    """(Gated) MLP with every projection through the CIM path."""
-    up = cim_linear_apply(params["w_up"], x, cim)
+              act: str = "silu",
+              key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(Gated) MLP with every projection through the CIM path.  `key`
+    seeds the projections' noise model (fold_in(key, i) for up, gate,
+    down)."""
+    k_up = k_gate = k_down = None
+    if key is not None:
+        k_up, k_gate, k_down = (prng.fold_in(key, i) for i in range(3))
+    up = cim_linear_apply(params["w_up"], x, cim, key=k_up)
     fn = activation_fn(act)
     if "w_gate" in params:
-        gate = cim_linear_apply(params["w_gate"], x, cim)
+        gate = cim_linear_apply(params["w_gate"], x, cim, key=k_gate)
         hidden = fn(gate) * up
     else:
         hidden = fn(up)
-    return cim_linear_apply(params["w_down"], hidden, cim)
+    return cim_linear_apply(params["w_down"], hidden, cim, key=k_down)

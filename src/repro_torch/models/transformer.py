@@ -10,8 +10,13 @@ loops; with `cfg.remat` each layer runs under `torch.utils.checkpoint`
 `jax.checkpoint` does.  Every projection runs through
 `core.cim_layers.cim_linear_apply`.
 
+`forward(key=)` seeds the CIM noise model of every projection, folded
+as the JAX package folds it (fold_in(key, layer), then 0/1 for the
+attention and MLP banks, then one fold per projection); a checkpointed
+layer's recompute redraws the same noise from the same key.
+
 Not ported: the moe, hybrid, ssm, vlm and audio families, the KV caches
-and decode, noise keys, and the "dots" remat policy.
+and decode, and the "dots" remat policy.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
 from repro_torch.core.cim_layers import init_cim_linear
 from repro_torch.models import common as cm
 
@@ -94,28 +100,36 @@ def stacked_decay_mask(params: Dict) -> Dict:
 
 
 def _decoder_layer(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
-    """One pre-norm decoder layer (attention + MLP)."""
+                   positions: torch.Tensor,
+                   key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One pre-norm decoder layer (attention + MLP); `key` seeds the noise
+    of its projections (fold_in(key, 0) the attention bank, 1 the MLP)."""
+    k_attn = k_ffn = None
+    if key is not None:
+        k_attn, k_ffn = prng.fold_in(key, 0), prng.fold_in(key, 1)
     h = cm.apply_norm(p["ln1"], x, cfg.norm_type)
     x = x + cm.attention_block(p["attn"], h, _attn_cfg(cfg), cfg.cim,
-                               positions=positions)
+                               positions=positions, key=k_attn)
     h = cm.apply_norm(p["ln2"], x, cfg.norm_type)
-    return x + cm.mlp_block(p["mlp"], h, cfg.cim, cfg.mlp_act)
+    return x + cm.mlp_block(p["mlp"], h, cfg.cim, cfg.mlp_act, key=k_ffn)
 
 
 def _decoder_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor,
+                   key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The layers in order (JAX's lax.scan over stacked params); with
-    cfg.remat each layer is checkpointed and recomputed in the backward."""
+    cfg.remat each layer is checkpointed and recomputed in the backward.
+    Layer i's noise key is fold_in(key, i)."""
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat policy {cfg.remat_policy!r} is not ported (full only)")
-    for p in params["layers"]:
+    for i, p in enumerate(params["layers"]):
+        lkey = None if key is None else prng.fold_in(key, i)
         if cfg.remat:
-            new_x = checkpoint(_decoder_layer, cfg, p, x, positions,
+            new_x = checkpoint(_decoder_layer, cfg, p, x, positions, lkey,
                                use_reentrant=False)
         else:
-            new_x = _decoder_layer(cfg, p, x, positions)
+            new_x = _decoder_layer(cfg, p, x, positions, lkey)
         x = new_x.to(x.dtype)
     return x
 
@@ -138,13 +152,16 @@ def lm_logits(cfg: ModelConfig, params: Dict,
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+            positions: Optional[torch.Tensor] = None,
+            key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Logits (B, S, V) in the compute dtype for tokens (B, S); positions
-    default 0..S-1.  (The JAX package's forward also returns a cache and
-    the MoE aux loss; the dense family without a cache has neither.)"""
+    default 0..S-1.  `key` (a host `core/prng` key) seeds the CIM noise
+    model of the projections when cfg.cim.noise is enabled.  (The JAX
+    package's forward also returns a cache and the MoE aux loss; the
+    dense family without a cache has neither.)"""
     _check_family(cfg)
     x = embed_tokens(cfg, params, tokens)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _decoder_stack(cfg, params, x, positions)
+    x = _decoder_stack(cfg, params, x, positions, key)
     return lm_logits(cfg, params, x)

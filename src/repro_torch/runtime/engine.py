@@ -1,4 +1,4 @@
-"""Precision-scalable CIM inference runtime (noise off, one device).
+"""Precision-scalable CIM inference runtime (one device).
 
 Counterpart of `repro/runtime/engine.py` on the clean path: a network
 described as `mapping.LayerSpec`s is *planned* into the macro's row/col
@@ -22,6 +22,19 @@ beta_eff.  Every divide of the quant/dequant chain has a tensor on the
 operand's device as its divisor: PyTorch's CUDA divide by a Python scalar
 multiplies by the reciprocal instead, which is not the same float.
 
+Noise-injected mode (post-silicon studies, paper Sec. III.E/V.A): with
+`EngineConfig(noise=NoiseConfig(...))` the noise model runs on every tile
+- calibrated SA-offset residues (static per physical column), thermal
+kT/C noise on the dp, DPL settling and MBIW charge injection as a gain,
+leakage droop - through an ADC epilogue outside the kernel, which then
+returns the raw integer dp (`fuse_adc=False`), so kernel and reference
+stay bit-exact under one key.  Runs need a PRNG key (`core/prng`); the
+thermal field of a layer is drawn in fixed `NOISE_ROW_BLOCK`-row blocks
+keyed by block index (or, with noise ids, one stream per GEMM row keyed
+by the row's identity), in ONE launch of the draw kernel per layer, so
+chunking, bucket padding and batchmates never change a draw.  Every draw
+and every float of the epilogue equals the JAX package's.
+
 Units: `dp`/`dp_hat` are integer dot-product units, `*_codes` ADC output
 codes in [0, 2^r_out), `g0` codes per dp unit at gamma=1, activations in
 and out are real-valued float32.
@@ -35,16 +48,28 @@ import torch
 
 from repro_torch.core import abn as abn_lib
 from repro_torch.core import digital_ref, mapping
+from repro_torch.core import noise_model as nm
+from repro_torch.core import prng
 from repro_torch.core.hw import CIMMacroConfig, DEFAULT_MACRO
-from repro_torch.core.quantization import quantize_act, quantize_weight
+from repro_torch.core.noise_model import NO_NOISE, NoiseConfig
+from repro_torch.core.quantization import (_static_reciprocal, quantize_act,
+                                           quantize_weight)
 from repro_torch.kernels.cim_mbiw import ops as kops
 from repro_torch.kernels.cim_mbiw.ref import cim_matmul_ref
+from repro_torch.kernels.prng.kernel import threefry_normal
 
 Params = List[Dict[str, torch.Tensor]]
 
 # incremented once per plan_network() call (a compiled program is planned
 # exactly once; repeated compile_program calls must be cache hits)
 PLAN_COUNT = {"n": 0}
+
+# thermal kT/C draws are generated per fixed-size global GEMM-row block
+# (keys fold the block index), then sliced to the live extent: the values a
+# given (layer, row tile, col tile, GEMM row) sees are invariant to the
+# total row extent, so batch-bucket padding and stream_rows chunking reuse
+# identical draws
+NOISE_ROW_BLOCK = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +84,8 @@ class EngineConfig:
     bk: int = 256
     stream_rows: int = 0             # im2col streaming: GEMM rows per kernel
                                      # dispatch (0 = single dispatch)
+    noise: NoiseConfig = NO_NOISE    # post-silicon equivalent noise model;
+                                     # enabled -> runs require a PRNG key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -327,16 +354,142 @@ def _mask_pad_rows(x: torch.Tensor, m_valid: int) -> torch.Tensor:
     return torch.where(idx < m_valid, x, x[:1])
 
 
+@dataclasses.dataclass
+class _LayerNoise:
+    """Per-layer noise context of one engine run.
+
+    `offset_codes`/`droop_codes` are per padded output column (code units);
+    tiles slice them.  `gain_mult` collects the deterministic INL terms
+    (DPL settling, MBIW charge injection) as a multiplier on the code gain.
+    `thermal` holds the kT/C noise in dp units for every (row tile, col
+    tile) over the layer's full GEMM-row extent - shape (k_tiles,
+    n_tiles_padded, rows, tile_n) - so slicing rows (stream chunks) never
+    changes a draw."""
+    offset_codes: torch.Tensor       # (n_cols_padded,) code units
+    droop_codes: torch.Tensor        # (n_cols_padded,) code units
+    gain_mult: float                 # multiplier on gamma * g0 (a float32)
+    thermal: torch.Tensor            # (KT, NT_pad, rows, tile_n) dp units
+
+    def rows(self, sl: slice) -> "_LayerNoise":
+        """The context restricted to a GEMM-row slice."""
+        return dataclasses.replace(self, thermal=self.thermal[:, :, sl, :])
+
+
+def _stream_keys(lkey: Tuple[int, int], k_tiles: int, n_tiles: int,
+                 m: int, row_ids: Optional[torch.Tensor],
+                 row_sub: Optional[torch.Tensor]) -> Tuple[torch.Tensor,
+                                                           int]:
+    """The keys of one layer's draw, in one batched pass on the host:
+    row 0 the SA-residue stream fold_in(lkey, 0); then, per (row tile ki,
+    col tile ni) with kt = fold_in(fold_in(fold_in(lkey, 1), ki), ni),
+    either one stream per NOISE_ROW_BLOCK block b (fold_in(kt, b),
+    positional) or one per GEMM row (fold_in(fold_in(kt, id), sub),
+    identity).  Returns ((1 + S, 2) int64 keys, streams per tile)."""
+    tkey = prng.fold_in_int(lkey, 1)
+    kts = torch.tensor([prng.fold_in_int(prng.fold_in_int(tkey, ki), ni)
+                        for ki in range(k_tiles) for ni in range(n_tiles)],
+                       dtype=torch.int64).reshape(-1, 1, 2)
+    if row_ids is None:
+        per = -(-max(m, 1) // NOISE_ROW_BLOCK)
+        keys = prng.fold_in(kts, torch.arange(per, dtype=torch.int64))
+    else:
+        ids = row_ids.to("cpu", torch.int64)
+        sub = (torch.zeros_like(ids) if row_sub is None
+               else row_sub.to("cpu", torch.int64))
+        per = ids.shape[0]
+        keys = prng.fold_in(prng.fold_in(kts, ids), sub)
+    res = torch.tensor([prng.fold_in_int(lkey, 0)], dtype=torch.int64)
+    return torch.cat([res, keys.reshape(-1, 2)]), per
+
+
+def _layer_noise(lp: LayerPlan, cfg: EngineConfig, noise: NoiseConfig,
+                 gamma_p: torch.Tensor, key: Tuple[int, int], m: int,
+                 row_ids: Optional[torch.Tensor] = None,
+                 row_sub: Optional[torch.Tensor] = None) -> _LayerNoise:
+    """Noise terms of one layer in code/dp units, where the JAX package's
+    `_layer_noise` puts them.  `noise` holds float32 leaves
+    (`noise_model.leaves`), `key` is the layer's key as two ints,
+    `gamma_p` the column-padded ABN gain, `m` the layer's full GEMM-row
+    extent (the thermal field covers it once; chunks slice it).
+
+    `row_ids`/`row_sub` (optional, (m,) int) switch the thermal draws from
+    positional row-block keys to identity keys: each GEMM row's draw folds
+    its caller-assigned id and an intra-sample counter (the conv im2col
+    position), so a row's noise depends only on what it is, never on
+    where it sits in the batch.
+
+    The residue stream and every thermal stream are drawn in ONE launch
+    of the draw kernel, at the longer of the two lengths: a threefry
+    stream's first n values do not depend on how many are drawn (the
+    counter is the flat index), so each reads the prefix it needs."""
+    macro, spec = cfg.macro, lp.spec
+    dev = gamma_p.device
+    units = lp.mp.units_per_tile if cfg.adaptive_swing else macro.n_units
+    tsz = lp.tile_n
+    k_tiles, n_tiles = len(lp.k_slices), len(lp.n_slices)
+    keys, per = _stream_keys(key, k_tiles, n_tiles, m, row_ids, row_sub)
+    span = tsz * (NOISE_ROW_BLOCK if row_ids is None else 1)
+    z = threefry_normal(keys.to(dev), max(span, macro.n_cols))
+    # static per-physical-column SA offsets after 7b calibration, shared
+    # across col tiles (the macro is reused sequentially)
+    raw_v = nm.sa_offsets_from_normal(z[0, :macro.n_cols], noise)
+    res_v = nm.column_residues_from_offsets(raw_v, spec.n, spec.r_w, noise,
+                                            macro)
+    res_v = _pad_dim(res_v, 0, gamma_p.shape[0])
+    lsb0_v = macro.alpha_adc() * macro.vddh / 2.0 ** (spec.r_out - 1)
+    # volts -> codes: a static f32 reciprocal, as the JAX package
+    inv_lsb0 = _static_reciprocal(lsb0_v)
+    offset_codes = gamma_p * res_v * inv_lsb0
+    # leakage droop on V_acc, attenuated by the weight-parallel combination
+    droop_v = nm.leakage_droop(spec.r_in, macro.t_dp_ns, noise) \
+        * (1.0 - 2.0 ** (-spec.r_w))
+    # the scalars are float32 values on the host; as Python floats they
+    # multiply on the device with no copy (a product rounds them to
+    # float32, which they are)
+    droop_codes = gamma_p * float(droop_v) * inv_lsb0
+    settle = nm.settle_fraction(units, macro.t_dp_ns, noise)
+    ci = nm.charge_injection_gain(spec.r_in, noise, macro)
+    sigma_dp = nm.thermal_sigma_dp(noise, spec.r_out, lp.g0)
+    field = z[1:, :span].reshape(k_tiles, n_tiles, per * span // tsz, tsz)
+    thermal = field[:, :, :m] * float(sigma_dp)
+    return _LayerNoise(offset_codes=offset_codes, droop_codes=droop_codes,
+                       gain_mult=float(settle * (1.0 + ci)),
+                       thermal=thermal)
+
+
+def _noise_adc_code(lp: LayerPlan, dp: torch.Tensor, gamma_t: torch.Tensor,
+                    beta_eff: torch.Tensor, nctx: _LayerNoise,
+                    n_slice: Tuple[int, int],
+                    thermal: torch.Tensor) -> torch.Tensor:
+    """ADC conversion of one macro tile's raw dp with the noise terms
+    applied before the floor - the engine-side mirror of fakequant's
+    adc_quantize(dp + thermal, gain, beta + offsets).  `thermal` is the
+    tile's kT/C slice (dp units, row-aligned)."""
+    ns, ne = n_slice
+    dp = dp.to(torch.float32) + thermal
+    mid = 2.0 ** (lp.spec.r_out - 1)
+    # products by Python scalars round them to float32 first, as JAX's
+    # weak-typed scalars: gamma * f32(g0) * gain_mult * dp, step by step
+    code = torch.floor(mid + gamma_t * lp.g0 * float(nctx.gain_mult) * dp
+                       + beta_eff
+                       + nctx.offset_codes[ns:ne] - nctx.droop_codes[ns:ne])
+    return torch.clamp(code, 0.0, 2.0 ** lp.spec.r_out - 1.0).to(
+        torch.int32)
+
+
 def _tile_schedule(lp: LayerPlan, q_rows: torch.Tensor, zp: torch.Tensor,
                    wqq: torch.Tensor, gamma: torch.Tensor,
-                   beta: torch.Tensor, *, matmul) -> torch.Tensor:
+                   beta: torch.Tensor, *, matmul,
+                   nctx: Optional[_LayerNoise] = None) -> torch.Tensor:
     """One block of GEMM rows through the (k, n) tile schedule.
 
     `matmul` evaluates one macro tile (kernel variant or plain oracle) and
-    returns int32 ADC codes.  `zp` is the activation zero-point in code
-    units: a scalar, or per row (rows, 1) under segment-wise quantization,
-    which makes the folded ADC offset beta_eff per GEMM row (rows, n).
-    Returns dp_hat (rows, n_pad) in dp units."""
+    returns int32 ADC codes - or the raw int32 dp when a noise context is
+    given, whose ADC conversion (with the noise terms and the tile's
+    thermal slice) then runs here.  `zp` is the activation zero-point in
+    code units: a scalar, or per row (rows, 1) under segment-wise
+    quantization, which makes the folded ADC offset beta_eff per GEMM row
+    (rows, n).  Returns dp_hat (rows, n_pad) in dp units."""
     mid = 2.0 ** (lp.spec.r_out - 1)
     g0 = lp.g0
     tsz = lp.tile_n
@@ -346,14 +499,17 @@ def _tile_schedule(lp: LayerPlan, q_rows: torch.Tensor, zp: torch.Tensor,
         ns, ne = ni * tsz, (ni + 1) * tsz
         acc = torch.zeros((q_rows.shape[0], tsz), dtype=torch.float32,
                           device=q_rows.device)
-        for ks, ksz in lp.k_slices:
+        for ki, (ks, ksz) in enumerate(lp.k_slices):
             ke = ks + ksz
             # zero-point: x = q*s + z -> z*colsum is per-channel constant,
             # folded into the ABN offset inside the ADC floor
             zp_dp = zp * torch.sum(wqq[ks:ke, ns:ne], dim=0)
             beta_eff = beta[ns:ne] + gain[ns:ne] * zp_dp
-            codes = matmul(q_rows[:, ks:ke], wqq[ks:ke, ns:ne],
-                           gamma[ns:ne], beta_eff, g0)
+            out = matmul(q_rows[:, ks:ke], wqq[ks:ke, ns:ne],
+                         gamma[ns:ne], beta_eff, g0)
+            codes = out if nctx is None else _noise_adc_code(
+                lp, out, gamma[ns:ne], beta_eff, nctx, (ns, ne),
+                nctx.thermal[ki, ni])
             # digital partial-sum recombination in dp units; dequantizing
             # against the *raw* beta keeps the zero-point contribution in
             # dp_hat (the divisor `gain` is a device tensor)
@@ -365,38 +521,52 @@ def _tile_schedule(lp: LayerPlan, q_rows: torch.Tensor, zp: torch.Tensor,
 
 def _schedule_rows(lp: LayerPlan, cfg: EngineConfig, q_rows: torch.Tensor,
                    zp: torch.Tensor, wqq: torch.Tensor, gamma: torch.Tensor,
-                   beta: torch.Tensor, *, matmul) -> torch.Tensor:
+                   beta: torch.Tensor, *, matmul,
+                   nctx: Optional[_LayerNoise] = None) -> torch.Tensor:
     """Stream `q_rows` through the tile schedule in cfg.stream_rows chunks
     (the im2col streaming stage).  Quantization stays global (or
     per-segment - `zp` is then per-row (M, 1) and chunks alongside the
-    rows), so chunking is bit-invariant."""
+    rows), and the noise context holds the thermal field over all rows,
+    so chunking is bit-invariant, with or without noise."""
     m = q_rows.shape[0]
     chunk = cfg.stream_rows if cfg.stream_rows > 0 else max(m, 1)
-    parts = [_tile_schedule(lp, q_rows[s:s + chunk],
-                            zp if zp.dim() == 0 else zp[s:s + chunk],
-                            wqq, gamma, beta, matmul=matmul)
-             for s in range(0, max(m, 1), chunk)]
+    parts = []
+    for s in range(0, max(m, 1), chunk):
+        sl = slice(s, s + chunk)
+        parts.append(_tile_schedule(
+            lp, q_rows[sl], zp if zp.dim() == 0 else zp[sl], wqq, gamma,
+            beta, matmul=matmul,
+            nctx=nctx.rows(sl) if nctx is not None else None))
     return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
 
 
 def _layer_tiles(lp: LayerPlan, bind: Dict[str, torch.Tensor],
                  x2: torch.Tensor, cfg: EngineConfig, *, matmul,
-                 seg_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 key: Optional[Tuple[int, int]] = None,
+                 noise: Optional[NoiseConfig] = None,
+                 seg_rows: Optional[torch.Tensor] = None,
+                 nid_rows: Optional[torch.Tensor] = None,
+                 sub_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run one layer's tile schedule over (M, K) GEMM rows: activation
-    quantization, the tile schedule, dequant and activation.
+    quantization, the noise context, the tile schedule, dequant and
+    activation.
 
     `seg_rows` (optional, (M,) int) switches the activation quantization
     to per-segment statistics: the zero-point becomes per-row and folds
     into a per-row beta_eff inside the ADC floor, so rows of different
-    segments never share swing state."""
+    segments never share swing state.  `nid_rows`/`sub_rows` key the
+    thermal draws by row identity instead of position (_layer_noise)."""
     if seg_rows is None:
         aq = quantize_act(x2, lp.spec.r_in)
     else:
         aq = quantize_act(x2, lp.spec.r_in, segment_ids=seg_rows,
                           num_segments=x2.shape[0])
     zp = aq.zero / aq.scale
+    nctx = (_layer_noise(lp, cfg, noise, bind["gamma_p"], key, x2.shape[0],
+                         row_ids=nid_rows, row_sub=sub_rows)
+            if noise is not None else None)
     dp_hat = _schedule_rows(lp, cfg, aq.q, zp, bind["wqq"], bind["gamma_p"],
-                            bind["beta_p"], matmul=matmul)
+                            bind["beta_p"], matmul=matmul, nctx=nctx)
     y = dp_hat[:, :lp.spec.n] * aq.scale * bind["w_scale"]
     if lp.activation == "relu":
         y = torch.relu(y)
@@ -407,14 +577,19 @@ def _layer_tiles(lp: LayerPlan, bind: Dict[str, torch.Tensor],
 
 def _run_layer(lp: LayerPlan, bind: Dict[str, torch.Tensor],
                x: torch.Tensor, cfg: EngineConfig, *, matmul,
-               seg: Optional[torch.Tensor] = None) -> torch.Tensor:
+               key: Optional[Tuple[int, int]] = None,
+               noise: Optional[NoiseConfig] = None,
+               seg: Optional[torch.Tensor] = None,
+               nids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One planned layer end-to-end: im2col (conv), tile schedule,
     activation, pooling, and the reshape back to the next layer's view.
 
-    `seg` holds per *batch sample* (B,) segment ids; a conv layer's im2col
-    expansion repeats them across the sample's out_h*out_w GEMM rows, a
-    dense layer uses them as they are."""
+    `seg`/`nids` are per *batch sample* (B,) segment and noise-identity
+    ids; a conv layer's im2col expansion repeats them across the sample's
+    out_h*out_w GEMM rows (plus an intra-sample counter for the noise
+    draws), a dense layer uses them as they are."""
     g = lp.spec.conv
+    sub_rows = None
     if g is not None:
         if x.dim() != 4 or tuple(x.shape[1:]) != g.spatial_in:
             raise ValueError(
@@ -424,13 +599,18 @@ def _run_layer(lp: LayerPlan, bind: Dict[str, torch.Tensor],
         rep = g.out_h * g.out_w
         x2 = im2col_patches(x, g).reshape(b * rep, lp.spec.k)
         seg_rows = None if seg is None else torch.repeat_interleave(seg, rep)
+        nid_rows = None if nids is None else torch.repeat_interleave(nids,
+                                                                     rep)
+        if nids is not None:
+            sub_rows = torch.arange(rep, dtype=torch.int64).repeat(b)
     else:
         x2 = x.reshape(x.shape[0], -1)        # conv -> dense flatten (NHWC)
         if x2.shape[-1] != lp.spec.k:
             raise ValueError(f"dense layer expects {lp.spec.k} features, "
                              f"got {x2.shape[-1]} from {tuple(x.shape)}")
-        seg_rows = seg
-    y = _layer_tiles(lp, bind, x2, cfg, matmul=matmul, seg_rows=seg_rows)
+        seg_rows, nid_rows = seg, nids
+    y = _layer_tiles(lp, bind, x2, cfg, matmul=matmul, key=key, noise=noise,
+                     seg_rows=seg_rows, nid_rows=nid_rows, sub_rows=sub_rows)
     if g is not None:
         y = y.reshape(b, g.out_h, g.out_w, g.c_out)
     if lp.pool > 1:
@@ -442,15 +622,26 @@ def _run_layer(lp: LayerPlan, bind: Dict[str, torch.Tensor],
 
 
 def _kernel_matmul(lp: LayerPlan, cfg: EngineConfig):
+    # under noise the kernel dispatches in raw-dp mode; the noise ADC
+    # epilogue in _tile_schedule owns the conversion
+    fuse = not cfg.noise.enabled
+
     def matmul(xq, wqt, gamma_t, beta_t, g0):
         fn = kops.kernel_variant_for_tile(
             lp.precision, xq.shape[0], xq.shape[1], wqt.shape[1],
-            bm=cfg.bm, bn=cfg.bn, bk=cfg.bk)
+            bm=cfg.bm, bn=cfg.bn, bk=cfg.bk, fuse_adc=fuse)
         return fn(xq, wqt, gamma_t, beta_t, g0)
     return matmul
 
 
 def _reference_matmul(lp: LayerPlan, cfg: EngineConfig):
+    if cfg.noise.enabled:
+        def matmul(xq, wqt, gamma_t, beta_t, g0):
+            # raw integer dp: the shared noise ADC epilogue runs outside,
+            # so kernel and reference stay bit-exact under a common key
+            return digital_ref.int_matmul(xq, wqt)
+        return matmul
+
     def matmul(xq, wqt, gamma_t, beta_t, g0):
         # the plain oracle keeps the ADC floor expression in float-op
         # lockstep with the kernel epilogue (bit-exactness contract)
@@ -461,24 +652,63 @@ def _reference_matmul(lp: LayerPlan, cfg: EngineConfig):
 
 def _forward(plan: NetworkPlan, binds: Sequence[Dict[str, torch.Tensor]],
              x: torch.Tensor, reference: bool,
+             key=None, noise: Optional[NoiseConfig] = None,
              m_valid: Optional[int] = None,
-             seg: Optional[torch.Tensor] = None) -> torch.Tensor:
+             seg: Optional[torch.Tensor] = None,
+             nids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The whole schedule over a canonical batch: (B, H, W, C) images for a
     conv-first plan, (B, K0) rows for a dense-first one.  `m_valid` marks
     the live rows of a bucket-padded batch (pad rows are re-pinned to
     copies of row 0 before every layer).  `seg` ((B,) int, optional) are
-    the per-sample segment ids of segment-wise activation quantization."""
+    the per-sample segment ids of segment-wise activation quantization.
+
+    `noise` is the run's resolved operating point (`_dispatch_noise`:
+    None runs clean) and `key` its PRNG key; layer i draws under
+    fold_in(key, i).  `nids` ((B,) int, optional, on the host) key the
+    thermal draws by sample identity."""
+    if plan.cfg.noise.enabled and key is None:
+        raise ValueError(
+            "noise-injected engine run requires a PRNG key: pass key= to "
+            "the program's serve/run (or plan with noise=NO_NOISE for the "
+            "deterministic deployed path)")
     xc = x.to(torch.float32)
     if seg is not None and seg.shape[0] != xc.shape[0]:
         raise ValueError(f"segments extent {seg.shape[0]} != canonical "
                          f"batch extent {xc.shape[0]}")
+    if nids is not None and nids.shape[0] != xc.shape[0]:
+        raise ValueError(f"noise_ids extent {nids.shape[0]} != canonical "
+                         f"batch extent {xc.shape[0]}")
+    noisy = noise is not None
+    if noisy:
+        base = prng.key_ints(key)
+        noise = nm.leaves(noise)
     mk = _reference_matmul if reference else _kernel_matmul
-    for lp, bind in zip(plan.layers, binds):
+    for i, (lp, bind) in enumerate(zip(plan.layers, binds)):
         if m_valid is not None:
             xc = _mask_pad_rows(xc, m_valid)
+        lkey = prng.fold_in_int(base, i) if noisy else None
         xc = _run_layer(lp, bind, xc, plan.cfg, matmul=mk(lp, plan.cfg),
-                        seg=seg)
+                        key=lkey, noise=noise, seg=seg, nids=nids)
     return xc
+
+
+def _dispatch_noise(plan: NetworkPlan,
+                    noise: Optional[NoiseConfig]) -> Optional[NoiseConfig]:
+    """Resolve the run's noise operating point.
+
+    None -> the planned point (or no noise at all under NO_NOISE plans);
+    an explicit NoiseConfig overrides the planned numeric terms, but must
+    agree on `enabled` (that flag switches the kernel between fused ADC
+    and raw dp - replan to change modes)."""
+    base = plan.cfg.noise
+    if noise is None:
+        return base if base.enabled else None
+    if bool(noise.enabled) != bool(base.enabled):
+        raise ValueError(
+            f"noise override enabled={noise.enabled} conflicts with the "
+            f"planned enabled={base.enabled}; replan with "
+            "EngineConfig(noise=...) to switch modes")
+    return noise if noise.enabled else None
 
 
 def init_network_params(plan: NetworkPlan,

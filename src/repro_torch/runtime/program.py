@@ -29,12 +29,17 @@ Counterpart of `repro/runtime/program.py` on the clean single-device path:
 * **Shared-input fusion** - `SharedInputProgram` serves several
   projections of one input (Q/K/V, gate/up) as one wide program.
 
+* **Noise** - a program planned with `EngineConfig(noise=...)` runs the
+  noise model and needs a PRNG key (`core/prng.key`) on every dispatch;
+  `noise=` overrides the planned numeric terms, and `noise_ids=` key the
+  thermal draws by sample identity, so `serve_batch(..., key,
+  isolate=True)` is bit-identical to each request's solo serve under
+  `request_noise_ids`.  A key with a NO_NOISE plan is ignored.
+
 A program runs on one device, CUDA by default: with no card,
 `compile_program` raises rather than carry on on the CPU, and the CPU
 path (the kernels' plain versions) must be asked for with device="cpu".
-Noise (`noise_ids`, PRNG keys, noise overrides) arrives with the port's
-noise slice and raises `NotImplementedError` until then; the program
-cache has no LRU capacity yet.
+The program cache has no LRU capacity yet.
 """
 from __future__ import annotations
 
@@ -152,17 +157,6 @@ def resolve_device(device: Device) -> torch.device:
     return dev
 
 
-def no_noise(key=None, noise=None, noise_ids=None) -> None:
-    """Raise for the noise operands: noise is not ported yet."""
-    for name, value in (("key", key), ("noise", noise),
-                        ("noise_ids", noise_ids)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}: noise (PRNG keys, noise overrides, identity-keyed "
-                "noise ids) arrives with the port's noise slice and is not "
-                "ported yet")
-
-
 class CIMProgram:
     """An immutable compiled CIM inference artifact on one device.
 
@@ -254,6 +248,22 @@ class CIMProgram:
             raise ValueError(f"{name} ids must lie in [0, {m})")
         return v.to(self._device, torch.int64)
 
+    @staticmethod
+    def _canon_ids(v, m: int) -> Optional[torch.Tensor]:
+        """Canonicalize optional per-sample noise ids against the batch
+        extent `m`: int64 on the HOST (they only derive draw keys there),
+        wrapping modulo 2^32 as JAX's int32 ids fold."""
+        if v is None:
+            return None
+        v = torch.as_tensor(v).reshape(-1)
+        if v.shape[0] != m:
+            raise ValueError(
+                f"noise_ids has {v.shape[0]} entries for batch extent {m}")
+        if v.is_floating_point() or v.is_complex():
+            raise ValueError(f"noise_ids must hold integer ids, got "
+                             f"{v.dtype}")
+        return v.to("cpu", torch.int64)
+
     def _note_dispatch(self, key: tuple, bucketed: bool) -> None:
         st = self._stats
         st["serve_calls" if bucketed else "run_calls"] += 1
@@ -270,20 +280,25 @@ class CIMProgram:
             segments=None, noise_ids=None,
             reference: bool = False) -> torch.Tensor:
         """Exact-shape dispatch (no bucketing).  `reference=True` runs the
-        plain digital oracle of the same schedule; `segments` are optional
-        per-sample segment ids (segment-wise activation quantization - see
-        BoundProgram.serve)."""
-        no_noise(key, noise, noise_ids)
+        plain digital oracle of the same schedule; `segments`/`noise_ids`
+        are optional per-sample ids (segment-wise activation quantization
+        and identity-keyed noise draws - see BoundProgram.serve).  `key`
+        seeds a noise-enabled plan, `noise` overrides its numeric
+        terms."""
+        nz = rt._dispatch_noise(self._plan, noise)
         binds = rt.bind_network(self._plan, list(params), self._device)
         xc, lead = self._canon(x)
         seg = self._canon_rows(segments, xc.shape[0], "segments")
+        nid = self._canon_ids(noise_ids, xc.shape[0])
         self._note_dispatch(
-            executable_key("exact", xc.shape[0], noise=False, keyed=False,
-                           devices=1, bound=False, reference=bool(reference),
-                           segmented=seg is not None, identity=False),
+            executable_key("exact", xc.shape[0], noise=nz is not None,
+                           keyed=key is not None, devices=1, bound=False,
+                           reference=bool(reference),
+                           segmented=seg is not None,
+                           identity=nid is not None),
             bucketed=False)
         y = rt._forward(self._plan, binds, xc, reference=bool(reference),
-                        seg=seg)
+                        key=key, noise=nz, seg=seg, nids=nid)
         return y.reshape(lead + tuple(y.shape[1:]))
 
     def serve(self, params: rt.Params, x, key=None, noise=None, *,
@@ -293,18 +308,21 @@ class CIMProgram:
         every call - use bind(params).serve(...) to hoist it).  `point`
         tags the dispatch with a serving operating-point name (it joins
         the dispatch key; "" is the base point)."""
-        no_noise(key, noise, noise_ids)
         binds = rt.bind_network(self._plan, list(params), self._device)
-        return self._serve_padded(binds, False, x, bool(reference), segments,
+        return self._serve_padded(binds, False, x, key, noise,
+                                  bool(reference), segments, noise_ids,
                                   point)
 
-    def _serve_padded(self, binds, bound: bool, x, reference: bool,
-                      segments=None, point: str = "") -> torch.Tensor:
+    def _serve_padded(self, binds, bound: bool, x, key, noise,
+                      reference: bool, segments=None, noise_ids=None,
+                      point: str = "") -> torch.Tensor:
+        nz = rt._dispatch_noise(self._plan, noise)
         xc, lead = self._canon(x)
         m = xc.shape[0]
         if m < 1:
             raise ValueError("cannot serve an empty batch")
         seg = self._canon_rows(segments, m, "segments")
+        nid = self._canon_ids(noise_ids, m)
         bucket = self._buckets.bucket_for(m)
         if bucket > m:
             pad = xc[:1].expand((bucket - m,) + tuple(xc.shape[1:]))
@@ -314,13 +332,16 @@ class CIMProgram:
             # min/max can move and live rows stay bit-exact
             if seg is not None:
                 seg = torch.cat([seg, seg[:1].expand(bucket - m)])
+            if nid is not None:
+                nid = torch.cat([nid, nid[:1].expand(bucket - m)])
         self._note_dispatch(
-            executable_key("bucket", bucket, noise=False, keyed=False,
-                           devices=1, bound=bound, reference=reference,
-                           segmented=seg is not None, identity=False,
-                           point=str(point)), bucketed=True)
-        y = rt._forward(self._plan, binds, xc, reference=reference,
-                        m_valid=m, seg=seg)
+            executable_key("bucket", bucket, noise=nz is not None,
+                           keyed=key is not None, devices=1, bound=bound,
+                           reference=reference, segmented=seg is not None,
+                           identity=nid is not None, point=str(point)),
+            bucketed=True)
+        y = rt._forward(self._plan, binds, xc, reference=reference, key=key,
+                        noise=nz, m_valid=m, seg=seg, nids=nid)
         return y[:m].reshape(lead + tuple(y.shape[1:]))
 
     # -- observability -----------------------------------------------------
@@ -364,18 +385,22 @@ class BoundProgram:
               noise_ids=None, reference: bool = False,
               point: str = "") -> torch.Tensor:
         """Bucketed dispatch of one request through the bound weights
-        (bit-exact with the unbucketed engine on the same inputs).  The
-        result stays on the program's device.
+        (bit-exact with the unbucketed engine on the same inputs, clean
+        and under a fixed noise key).  The result stays on the program's
+        device.
 
         `segments` ((B,) int ids in [0, B), optional) switches activation
         quantization to per-segment statistics: samples with different
         ids never share dynamic swing state, so a fused batch is bit-exact
-        with serving each segment alone.  `point` tags the dispatch with
-        the serving operating-point name ("" = base); it joins the
-        dispatch key."""
-        no_noise(key, noise, noise_ids)
-        return self.program._serve_padded(self._binds, True, x,
-                                          bool(reference), segments, point)
+        with serving each segment alone.  `noise_ids` ((B,) int, optional)
+        key the thermal draws by sample identity instead of batch position
+        (see request_noise_ids): together they make noisy fused serving
+        bit-exact with solo serving under one key.  `point` tags the
+        dispatch with the serving operating-point name ("" = base); it
+        joins the dispatch key."""
+        return self.program._serve_padded(self._binds, True, x, key, noise,
+                                          bool(reference), segments,
+                                          noise_ids, point)
 
     __call__ = serve
 
@@ -394,15 +419,20 @@ class BoundProgram:
           requests: per-request activations, each batch-major with the
             plan's feature shape - (b_i, K0) dense or (b_i, H, W, C_in)
             conv.
+          key: PRNG key of a noise-enabled plan (one key for the fused
+            batch; per-request noise follows each request's row offset,
+            or its request_noise_ids identity under `isolate`).
+          noise: optional operating-point override.
           isolate: False (default) shares the dynamic activation-
             quantization statistics across the fused batch (bit-exact with
             `serve(concat(requests))`, not with per-request serves).  True
-            tags each request as its own quantization segment, making its
-            rows bit-identical to a solo `serve(x_i, segments=zeros(b_i))`.
+            tags each request as its own quantization segment and, under a
+            key, keys its thermal draws on request_noise_ids(i, b_i),
+            making its rows bit-identical to a solo `serve(x_i, key,
+            segments=zeros(b_i), noise_ids=request_noise_ids(i, b_i))`.
         Returns:
           One result per request, in order, each with its own leading b_i.
         """
-        no_noise(key, noise)
         if not requests:
             return []
         xs = [torch.as_tensor(r).to(self.program.device) for r in requests]
@@ -413,11 +443,15 @@ class BoundProgram:
                     f"request {i} shape {tuple(r.shape)} is not batch-major "
                     f"with feature shape {feat}")
         sizes = [r.shape[0] for r in xs]
-        segments = None
+        segments = noise_ids = None
         if isolate:
             segments = torch.repeat_interleave(
                 torch.arange(len(sizes)), torch.tensor(sizes))
-        y = self.serve(torch.cat(xs, dim=0), segments=segments)
+            if key is not None:
+                noise_ids = torch.cat([request_noise_ids(i, b)
+                                       for i, b in enumerate(sizes)])
+        y = self.serve(torch.cat(xs, dim=0), key, noise, segments=segments,
+                       noise_ids=noise_ids)
         return list(torch.split(y, sizes, dim=0))
 
     def stats(self) -> Dict[str, int]:

@@ -28,8 +28,14 @@ Unlike the JAX package, which updates state functionally and writes the
 group's rows back, the port updates the decode state IN PLACE: a step
 writes one ring slot per row and block and bumps the positions, and rows
 outside the stepped group get their old slot back (at full width a row's
-rings are hundreds of MB, so no slab is ever copied).  Noise (PRNG keys,
-identity-keyed noise ids) is not ported yet and raises.
+rings are hundreds of MB, so no slab is ever copied).
+
+Noise: a model whose programs are planned with `EngineConfig(noise=...)`
+decodes under one fixed PRNG key (`InflightScheduler(key=...)`); a row's
+thermal draws are keyed by its identity (request uid, model call, and
+projection: `noise_id`, `_proj_ids`), never by its slot, so a fused
+noisy stream equals `decode_sequential(model, request, key)` bit for
+bit.
 """
 from __future__ import annotations
 
@@ -48,7 +54,7 @@ from repro_torch.runtime import engine as rt
 from repro_torch.runtime.program import (DEFAULT_BUCKETS, NOISE_ID_STRIDE,
                                          BatchBuckets, BoundProgram, Device,
                                          SharedInputBind, SharedInputProgram,
-                                         compile_program, no_noise)
+                                         compile_program)
 
 # per block: {"qkv": {"q", "k", "v"}, "o": [layer], "gate_up": {"gate",
 # "up"}, "down": [layer]}, each layer {"w", "abn_log_gamma", "abn_beta"}
@@ -453,8 +459,10 @@ class CIMDecodeLM:
         whose state advances: the others (padding of a mixed-point step)
         get their ring slot back and keep their position, so they end the
         step exactly as they began it.  `point` selects the operating
-        point's block stack."""
-        no_noise(key, noise_ids=noise_ids)
+        point's block stack.  `key` seeds a noise-enabled model, and
+        `noise_ids` ((R,) int, host) are the rows' noise identities; each
+        projection keys its draws on `_proj_ids(noise_ids, 4 * block +
+        j)`."""
         blocks = self.blocks_for(point)
         dev = self.device
         tokens = torch.as_tensor(tokens).to(dev, torch.int64).reshape(-1)
@@ -475,9 +483,13 @@ class CIMDecodeLM:
         j = torch.arange(self.window, device=dev)
         src = pos[:, None] - ((pos[:, None] - j[None, :]) % self.window)
         bias = torch.where(src < 0, -1e9, 0.0).to(torch.float32)  # (R, L)
+        def ids(j):
+            return self._proj_ids(noise_ids, j)
+
         for b, blk in enumerate(blocks):
             h1 = _rms_norm(x)
-            qkv = blk.qkv.serve(h1, segments=seg, point=point)
+            qkv = blk.qkv.serve(h1, key, segments=seg,
+                                noise_ids=ids(4 * b), point=point)
             q = _rope(qkv["q"].reshape(rows, self.n_heads, hd), pos,
                       self.rope_theta)
             kk = _rope(qkv["k"].reshape(rows, self.n_heads, hd), pos,
@@ -488,12 +500,15 @@ class CIMDecodeLM:
             # one block's slab of the state, passed as a strided view
             attn = ring_decode_attention(q, kst[:rows, b], vst[:rows, b],
                                          bias)
-            x = x + blk.o.serve(attn.reshape(rows, self.d), segments=seg,
+            x = x + blk.o.serve(attn.reshape(rows, self.d), key,
+                                segments=seg, noise_ids=ids(4 * b + 1),
                                 point=point)
             h2 = _rms_norm(x)
-            gu = blk.gate_up.serve(h2, segments=seg, point=point)
-            x = x + blk.down.serve(_silu(gu["gate"]) * gu["up"],
-                                   segments=seg, point=point)
+            gu = blk.gate_up.serve(h2, key, segments=seg,
+                                   noise_ids=ids(4 * b + 2), point=point)
+            x = x + blk.down.serve(_silu(gu["gate"]) * gu["up"], key,
+                                   segments=seg, noise_ids=ids(4 * b + 3),
+                                   point=point)
         nxt = torch.argmax(_tied_logits(_rms_norm(x), self.embed), dim=-1)
         if commit is None:
             pos += 1
@@ -514,32 +529,45 @@ class CIMDecodeLM:
         passes a slot's rows) the prompt is prefilled there, in place,
         after zeroing it; otherwise into a fresh `init_state(1)`.  Either
         way the row runs identically, so admission never enters the
-        equality argument."""
-        no_noise(key)
+        equality argument.  Under `key`, prompt token j draws as model
+        call j of the request (`noise_id(uid, j)`)."""
         if state is None:
             state = self.init_state(1)
         else:
             for a in state.values():
                 a.zero_()
         tok = None
-        for t in request.prompt:
+        for j, t in enumerate(request.prompt):
             _, nxt = self.step_rows(state, [t % self.vocab],
+                                    self._call_ids(request, j, key), key,
                                     point=request.point)
             tok = int(nxt[0])
         return state, tok, len(request.prompt)
+
+    def _call_ids(self, request: Request, call: int,
+                  key) -> Optional[torch.Tensor]:
+        """The one-row noise identity of a request's `call`-th model call,
+        or None without a key."""
+        if key is None:
+            return None
+        return torch.tensor([self.noise_id(request.uid, call)],
+                            dtype=torch.int32)
 
 
 def decode_sequential(model: CIMDecodeLM, request: Request,
                       key=None) -> List[int]:
     """The isolation baseline: decode one request entirely alone (batch-1
     prefill + batch-1 decode steps).  InflightScheduler must reproduce
-    this token stream bit for bit for every request of every schedule."""
-    no_noise(key)
-    st, tok, _ = model.prefill(request)
+    this token stream bit for bit for every request of every schedule,
+    under the same key and the identical noise-id schedule."""
+    st, tok, calls = model.prefill(request, key)
     tokens = [tok]
     while len(tokens) < request.max_new_tokens:
-        _, nxt = model.step_rows(st, [tokens[-1]], point=request.point)
+        _, nxt = model.step_rows(st, [tokens[-1]],
+                                 model._call_ids(request, calls, key), key,
+                                 point=request.point)
         tokens.append(int(nxt[0]))
+        calls += 1
     return tokens
 
 
@@ -553,10 +581,16 @@ class InflightScheduler:
     token, retire exhausted requests (slot free, no data movement).  Dead
     slots and other points' live slots below the extent ride along as
     padding: they are their own quantization segments and are not
-    committed, so they neither perturb the group nor change."""
+    committed, so they neither perturb the group nor change.
+
+    One fixed PRNG key serves every step of every request of a noise-
+    enabled model: per-step variation comes from the (uid, call) noise
+    identities, which is what makes fused noisy decode reproducible by
+    decode_sequential under the same key."""
 
     def __init__(self, model: CIMDecodeLM, capacity: int = 8, key=None):
-        no_noise(key)
+        if model.bound.plan.cfg.noise.enabled and key is None:
+            raise ValueError("noise-enabled model needs a PRNG key")
         self.model = model
         self.key = key
         self.slots = SlotMap(capacity)
@@ -636,11 +670,19 @@ class InflightScheduler:
         e = min(bucket, self.slots.capacity)
         commit = torch.zeros((e,), dtype=torch.bool)
         commit[group] = True
+        nids = None
+        if self.key is not None:
+            # rows outside the group ride along as padding: id -1
+            nids = torch.tensor(
+                [self.model.noise_id(self.by_slot[s].request.uid,
+                                     self.by_slot[s].calls)
+                 if s in group else -1 for s in range(e)],
+                dtype=torch.int32)
         t0 = time.perf_counter()
         rows = {k: a[:e] for k, a in self.state.items()}
         _, nxt = self.model.step_rows(
-            rows, torch.from_numpy(self.cur_tok[:e]), point=pt,
-            commit=commit)
+            rows, torch.from_numpy(self.cur_tok[:e]), nids, self.key,
+            point=pt, commit=commit)
         nxt = nxt.cpu().numpy()
         self.wall_s += time.perf_counter() - t0
         self.extents_seen.add(

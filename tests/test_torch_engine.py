@@ -217,8 +217,6 @@ def test_serve_batch_equals_serve_of_concatenation():
     # isolate=True makes each request its own segment: equal to solo serves
     for out, req in zip(bound.serve_batch(reqs, isolate=True), reqs):
         assert torch.equal(out, bound.serve(req))
-    with pytest.raises(NotImplementedError):
-        bound.serve(reqs[0], noise_ids=torch.zeros(1))
     with pytest.raises(ValueError, match="batch-major"):
         bound.serve_batch([reqs[0], torch.zeros(2, 5)])
 

@@ -25,7 +25,6 @@ from repro.core import quantization as jq
 from repro_torch.core import abn as tabn
 from repro_torch.core import cim_layers as tcl
 from repro_torch.core import quantization as tq
-from repro_torch.core.noise_model import NoiseConfig
 
 
 def _t(a, grad=False):
@@ -254,8 +253,6 @@ def test_noise_and_other_modes_raise():
     p = {"w": torch.zeros((4, 2)), "abn_log_gamma": torch.zeros(2),
          "abn_beta": torch.zeros(2)}
     x = torch.ones((1, 4))
-    with pytest.raises(NotImplementedError):
-        tcl.cim_linear_apply(p, x, tcl.CIMConfig(noise=NoiseConfig()))
     for mode in ("sim", "engine", "deploy"):
         with pytest.raises(NotImplementedError):
             tcl.cim_linear_apply(p, x, tcl.CIMConfig(mode=mode))

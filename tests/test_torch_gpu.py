@@ -1,7 +1,8 @@
-"""The port on the card: the CUDA cim_mbiw, ring_decode and flash kernels
-against their plain versions, LeNet on the card against the host run,
-fused in-flight decode at full OLMo-1B width against solo decode, and a
-train step at full OLMo-1B width through the flash kernels.
+"""The port on the card: the CUDA cim_mbiw, ring_decode, flash and
+threefry_normal kernels against their plain versions, LeNet on the card
+(clean and noisy) against the host run, fused in-flight decode at full
+OLMo-1B width against solo decode, and a train step at full OLMo-1B
+width through the flash kernels.
 
 These tests need an NVIDIA GPU (marker `gpu`) and skip without one.  They
 import neither JAX nor the JAX package, so they run where only PyTorch
@@ -13,6 +14,8 @@ import torch
 
 from repro_torch.core import digital_ref
 from repro_torch.core import mapping as tmap
+from repro_torch.core import prng
+from repro_torch.core.noise_model import NoiseConfig
 from repro_torch.core.cim_layers import CIMConfig
 from repro_torch.core.hw import DEFAULT_MACRO
 from repro_torch.data.pseudo_mnist import make_dataset
@@ -21,6 +24,8 @@ from repro_torch.kernels.cim_mbiw import ops as tops
 from repro_torch.kernels.cim_mbiw import ref as tref
 from repro_torch.kernels.flash_attn import kernel as rkernel
 from repro_torch.kernels.flash_attn import ref as rref
+from repro_torch.kernels.prng import kernel as pkernel
+from repro_torch.kernels.prng.ref import threefry_normal_ref
 from repro_torch.models import cnn
 from repro_torch.runtime import program as tprog
 from repro_torch.runtime.scheduler import (CIMDecodeLM, InflightScheduler,
@@ -168,6 +173,49 @@ def test_lenet_on_card_routes(cuda_device, r_in, r_w, batch):
            kern.launches_splitk - counts[2])
     assert got == (sum(want.values()), want["tc"], want["splitk"])
     assert torch.equal(y, gpu.reference(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("streams,n", [(1, 1), (3, 127), (3, 129),
+                                       (1568, 2048), (1, 1 << 22)])
+def test_threefry_normal_kernel_matches_plain(cuda_device, streams, n):
+    """One launch draws every stream bit for bit as the plain version does
+    on the card and on the host; keys from key, fold_in (an id above
+    2^31) and split."""
+    base = prng.key(1)
+    keys = torch.cat([base[None], prng.fold_in(base, 2**31 + 5)[None],
+                      prng.split(base, max(streams - 2, 1))])[:streams]
+    before = pkernel.threefry_normal.launches
+    got = pkernel.threefry_normal(keys.to(cuda_device), n)
+    torch.cuda.synchronize()
+    assert pkernel.threefry_normal.launches == before + 1
+    assert torch.equal(got, threefry_normal_ref(keys.to(cuda_device), n))
+    if streams * n <= 1 << 22:
+        assert torch.equal(got.cpu(), threefry_normal_ref(keys, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r_in,r_w", [(4, 2), (8, 4)])
+def test_noisy_lenet_on_card_matches_host(cuda_device, r_in, r_w):
+    """Noisy LeNet serving: the card's logits equal its reference and the
+    host run bit for bit, cim_mbiw runs every planned tile in raw-dp mode
+    and the draw kernel launches once per layer."""
+    cim = CIMConfig(r_in=r_in, r_w=r_w, noise=NoiseConfig())
+    params = cnn.lenet_params_list(
+        cnn.init_lenet(torch.Generator().manual_seed(3), cim=cim))
+    x = torch.from_numpy(make_dataset(1, 6, seed=1)[2][..., None])
+    gpu = cnn.lenet_program(8, cim=cim).bind(params)
+    cpu = cnn.lenet_program(8, cim=cim, device="cpu").bind(params)
+    key = prng.key(1)
+    kern, draw = tkernel.cim_mbiw_matmul_planes, pkernel.threefry_normal
+    before = (kern.launches, draw.launches)
+    y = gpu.serve(x, key)
+    torch.cuda.synchronize()
+    assert (kern.launches - before[0], draw.launches - before[1]) == \
+        (gpu.plan.total_macro_evals, len(gpu.plan.layers))
+    assert torch.equal(y, gpu.reference(x, key))
+    assert torch.equal(y.cpu(), cpu.serve(x, key))
+    assert not torch.equal(y, gpu.serve(x, prng.key(2)))
 
 
 def _ring_inputs(r, l, h, hd, seed, device, last_chunk=False):

@@ -28,7 +28,16 @@ TRAIN_SLICE = [
 ]
 
 
-@pytest.mark.parametrize("rel", TRAIN_SLICE)
+# the noise slice: the PRNG, XLA's float routines, the noise model and
+# calibration, and the draw kernel's wrapper
+NOISE_SLICE = [
+    "core/prng.py", "core/xla_f32.py", "core/noise_model.py",
+    "core/calibration.py", "kernels/prng/__init__.py",
+    "kernels/prng/kernel.py", "kernels/prng/ref.py",
+]
+
+
+@pytest.mark.parametrize("rel", TRAIN_SLICE + NOISE_SLICE)
 def test_train_slice_module_is_checked(rel):
     assert PORT / rel in FILES
 

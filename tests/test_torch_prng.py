@@ -1,0 +1,218 @@
+"""The port's threefry PRNG and its copies of XLA's float32 routines,
+against JAX 0.9.0 on the CPU, bit for bit.
+
+Keys, `fold_in` (int32 ids that wrap, uint32 ids above 2^31, batched
+tensors of ids), `split`, random bits, uniforms and normals over several
+keys and the shapes (1,), (7,), (128, 16), (3, 5, 7) and (70000,), plus
+2^20 normals in one draw; `log1p`, `erf_inv` and `exp` each over more
+than 2 M float32 points covering both of log1p's branches, erf_inv's
+w >= 5 tail and exp's flush to zero; the exact float32 fma the copies
+rest on, against rational arithmetic.
+
+One difference of the reference is shown rather than hidden
+(ROADMAP Queue 3): for a uniform whose span is not a power of two, XLA's
+CPU code fuses `f * span + minval` into one rounding, where the JAX
+source (and the port) round twice.  The JAX package draws no such
+uniform.
+"""
+from fractions import Fraction
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.convert import key_from_numpy
+from repro_torch.core import prng, xla_f32
+
+KEYS = (0, 1, 42, -7, 2**31 - 1)
+SHAPES = ((1,), (7,), (128, 16), (3, 5, 7), (70000,))
+
+
+def _bits_equal(a, b) -> bool:
+    a = np.asarray(a)
+    b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    if a.dtype == np.float32:
+        return a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                     b.view(np.int32))
+    return a.shape == b.shape and np.array_equal(a.astype(np.int64), b)
+
+
+@pytest.mark.parametrize("seed", KEYS + (-2**31,))
+def test_key_matches_jax(seed):
+    assert _bits_equal(jax.random.PRNGKey(seed), prng.key(seed))
+    assert torch.equal(key_from_numpy(np.asarray(jax.random.PRNGKey(seed))),
+                       prng.key(seed))
+
+
+def test_key_refuses_what_jax_refuses():
+    with pytest.raises(ValueError, match="int32"):
+        prng.key(2**31)
+    with pytest.raises(ValueError):
+        prng.fold_in(prng.key(0), 2**32)
+    with pytest.raises(ValueError, match="integers"):
+        prng.fold_in(prng.key(0), torch.tensor([0.5]))
+    with pytest.raises(ValueError, match="uint32"):
+        key_from_numpy(np.zeros(3, np.uint32))
+
+
+@pytest.mark.parametrize("data", (0, 1, 7, 29, 2**31 - 1, -1, -5, 2**31,
+                                  2**32 - 1))
+def test_fold_in_matches_jax(data):
+    """uint32(data) as JAX folds it: an int32 id wraps, an id above 2^31
+    folds as the uint32 it is."""
+    jdata = np.uint32(data) if data > 2**31 - 1 else jnp.int32(data)
+    for seed in (3, -7):
+        k = jax.random.PRNGKey(seed)
+        assert _bits_equal(jax.random.fold_in(k, jdata),
+                           prng.fold_in(prng.key(seed), data))
+
+
+def test_fold_in_batched_matches_jax():
+    """A (S, 2) stack of keys folded with an (S,) tensor of ids, and one
+    key with a tensor of ids, in one pass each."""
+    ids = np.array([0, 1, -1, 2**31 - 1, -2**31, 12345], np.int32)
+    base = jax.random.PRNGKey(9)
+    keys = jnp.stack([jax.random.fold_in(base, i) for i in range(6)])
+    want = jnp.stack([jax.random.fold_in(keys[i], ids[i]) for i in range(6)])
+    got = prng.fold_in(key_from_numpy(np.asarray(keys)),
+                       torch.from_numpy(ids))
+    assert _bits_equal(want, got)
+    want1 = jnp.stack([jax.random.fold_in(base, i) for i in ids])
+    assert _bits_equal(want1, prng.fold_in(prng.key(9),
+                                           torch.from_numpy(ids)))
+    assert prng.fold_in_int(prng.key_ints(prng.key(9)), -1) == \
+        tuple(int(v) for v in np.asarray(jax.random.fold_in(
+            base, jnp.int32(-1))))
+
+
+@pytest.mark.parametrize("num", (1, 2, 5, 64, 65, 1568))
+def test_split_matches_jax(num):
+    for seed in (0, 11):
+        assert _bits_equal(jax.random.split(jax.random.PRNGKey(seed), num),
+                           prng.split(prng.key(seed), num))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("seed", KEYS)
+def test_bits_uniform_normal_match_jax(seed, shape):
+    k, tk = jax.random.PRNGKey(seed), prng.key(seed)
+    assert _bits_equal(jax.random.bits(k, shape), prng.random_bits(tk, shape))
+    assert _bits_equal(jax.random.uniform(k, shape), prng.uniform(tk, shape))
+    # a power-of-two span: the fused and the rounded chain agree
+    assert _bits_equal(jax.random.uniform(k, shape, minval=-3.0, maxval=5.0),
+                       prng.uniform(tk, shape, -3.0, 5.0))
+    assert _bits_equal(jax.random.normal(k, shape), prng.normal(tk, shape))
+
+
+def test_a_million_normals_match_jax():
+    n = 1 << 20
+    k = jax.random.fold_in(jax.random.PRNGKey(2024), 77)
+    assert _bits_equal(jax.random.normal(k, (n,)),
+                       prng.normal(key_from_numpy(np.asarray(k)), (n,)))
+
+
+def test_normal_rows_is_normal_per_stream():
+    """Row s of normal_rows(keys, n) is normal(keys[s], (n,)), and a
+    stream's prefix does not depend on its length (the counter is the
+    flat index), which lets one launch serve streams of two lengths."""
+    keys = prng.split(prng.key(5), 3)
+    rows = prng.normal_rows(keys, 300)
+    for s in range(3):
+        assert torch.equal(rows[s], prng.normal(keys[s], (300,)))
+        assert torch.equal(rows[s, :129], prng.normal(keys[s], (129,)))
+    jk = jax.random.split(jax.random.PRNGKey(5), 3)
+    assert _bits_equal(jax.random.normal(jk[1], (20, 15)),
+                       rows[1, :300].reshape(20, 15))
+
+
+def test_uniform_general_span_is_fused_by_xla():
+    """ROADMAP Queue 3: XLA's CPU code contracts uniform's
+    `f * (maxval - minval) + minval` into one fma.  The port rounds the
+    product and the sum as the JAX source writes them; the smallest input
+    that shows it is uniform(PRNGKey(3), (7,), -3, 5.5), element 3."""
+    k = jax.random.PRNGKey(3)
+    f = prng.uniform(prng.key(3), (7,)).numpy().astype(np.float64)
+    fused = (f * 8.5 - 3.0).astype(np.float32)
+    rounded = (np.float32(f * 8.5) - np.float32(3.0)).astype(np.float32)
+    got = prng.uniform(prng.key(3), (7,), -3.0, 5.5).numpy()
+    want = np.asarray(jax.random.uniform(k, (7,), minval=-3.0, maxval=5.5))
+    assert np.array_equal(got, rounded)
+    assert np.array_equal(want, fused)
+    assert got[3] != want[3]
+
+
+def _sweep_log1p():
+    g = np.random.default_rng(0)
+    return np.concatenate([
+        g.uniform(-1, 1, 1_500_000),                  # both branches
+        g.uniform(-0.42, 0.42, 300_000),              # around sqrt(2) - 1
+        -1 + g.uniform(0, 1e-3, 200_000),             # log of tiny a
+        g.uniform(-1, 50, 100_000),
+        [-1, 1, 0, -0.0, 0.41421354, -0.41421354, 0.4142135, 1e-30, -1e-30,
+         1e-39, -2e-40, 1e-20, 2, -2, np.inf, -np.inf, np.nan],
+    ]).astype(np.float32)
+
+
+def _sweep_erf_inv():
+    g = np.random.default_rng(1)
+    return np.concatenate([
+        g.uniform(-1, 1, 1_600_000),
+        1 - g.uniform(0, 1e-2, 200_000),              # w >= 5
+        -1 + g.uniform(0, 1e-4, 200_000),
+        [-1, 1, 0, 0.9999999, -0.99999994, 1e-39, 2, np.nan],
+    ]).astype(np.float32)
+
+
+def _sweep_exp():
+    g = np.random.default_rng(2)
+    return np.concatenate([
+        g.uniform(-10, 10, 1_500_000),
+        g.uniform(-100, 100, 400_000),
+        g.uniform(-88, -86, 100_000),                 # flushed subnormals
+        [-88, -87.5, 88.5, 89, 0, -0.0, 1e-39, -1e-39, 1e-41, 1.0],
+    ]).astype(np.float32)
+
+
+@pytest.mark.parametrize("name,jfn,tfn,sweep", [
+    ("log1p", jnp.log1p, xla_f32.log1p_f32, _sweep_log1p),
+    ("erf_inv", jax.lax.erf_inv, xla_f32.erf_inv_f32, _sweep_erf_inv),
+    ("exp", jnp.exp, xla_f32.exp_f32, _sweep_exp),
+])
+def test_xla_float_routine_matches_bit_for_bit(name, jfn, tfn, sweep):
+    x = sweep()
+    assert x.size >= 2_000_000
+    want = np.asarray(jax.jit(jfn)(x))
+    got = tfn(torch.from_numpy(x)).numpy()
+    same = (want.view(np.int32) == got.view(np.int32)) \
+        | (np.isnan(want) & np.isnan(got))
+    assert same.all(), (name, x[~same][:5], want[~same][:5], got[~same][:5])
+
+
+def _fma_exact(a, b, c) -> np.float32:
+    """Correctly rounded a * b + c (float32), by rational arithmetic."""
+    v = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    r = np.float32(float(v))
+    cands = [np.nextafter(r, np.float32(-np.inf)), r,
+             np.nextafter(r, np.float32(np.inf))]
+    return min(cands, key=lambda t: (abs(Fraction(float(t)) - v),
+                                     int(np.float32(t).view(np.int32)) & 1))
+
+
+def test_fma_f32_is_one_rounding():
+    g = np.random.default_rng(3)
+    n = 1500
+    a = g.standard_normal(n).astype(np.float32)
+    b = g.standard_normal(n).astype(np.float32)
+    c = (g.standard_normal(n) * g.choice([1e-9, 1.0, 1e9], n)) \
+        .astype(np.float32)
+    # products that land a sum on a float32 midpoint (double rounding)
+    a[:300] = np.float32(1 + 2.0**-12)
+    b[:300] = np.float32(1 + 2.0**-12)
+    c[:300] = (np.float32(2.0**-70) * g.choice([-1, 1], 300)).astype(
+        np.float32)
+    got = xla_f32.fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                          torch.from_numpy(c)).numpy()
+    want = np.array([_fma_exact(*t) for t in zip(a, b, c)], np.float32)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))

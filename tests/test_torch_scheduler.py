@@ -107,17 +107,6 @@ def test_request_and_point_validation():
             Request(uid=0, prompt=(1,), max_new_tokens=1, point="nope"))
 
 
-def test_noise_raises_not_implemented():
-    model = _model()
-    with pytest.raises(NotImplementedError, match="noise slice"):
-        InflightScheduler(model, capacity=2, key=object())
-    with pytest.raises(NotImplementedError, match="noise slice"):
-        decode_sequential(model, Request(0, (1,), 1), key=object())
-    with pytest.raises(NotImplementedError, match="noise slice"):
-        model.step_rows(model.init_state(1), [1],
-                        noise_ids=torch.zeros(1, dtype=torch.int32))
-
-
 # ---- the isolation property -------------------------------------------------
 
 @settings(max_examples=6, deadline=None)

@@ -5,8 +5,8 @@ bucket-padded and exact extents, `serve_batch(isolate=True)` on dense and
 LeNet conv programs, and `SharedInputBind.serve` per head are held bit for
 bit (zero tolerance, the integer-domain contract) to the JAX package
 (Pallas interpret mode).  The pure-integer helpers of the program layer
-(noise-id ranges, dispatch keys) match too, and the noise operands still
-raise.
+(noise-id ranges, dispatch keys) match too.  Noise itself is held in
+tests/test_torch_noise.py.
 """
 import jax
 import jax.numpy as jnp
@@ -263,14 +263,3 @@ def test_point_joins_the_dispatch_key():
     tb.serve(x, point="b")
     tb.serve(x, point="a")
     assert tb.stats()["executables_compiled"] == before + 2
-
-
-def test_noise_operands_raise_not_implemented():
-    _, tb, _ = _dense_pair(4, 2, 2)
-    x = torch.zeros(2, DIMS[0])
-    with pytest.raises(NotImplementedError, match="noise slice"):
-        tb.serve(x, noise_ids=[0, 1])
-    with pytest.raises(NotImplementedError, match="noise slice"):
-        tb.serve(x, object())
-    with pytest.raises(NotImplementedError, match="noise slice"):
-        tb.serve_batch([x], object(), isolate=True)

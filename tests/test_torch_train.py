@@ -310,7 +310,7 @@ def test_launcher_builds_and_trains_on_the_cpu():
     assert fkernel.flash_fwd.launches == before     # plain versions only
 
 
-@pytest.mark.parametrize("flag", ("--ckpt-dir=/nonexistent", "--cim-noise",
+@pytest.mark.parametrize("flag", ("--ckpt-dir=/nonexistent",
                                   "--compress-grads"))
 def test_launcher_refuses_what_is_not_ported(flag):
     args = train.parser().parse_args([
