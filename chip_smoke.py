@@ -52,8 +52,18 @@ a result:
                 serve_batch equals serve of the concatenation, and the
                 kernel ran once per planned macro tile, each tile on the
                 route route_for names for it (conv1 on the CUDA cores,
-                the K >= 32 tiles on the tensor cores).  Median latency
-                and images/s at 256.
+                the K >= 32 tiles on the tensor cores).  Every clean
+                serve runs the bound program's CUDA graph for its
+                dispatch key (captured on the key's first call, whose
+                launches are its eager warm-up's): a replay equals
+                engine._forward run eagerly (`eager_forward`) at every
+                rung visited (256, 128, 1, 8) and for the isolated
+                serve_batch (segments), each isolated request equals its
+                solo serve, and 20 timed serves are 20 replays with no
+                capture that add 20 x the planned tiles to each route's
+                counter.  Median latency and images/s at 256, with graphs
+                and with eager_forward, each with a profiled call's
+                device time and busy share.
   4. noise    - the noise slice's main path: LeNet as in phase 3 with
                 EngineConfig(noise=NoiseConfig()) (the post-silicon noise
                 model; the planned cim_mbiw tiles in raw-dp mode, each on
@@ -78,10 +88,15 @@ a result:
                 4; every fused stream equals its solo decode_sequential,
                 cim_mbiw launched planned tiles x model calls, every one
                 on the split-K route, and ring_decode depth x model
-                calls, a bound projection equals
-                its card reference.  Bind seconds, median fused-step
-                latency per point, tokens/s, and the profiler's device
-                time and busy share of one fused step per point.
+                calls (replays included), a bound projection equals
+                its card reference.  Every projection dispatch replays
+                a CUDA graph: the run's captures equal the graphs the
+                bound programs hold (one a dispatch key), and the solo
+                decodes capture none.  Bind seconds, median fused-step
+                latency per point, tokens/s; last in the script, a fused
+                4-row step per point with graphs and with every
+                projection run eagerly (EagerServe): median host ms and
+                the profiler's device time and busy share of each.
   6. noise decode - in-flight decode as in phase 5 with noise, depth
                 2, point (4, 2), 4 requests at capacity 4 under
                 prng.key(0): every fused stream == its solo
@@ -132,13 +147,17 @@ a result:
                 draw (1569 streams of 2048), with torch.randn of as many
                 normals as a yardstick of another function.
 
-Then the `kernels` JSON line, the card's name and power limit as
-nvidia-smi reports them, and last the JSON result line.  Detailed numbers
+Then a capture line (captures, their seconds with each one's eager
+warm-up, and the bytes of the shared graph pool, after the LeNet and
+decode phases and at the end), the `kernels` JSON line, the card's name
+and power limit as nvidia-smi reports them, and last the JSON result
+line.  Detailed numbers
 go to chiprun_out/chip_smoke.json.  Exits non-zero (printing no result)
 without a CUDA device or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -277,6 +296,82 @@ def kernel_counts(kern) -> tuple:
 
 def reset_counts(kern) -> None:
     kern.launches = kern.launches_tc = kern.launches_splitk = 0
+
+
+def eager_forward(rt, bound, x, segments=None) -> torch.Tensor:
+    """A bound program's clean dispatch run eagerly: the rows padded to
+    their bucket as BoundProgram.serve pads them, then engine._forward
+    called directly - the yardstick of the captured graphs."""
+    prog = bound.program
+    xc, lead = prog._canon(x)
+    m = xc.shape[0]
+    b = prog.buckets.bucket_for(m)
+    xp = torch.cat([xc, xc[:1].expand((b - m,) + tuple(xc.shape[1:]))])
+    seg = None
+    if segments is not None:
+        sg = torch.as_tensor(segments).to(prog.device, torch.int64)
+        seg = torch.cat([sg, sg[:1].expand(b - m)])
+    y = rt._forward(prog.plan, bound._binds, xp, reference=False,
+                    m_valid=m, seg=seg)
+    return y[:m].reshape(lead + tuple(y.shape[1:]))
+
+
+class EagerServe:
+    """Inside the block every BoundProgram.serve runs eager_forward, not
+    its graph (clean dispatches only): the eager run of the same decode
+    step, switched here and not in the package."""
+
+    def __init__(self, tprog, rt):
+        self.tprog, self.rt = tprog, rt
+
+    def __enter__(self):
+        rt = self.rt
+        self.orig = self.tprog.BoundProgram.serve
+
+        def serve(bound, x, key=None, noise=None, *, segments=None,
+                  noise_ids=None, reference=False, point=""):
+            check(key is None and noise is None and not reference,
+                  "the eager yardstick serves clean dispatches only")
+            return eager_forward(rt, bound, x, segments)
+        self.tprog.BoundProgram.serve = serve
+
+    def __exit__(self, *exc):
+        self.tprog.BoundProgram.serve = self.orig
+
+
+def graph_pool_bytes(tprog, dev) -> int:
+    """Bytes the caching allocator holds in the device's shared graph
+    pool (every captured executable's intermediates and outputs; the
+    static inputs sit outside it), from its snapshot's pool ids."""
+    pool = tprog._GRAPH_POOLS.get(tprog.resolve_device(dev))
+    if pool is None:
+        return 0
+    return sum(sg["total_size"] for sg in torch.cuda.memory_snapshot()
+               if tuple(sg["segment_pool_id"]) == tuple(pool))
+
+
+class CaptureClock:
+    """Wraps the executables' capture to time each one (its eager warm-up
+    run and the capture, ending in a sync)."""
+
+    def __init__(self, tprog):
+        self.seconds = []
+        orig = tprog._Executable.capture.__func__
+        clock = self
+
+        def capture(cls, *a, **kw):
+            t0 = time.perf_counter()
+            out = orig(cls, *a, **kw)
+            torch.cuda.synchronize()
+            clock.seconds.append(time.perf_counter() - t0)
+            return out
+        tprog._Executable.capture = classmethod(capture)
+
+    def since(self, mark: int) -> dict:
+        """Captures and their seconds from the mark (a count) on."""
+        t = self.seconds[mark:]
+        return {"captures": len(t), "seconds": sum(t),
+                "max_s": max(t, default=0.0)}
 
 
 def device_profile(fn, reps: int, cpu: bool = True,
@@ -1241,6 +1336,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attn import kernel as rmod
     from repro_torch.kernels.flash_attn import ref as rref
     from repro_torch.models import cnn
+    from repro_torch.runtime import engine as trt
+    from repro_torch.runtime import program as tprog
     from repro_torch.runtime.scheduler import (CIMDecodeLM,
                                                InflightScheduler, Request,
                                                decode_sequential)
@@ -1255,6 +1352,8 @@ def main() -> int:
     report = {"card": card, "device": torch.cuda.get_device_name(0)}
     kern = kmod.cim_mbiw_matmul_planes
     ring = rmod.ring_decode
+    clock = CaptureClock(tprog)
+    graphs: dict = {}
     t_start = t_phase = time.perf_counter()
     phase_s: dict = {}
 
@@ -1423,6 +1522,7 @@ def main() -> int:
         s += b
     main_routes = {"all": 0, "tc": 0, "splitk": 0}
     lenet = {}
+    cap_mark, cap_n0 = len(clock.seconds), trt.CAPTURE_COUNT["n"]
     for r_in, r_w in PRECISIONS:
         cim = CIMConfig(r_in=r_in, r_w=r_w)
         params = cnn.lenet_params_list(
@@ -1467,6 +1567,30 @@ def main() -> int:
         check(torch.equal(y.cpu(), y_cpu), "card logits != CPU run")
         check(torch.equal(torch.cat(ys), bound.serve(torch.cat(reqs))),
               "serve_batch != serve of the concatenation")
+        # the graphs: every dispatch above but the reference captured or
+        # replayed one; a replay == engine._forward run eagerly at every
+        # rung the phase visits, shared and isolated serve_batch included
+        rungs = {}
+        for xx in [x, torch.cat(reqs)] + reqs:
+            rung = prog.buckets.bucket_for(xx.shape[0])
+            check(torch.equal(bound.serve(xx), eager_forward(trt, bound, xx)),
+                  f"LeNet ({r_in},{r_w}) rung {rung}: graph replay != eager")
+            rungs[rung] = rungs.get(rung, 0) + 1
+        seg_iso = torch.repeat_interleave(torch.arange(len(REQUESTS)),
+                                          torch.tensor(REQUESTS))
+        iso = [torch.cat(bound.serve_batch(reqs, isolate=True))
+               for _ in range(2)]
+        check(torch.equal(iso[0], iso[1]) and torch.equal(
+            iso[1], eager_forward(trt, bound, torch.cat(reqs), seg_iso)),
+              f"LeNet ({r_in},{r_w}): isolated serve_batch graph != eager")
+        for xi, yi in zip(reqs, torch.split(iso[1], list(REQUESTS))):
+            check(torch.equal(yi, bound.serve(xi)),
+                  f"LeNet ({r_in},{r_w}): isolated request != solo serve")
+        # timed replays: no capture, one replay each, and the launches of
+        # as many eager forwards on each route
+        want_c = kmod.route_counts(prog.plan.tile_calls(LENET_BATCH))
+        captures, st0 = trt.CAPTURE_COUNT["n"], prog.stats()
+        reset_counts(kern)
         lat = []
         for _ in range(20):
             torch.cuda.synchronize()
@@ -1474,28 +1598,61 @@ def main() -> int:
             bound.serve(x)
             torch.cuda.synchronize()
             lat.append(time.perf_counter() - t0)
+        counts_timed = kernel_counts(kern)
+        st = prog.stats()
+        check(trt.CAPTURE_COUNT["n"] == captures
+              and st["graph_replays"] - st0["graph_replays"] == 20
+              and st["eager_calls"] == st0["eager_calls"],
+              f"LeNet ({r_in},{r_w}): timed serves were not 20 replays "
+              f"without a capture")
+        check(counts_timed == tuple(20 * v for v in (
+            sum(want_c.values()), want_c["tc"], want_c["splitk"])),
+              f"LeNet ({r_in},{r_w}): 20 replays launched {counts_timed}, "
+              f"not 20 x route_for's {want_c}")
+        for r, n_ in zip(("all", "tc", "splitk"), counts_timed):
+            main_routes[r] += n_
+        lat_eager = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager_forward(trt, bound, x)
+            torch.cuda.synchronize()
+            lat_eager.append(time.perf_counter() - t0)
         med = statistics.median(lat[3:])
+        med_eager = statistics.median(lat_eager[3:])
         prof = device_profile(lambda: bound.serve(x), 10)
+        prof_eager = device_profile(lambda: eager_forward(trt, bound, x), 10)
         lenet[f"{r_in},{r_w}"] = {
             "launches_per_forward": launches_serve,
-            "routes_per_forward": kmod.route_counts(
-                prog.plan.tile_calls(LENET_BATCH)),
+            "routes_per_forward": want_c,
             "planned_tiles": per_fwd, "median_latency_ms": 1e3 * med,
             "images_per_s": LENET_BATCH / med,
-            "latencies_ms": [1e3 * t for t in lat], "profile": prof}
-        busy = (f"device busy {100 * prof['device_busy']:.1f}% of a "
-                f"profiled serve, cim_mbiw {prof['cim_mbiw_us']:.1f} of "
-                f"{prof['device_us']:.1f} device us" if prof
-                else "device time not measured (profiler saw none)")
+            "latencies_ms": [1e3 * t for t in lat], "profile": prof,
+            "eager_median_latency_ms": 1e3 * med_eager,
+            "eager_latencies_ms": [1e3 * t for t in lat_eager],
+            "eager_profile": prof_eager, "rungs_checked": rungs,
+            "graphs_held": len(bound.executables), "stats": st}
+
+        def busy(pr):
+            return (f"device {pr['device_us']:.1f} us (cim_mbiw "
+                    f"{pr['cim_mbiw_us']:.1f}), busy "
+                    f"{100 * pr['device_busy']:.1f}% profiled" if pr
+                    else "device time not measured (profiler saw none)")
         print(f"lenet ({r_in},{r_w}) {tag}: batch {LENET_BATCH} logits == "
               f"card reference == CPU run (bit for bit), serve_batch "
               f"{list(REQUESTS)} == serve(concat); {launches_serve} kernel "
-              f"launches per forward (= planned tiles; routes "
-              f"{lenet[f'{r_in},{r_w}']['routes_per_forward']} as "
-              f"route_for names them); median serve "
-              f"{1e3 * med:.3f} ms, {LENET_BATCH / med:.0f} images/s; "
-              f"{busy}", flush=True)
+              f"launches per forward (= planned tiles; routes {want_c} as "
+              f"route_for names them); graph replay == eager "
+              f"engine._forward at rungs {sorted(rungs)} and isolated "
+              f"serve_batch, isolated requests == solo; 20 timed serves = "
+              f"20 replays, no capture, launches 20 x the tiles; median "
+              f"serve {1e3 * med:.3f} ms, {LENET_BATCH / med:.0f} images/s, "
+              f"{busy(prof)}; eager _forward {1e3 * med_eager:.3f} ms, "
+              f"{busy(prof_eager)}", flush=True)
     report["lenet"] = lenet
+    graphs["lenet"] = dict(clock.since(cap_mark),
+                           capture_count=trt.CAPTURE_COUNT["n"] - cap_n0,
+                           pool_bytes=graph_pool_bytes(tprog, dev))
     phase_s["lenet"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
@@ -1536,6 +1693,7 @@ def main() -> int:
                 1e3 * (time.perf_counter() - t))
         return out
     model.step_rows = timed_step
+    cap_mark, cap_n0 = len(clock.seconds), trt.CAPTURE_COUNT["n"]
     reset_counts(kern)
     ring.launches = 0
     sched = InflightScheduler(model, capacity=DECODE_CAPACITY)
@@ -1546,6 +1704,20 @@ def main() -> int:
     dec_cim, dec_ring = kern.launches, ring.launches
     dec_splitk = kern.launches_splitk
     del model.step_rows
+    # every projection dispatch of the run was clean: each program's
+    # dispatch keys were captured once, on their first call, and replayed
+    # after it
+    bounds = [b for p in model.points for blk in model.blocks_for(p)
+              for b in (blk.qkv.bound, blk.o, blk.gate_up.bound, blk.down)]
+    held = sum(len(b.executables) for b in bounds)
+    cap_run = trt.CAPTURE_COUNT["n"] - cap_n0
+    dstats = {}
+    # the blocks of a point share their programs (equal plans)
+    for prog_ in {id(b.program): b.program for b in bounds}.values():
+        for k_, v in prog_.stats().items():
+            dstats[k_] = dstats.get(k_, 0) + v
+    check(cap_run == held > 0,
+          f"decode: {cap_run} captures != {held} graphs held")
     calls = {p: sum(len(r.prompt) for r in reqs.values() if r.point == p)
              + sched.points_served.get(p, 0) for p in model.points}
     planned = sum(tiles[p] * calls[p] for p in calls)
@@ -1569,6 +1741,8 @@ def main() -> int:
         check(decode_sequential(model, r) == streams[u],
               f"request {u} ({r.point!r}): fused stream != solo decode")
     solo_s = time.perf_counter() - t0
+    check(trt.CAPTURE_COUNT["n"] == cap_n0 + cap_run,
+          "decode: the solo decodes captured again")
     # a bound projection on the card against its plain reference, with
     # one segment per row and a 100x spread of swings
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1591,15 +1765,21 @@ def main() -> int:
         "calls": calls, "tiles_per_call": tiles,
         "launches": {"cim_mbiw": dec_cim, "cim_mbiw_splitk": dec_splitk,
                      "ring_decode": dec_ring},
-        "step_ms": step_ms, "median_step_ms": med, "metrics": met}
+        "step_ms": step_ms, "median_step_ms": med, "metrics": met,
+        "graphs_held": held, "program_stats": dstats}
+    graphs["decode"] = dict(clock.since(cap_mark), capture_count=cap_run,
+                            pool_bytes=graph_pool_bytes(tprog, dev))
     print(f"decode [{card}]: OLMo-1B widths, depth {depth}, points "
           f"{DECODE_POINTS}; bind {bind_s:.1f} s; {len(reqs)} requests at "
           f"capacity {DECODE_CAPACITY}: every fused stream == "
           f"decode_sequential; launches cim_mbiw {dec_cim} (= planned "
           f"tiles x calls, all {dec_splitk} split-K), ring_decode "
           f"{dec_ring} (= depth x calls "
-          f"{calls}); qkv serve == card reference at both points",
-          flush=True)
+          f"{calls}); {cap_run} captures = {held} graphs held, one a "
+          f"program's dispatch key, none in the solo decodes; "
+          f"{dstats['graph_replays']} replays, "
+          f"{dstats['eager_calls']} eager calls; qkv serve == card "
+          f"reference at both points", flush=True)
     print(f"decode metrics [{card}]: tokens/s {met['tokens_per_s']:.3f}, "
           f"{met['tokens']:.0f} tokens, {met['decode_steps']:.0f} fused "
           f"steps in {met['decode_wall_s']:.1f} s, extents "
@@ -1749,23 +1929,50 @@ def main() -> int:
     # own warm-up step), device only: traced last, because a trace of
     # that many thousand launches leaves the profiler blind to the short
     # traces that would follow it
-    prof_step = {}
+    # the same step with every projection run eagerly (EagerServe) beside
+    prof_step: dict = {}
     for p in model.points:
         st = model.init_state(DECODE_CAPACITY)
         toks = torch.arange(1, DECODE_CAPACITY + 1)
-        prof_step[p] = device_profile(
-            lambda: model.step_rows(st, toks, point=p)[1].cpu(), 1,
-            cpu=False)
+
+        def step():
+            return model.step_rows(st, toks, point=p)[1].cpu()
+        prof_step[p] = {}
+        for mode, reps in (("graph", 5), ("eager", 2)):
+            with EagerServe(tprog, trt) if mode == "eager" \
+                    else contextlib.nullcontext():
+                captures = trt.CAPTURE_COUNT["n"]
+                step()
+                host = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    step()
+                    host.append(1e3 * (time.perf_counter() - t0))
+                pr = device_profile(step, 1, cpu=False)
+                check(mode == "graph" or trt.CAPTURE_COUNT["n"] == captures,
+                      "the eager step captured a graph")
+            pr["host_ms"] = host
+            pr["median_host_ms"] = statistics.median(host)
+            if "device_us" in pr:
+                pr["busy_of_median_host"] = pr["device_us"] / (
+                    1e3 * pr["median_host_ms"])
+            prof_step[p][mode] = pr
         del st
-        pr = prof_step[p]
-        dev_txt = (f"device {pr['device_us']:.0f} us (cim_mbiw "
-                   f"{pr['cim_mbiw_us']:.0f}, ring_decode "
-                   f"{pr['ring_decode_us']:.0f}), busy "
-                   f"{100 * pr['device_busy']:.1f}% of a profiled "
-                   f"{pr['wall_us'] / 1e3:.0f} ms step" if pr
-                   else "device time not measured (profiler saw none)")
+        txt = []
+        for mode, pr in prof_step[p].items():
+            txt.append(
+                f"{mode}: host {pr['median_host_ms']:.1f} ms (median of "
+                f"{len(pr['host_ms'])}), " + (
+                    f"device {pr['device_us']:.0f} us (cim_mbiw "
+                    f"{pr['cim_mbiw_us']:.0f}, ring_decode "
+                    f"{pr['ring_decode_us']:.0f}), busy "
+                    f"{100 * pr['busy_of_median_host']:.1f}% of the median "
+                    f"step, {100 * pr['device_busy']:.1f}% of a profiled "
+                    f"{pr['wall_us'] / 1e3:.0f} ms step"
+                    if "device_us" in pr else
+                    "device time not measured (profiler saw none)"))
         print(f"decode point {p or 'base'!r} {DECODE_POINTS[p]} [{card}]: "
-              f"one fused 4-row step: {dev_txt}", flush=True)
+              f"one fused 4-row step, {'; '.join(txt)}", flush=True)
     report["decode"]["fused_step_profile"] = prof_step
     phase_s["profile"] = time.perf_counter() - t_phase
 
@@ -1845,6 +2052,17 @@ def main() -> int:
         "ms": dtimes["ms"], "plain_ms": dtimes["plain_ms"],
         "bound_ms": dtimes["bound_ms"], "bound_by": dtimes["bound_by"],
         "library_ms": None})
+    graphs["all_phases"] = {"captures": len(clock.seconds),
+                            "seconds": sum(clock.seconds),
+                            "max_s": max(clock.seconds, default=0.0),
+                            "capture_count": trt.CAPTURE_COUNT["n"],
+                            "pool_bytes": graph_pool_bytes(tprog, dev)}
+    report["graphs"] = graphs
+    print(f"capture {tag}: " + "; ".join(
+        f"{ph} {g['capture_count']} captures in {g['seconds']:.2f} s "
+        f"(slowest {g['max_s']:.3f} s), graph pool "
+        + f"{g['pool_bytes'] / 2**20:.1f} MiB after it"
+        for ph, g in graphs.items()), flush=True)
     idle = [k["name"] for k in kernels["kernels"] if k["launches"] < 1]
     check(not idle, f"kernels the main paths never launched: {idle}")
     report["kernels"] = kernels

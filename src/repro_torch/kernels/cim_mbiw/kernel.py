@@ -21,14 +21,16 @@ Tensors on the CPU run the plain PyTorch version
 (`ref.cim_mbiw_matmul_planes_ref`).  A CUDA tensor never reaches the plain
 version or another route: a launch of the chosen route either happens or
 raises.  `cim_mbiw_matmul_planes.launches` counts every launch,
-`.launches_tc` and `.launches_splitk` those of routes A and B.
+`.launches_tc` and `.launches_splitk` those of routes A and B.  A CUDA
+graph replay runs no Python, so a captured dispatch adds what its capture
+launched (`launch_counts`, `add_launches`).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -172,16 +174,27 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 # route B's int32 workspace per device: tickets and partial sums, zero
-# between calls (each call leaves it zero); grown, never shrunk
+# between calls (each call leaves it zero); grown, never shrunk.  A CUDA
+# graph bakes in the address it captured, so a workspace outgrown keeps
+# living in _RETIRED_WORKSPACES: the graphs that hold it replay on it
 _WORKSPACE: Dict[torch.device, torch.Tensor] = {}
+_RETIRED_WORKSPACES: List[torch.Tensor] = []
 
 
 def _splitk_workspace(device: torch.device, numel: int) -> torch.Tensor:
     """At least `numel` zero int32 on `device`, the same tensor for every
-    call that fits.  Allocate it (a first call) before a CUDA graph
-    captures route B."""
+    call that fits.  It grows only outside a CUDA graph capture (an eager
+    run of the shape first, as a capture's warm-up is): a capture would
+    record the zero fill instead of running it."""
     ws = _WORKSPACE.get(device)
     if ws is None or ws.numel() < numel:
+        if device.type == "cuda" \
+                and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"route B's workspace must grow to {numel} int32 during a "
+                "CUDA graph capture; run the shape eagerly first")
+        if ws is not None:
+            _RETIRED_WORKSPACES.append(ws)
         ws = torch.zeros(max(numel, 2 * (0 if ws is None else ws.numel())),
                          dtype=torch.int32, device=device)
         _WORKSPACE[device] = ws
@@ -287,3 +300,20 @@ def cim_mbiw_matmul_planes(x_planes: torch.Tensor, w_q: torch.Tensor,
 cim_mbiw_matmul_planes.launches = 0
 cim_mbiw_matmul_planes.launches_tc = 0
 cim_mbiw_matmul_planes.launches_splitk = 0
+
+
+LAUNCH_COUNTERS = ("launches", "launches_tc", "launches_splitk")
+
+
+def launch_counts() -> Dict[str, int]:
+    """The wrapper's launch counters by name (LAUNCH_COUNTERS)."""
+    return {c: getattr(cim_mbiw_matmul_planes, c) for c in LAUNCH_COUNTERS}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add `counts` to the launch counters: a CUDA graph replay adds the
+    launches its capture recorded (negated, they take back what a capture
+    counted but did not launch)."""
+    for c, n in counts.items():
+        setattr(cim_mbiw_matmul_planes, c,
+                getattr(cim_mbiw_matmul_planes, c) + n)

@@ -64,6 +64,11 @@ Params = List[Dict[str, torch.Tensor]]
 # exactly once; repeated compile_program calls must be cache hits)
 PLAN_COUNT = {"n": 0}
 
+# incremented once per CUDA-graph capture of a bound program's dispatch
+# (runtime/program.py), never on a replay: the counterpart of the JAX
+# package's TRACE_COUNT, flat after warm-up
+CAPTURE_COUNT = {"n": 0}
+
 # thermal kT/C draws are generated per fixed-size global GEMM-row block
 # (keys fold the block index), then sliced to the live extent: the values a
 # given (layer, row tile, col tile, GEMM row) sees are invariant to the
@@ -306,7 +311,9 @@ def bind_layer(lp: LayerPlan, params: Dict[str, torch.Tensor],
       dict of tensors on the params' device, column-padded to the plan's
       uniform col-tile extent: "wqq" (K, n_pad) odd-integer weight codes,
       "w_scale" (N,) dequant scale, "gamma_p"/"beta_p" (n_pad,) padded ABN
-      gain/offset (gamma pads with 1.0 - it divides in the dequant).
+      gain/offset (gamma pads with 1.0 - it divides in the dequant), and
+      "g0" the plan's unity gain as a 0-d float32 (moved with the rest,
+      so a dispatch makes no host-to-device copy).
     """
     wq = quantize_weight(params["w"], lp.spec.r_w, axis=0)
     gamma = abn_lib.abn_gamma(
@@ -318,6 +325,7 @@ def bind_layer(lp: LayerPlan, params: Dict[str, torch.Tensor],
         "w_scale": wq.scale.reshape(-1),
         "gamma_p": _pad_dim(gamma, 0, n_pad, value=1.0),
         "beta_p": _pad_dim(params["abn_beta"], 0, n_pad),
+        "g0": torch.tensor(lp.g0, dtype=torch.float32),
     }
 
 
@@ -341,14 +349,16 @@ def bind_network(plan: NetworkPlan, params: Params,
     return tuple(binds)
 
 
-def _mask_pad_rows(x: torch.Tensor, m_valid: int) -> torch.Tensor:
+def _mask_pad_rows(x: torch.Tensor, m_valid) -> torch.Tensor:
     """Overwrite batch rows at index >= m_valid with a copy of row 0.
 
     Batch-bucketed dispatch pads the leading batch axis up to a bucket
     size; this runs before every layer so the padded rows are always
     duplicates of a live row when the dynamic activation quantization
     computes its global min/max (duplicates never move a min/max), keeping
-    the valid rows bit-exact with an unpadded run."""
+    the valid rows bit-exact with an unpadded run.  `m_valid` is an int or
+    a 0-d integer tensor on x's device (a captured dispatch's static
+    buffer, which calls that share a bucket refill)."""
     idx = torch.arange(x.shape[0], device=x.device).reshape(
         (-1,) + (1,) * (x.dim() - 1))
     return torch.where(idx < m_valid, x, x[:1])
@@ -478,8 +488,7 @@ def _noise_adc_code(lp: LayerPlan, dp: torch.Tensor, gamma_t: torch.Tensor,
 
 
 def _tile_schedule(lp: LayerPlan, q_rows: torch.Tensor, zp: torch.Tensor,
-                   wqq: torch.Tensor, gamma: torch.Tensor,
-                   beta: torch.Tensor, *, matmul,
+                   bind: Dict[str, torch.Tensor], *, matmul,
                    nctx: Optional[_LayerNoise] = None) -> torch.Tensor:
     """One block of GEMM rows through the (k, n) tile schedule.
 
@@ -489,11 +498,13 @@ def _tile_schedule(lp: LayerPlan, q_rows: torch.Tensor, zp: torch.Tensor,
     thermal slice) then runs here.  `zp` is the activation zero-point in
     code units: a scalar, or per row (rows, 1) under segment-wise
     quantization, which makes the folded ADC offset beta_eff per GEMM row
-    (rows, n).  Returns dp_hat (rows, n_pad) in dp units."""
+    (rows, n).  `bind` holds the layer's bind products.  Returns dp_hat
+    (rows, n_pad) in dp units."""
     mid = 2.0 ** (lp.spec.r_out - 1)
     g0 = lp.g0
     tsz = lp.tile_n
-    gain = gamma * torch.tensor(g0, dtype=torch.float32, device=gamma.device)
+    wqq, gamma, beta = bind["wqq"], bind["gamma_p"], bind["beta_p"]
+    gain = gamma * bind["g0"]
     dp_hat = []
     for ni in range(wqq.shape[1] // tsz):
         ns, ne = ni * tsz, (ni + 1) * tsz
@@ -520,8 +531,8 @@ def _tile_schedule(lp: LayerPlan, q_rows: torch.Tensor, zp: torch.Tensor,
 
 
 def _schedule_rows(lp: LayerPlan, cfg: EngineConfig, q_rows: torch.Tensor,
-                   zp: torch.Tensor, wqq: torch.Tensor, gamma: torch.Tensor,
-                   beta: torch.Tensor, *, matmul,
+                   zp: torch.Tensor, bind: Dict[str, torch.Tensor], *,
+                   matmul,
                    nctx: Optional[_LayerNoise] = None) -> torch.Tensor:
     """Stream `q_rows` through the tile schedule in cfg.stream_rows chunks
     (the im2col streaming stage).  Quantization stays global (or
@@ -534,8 +545,8 @@ def _schedule_rows(lp: LayerPlan, cfg: EngineConfig, q_rows: torch.Tensor,
     for s in range(0, max(m, 1), chunk):
         sl = slice(s, s + chunk)
         parts.append(_tile_schedule(
-            lp, q_rows[sl], zp if zp.dim() == 0 else zp[sl], wqq, gamma,
-            beta, matmul=matmul,
+            lp, q_rows[sl], zp if zp.dim() == 0 else zp[sl], bind,
+            matmul=matmul,
             nctx=nctx.rows(sl) if nctx is not None else None))
     return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
 
@@ -565,8 +576,8 @@ def _layer_tiles(lp: LayerPlan, bind: Dict[str, torch.Tensor],
     nctx = (_layer_noise(lp, cfg, noise, bind["gamma_p"], key, x2.shape[0],
                          row_ids=nid_rows, row_sub=sub_rows)
             if noise is not None else None)
-    dp_hat = _schedule_rows(lp, cfg, aq.q, zp, bind["wqq"], bind["gamma_p"],
-                            bind["beta_p"], matmul=matmul, nctx=nctx)
+    dp_hat = _schedule_rows(lp, cfg, aq.q, zp, bind, matmul=matmul,
+                            nctx=nctx)
     y = dp_hat[:, :lp.spec.n] * aq.scale * bind["w_scale"]
     if lp.activation == "relu":
         y = torch.relu(y)
@@ -598,7 +609,9 @@ def _run_layer(lp: LayerPlan, bind: Dict[str, torch.Tensor],
         b = x.shape[0]
         rep = g.out_h * g.out_w
         x2 = im2col_patches(x, g).reshape(b * rep, lp.spec.k)
-        seg_rows = None if seg is None else torch.repeat_interleave(seg, rep)
+        # an expand, not repeat_interleave: no host copy of the repeats
+        seg_rows = None if seg is None else seg[:, None].expand(
+            b, rep).reshape(-1)
         nid_rows = None if nids is None else torch.repeat_interleave(nids,
                                                                      rep)
         if nids is not None:
@@ -653,13 +666,14 @@ def _reference_matmul(lp: LayerPlan, cfg: EngineConfig):
 def _forward(plan: NetworkPlan, binds: Sequence[Dict[str, torch.Tensor]],
              x: torch.Tensor, reference: bool,
              key=None, noise: Optional[NoiseConfig] = None,
-             m_valid: Optional[int] = None,
+             m_valid=None,
              seg: Optional[torch.Tensor] = None,
              nids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The whole schedule over a canonical batch: (B, H, W, C) images for a
-    conv-first plan, (B, K0) rows for a dense-first one.  `m_valid` marks
-    the live rows of a bucket-padded batch (pad rows are re-pinned to
-    copies of row 0 before every layer).  `seg` ((B,) int, optional) are
+    conv-first plan, (B, K0) rows for a dense-first one.  `m_valid` (an
+    int, or a 0-d integer tensor on the device) marks the live rows of a
+    bucket-padded batch (pad rows are re-pinned to copies of row 0 before
+    every layer).  `seg` ((B,) int, optional) are
     the per-sample segment ids of segment-wise activation quantization.
 
     `noise` is the run's resolved operating point (`_dispatch_noise`:

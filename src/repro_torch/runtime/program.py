@@ -9,16 +9,36 @@ Counterpart of `repro/runtime/program.py` on the clean single-device path:
     ys     = bound.serve_batch([x1, x2, x3])
     prog.stats()                        # plans / dispatch shapes / buckets
 
-* **Plan cache** - `compile_program` keys a module-level cache on
-  (specs, cfg, activations, pools, buckets, device): equal programs share
-  one `NetworkPlan` (planned exactly once - engine.PLAN_COUNT counts).
+* **Plan cache** - `compile_program` keys a module-level LRU cache on
+  (specs, cfg, activations, pools, buckets, device), and behind it a
+  second LRU table on (plan, buckets, device) (`program_for_plan`): equal
+  programs share one `NetworkPlan` (planned exactly once -
+  engine.PLAN_COUNT counts) and one `CIMProgram`.  Both tables hold
+  at most `set_program_cache_capacity` entries ($REPRO_PROGRAM_CACHE_CAP,
+  512); an evicted program keeps serving wherever it is held.
 * **Batch bucketing** - `serve` pads the leading batch axis up to a
   power-of-two ladder rung (`BatchBuckets`).  Pad rows are copies of row
   0, re-pinned before every layer (engine._mask_pad_rows), so the dynamic
   activation-quantization statistics and every live-row bit equal an
-  unpadded run.  Eager PyTorch compiles nothing per shape, but the rungs
-  bound the set of dispatch shapes a later CUDA-graph capture would need;
+  unpadded run.  The rungs bound the set of dispatch keys;
   `stats()` counts them under the JAX package's names.
+* **Executables** - on a CUDA device, a clean dispatch of a bound program
+  (no key, no noise, not the reference) runs as a CUDA graph of
+  engine._forward at the bucket extent, one per dispatch key, captured on
+  the key's first call (after one eager warm-up run on a side stream,
+  whose result that call returns) and replayed after it: the live rows,
+  their count and the segment ids are copied into the graph's static
+  buffers, and the caller gets a clone of its static output.  Every other
+  dispatch runs eagerly, as a declared route: the CPU, keyed or noisy
+  dispatches (their stream keys and noise terms derive on the host),
+  `reference=True` (the plain oracle reads numpy) and per-call params
+  (`CIMProgram.run`/`serve` bind on every call).  engine.CAPTURE_COUNT
+  counts captures (flat after warm-up); `stats()` counts
+  graphs_captured, graph_replays and eager_calls.  Graphs of one device
+  share one memory pool: safe because their inputs sit outside it, their
+  outputs stay referenced by their executables and are cloned on return,
+  and replays run one after another on the current stream.  Nothing falls
+  back: a capture or replay that raises, raises.
 * **Weight binding** - `bind(params)` runs engine.bind_network once on the
   host (weight quantization to the odd-integer grid, ABN gamma, col-tile
   padding) and moves the products to the program's device.
@@ -39,16 +59,18 @@ Counterpart of `repro/runtime/program.py` on the clean single-device path:
 A program runs on one device, CUDA by default: with no card,
 `compile_program` raises rather than carry on on the CPU, and the CPU
 path (the kernels' plain versions) must be asked for with device="cpu".
-The program cache has no LRU capacity yet.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.core import mapping
+from repro_torch.kernels.cim_mbiw import kernel as kmod
 from repro_torch.runtime import engine as rt
 
 Device = Union[str, torch.device, None]
@@ -95,7 +117,8 @@ class BatchBuckets:
 DEFAULT_BUCKETS = BatchBuckets()
 
 _STAT_KEYS = ("plans_built", "executables_compiled", "bucket_hits",
-              "bucket_misses", "run_calls", "serve_calls")
+              "bucket_misses", "run_calls", "serve_calls", "graphs_captured",
+              "graph_replays", "eager_calls")
 
 # stride separating per-request noise-id ranges (request_noise_ids):
 # 2^20 rows per request before ids collide
@@ -135,9 +158,9 @@ def executable_key(kind: str, extent: int, *, noise: bool, keyed: bool,
     extent, the operand-presence flags (noise operands, PRNG key, device
     count, bound params, reference oracle, segment ids, noise-identity
     ids) and the serving operating-point tag (`point`, "" for the base
-    point).  Eager PyTorch compiles nothing per key; `stats()` counts the
-    distinct keys, the set a later CUDA-graph capture would need.  Keep
-    in sync with EXEC_KEY_FIELDS."""
+    point).  A bound program on the card holds one CUDA graph per clean
+    key; `stats()` counts the distinct keys.  Keep in sync with
+    EXEC_KEY_FIELDS."""
     return (kind, int(extent), bool(noise), bool(keyed), int(devices),
             bool(bound), bool(reference), bool(segmented), bool(identity),
             str(point))
@@ -179,6 +202,14 @@ class CIMProgram:
     def __setattr__(self, name, value):
         raise AttributeError("CIMProgram is immutable")
 
+    def __hash__(self):
+        return hash((self._plan, self._buckets, str(self._device)))
+
+    def __eq__(self, other):
+        return (type(other) is CIMProgram and self._plan == other._plan
+                and self._buckets == other._buckets
+                and self._device == other._device)
+
     def __repr__(self):
         return (f"CIMProgram({len(self._plan.layers)} layers, "
                 f"buckets={self._buckets}, device={self._device})")
@@ -187,6 +218,11 @@ class CIMProgram:
     def plan(self) -> rt.NetworkPlan:
         """The NetworkPlan this program executes."""
         return self._plan
+
+    @property
+    def cfg(self) -> rt.EngineConfig:
+        """The plan's shared EngineConfig."""
+        return self._plan.cfg
 
     @property
     def buckets(self) -> BatchBuckets:
@@ -297,6 +333,7 @@ class CIMProgram:
                            segmented=seg is not None,
                            identity=nid is not None),
             bucketed=False)
+        self._stats["eager_calls"] += 1
         y = rt._forward(self._plan, binds, xc, reference=bool(reference),
                         key=key, noise=nz, seg=seg, nids=nid)
         return y.reshape(lead + tuple(y.shape[1:]))
@@ -309,13 +346,17 @@ class CIMProgram:
         tags the dispatch with a serving operating-point name (it joins
         the dispatch key; "" is the base point)."""
         binds = rt.bind_network(self._plan, list(params), self._device)
-        return self._serve_padded(binds, False, x, key, noise,
+        return self._serve_padded(binds, None, x, key, noise,
                                   bool(reference), segments, noise_ids,
                                   point)
 
-    def _serve_padded(self, binds, bound: bool, x, key, noise,
+    def _serve_padded(self, binds, execs: Optional[Dict], x, key, noise,
                       reference: bool, segments=None, noise_ids=None,
                       point: str = "") -> torch.Tensor:
+        """One bucketed dispatch.  `execs` is the bound program's table of
+        captured executables (None with per-call params): a clean
+        dispatch on the card replays (or captures) the graph of its key,
+        every other runs engine._forward eagerly."""
         nz = rt._dispatch_noise(self._plan, noise)
         xc, lead = self._canon(x)
         m = xc.shape[0]
@@ -325,8 +366,6 @@ class CIMProgram:
         nid = self._canon_ids(noise_ids, m)
         bucket = self._buckets.bucket_for(m)
         if bucket > m:
-            pad = xc[:1].expand((bucket - m,) + tuple(xc.shape[1:]))
-            xc = torch.cat([xc, pad], dim=0)
             # pad ids mirror the pad rows (copies of row 0): the pad rows
             # stay duplicates inside row 0's segment, so no segment's
             # min/max can move and live rows stay bit-exact
@@ -334,14 +373,31 @@ class CIMProgram:
                 seg = torch.cat([seg, seg[:1].expand(bucket - m)])
             if nid is not None:
                 nid = torch.cat([nid, nid[:1].expand(bucket - m)])
-        self._note_dispatch(
-            executable_key("bucket", bucket, noise=nz is not None,
-                           keyed=key is not None, devices=1, bound=bound,
-                           reference=reference, segmented=seg is not None,
-                           identity=nid is not None, point=str(point)),
-            bucketed=True)
-        y = rt._forward(self._plan, binds, xc, reference=reference, key=key,
-                        noise=nz, m_valid=m, seg=seg, nids=nid)
+        ekey = executable_key("bucket", bucket, noise=nz is not None,
+                              keyed=key is not None, devices=1,
+                              bound=execs is not None, reference=reference,
+                              segmented=seg is not None,
+                              identity=nid is not None, point=str(point))
+        self._note_dispatch(ekey, bucketed=True)
+        st = self._stats
+        if (execs is not None and self._device.type == "cuda"
+                and key is None and nz is None and not reference):
+            ex = execs.get(ekey)
+            if ex is None:
+                ex, y = _Executable.capture(self._plan, binds, xc, bucket,
+                                            seg)
+                execs[ekey] = ex
+                st["graphs_captured"] += 1
+            else:
+                y = ex.replay(xc, seg)
+                st["graph_replays"] += 1
+        else:
+            st["eager_calls"] += 1
+            if bucket > m:
+                pad = xc[:1].expand((bucket - m,) + tuple(xc.shape[1:]))
+                xc = torch.cat([xc, pad], dim=0)
+            y = rt._forward(self._plan, binds, xc, reference=reference,
+                            key=key, noise=nz, m_valid=m, seg=seg, nids=nid)
         return y[:m].reshape(lead + tuple(y.shape[1:]))
 
     # -- observability -----------------------------------------------------
@@ -350,8 +406,96 @@ class CIMProgram:
         """Counters of this program: plans_built (always 1),
         executables_compiled (distinct dispatch keys, `executable_key`),
         bucket_hits/bucket_misses (serve-path ladder lookups),
-        run_calls/serve_calls."""
+        run_calls/serve_calls, and the dispatch routes' counters:
+        graphs_captured (CUDA graphs captured by the program's bound
+        copies), graph_replays, and eager_calls (every dispatch that ran
+        engine._forward eagerly)."""
         return dict(self._stats)
+
+
+# one graph memory pool and one warm-up stream per device
+_GRAPH_POOLS: Dict[torch.device, tuple] = {}
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _graph_pool(dev: torch.device) -> tuple:
+    if dev not in _GRAPH_POOLS:
+        _GRAPH_POOLS[dev] = torch.cuda.graph_pool_handle()
+    return _GRAPH_POOLS[dev]
+
+
+def _side_stream(dev: torch.device) -> "torch.cuda.Stream":
+    if dev not in _SIDE_STREAMS:
+        _SIDE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _SIDE_STREAMS[dev]
+
+
+class _Executable:
+    """One clean dispatch key of a bound program, captured as a CUDA
+    graph of engine._forward at the bucket extent.  It owns the static
+    buffers the graph reads - the rows `x` (float32, allocated outside
+    the graph pool; rows past the live count are re-pinned to row 0 before
+    the first layer, so whatever they hold never reaches a result), the
+    live-row count `m_valid` (0-d int64) and the padded segment ids `seg`
+    (int64, or None) - the static output `out`, and the cim_mbiw launches
+    the capture recorded, which each replay adds to the wrapper's
+    counters."""
+
+    __slots__ = ("graph", "x", "m_valid", "seg", "out", "launches")
+
+    def _fill(self, xc: torch.Tensor, seg: Optional[torch.Tensor]) -> None:
+        self.x[:xc.shape[0]].copy_(xc)
+        self.m_valid.fill_(xc.shape[0])
+        if self.seg is not None:
+            self.seg.copy_(seg)
+
+    @classmethod
+    def capture(cls, plan: rt.NetworkPlan, binds, xc: torch.Tensor,
+                bucket: int, seg: Optional[torch.Tensor]
+                ) -> Tuple["_Executable", torch.Tensor]:
+        """Warm up and capture: one eager run on a side stream (it builds
+        the kernels and sizes route B's workspace, and its result is
+        returned as this call's), then the capture under no_grad into
+        the device's shared graph pool.  Returns (the executable, the
+        warm-up's bucket-extent result)."""
+        dev = xc.device
+        ex = cls()
+        ex.x = torch.zeros((bucket,) + tuple(xc.shape[1:]),
+                           dtype=torch.float32, device=dev)
+        ex.m_valid = torch.zeros((), dtype=torch.int64, device=dev)
+        ex.seg = None if seg is None else torch.zeros(
+            (bucket,), dtype=torch.int64, device=dev)
+        ex._fill(xc, seg)
+
+        def forward():
+            return rt._forward(plan, binds, ex.x, reference=False,
+                               m_valid=ex.m_valid, seg=ex.seg)
+        main, side = torch.cuda.current_stream(dev), _side_stream(dev)
+        side.wait_stream(main)
+        with torch.no_grad(), torch.cuda.stream(side):
+            y = forward()
+        main.wait_stream(side)
+        y.record_stream(main)
+        before = kmod.launch_counts()
+        ex.graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(ex.graph,
+                                               pool=_graph_pool(dev)):
+            ex.out = forward()
+        ex.launches = {c: n - before[c]
+                       for c, n in kmod.launch_counts().items()}
+        # the capture counted launches that only a replay makes
+        kmod.add_launches({c: -n for c, n in ex.launches.items()})
+        rt.CAPTURE_COUNT["n"] += 1
+        return ex, y
+
+    def replay(self, xc: torch.Tensor,
+               seg: Optional[torch.Tensor]) -> torch.Tensor:
+        """Copy the inputs in, replay, count the launches, and return a
+        clone of the live rows (a later replay rewrites `out`)."""
+        self._fill(xc, seg)
+        self.graph.replay()
+        kmod.add_launches(self.launches)
+        return self.out[:xc.shape[0]].clone()
 
 
 class BoundProgram:
@@ -365,13 +509,17 @@ class BoundProgram:
     `serve_batch(..., isolate=True)` instead makes each request its own
     quantization segment, so every request is bit-identical to serving it
     alone - the contract in-flight decode (runtime/scheduler.py) rests
-    on."""
+    on.
 
-    __slots__ = ("program", "_binds")
+    On the card each clean dispatch key gets its own CUDA graph, held
+    here: the capture bakes in the addresses of these bound weights."""
+
+    __slots__ = ("program", "_binds", "_executables")
 
     def __init__(self, program: CIMProgram, binds: Tuple[Dict, ...]):
         object.__setattr__(self, "program", program)
         object.__setattr__(self, "_binds", binds)
+        object.__setattr__(self, "_executables", {})
 
     def __setattr__(self, name, value):
         raise AttributeError("BoundProgram is immutable")
@@ -380,6 +528,11 @@ class BoundProgram:
     def plan(self) -> rt.NetworkPlan:
         """The backing program's NetworkPlan."""
         return self.program.plan
+
+    @property
+    def executables(self) -> Tuple[tuple, ...]:
+        """The dispatch keys this bound program holds a CUDA graph for."""
+        return tuple(self._executables)
 
     def serve(self, x, key=None, noise=None, *, segments=None,
               noise_ids=None, reference: bool = False,
@@ -397,10 +550,11 @@ class BoundProgram:
         (see request_noise_ids): together they make noisy fused serving
         bit-exact with solo serving under one key.  `point` tags the
         dispatch with the serving operating-point name ("" = base); it
-        joins the dispatch key."""
-        return self.program._serve_padded(self._binds, True, x, key, noise,
-                                          bool(reference), segments,
-                                          noise_ids, point)
+        joins the dispatch key.  On the card a clean dispatch (no key, no
+        noise, not the reference) replays its key's CUDA graph."""
+        return self.program._serve_padded(self._binds, self._executables,
+                                          x, key, noise, bool(reference),
+                                          segments, noise_ids, point)
 
     __call__ = serve
 
@@ -596,8 +750,61 @@ class SharedInputBind:
 # the global program cache
 # ---------------------------------------------------------------------------
 
-_PROGRAM_CACHE: Dict[tuple, CIMProgram] = {}
-_CACHE_STATS = {"programs_built": 0, "lookups": 0, "hits": 0}
+_PROGRAM_CACHE: "collections.OrderedDict[tuple, CIMProgram]" = \
+    collections.OrderedDict()
+_PLAN_PROGRAMS: "collections.OrderedDict[tuple, CIMProgram]" = \
+    collections.OrderedDict()
+_CACHE_STATS = {"programs_built": 0, "lookups": 0, "hits": 0,
+                "evictions": 0}
+
+
+def _env_capacity() -> int:
+    try:
+        cap = int(os.environ.get("REPRO_PROGRAM_CACHE_CAP", "512"))
+    except ValueError:
+        cap = 512
+    return max(cap, 1)
+
+
+# LRU bound on BOTH module-level tables (the precision ladder times model
+# churn would otherwise grow them without limit); a mutable holder so
+# tests can shrink it without patching the module global
+_CACHE_CAPACITY = [_env_capacity()]
+
+
+def set_program_cache_capacity(capacity: int) -> int:
+    """Set the program-cache LRU capacity (entries per cache table) and
+    return the previous value.  Shrinking evicts least-recently-used
+    entries at once; an evicted program keeps working (its bound copies
+    keep their CUDA graphs) wherever it is already held - eviction only
+    means an equal future compile_program call re-plans.  The startup
+    default is $REPRO_PROGRAM_CACHE_CAP (512)."""
+    if capacity < 1:
+        raise ValueError(f"capacity must be >= 1, got {capacity}")
+    old = _CACHE_CAPACITY[0]
+    _CACHE_CAPACITY[0] = int(capacity)
+    for cache in (_PROGRAM_CACHE, _PLAN_PROGRAMS):
+        _trim_cache(cache)
+    return old
+
+
+def _trim_cache(cache) -> None:
+    while len(cache) > _CACHE_CAPACITY[0]:
+        cache.popitem(last=False)
+        _CACHE_STATS["evictions"] += 1
+
+
+def _cache_get(cache, key):
+    prog = cache.get(key)
+    if prog is not None:
+        cache.move_to_end(key)
+    return prog
+
+
+def _cache_put(cache, key, prog) -> None:
+    cache[key] = prog
+    cache.move_to_end(key)
+    _trim_cache(cache)
 
 
 def _canonical_epilogues(n_layers: int,
@@ -628,32 +835,53 @@ def compile_program(specs: Sequence[mapping.LayerSpec],
       device: where the program runs; None means "cuda", and raises when
         there is no card (pass device="cpu" for the host path).
     Returns:
-      The cached (or freshly planned) CIMProgram.
+      The cached (or freshly planned) CIMProgram.  An equal plan on the
+      same device shares one program (through the plan table).
     """
     dev = resolve_device(device)
     specs = tuple(specs)
     acts, pls = _canonical_epilogues(len(specs), activations, pools)
     key = (specs, cfg, acts, pls, buckets, str(dev))
     _CACHE_STATS["lookups"] += 1
-    prog = _PROGRAM_CACHE.get(key)
+    prog = _cache_get(_PROGRAM_CACHE, key)
     if prog is not None:
         _CACHE_STATS["hits"] += 1
         return prog
-    plan = rt.plan_network(specs, cfg, acts, pls)
-    prog = CIMProgram(plan, buckets, dev)
-    _PROGRAM_CACHE[key] = prog
-    _CACHE_STATS["programs_built"] += 1
+    prog = program_for_plan(rt.plan_network(specs, cfg, acts, pls),
+                            buckets, dev)
+    _cache_put(_PROGRAM_CACHE, key, prog)
+    return prog
+
+
+def program_for_plan(plan: rt.NetworkPlan,
+                     buckets: BatchBuckets = DEFAULT_BUCKETS,
+                     device: Device = None) -> CIMProgram:
+    """The cached program behind an already-built NetworkPlan on `device`
+    (None means CUDA, as in compile_program); creates and caches one on
+    first sight of the (plan, buckets, device)."""
+    dev = resolve_device(device)
+    key = (plan, buckets, str(dev))
+    prog = _cache_get(_PLAN_PROGRAMS, key)
+    if prog is None:
+        prog = CIMProgram(plan, buckets, dev)
+        _cache_put(_PLAN_PROGRAMS, key, prog)
+        _CACHE_STATS["programs_built"] += 1
     return prog
 
 
 def program_cache_stats() -> Dict[str, int]:
-    """Global program-cache counters: programs (live cached programs),
-    programs_built, lookups and hits (compile_program key hits)."""
-    return dict(_CACHE_STATS, programs=len(_PROGRAM_CACHE))
+    """Global program-cache counters: programs (live programs in the plan
+    table), programs_built, lookups, hits (compile_program key hits),
+    evictions (LRU drops across both tables) and capacity (the LRU bound -
+    set_program_cache_capacity / $REPRO_PROGRAM_CACHE_CAP)."""
+    return dict(_CACHE_STATS, programs=len(_PLAN_PROGRAMS),
+                capacity=_CACHE_CAPACITY[0])
 
 
 def clear_program_cache() -> None:
-    """Drop every cached program and reset the cache counters."""
+    """Drop every cached program from both tables and reset the cache
+    counters (programs already held keep working)."""
     _PROGRAM_CACHE.clear()
+    _PLAN_PROGRAMS.clear()
     for k in list(_CACHE_STATS):
         _CACHE_STATS[k] = 0

@@ -90,12 +90,17 @@ def test_bind_network_matches_jax(r_in, r_w, gamma_bits):
         [{k: jnp.asarray(v) for k, v in p.items()} for p in params])
     tb = tprog.compile_program(dense(tmap, 4, dims, r_in, r_w), tcfg,
                                device="cpu").bind(params_from_numpy(params))
-    for jl, tl in zip(jb._binds, tb._binds):
-        assert set(jl) == set(tl) == {"wqq", "w_scale", "gamma_p", "beta_p"}
+    for jl, tl, lp in zip(jb._binds, tb._binds, tb.plan.layers):
+        # the port also binds the plan's g0 as a float32 scalar (a
+        # dispatch then copies nothing to the device)
+        assert set(jl) == {"wqq", "w_scale", "gamma_p", "beta_p"}
+        assert set(tl) == set(jl) | {"g0"}
         for key in jl:
             a, b = np.asarray(jl[key]), tl[key].numpy()
             assert a.shape == b.shape and b.dtype == np.float32
             np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+        assert tl["g0"].shape == () and tl["g0"].dtype == torch.float32
+        assert tl["g0"].numpy().tobytes() == np.float32(lp.g0).tobytes()
 
 
 def _serve_both(jspecs, tspecs, params, x, *, acts=None, pools=None,
@@ -230,7 +235,8 @@ def test_program_cache_plans_once():
                               activations=["relu", "none"], device="cpu")
     assert a is b and trt.PLAN_COUNT["n"] == before + 1
     assert tprog.program_cache_stats() == {
-        "programs_built": 1, "lookups": 2, "hits": 1, "programs": 1}
+        "programs_built": 1, "lookups": 2, "hits": 1, "programs": 1,
+        "evictions": 0, "capacity": tprog._CACHE_CAPACITY[0]}
     assert a.device == torch.device("cpu")
     with pytest.raises(ValueError, match="input width"):
         a.bind(params_from_numpy(seeded_params([(20, 8), (8, 3)], 0))).serve(

@@ -1,8 +1,11 @@
 """The port on the card: the CUDA cim_mbiw, ring_decode, flash and
 threefry_normal kernels against their plain versions, LeNet on the card
 (clean and noisy) against the host run, fused in-flight decode at full
-OLMo-1B width against solo decode, and a train step at full OLMo-1B
-width through the flash kernels.
+OLMo-1B width against solo decode, a train step at full OLMo-1B width
+through the flash kernels, and the bound programs' captured CUDA graphs
+(replay == eager engine._forward at every rung, no capture after
+warm-up, replays out of capture order, launch counts, the route-B
+workspace, results held across replays, the eager routes).
 
 These tests need an NVIDIA GPU (marker `gpu`) and skip without one.  They
 import neither JAX nor the JAX package, so they run where only PyTorch
@@ -27,6 +30,7 @@ from repro_torch.kernels.flash_attn import ref as rref
 from repro_torch.kernels.prng import kernel as pkernel
 from repro_torch.kernels.prng.ref import threefry_normal_ref
 from repro_torch.models import cnn
+from repro_torch.runtime import engine as trt
 from repro_torch.runtime import program as tprog
 from repro_torch.runtime.scheduler import (CIMDecodeLM, InflightScheduler,
                                            Request, decode_sequential)
@@ -507,3 +511,218 @@ def test_fakequant_forward_exact_with_tf32_on(cuda_device, api):
         torch.set_float32_matmul_precision("highest")
     assert torch.equal(got, want)
     assert torch.equal(pinned.double(), exact)
+
+
+# ---- captured executables: one CUDA graph per clean dispatch key -----------
+
+def _eager(bound, x, segments=None):
+    """engine._forward at the bucket extent, called directly (the eager
+    yardstick of a captured dispatch)."""
+    prog = bound.program
+    xc = torch.as_tensor(x).to(prog.device, torch.float32)
+    m = xc.shape[0]
+    b = prog.buckets.bucket_for(m)
+    xp = torch.cat([xc, xc[:1].expand((b - m,) + tuple(xc.shape[1:]))])
+    seg = None
+    if segments is not None:
+        s = torch.as_tensor(segments).to(prog.device, torch.int64)
+        seg = torch.cat([s, s[:1].expand(b - m)])
+    return trt._forward(prog.plan, bound._binds, xp, reference=False,
+                        m_valid=m, seg=seg)[:m]
+
+
+def _graph_case(kind, device):
+    """(bound program, inputs of 20 rows) - a dense two-layer program
+    with a K > 1152 row tile, or LeNet at (4, 2)."""
+    if kind == "dense":
+        specs = [tmap.LayerSpec(m=8, k=1300, n=140, r_in=4, r_w=2),
+                 tmap.LayerSpec(m=8, k=140, n=10, r_in=4, r_w=2)]
+        prog = tprog.compile_program(specs, device=device)
+        params = prog.init_params(torch.Generator().manual_seed(4))
+        x = torch.randn((20, 1300), generator=torch.Generator().manual_seed(5))
+        return prog.bind(params), x
+    cim = CIMConfig(r_in=4, r_w=2)
+    params = cnn.lenet_params_list(
+        cnn.init_lenet(torch.Generator().manual_seed(3), cim=cim))
+    x = torch.from_numpy(make_dataset(1, 20, seed=3)[2][..., None])
+    return cnn.lenet_program(20, cim=cim, device=device).bind(params), x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("dense", "lenet"))
+def test_graph_replay_equals_eager_every_rung(cuda_device, kind):
+    """Every rung of the ladder over 1..20 rows: the capture call and the
+    replays are torch.equal to engine._forward run eagerly, and to the
+    card's reference."""
+    bound, x = _graph_case(kind, cuda_device)
+    st0 = bound.stats()
+    rungs = bound.program.buckets.ladder(20)
+    for b in rungs:
+        m = min(b, 20)
+        for rows in (x[:m], x.flip(0)[:m]):
+            first = bound.serve(rows)
+            again = bound.serve(rows)
+            want = _eager(bound, rows)
+            assert torch.equal(first, want) and torch.equal(again, want)
+            assert torch.equal(again, bound.reference(rows))
+    st = bound.stats()
+    assert st["graphs_captured"] - st0["graphs_captured"] == len(rungs)
+    assert len(bound.executables) == len(rungs)
+    assert st["graph_replays"] - st0["graph_replays"] == 3 * len(rungs)
+
+
+@pytest.mark.gpu
+def test_zero_captures_after_warmup(cuda_device):
+    """Batch sizes that share a rung reuse one graph: CAPTURE_COUNT stays
+    flat and every call is a replay (tests/test_program.py's zero
+    re-tracing, on the card)."""
+    bound, x = _graph_case("dense", cuda_device)
+    bound.serve(x[:8])
+    captures, st0 = trt.CAPTURE_COUNT["n"], bound.stats()
+    for m in (5, 6, 7, 8):
+        assert torch.equal(bound.serve(x[:m]), _eager(bound, x[:m]))
+    st = bound.stats()
+    assert trt.CAPTURE_COUNT["n"] == captures
+    assert st["graph_replays"] - st0["graph_replays"] == 4
+    assert st["eager_calls"] == st0["eager_calls"]
+
+
+@pytest.mark.gpu
+def test_graphs_replayed_out_of_capture_order(cuda_device):
+    """Graphs share one memory pool: replayed in the reverse of their
+    capture order, and interleaved across two programs, each gives the
+    eager bits."""
+    dense, xd = _graph_case("dense", cuda_device)
+    lenet, xl = _graph_case("lenet", cuda_device)
+    calls = [(dense, xd[:3]), (lenet, xl[:9]), (dense, xd[:16]),
+             (lenet, xl[:2])]
+    want = [_eager(b, x) for b, x in calls]
+    for (b, x), w in zip(calls, want):
+        assert torch.equal(b.serve(x), w)                 # capture order
+    for (b, x), w in reversed(list(zip(calls, want))):
+        assert torch.equal(b.serve(x), w)                 # reversed
+    for i in (1, 3, 0, 2, 3, 1):
+        assert torch.equal(calls[i][0].serve(calls[i][1]), want[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("dense", "lenet"))
+def test_replay_launch_counts_equal_eager(cuda_device, kind):
+    """N replays add to each route's counter what N eager forwards
+    launch, and the capture call counts one forward (its warm-up)."""
+    bound, x = _graph_case(kind, cuda_device)
+    x = x[:3] if kind == "dense" else x[:20]
+    before = tkernel.launch_counts()
+    bound.serve(x)                                      # capture
+    first = {c: n - before[c] for c, n in tkernel.launch_counts().items()}
+    counts = []
+    for fn in (lambda: bound.serve(x), lambda: _eager(bound, x)):
+        before = tkernel.launch_counts()
+        for _ in range(5):
+            fn()
+        counts.append({c: n - before[c]
+                       for c, n in tkernel.launch_counts().items()})
+    torch.cuda.synchronize()
+    assert counts[0] == counts[1]
+    assert counts[0] == {c: 5 * n for c, n in first.items()}
+    want = tkernel.route_counts(bound.plan.tile_calls(
+        bound.program.buckets.bucket_for(x.shape[0])))
+    assert first == {"launches": sum(want.values()),
+                     "launches_tc": want["tc"],
+                     "launches_splitk": want["splitk"]}
+
+
+@pytest.mark.gpu
+def test_splitk_workspace_holds_after_a_larger_capture(cuda_device):
+    """Capture a small route-B dispatch, then one whose workspace must
+    grow: the first graph keeps its (retired) workspace and still
+    replays the eager bits."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ws = tkernel._WORKSPACE.pop(dev, None)
+    if ws is not None:
+        tkernel._RETIRED_WORKSPACES.append(ws)
+    small = tprog.compile_program(
+        [tmap.LayerSpec(m=1, k=256, n=64, r_in=4, r_w=2)],
+        activations=("none",), device=cuda_device)
+    large = tprog.compile_program(
+        [tmap.LayerSpec(m=32, k=2048, n=4096, r_in=8, r_w=4)],
+        activations=("none",), device=cuda_device)
+    g = torch.Generator().manual_seed(6)
+    bs, bl = (p.bind(p.init_params(g)) for p in (small, large))
+    xs, xl = torch.randn((1, 256), generator=g), torch.randn((32, 2048),
+                                                             generator=g)
+    before = tkernel.launch_counts()["launches_splitk"]
+    ys = bs.serve(xs)
+    ws_small = tkernel._WORKSPACE[dev]
+    yl = bl.serve(xl)
+    assert tkernel._WORKSPACE[dev] is not ws_small
+    assert any(w is ws_small for w in tkernel._RETIRED_WORKSPACES)
+    assert tkernel.launch_counts()["launches_splitk"] > before
+    for _ in range(3):
+        assert torch.equal(bs.serve(xs), ys)
+        assert torch.equal(bl.serve(xl), yl)
+    assert torch.equal(ys, _eager(bs, xs)) and torch.equal(yl, _eager(bl, xl))
+    assert int(ws_small.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_result_held_across_a_later_replay(cuda_device):
+    """A caller's result is a clone: a later replay of the same graph on
+    other rows does not overwrite it."""
+    bound, x = _graph_case("dense", cuda_device)
+    bound.serve(x[:4])
+    y1 = bound.serve(x[:4])
+    keep = y1.clone()
+    y2 = bound.serve(x[4:8])
+    torch.cuda.synchronize()
+    assert torch.equal(y1, keep) and not torch.equal(y1, y2)
+    assert torch.equal(y2, _eager(bound, x[4:8]))
+
+
+@pytest.mark.gpu
+def test_graph_routes_on_the_card(cuda_device):
+    """serve_batch, shared and isolated, and a segmented serve replay
+    graphs with the eager bits; keyed, reference and per-call-params
+    dispatches on the card run eagerly and count in eager_calls."""
+    bound, x = _graph_case("dense", cuda_device)
+    prog = bound.program
+    reqs = [x[:1], x[1:4], x[4:9]]
+    for _ in range(2):
+        shared = bound.serve_batch(reqs)
+        isolated = bound.serve_batch(reqs, isolate=True)
+    assert torch.equal(torch.cat(shared), _eager(bound, x[:9]))
+    seg = torch.repeat_interleave(torch.arange(3), torch.tensor([1, 3, 5]))
+    assert torch.equal(torch.cat(isolated), _eager(bound, x[:9], seg))
+    for out, r in zip(isolated, reqs):
+        assert torch.equal(out, bound.serve(r))
+    st0, captures = prog.stats(), trt.CAPTURE_COUNT["n"]
+    params = prog.init_params(torch.Generator().manual_seed(4))
+    bound.serve(x[:3], prng.key(0))
+    bound.reference(x[:3])
+    prog.run(params, x[:3])
+    prog.serve(params, x[:3])
+    st = prog.stats()
+    assert st["eager_calls"] - st0["eager_calls"] == 4
+    assert st["graphs_captured"] == st0["graphs_captured"]
+    assert trt.CAPTURE_COUNT["n"] == captures
+
+
+@pytest.mark.gpu
+def test_decode_captures_once_and_fused_equals_solo(cuda_device):
+    """In-flight decode at small widths replays graphs for every
+    projection: a second run of the same schedule captures nothing, and
+    every fused stream still equals its solo decode."""
+    model = CIMDecodeLM.toy(torch.Generator().manual_seed(2), d=96,
+                            depth=2, vocab=61, points={"quality": (8, 4)})
+    reqs = [(0, Request(0, (1, 2), 4)), (0, Request(1, (5,), 3, "quality")),
+            (1, Request(2, (7, 8, 9), 3)), (2, Request(3, (4,), 2))]
+    out = InflightScheduler(model, capacity=4).run(reqs)
+    bounds = [p for pt in model.points for blk in model.blocks_for(pt)
+              for p in (blk.qkv.bound, blk.o, blk.gate_up.bound, blk.down)]
+    held = sum(len(b.executables) for b in bounds)
+    captures = trt.CAPTURE_COUNT["n"]
+    assert InflightScheduler(model, capacity=4).run(reqs) == out
+    for _, r in reqs:
+        assert out[r.uid] == decode_sequential(model, r)
+    assert trt.CAPTURE_COUNT["n"] == captures
+    assert sum(len(b.executables) for b in bounds) == held > 0
