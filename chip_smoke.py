@@ -127,7 +127,27 @@ a result:
                 threefry_normal once per row tile of every projection and
                 once for its residues, forward and recompute; host ms of
                 a noisy step against the clean median.
-  8. times    - CUDA-event times of each kernel, its plain version and a
+  8. llm_serve - the fourth main path: LM serving through
+                launch/serve.py (`--arch olmo-1b --cim-mode engine`, its
+                defaults: batch 4, prompt 32, gen 16): OLMo-1B at full
+                width and depth 16 in bf16, seeded random weights, every
+                projection through an engine-mode layer at (8, 4) on the
+                one BoundProgram of its weights (the 128-row prefill on
+                cim_mbiw's tensor-core route, the 4-row decode on
+                split-K; counts = planned tiles, replays included).
+                Engine == fakequant bit for bit (the prefill's and every
+                decode step's logits, and the tokens); one decode step
+                with graphs == the same step with every projection run
+                eagerly (EagerServe); after the first decode step no
+                plan, capture or eager dispatch.  In flight: 8 requests
+                (numpy seed 0, the launcher's make_requests) at 4 slots,
+                depth cut to 4 of 16: every request's tokens == its solo
+                decode, no growth after warm-up, every tile split-K.
+                Bind and capture seconds, first and warm prefill, decode
+                host ms a step, tokens/s, graph pool, peak memory, and a
+                profiled decode step's device time, busy share and top
+                device operations.
+  9. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
                 ring_decode and the flash kernels: yardsticks the port
@@ -226,6 +246,15 @@ MC_SCALES = (0.25, 1.0, 4.0)
 # noisy decode: OLMo-1B widths at depth 2, 4 requests at capacity 4
 NOISE_DECODE_DEPTH = 2
 NOISE_DECODE_REQUESTS = 4
+# the LM serve path (launch/serve.py): the launcher's defaults (batch 4,
+# prompt 32, gen 16) at OLMo-1B's full width and depth; in flight, 8
+# requests at 4 slots with the depth cut to 4 of 16 (run time)
+SERVE_BATCH = 4
+SERVE_PROMPT = 32
+SERVE_GEN = 16
+SERVE_INFLIGHT_DEPTH = 4
+SERVE_INFLIGHT_SLOTS = 4
+SERVE_INFLIGHT_REQUESTS = 8
 
 
 def check(ok: bool, what: str) -> None:
@@ -725,6 +754,262 @@ def noisy_decode_phase(dev, tag, kern) -> dict:
           f"{rec['clean_metrics']['decode_wall_s']:.1f} s clean "
           f"({rec['clean_metrics']['decode_steps']:.0f} steps)", flush=True)
     del models, model, sched
+    return rec
+
+
+def projection_tiles(cfg, layers: int, rows: int, kmod, tprog) -> dict:
+    """Planned cim_mbiw launches of one forward of `layers` decoder layers
+    at `rows` GEMM rows, per route: each projection's program (from the
+    program cache the engine-mode layer uses) at the rows' bucket."""
+    from repro_torch.core import mapping
+    from repro_torch.core.cim_layers import _engine_config
+    d, f, c = cfg.d_model, cfg.d_ff, cfg.cim
+    qkv = cfg.n_heads * cfg.resolved_head_dim
+    shapes = [(d, qkv)] * 3 + [(qkv, d), (d, f), (d, f), (f, d)]
+    bucket = tprog.DEFAULT_BUCKETS.bucket_for(rows)
+    total = {"tc": 0, "splitk": 0, "cuda_core": 0}
+    for k, n in shapes:
+        prog = tprog.compile_program(
+            [mapping.LayerSpec(m=bucket, k=k, n=n, r_in=c.r_in, r_w=c.r_w,
+                               r_out=c.r_out)], _engine_config(c),
+            device="cuda")
+        for r, v in kmod.route_counts(prog.plan.tile_calls(bucket)).items():
+            total[r] += layers * v
+    return total
+
+
+class BindClock:
+    """Wraps engine.bind_network to time each one-time bind (host
+    quantization of the weights and the copy to the card)."""
+
+    def __init__(self, trt):
+        self.trt, self.seconds = trt, []
+
+    def __enter__(self):
+        self.orig = orig = self.trt.bind_network
+        clock = self
+
+        def bind_network(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+            clock.seconds.append(time.perf_counter() - t0)
+            return out
+        self.trt.bind_network = bind_network
+        return self
+
+    def __exit__(self, *exc):
+        self.trt.bind_network = self.orig
+
+
+def llm_serve_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
+    """The LM serving path through launch/serve.py (module docstring,
+    phase 8): OLMo-1B at full width and depth in bf16, engine mode at
+    (8, 4), static batch and in flight."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as ttf
+    rec: dict = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    args = serve.parser().parse_args(
+        ["--arch", "olmo-1b", "--cim-mode", "engine", "--batch",
+         str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT), "--gen-len",
+         str(SERVE_GEN), "--seed", "0"])
+    cfg, params, _ = serve.build(args)
+    full = serve.get_config("olmo-1b")
+    check(cfg.replace(cim=full.cim) == full and cfg.dtype == "bfloat16"
+          and (cfg.cim.mode, cfg.cim.r_in, cfg.cim.r_w) == ("engine", 8, 4),
+          f"serve config is not OLMo-1B's in bf16, engine at (8, 4): {cfg}")
+    max_len = SERVE_PROMPT + SERVE_GEN + 8
+    prompt = serve.make_prompt(cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, 0,
+                               dev)
+    rows = SERVE_BATCH * SERVE_PROMPT
+    plan_pre = projection_tiles(cfg, cfg.n_layers, rows, kmod, tprog)
+    plan_dec = projection_tiles(cfg, cfg.n_layers, SERVE_BATCH, kmod, tprog)
+
+    # -- static batch: the launcher's loop, engine mode ----------------------
+    cap_mark, cap_n0 = len(clock.seconds), trt.CAPTURE_COUNT["n"]
+    reset_counts(kern)
+    with BindClock(trt) as binds:
+        eng = serve.static_serve(cfg, params, prompt, SERVE_GEN,
+                                 max_len=max_len, keep_logits=True)
+    torch.cuda.synchronize()
+    launches = kernel_counts(kern)
+    caps = clock.since(cap_mark)
+    check(caps["captures"] == trt.CAPTURE_COUNT["n"] - cap_n0,
+          "serve: capture clock and counter disagree")
+    want_tc = plan_pre["tc"]
+    want_b = plan_pre["splitk"] + SERVE_GEN * plan_dec["splitk"]
+    check(launches == (want_tc + want_b, want_tc, want_b)
+          and plan_pre["cuda_core"] == plan_dec["cuda_core"] == 0,
+          f"serve: cim_mbiw launches (all, tc, splitk) {launches} != the "
+          f"planned prefill {plan_pre} + {SERVE_GEN} x decode {plan_dec}")
+    check(eng["growth"] == {"plans": 0, "captures": 0, "eager_calls": 0},
+          f"serve: decode loop after warm-up grew {eng['growth']}")
+    toks = eng["tokens"]
+    check(tuple(toks.shape) == (SERVE_BATCH, 1 + SERVE_GEN)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+          and all(bool(torch.isfinite(lg).all()) for lg in eng["logits"]),
+          "serve: tokens or logits malformed")
+    per_step_s = eng["decode_s"] / max(eng["steps"], 1)
+
+    # one decode step with graphs against the same step with every
+    # projection eager, from the same cache
+    cache = eng["cache"]
+    tok = toks[:, -1:].to(dev)
+    snap = {k: v.clone() for k, v in cache["layers"]["kv"].items()}
+    pos = cache["pos"].clone()
+
+    def restore():
+        cache["layers"]["kv"].update({k: v.clone() for k, v in snap.items()})
+        cache["pos"] = pos.clone()
+
+    def step():
+        with torch.no_grad():
+            lg = ttf.forward(cfg, params, tok, cache=cache)[0]
+        torch.cuda.synchronize()
+        return lg
+    captures = trt.CAPTURE_COUNT["n"]
+    t0 = time.perf_counter()
+    graph_lg = step()
+    graph_step_ms = 1e3 * (time.perf_counter() - t0)
+    restore()
+    with EagerServe(tprog, trt):
+        t0 = time.perf_counter()
+        eager_lg = step()
+        eager_step_ms = 1e3 * (time.perf_counter() - t0)
+    check(trt.CAPTURE_COUNT["n"] == captures,
+          "serve: the graph / eager steps captured")
+    check(torch.equal(graph_lg, eager_lg),
+          "serve: decode step with graphs != the same step eager")
+    restore()
+    prof = device_profile(step, 1, cpu=False)
+    restore()
+    # a warm prefill (replays of the prefill graphs)
+    c2 = ttf.init_cache(cfg, SERVE_BATCH, max_len=max_len, device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ttf.forward(cfg, params, prompt, cache=c2)
+    torch.cuda.synchronize()
+    warm_prefill_ms = 1e3 * (time.perf_counter() - t0)
+    del c2, cache, snap
+    pool = graph_pool_bytes(tprog, dev)
+
+    # engine == fakequant bit for bit: the JAX package's contract
+    fq_cfg = cfg.replace(cim=cfg.cim.replace(mode="fakequant"))
+    fq = serve.static_serve(fq_cfg, params, prompt, SERVE_GEN,
+                            max_len=max_len, keep_logits=True)
+    diff = [i for i, (a, b) in enumerate(zip(eng["logits"], fq["logits"]))
+            if not torch.equal(a, b)]
+    if diff:
+        i = diff[0]
+        d = (eng["logits"][i].float() - fq["logits"][i].float()).abs()
+        check(False, f"serve: engine != fakequant at step {i} (0 = "
+              f"prefill) of steps {diff}: {int((d > 0).sum())} logits "
+              f"differ, max {float(d.max()):.4g}")
+    check(torch.equal(eng["tokens"], fq["tokens"]),
+          "serve: engine tokens != fakequant tokens")
+    del fq
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec["static"] = {
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+        "depth": cfg.n_layers, "launches": dict(zip(
+            ("cim_mbiw", "cim_mbiw_tc", "cim_mbiw_splitk"), launches)),
+        "planned_prefill": plan_pre, "planned_decode_step": plan_dec,
+        "prefill_first_s": eng["prefill_s"], "warm_s": eng["warm_s"],
+        "prefill_warm_ms": warm_prefill_ms,
+        "decode_steps": eng["steps"], "decode_s": eng["decode_s"],
+        "decode_host_ms_per_step": 1e3 * per_step_s,
+        "tokens_per_s": SERVE_BATCH / per_step_s,
+        "graph_step_ms": graph_step_ms, "eager_step_ms": eager_step_ms,
+        "binds": len(binds.seconds), "bind_s": sum(binds.seconds),
+        "captures": caps, "graph_pool_bytes": pool, "peak_bytes": peak,
+        "profile": prof, "tokens": toks.tolist(),
+        "bound_cache": tprog.bound_cache_stats()}
+    busy = (f"device {prof['device_us'] / 1e3:.1f} ms a step, busy "
+            f"{100 * prof['device_busy']:.1f}% of a profiled "
+            f"{prof['wall_us'] / 1e3:.0f} ms step; top "
+            + ", ".join(f"{k[:40]} {v / 1e3:.1f} ms" for k, v in list(
+                prof["top_kernels_us"].items())[:4])
+            if prof else "device time not measured (profiler saw none)")
+    print(f"llm_serve static {tag}: OLMo-1B (16 layers, d 2048, bf16) via "
+          f"launch/serve.py --cim-mode engine at (8, 4), batch "
+          f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, gen {SERVE_GEN}: engine == "
+          f"fakequant bit for bit (prefill and {SERVE_GEN} decode logits, "
+          f"tokens); a decode step with graphs == the step eager; after "
+          f"warm-up plans/captures/eager +0; cim_mbiw launches {launches} "
+          f"(all, tc, splitk) = planned (prefill on the tensor cores, "
+          f"decode split-K); {len(binds.seconds)} binds in "
+          f"{sum(binds.seconds):.1f} s; {caps['captures']} captures in "
+          f"{caps['seconds']:.1f} s; prefill {eng['prefill_s']:.2f} s first "
+          f"(binds and captures), {warm_prefill_ms:.1f} ms warm; decode "
+          f"{1e3 * per_step_s:.1f} ms a step host (graph step "
+          f"{graph_step_ms:.1f}, eager {eager_step_ms:.1f}), "
+          f"{SERVE_BATCH / per_step_s:.2f} tokens/s; {busy}; graph pool "
+          f"{pool / 2**20:.1f} MiB, peak {peak / 2**30:.2f} GiB",
+          flush=True)
+
+    # -- in flight: depth cut to SERVE_INFLIGHT_DEPTH ------------------------
+    icfg = cfg.replace(n_layers=SERVE_INFLIGHT_DEPTH,
+                       cim=cfg.cim.replace(isolate_rows=True))
+    iparams = dict(params, layers=params["layers"][:SERVE_INFLIGHT_DEPTH])
+    reqs = serve.make_requests(cfg.vocab_size, SERVE_INFLIGHT_REQUESTS,
+                               SERVE_PROMPT, SERVE_GEN, 0)
+    cap_mark = len(clock.seconds)
+    reset_counts(kern)
+    fused = serve.inflight_serve(icfg, iparams, reqs, SERVE_INFLIGHT_SLOTS,
+                                 max_len=max_len, device=dev)
+    torch.cuda.synchronize()
+    ilaunch = kernel_counts(kern)
+    icaps = clock.since(cap_mark)
+    check(fused["growth"] == {"plans": 0, "captures": 0, "eager_calls": 0},
+          f"serve inflight: the loop after warm-up grew {fused['growth']}")
+    i_pre = projection_tiles(icfg, icfg.n_layers, SERVE_PROMPT, kmod, tprog)
+    i_dec = projection_tiles(icfg, icfg.n_layers, SERVE_INFLIGHT_SLOTS, kmod,
+                             tprog)
+    want = len(reqs) * i_pre["splitk"] + fused["decode_steps"] * i_dec[
+        "splitk"]
+    check(ilaunch == (want, 0, want),
+          f"serve inflight: cim_mbiw launches {ilaunch} != planned {want}, "
+          f"all split-K")
+    check(len(set(fused["slot"].values())) > 1, "serve inflight: no "
+          "request ever shared a step")
+    t0 = time.perf_counter()
+    for r in reqs:
+        solo = serve.inflight_serve(icfg, iparams, [dict(r, arrival=0)],
+                                    SERVE_INFLIGHT_SLOTS, max_len=max_len,
+                                    device=dev)
+        check(solo["tokens"][r["uid"]] == fused["tokens"][r["uid"]],
+              f"serve inflight: request {r['uid']} != its solo decode")
+        check(len(fused["tokens"][r["uid"]]) == r["gen"],
+              f"serve inflight: request {r['uid']} has the wrong length")
+    solo_s = time.perf_counter() - t0
+    itoks = sum(len(t) for t in fused["tokens"].values())
+    rec["inflight"] = {
+        "depth": SERVE_INFLIGHT_DEPTH, "slots": SERVE_INFLIGHT_SLOTS,
+        "requests": len(reqs), "tokens": itoks,
+        "decode_steps": fused["decode_steps"],
+        "decode_s": fused["decode_s"], "wall_s": fused["wall_s"],
+        "tokens_per_s_decode": itoks / fused["decode_s"],
+        "launches": dict(zip(("cim_mbiw", "cim_mbiw_tc", "cim_mbiw_splitk"),
+                             ilaunch)),
+        "captures": icaps, "solo_check_s": solo_s,
+        "streams": {str(u): t for u, t in fused["tokens"].items()}}
+    print(f"llm_serve inflight {tag}: depth {SERVE_INFLIGHT_DEPTH} (cut "
+          f"from 16), {len(reqs)} requests at {SERVE_INFLIGHT_SLOTS} slots, "
+          f"{itoks} tokens in {fused['decode_steps']} fused steps: every "
+          f"request == its solo decode; after warm-up plans/captures/eager "
+          f"+0; cim_mbiw {ilaunch} (all split-K) = planned; "
+          f"{icaps['captures']} captures in {icaps['seconds']:.1f} s; "
+          f"decode {itoks / fused['decode_s']:.2f} tokens/s over "
+          f"{fused['decode_s']:.1f} s, wall {fused['wall_s']:.1f} s; solo "
+          f"checks {solo_s:.1f} s", flush=True)
+    rec["launches"] = {
+        "cim_mbiw": launches[0] + ilaunch[0],
+        "cim_mbiw_tc": launches[1] + ilaunch[1],
+        "cim_mbiw_splitk": launches[2] + ilaunch[2]}
+    del params, iparams, eng
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1804,7 +2089,19 @@ def main() -> int:
     phase_s["train"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 8. times -----------------------------------------------------------
+    # -- 8. the LM serve path (launch/serve.py) at full OLMo-1B width --------
+    cap_mark = len(clock.seconds)
+    lserve = llm_serve_phase(dev, tag, kern, kmod, tprog, trt, clock)
+    report["llm_serve"] = lserve
+    graphs["llm_serve"] = dict(clock.since(cap_mark),
+                               capture_count=lserve["static"]["captures"][
+                                   "captures"]
+                               + lserve["inflight"]["captures"]["captures"],
+                               pool_bytes=graph_pool_bytes(tprog, dev))
+    phase_s["llm_serve"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 9. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -1986,14 +2283,16 @@ def main() -> int:
     dec = [r for r in timing if r["shape"] == "decode" and r["r_in"] == 4
            and r["m"] == DECODE_CAPACITY]
     nl, nd = noise["launches"], ndec["launches"]
+    ls = lserve["launches"]
     route_launches = {
-        "tc": main_routes["tc"] + nl["cim_mbiw_tc"],
+        "tc": main_routes["tc"] + nl["cim_mbiw_tc"] + ls["cim_mbiw_tc"],
         "splitk": main_routes["splitk"] + dec_splitk + nl["cim_mbiw_splitk"]
-        + nd["cim_mbiw_splitk"],
+        + nd["cim_mbiw_splitk"] + ls["cim_mbiw_splitk"],
         "cuda_core": main_routes["all"] - main_routes["tc"]
         - main_routes["splitk"] + dec_cim - dec_splitk + nl["cim_mbiw"]
         - nl["cim_mbiw_tc"] - nl["cim_mbiw_splitk"] + nd["cim_mbiw"]
-        - nd["cim_mbiw_splitk"]}
+        - nd["cim_mbiw_splitk"] + ls["cim_mbiw"] - ls["cim_mbiw_tc"]
+        - ls["cim_mbiw_splitk"]}
 
     def route_entry(name, route, src, rows):
         mult = [2 if r["k"] == 784 and r["shape"] == "lenet" else 1
@@ -2075,7 +2374,8 @@ def main() -> int:
         "noise_lenet": noise["launches"],
         "noise_decode": ndec["launches"],
         "train": train["launches"],
-        "noise_train": {"threefry_normal": train["noisy"]["launches"]}}
+        "noise_train": {"threefry_normal": train["noisy"]["launches"]},
+        "llm_serve": lserve["launches"]}
     report["total_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -6,9 +6,12 @@ The layouts match, so nothing is transposed: each CIM layer is
 `decode_lm_from_numpy` builds a whole in-flight decode model from the fp32
 masters of its projections, so both packages can serve the same weights;
 `train_params_from_numpy` turns the JAX LM parameter tree into the
-port's, so both packages can train the same weights; `key_from_numpy`
-turns JAX key data into the port's PRNG key, so both draw the same
-noise.
+port's, so both packages can train the same weights, and
+`deploy_params_from_numpy` does the same for the deploy-quantized tree
+(int8 codes kept as int8); `cache_from_numpy` turns a JAX decode cache
+into the port's (the same stacked layout, dtypes kept);
+`key_from_numpy` turns JAX key data into the port's PRNG key, so both
+draw the same noise.
 """
 from __future__ import annotations
 
@@ -86,19 +89,19 @@ def decode_lm_from_numpy(embed, blocks: Sequence[Mapping[str, Layer]], *,
         device=device)
 
 
-def train_params_from_numpy(tree: Mapping, device="cpu") -> Dict:
-    """The port's LM parameter tree (`models/transformer.init_params`)
-    from the JAX package's (`repro.models.transformer.init_params`, leaves
-    as numpy arrays).
+def _array_to_tensor(a, device) -> torch.Tensor:
+    """A copy of a numpy (or ml_dtypes bfloat16) array as a tensor of the
+    same dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
 
-    The JAX tree stacks each per-layer leaf along a leading layer axis
-    under "layers"; the port keeps one dict per layer there, so leaf i of
-    the result's `layers` list is slice i of each stacked leaf.  Every
-    other leaf keeps its shape.  Leaves become float32 tensors on
-    `device`, copied, never shared."""
-    def leaf(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
+def _lm_tree_from_numpy(tree: Mapping, leaf) -> Dict:
+    """The port's LM tree from the JAX package's: per-layer slices of the
+    stacked leaves under "layers", every other leaf through `leaf`."""
     def convert(node):
         if isinstance(node, Mapping):
             return {k: convert(v) for k, v in node.items()}
@@ -120,6 +123,39 @@ def train_params_from_numpy(tree: Mapping, device="cpu") -> Dict:
         n = depth(tree["layers"])
         out["layers"] = [layer(tree["layers"], i) for i in range(n or 0)]
     return out
+
+
+def train_params_from_numpy(tree: Mapping, device="cpu") -> Dict:
+    """The port's LM parameter tree (`models/transformer.init_params`)
+    from the JAX package's (`repro.models.transformer.init_params`, leaves
+    as numpy arrays).
+
+    The JAX tree stacks each per-layer leaf along a leading layer axis
+    under "layers"; the port keeps one dict per layer there, so leaf i of
+    the result's `layers` list is slice i of each stacked leaf.  Every
+    other leaf keeps its shape.  Leaves become float32 tensors on
+    `device`, copied, never shared."""
+    return _lm_tree_from_numpy(tree, lambda a: torch.from_numpy(
+        np.array(a, dtype=np.float32)).to(device))
+
+
+def deploy_params_from_numpy(tree: Mapping, device="cpu") -> Dict:
+    """As train_params_from_numpy, for a tree from the JAX package's
+    `quantize_params_for_serving`: each leaf keeps its dtype (the int8
+    weight codes "w_q", the float32 scales and everything else)."""
+    return _lm_tree_from_numpy(tree, lambda a: _array_to_tensor(a, device))
+
+
+def cache_from_numpy(tree: Mapping, device="cpu") -> Dict:
+    """The port's decode cache (`models/transformer.init_cache` /
+    `init_slot_cache`) from the JAX package's, leaves as numpy arrays.
+    The layouts match (stacked along a leading layer axis), so each leaf
+    is copied with its dtype (bfloat16 K/V stay bfloat16)."""
+    def convert(node):
+        if isinstance(node, Mapping):
+            return {k: convert(v) for k, v in node.items()}
+        return _array_to_tensor(node, device)
+    return convert(tree)
 
 
 def key_from_numpy(key_data) -> torch.Tensor:

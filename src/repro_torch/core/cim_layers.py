@@ -3,7 +3,7 @@
 Counterpart of `repro/core/cim_layers.py`: the per-layer `CIMConfig`, the
 distribution-aware initialisation, the unity-gain code gain, and
 `cim_linear_apply`, the entry every projection of the LM path goes
-through, in two of its modes:
+through, in four of its modes:
 
   * "bypass"    : plain matmul in the input's dtype (the non-CIM baseline);
   * "fakequant" : the CIM-aware training path.  Exact digital-equivalent
@@ -13,10 +13,19 @@ through, in two of its modes:
                   and a PRNG key the post-silicon noise model (calibrated
                   SA-offset residues inside the ADC floor, thermal noise on
                   the dp); its forward equals JAX's bit for bit.
+  * "engine"    : the deployed inference path.  The layer is planned into
+                  macro tiles at its batch bucket (`runtime/program.py`'s
+                  program cache: planned once per shape and config) and
+                  served through the cim_mbiw kernels by the one
+                  `BoundProgram` of its weights (`program.bound_for`):
+                  the weights are quantized once, and on the card each
+                  dispatch key replays a captured CUDA graph.  Bit-exact
+                  with fakequant without noise.
+  * "deploy"    : int8 weight codes times a per-channel scale
+                  (`quantize_params_for_serving`), a plain product.
 
-The voltage-domain "sim" mode and the "engine" and "deploy" modes are not
-ported (they raise NotImplementedError); a whole network is served
-through `runtime.program.compile_program` instead.
+The voltage-domain "sim" mode is not ported (NotImplementedError), nor is
+a sharded engine layer (`CIMConfig.sharding`).
 
 Parameters per layer: {"w": (K, N) fp32 master weights,
                        "abn_log_gamma": (N,), "abn_beta": (N,)}.
@@ -44,7 +53,7 @@ from repro_torch.core.quantization import (_static_reciprocal, adc_quantize,
 @dataclasses.dataclass(frozen=True)
 class CIMConfig:
     """Per-layer CIM execution configuration."""
-    mode: str = "fakequant"          # bypass | fakequant (cim_linear_apply)
+    mode: str = "fakequant"          # bypass | fakequant | engine | deploy
     r_in: int = 8
     r_w: int = 4
     r_out: int = 8
@@ -54,6 +63,13 @@ class CIMConfig:
     noise: NoiseConfig = NO_NOISE    # fakequant: injected under a key;
                                      # engine programs: their noise mode
     macro: CIMMacroConfig = DEFAULT_MACRO
+    sharding: Optional[object] = None   # the JAX package's sharded engine
+                                        # layer: not ported, raises
+    isolate_rows: bool = False          # mode "engine" only: each leading
+                                        # batch row is its own activation-
+                                        # quantization segment, so fused
+                                        # rows are bit-identical to solo
+                                        # rows
 
     def replace(self, **kw) -> "CIMConfig":
         """A copy of this config with the given fields replaced."""
@@ -122,23 +138,92 @@ def _engine_config(cfg: CIMConfig):
                            noise=cfg.noise)
 
 
+def _engine_forward(params: Dict, x: torch.Tensor, cfg: CIMConfig,
+                    key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's `_engine_forward`: the layer through the
+    inference runtime.
+
+    The rows of x collapse to one batch axis, which selects the batch
+    bucket; the program of (bucket, K, N, precision, config) comes from
+    the program cache on x's device (planned once per shape and config),
+    and the one BoundProgram of these weights serves it
+    (`program.bound_for`: bound on first sight, re-bound only when a
+    weight tensor is replaced or changed in place).  With
+    cfg.isolate_rows each leading batch row is its own activation-
+    quantization segment.  The result is cast to x's dtype.  Inference
+    only: no gradient flows."""
+    from repro_torch.runtime.program import (DEFAULT_BUCKETS, bound_for,
+                                             compile_program)
+    if cfg.sharding is not None:
+        raise NotImplementedError(
+            "a sharded engine layer (CIMConfig.sharding) is not ported")
+    k_dim, n = params["w"].shape
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, k_dim)
+    bucket = DEFAULT_BUCKETS.bucket_for(x2.shape[0])
+    spec = mapping.LayerSpec(m=bucket, k=k_dim, n=n, r_in=cfg.r_in,
+                             r_w=cfg.r_w, r_out=cfg.r_out)
+    prog = compile_program([spec], _engine_config(cfg), device=x.device)
+    segments = None
+    if cfg.isolate_rows and lead:
+        # one segment per leading batch row: (B, S, K) -> B segments of S
+        # rows each, so fused rows quantize exactly as served alone
+        rows = x2.shape[0] // lead[0]
+        segments = torch.arange(lead[0], device=x.device)[:, None].expand(
+            lead[0], rows).reshape(-1)
+    y = bound_for(prog, params).serve(x2, key, segments=segments)
+    return y.reshape(lead + (n,)).to(x.dtype)
+
+
 def cim_linear_apply(params: Dict, x: torch.Tensor, cfg: CIMConfig,
                      key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y ~= x @ w, executed through the configured CIM path.
 
     x: (..., K).  Returns (..., N) in x's dtype.  `key` (a host
-    `core/prng` key) seeds fakequant's noise when cfg.noise is enabled;
-    without one the forward runs clean, as the JAX package's does."""
+    `core/prng` key) seeds the noise model when cfg.noise is enabled;
+    without one fakequant runs clean, as the JAX package's does, and an
+    engine layer planned with noise raises.  An engine layer runs on x's
+    device."""
+    if cfg.mode == "deploy":
+        # serving weights: int8 CIM codes times a per-channel scale
+        wq = params["w_q"].to(x.dtype) * params["w_scale"].to(x.dtype)
+        return x @ wq
     w = params["w"]
     if cfg.mode == "bypass":
         return x @ w.to(x.dtype)
     if cfg.mode == "fakequant":
         return _fakequant_forward(params, x, cfg, key)
-    if cfg.mode in ("sim", "engine", "deploy"):
+    if cfg.mode == "engine":
+        return _engine_forward(params, x, cfg, key)
+    if cfg.mode == "sim":
         raise NotImplementedError(
-            f"CIM mode {cfg.mode!r} of cim_linear_apply is not ported; "
-            "serve through runtime.program.compile_program")
+            "CIM mode 'sim' (the behavioural macro, core/cim_macro.py) is "
+            "not ported")
     raise ValueError(f"unknown CIM mode {cfg.mode!r}")
+
+
+def quantize_params_for_serving(params, r_w: int = 4):
+    """Every CIM-linear leaf dict {w, abn_*} of a parameter tree (dicts and
+    lists) in its deployed form {w_q int8, w_scale f32 (N,), abn_*}: the
+    macro's odd-integer weight grid in its natural int8 container.
+    Embeddings and norms stay as they are.  Works on stacked (..., K, N)
+    leaves too (scales over the reduction axis).  (The JAX package also
+    converts MoE expert banks; the port has no MoE family.)"""
+    def convert(node):
+        if isinstance(node, dict) and "w" in node and "abn_log_gamma" in node:
+            wq = quantize_weight(node["w"], r_w, axis=-2)
+            out = {k: v for k, v in node.items() if k != "w"}
+            out["w_q"] = wq.q.to(torch.int8)
+            out["w_scale"] = torch.squeeze(wq.scale, dim=-2)
+            return out
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [convert(v) for v in node]
+        return node
+
+    with torch.no_grad():
+        return convert(params)
 
 
 @contextlib.contextmanager

@@ -1,0 +1,346 @@
+"""Serving launcher: batched prefill + decode over KV caches.
+
+Counterpart of `repro/launch/serve.py`:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+      --cim-mode engine --prompt-len 32 --gen-len 16 --batch 4
+
+serves the model family's own `transformer.forward` (embedding, norms,
+RoPE, attention over a KV cache, SwiGLU, the tied head).  It runs on CUDA
+by default and raises without a card; `--device cpu` runs it on the host,
+with the kernels' plain versions (add `--smoke` for the reduced config).
+
+`--cim-mode engine` routes every projection through the compiled-program
+runtime (`runtime/program.py`): each projection's program comes from the
+program cache (planned once per layer shape and batch bucket) and its
+weights are bound once (`program.bound_for`), so on the card every
+dispatch after a key's first replays a captured CUDA graph.  The
+launcher counts plans (`engine.PLAN_COUNT`), captures
+(`engine.CAPTURE_COUNT`, the port's counterpart of the JAX package's
+TRACE_COUNT) and, on the card, eager dispatches across the decode loop
+after its first step; `--assert-no-recompile` turns any growth into a
+failure.
+
+`--inflight` switches the decode loop to continuous (in-flight) batching
+over a slot-mapped KV cache (`transformer.init_slot_cache`): requests
+admit (solo prefill, one copy into a free slot) and retire (cursor
+reset) between fused decode steps, `--batch` is the slot capacity, and
+in engine mode every slot is its own activation-quantization segment
+(`CIMConfig.isolate_rows`), so a request's tokens do not depend on its
+batchmates.
+
+Not ported (NotImplementedError, with the ROADMAP item that ports them):
+`--engine-devices` (Queue 1 item 6, sharding) and `--precision-policy`
+(item 3, precision and perfmodel); the vlm and audio families' inputs
+(item 8) raise in `transformer.forward`.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.cim_layers import CIMConfig
+from repro_torch.launch.steps import make_serve_step
+from repro_torch.launch.train import resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.runtime import engine as rt_engine
+from repro_torch.runtime import program as rt_program
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--cim-mode", default="bypass",
+                    choices=["bypass", "fakequant", "engine"])
+    ap.add_argument("--engine-devices", type=int, default=0,
+                    help="shard the engine-mode macro schedule across this "
+                         "many devices (not ported)")
+    ap.add_argument("--engine-axis", default="macro",
+                    help="mesh axis name for the sharded engine dispatch")
+    ap.add_argument("--assert-no-recompile", action="store_true",
+                    help="fail if any decode step after the first re-plans "
+                         "or captures (or, on the card, dispatches "
+                         "eagerly)")
+    ap.add_argument("--inflight", action="store_true",
+                    help="continuous in-flight batching over a slot-mapped "
+                         "KV cache: --batch slots, requests admit/retire "
+                         "between fused decode steps")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="total requests for --inflight (default 2x slots)")
+    ap.add_argument("--precision-policy", default="off",
+                    choices=["off", "mixed", "quality", "balanced",
+                             "throughput"],
+                    help="workload-adaptive precision serving (not ported)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    return ap
+
+
+def build(args):
+    """(cfg, params, device) for the parsed arguments: the config of
+    --arch with the launcher's CIMConfig (max_gamma 2^16, rows isolated
+    under --inflight) and seeded random weights on the device."""
+    if args.precision_policy != "off":
+        raise NotImplementedError(
+            "--precision-policy (precision/ and perfmodel/, ROADMAP Queue "
+            "1 item 3) is not ported")
+    if args.engine_devices:
+        raise NotImplementedError(
+            "--engine-devices (the sharded engine, ROADMAP Queue 1 item 6) "
+            "is not ported")
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = cfg.replace(cim=CIMConfig(mode=args.cim_mode, max_gamma=2.0**16,
+                                    isolate_rows=args.inflight))
+    params = tf.init_params(cfg,
+                            torch.Generator(device=dev).manual_seed(args.seed))
+    return cfg, params, dev
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def counters() -> Dict[str, int]:
+    """The counters the no-recompile contract reads: plans, captures and
+    the programs' eager dispatches."""
+    return {"plans": rt_engine.PLAN_COUNT["n"],
+            "captures": rt_engine.CAPTURE_COUNT["n"],
+            "eager_calls": rt_program.dispatch_stats()["eager_calls"]}
+
+
+def _growth(before: Dict[str, int], dev: torch.device) -> Dict[str, int]:
+    """Counter growth since `before`; eager dispatches count on the card
+    only (on the host every dispatch is eager)."""
+    now = counters()
+    out = {k: now[k] - before[k] for k in ("plans", "captures")}
+    if dev.type == "cuda":
+        out["eager_calls"] = now["eager_calls"] - before["eager_calls"]
+    return out
+
+
+@torch.no_grad()
+def static_serve(cfg, params, prompt: torch.Tensor, gen_len: int, *,
+                 max_len: int, keep_logits: bool = False) -> Dict:
+    """Static-batch greedy serving: prefill `prompt` (B, P) into a fresh
+    KV cache for the first token, then `gen_len` decode steps.
+
+    Returns {"tokens" (B, 1 + gen_len) on the host, "cache", "prefill_s", "warm_s"
+    (the first decode step), "decode_s" and "steps" (the rest), "growth"
+    (counter growth over the steps after the first), "logits" (with
+    keep_logits: the prefill's last-position logits and each decode
+    step's, on the device)}.  Host seconds end in a sync."""
+    dev = prompt.device
+    cache = tf.init_cache(cfg, prompt.shape[0], max_len=max_len, device=dev)
+    t0 = time.perf_counter()
+    logits, cache, _ = tf.forward(cfg, params, prompt, cache=cache)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    _sync(dev)
+    out = {"prefill_s": time.perf_counter() - t0, "warm_s": 0.0,
+           "decode_s": 0.0, "steps": 0, "growth": {}}
+    kept = [logits[:, -1]] if keep_logits else None
+    serve_step = make_serve_step(cfg)
+    toks = [tok]
+
+    def step(tok, cache):
+        if keep_logits:
+            lg, cache, _ = tf.forward(cfg, params, tok, cache=cache)
+            kept.append(lg[:, -1])
+            return torch.argmax(lg[:, -1:], dim=-1), cache
+        return serve_step(params, cache, tok)
+
+    # warm-up decode step: plans and, on the card, captures the decode
+    # programs' graphs, which the remaining steps replay
+    if gen_len > 0:
+        t0 = time.perf_counter()
+        tok, cache = step(tok, cache)
+        toks.append(tok)
+        _sync(dev)
+        out["warm_s"] = time.perf_counter() - t0
+    before = counters()
+    steps = max(gen_len - 1, 0)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok, cache = step(tok, cache)
+        toks.append(tok)
+    gen = torch.cat(toks, dim=1).cpu()
+    out.update(decode_s=time.perf_counter() - t0, steps=steps,
+               growth=_growth(before, dev), tokens=gen, cache=cache)
+    if keep_logits:
+        out["logits"] = kept
+    return out
+
+
+def make_prompt(vocab: int, batch: int, prompt_len: int, seed: int,
+                device) -> torch.Tensor:
+    """The static batch's prompt: (batch, prompt_len) token ids, uniform
+    over the vocabulary, from a generator on `device` at `seed`."""
+    return torch.randint(
+        0, vocab, (batch, prompt_len),
+        generator=torch.Generator(device=device).manual_seed(seed),
+        device=device)
+
+
+def make_requests(vocab: int, n_req: int, prompt_len: int, gen_len: int,
+                  seed: int) -> List[Dict]:
+    """The JAX launcher's in-flight workload: fixed-length prompts, ragged
+    generation budgets in [1, gen_len] and arrivals in [0, gen_len), from
+    numpy's generator at `seed`, sorted by arrival."""
+    rng = np.random.default_rng(seed)
+    reqs = [{"uid": u,
+             "prompt": rng.integers(0, vocab, size=prompt_len),
+             "gen": int(rng.integers(1, gen_len + 1)),
+             "arrival": int(rng.integers(0, gen_len))}
+            for u in range(n_req)]
+    reqs.sort(key=lambda r: r["arrival"])
+    return reqs
+
+
+@torch.no_grad()
+def inflight_serve(cfg, params, reqs: List[Dict], slots: int, *,
+                   max_len: int, device) -> Dict:
+    """Continuous-batching greedy decode: each admitted request is
+    prefilled alone into a batch-1 cache and copied into the lowest free
+    slot of a slot-mapped cache; every clock tick with live requests runs
+    one fused single-token step over all slots at their own positions;
+    a request retires when its budget is spent.
+
+    Returns {"tokens": {uid: [token, ...]}, "slot": {uid: slot},
+    "latency": {uid: finish - arrival clock}, "decode_steps",
+    "decode_s" (host seconds of the fused steps, each ending in the
+    tokens' copy to the host), "wall_s", "growth" (counter growth after
+    the first fused step)}."""
+    from repro_torch.runtime.scheduler import SlotMap
+    dev = torch.device(device)
+    cache = tf.init_slot_cache(cfg, slots, max_len, device=dev)
+
+    def prefill(prompt):
+        c1 = tf.init_cache(cfg, 1, max_len=max_len, device=dev)
+        toks = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
+                               device=dev)[None]
+        logits, c1, _ = tf.forward(cfg, params, toks, cache=c1)
+        return c1, int(torch.argmax(logits[0, -1]))
+
+    smap = SlotMap(slots)
+    live, done, queue = {}, [], list(reqs)
+    tokens, slot_of, latency = {}, {}, {}
+    cur = torch.zeros((slots,), dtype=torch.long, device=dev)
+    clock, steps, before, t_decode = 0, 0, None, 0.0
+    t_start = time.perf_counter()
+
+    def retire(s, r):
+        nonlocal cache
+        smap.free(s)
+        cache = tf.free_slot_cache(cache, s)
+        latency[r["uid"]] = clock - r["arrival"]
+        done.append(r)
+
+    while queue or live:
+        while queue and smap.n_free and queue[0]["arrival"] <= clock:
+            r = queue.pop(0)
+            s = smap.alloc()
+            c1, tok = prefill(r["prompt"])
+            cache = tf.write_slot_cache(cache, s, c1)
+            cur[s] = tok
+            tokens[r["uid"]], slot_of[r["uid"]] = [tok], s
+            if len(tokens[r["uid"]]) >= r["gen"]:
+                retire(s, r)
+            else:
+                live[s] = r
+        if live:
+            t0 = time.perf_counter()
+            # explicit (B, 1) positions: every slot decodes at its own
+            # offset
+            pos = cache["pos"][:, None]
+            logits, cache, _ = tf.forward(cfg, params, cur[:, None],
+                                          positions=pos, cache=cache)
+            nxt = torch.argmax(logits[:, -1], dim=-1).cpu()
+            t_decode += time.perf_counter() - t0
+            steps += 1
+            if before is None:          # post-warm-up baseline
+                before = counters()
+            for s in sorted(live):
+                r = live[s]
+                tokens[r["uid"]].append(int(nxt[s]))
+                cur[s] = int(nxt[s])
+                if len(tokens[r["uid"]]) >= r["gen"]:
+                    del live[s]
+                    retire(s, r)
+        clock += 1
+    return {"tokens": tokens, "slot": slot_of, "latency": latency,
+            "decode_steps": steps, "decode_s": t_decode,
+            "wall_s": time.perf_counter() - t_start,
+            "growth": {} if before is None else _growth(before, dev)}
+
+
+def _check_growth(args, growth: Dict[str, int], what: str) -> None:
+    print(f"decode recompiles after warmup: plans={growth.get('plans', 0)} "
+          f"captures={growth.get('captures', 0)}"
+          + (f" eager_calls={growth['eager_calls']}"
+             if "eager_calls" in growth else ""))
+    if args.assert_no_recompile and any(growth.values()):
+        raise SystemExit(
+            f"FAIL: {what} re-entered the planner or captured or ran "
+            f"eagerly after warmup ({growth}): the plan-once/serve-many "
+            f"contract is broken")
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parser().parse_args(argv)
+    cfg, params, dev = build(args)
+    max_len = args.prompt_len + args.gen_len + 8
+    if args.inflight:
+        return _run_inflight(args, cfg, params, dev, max_len)
+    prompt = make_prompt(cfg.vocab_size, args.batch, args.prompt_len,
+                         args.seed, dev)
+    out = static_serve(cfg, params, prompt, args.gen_len, max_len=max_len)
+    print(f"prefill({args.prompt_len} tokens): {out['prefill_s']:.2f}s")
+    if out["steps"]:
+        dt = out["decode_s"]
+        print(f"decode {out['steps']} steps: {dt:.2f}s "
+              f"({out['steps'] * args.batch / dt:.1f} tok/s, "
+              f"{dt / out['steps'] * 1e3:.1f} ms/step; warmup "
+              f"{out['warm_s']:.2f}s)")
+    _check_growth(args, out["growth"], "the decode loop")
+    if args.cim_mode == "engine":
+        print(f"engine program cache: {rt_program.program_cache_stats()}; "
+              f"binds: {rt_program.bound_cache_stats()}; dispatches: "
+              f"{rt_program.dispatch_stats()}")
+    print("sample:", out["tokens"][0].tolist())
+
+
+def _run_inflight(args, cfg, params, dev, max_len: int) -> None:
+    """The in-flight loop of `main`, with the JAX launcher's report:
+    requests, tokens, fused steps, latency percentiles, tokens/s and the
+    post-warm-up counters (`--assert-no-recompile` gates them)."""
+    reqs = make_requests(cfg.vocab_size, args.requests or 2 * args.batch,
+                         args.prompt_len, args.gen_len, args.seed)
+    out = inflight_serve(cfg, params, reqs, args.batch, max_len=max_len,
+                         device=dev)
+    lat = np.asarray(list(out["latency"].values()), float)
+    toks = sum(len(t) for t in out["tokens"].values())
+    print(f"inflight: {len(out['tokens'])} requests, {toks} tokens, "
+          f"{out['decode_steps']} fused steps over {args.batch} slots in "
+          f"{out['wall_s']:.2f}s")
+    print(f"latency steps p50/p99: {np.percentile(lat, 50):.1f}/"
+          f"{np.percentile(lat, 99):.1f}"
+          + (f"; decode {toks / out['decode_s']:.1f} tok/s"
+             if out["decode_s"] else ""))
+    if out["decode_steps"]:
+        _check_growth(args, out["growth"], "the in-flight loop")
+    print("sample:", out["tokens"][reqs[0]["uid"]])
+
+
+if __name__ == "__main__":
+    main()

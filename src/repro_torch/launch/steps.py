@@ -1,10 +1,12 @@
-"""train_step builder and training state.
+"""Step builders: train, prefill and serve.
 
-Counterpart of the training half of `repro/launch/steps.py`.  The state
-is {"params": tree, "opt": {"m", "v", "step"}}; a step computes the loss
-and its gradients with autograd, then AdamW updates the state in place
-(`optim/adamw.py`) and returns it with the step's metrics, as device
-tensors (reading one waits for the card).
+Counterpart of `repro/launch/steps.py`.  The training state is
+{"params": tree, "opt": {"m", "v", "step"}}; a train step computes the
+loss and its gradients with autograd, then AdamW updates the state in
+place (`optim/adamw.py`) and returns it with the step's metrics, as
+device tensors (reading one waits for the card).  The prefill and serve
+steps run the LM forward for serving; the serve step's KV cache is
+written in place and returned.
 """
 from __future__ import annotations
 
@@ -33,8 +35,8 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
     seeds the CIM noise model when cfg.cim.noise is enabled (the JAX
     package's loss_fn takes none and so trains clean under --cim-noise;
     the port threads it, see ROADMAP Queue 3)."""
-    ce = cross_entropy(tf.forward(cfg, params, batch["tokens"], key=key),
-                       batch["labels"])
+    logits, _, _ = tf.forward(cfg, params, batch["tokens"], key=key)
+    ce = cross_entropy(logits, batch["labels"])
     return ce, {"ce": ce}
 
 
@@ -85,3 +87,27 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
         raise NotImplementedError(
             "gradient compression (optim/compression.py) is not ported")
     return train_state(tf.init_params(cfg, generator))
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Returns prefill_step(params, batch) -> the last position's logits
+    (B, V) of batch["tokens"] (B, S), without a cache.  (The vlm and
+    audio inputs, batch["prefix_embeds"] / ["encoder_frames"], pass
+    through to forward, which does not port them.)"""
+    def prefill_step(params, batch):
+        kwargs = {k: batch[k] for k in ("prefix_embeds", "encoder_frames")
+                  if k in batch}
+        logits, _, _ = tf.forward(cfg, params, batch["tokens"], **kwargs)
+        return logits[:, -1, :]
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """Returns serve_step(params, cache, tokens (B, 1)) -> (next tokens
+    (B, 1) int64, the greedy argmax of the last logits, and the cache,
+    advanced in place)."""
+    def serve_step(params, cache, tokens):
+        logits, new_cache, _ = tf.forward(cfg, params, tokens, cache=cache)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1)
+        return nxt[:, None], new_cache
+    return serve_step

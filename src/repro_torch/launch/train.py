@@ -34,10 +34,11 @@ from repro_torch.optim.adamw import tree_leaves
 
 
 def resolve_device(name: str) -> torch.device:
-    """The device to train on; CUDA must be there when asked for."""
+    """The device a launcher runs on; CUDA must be there when asked
+    for."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to train on "
+        raise RuntimeError("no CUDA device: pass --device cpu to run on "
                            "the host")
     return dev
 

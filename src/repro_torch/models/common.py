@@ -1,18 +1,20 @@
-"""Shared building blocks of the LM path: norms, rotary embeddings, the
-cache-free attention block and the MLP, every projection through
+"""Shared building blocks of the LM path: norms, rotary embeddings,
+attention (causal / sliding-window, streaming for long keys, over a KV
+cache for decode), the KV caches and the MLP, every projection through
 `core.cim_layers.cim_linear_apply`.
 
-Counterpart of `repro/models/common.py` for training: the JAX package's
-sharding constraints are dropped (the port runs on one card), and so are
-the branches the training forward never takes: the KV caches,
-cross-attention and the KV-head repeat for sharding are not ported, and
-the streaming attention (keys past `flash_threshold` on the plain path)
-raises NotImplementedError.
+Counterpart of `repro/models/common.py`.  The JAX package's sharding
+constraints are dropped (the port runs on one card).  Its caches are
+updated functionally; the port writes the K/V rings in place, the
+PyTorch idiom, so a returned cache aliases the one passed in (its "k"
+and "v" are the same tensors).  Cross-attention (`x_kv`, `cross_kv`)
+and the KV-head repeat for sharding (`kv_repeat_to`) belong to the
+audio and MoE families and are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -90,10 +92,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def attention_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                           causal: bool, window: int) -> torch.Tensor:
-    """(Sq, Sk) boolean keep-mask from (Sq,) and (Sk,) positions; a key
-    at a negative position is never kept."""
-    rel = q_pos[:, None] - k_pos[None, :]
-    valid = (k_pos >= 0)[None, :]
+    """(..., Sq, Sk) boolean keep-mask from (..., Sq) and (..., Sk)
+    positions (shared (Sq,)/(Sk,), or per batch row (B, Sq)/(B, Sk)); a
+    key at a negative position is never kept."""
+    rel = q_pos[..., :, None] - k_pos[..., None, :]
+    valid = (k_pos >= 0)[..., None, :]
     keep = valid & (rel >= 0) if causal else valid.expand(rel.shape)
     if window > 0:
         keep = keep & (rel < window)
@@ -101,19 +104,72 @@ def attention_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *,
 
 
 def plain_attention(q, k, v, *, q_pos, k_pos, causal, window=0):
-    """Reference attention; q (B, Sq, H, D), k/v (B, Sk, G, D), positions
-    (Sq,)/(Sk,) shared across the batch.  Materializes the scores."""
+    """Reference attention; q (B, Sq, H, D), k/v (B, Sk, G, D).
+    Materializes the scores.
+
+    q_pos/k_pos are (Sq,)/(Sk,) shared across the batch, or (B, Sq)/(B,
+    Sk) for per-row positions (slot-mapped in-flight decode, where every
+    batch row sits at its own sequence offset): the keep-mask is then
+    built per batch row."""
     b, sq, h, d = q.shape
     g = k.shape[2]
     rep = h // g
     qf = q.to(torch.float32) / (d ** 0.5)
     qf = qf.reshape(b, sq, g, rep, d)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.to(torch.float32))
-    keep = attention_scores_mask(q_pos, k_pos, causal=causal, window=window)
-    scores = torch.where(keep, scores, NEG_INF)
+    if q_pos.dim() == 2 or k_pos.dim() == 2:
+        qp = q_pos if q_pos.dim() == 2 else q_pos[None].expand(b, sq)
+        kp = k_pos if k_pos.dim() == 2 else k_pos[None].expand(
+            b, k.shape[1])
+        keep = attention_scores_mask(qp, kp, causal=causal, window=window)
+        scores = torch.where(keep[:, None, None], scores, NEG_INF)
+    else:
+        keep = attention_scores_mask(q_pos, k_pos, causal=causal,
+                                     window=window)
+        scores = torch.where(keep, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.to(torch.float32))
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, q_pos, k_pos, causal, window=0,
+                    kv_block: int = 1024):
+    """Streaming (online-softmax) attention over kv_block-key blocks:
+    O(Sq * kv_block) live scores.  Shapes as plain_attention, positions
+    shared across the batch.  The JAX package's `lax.scan` over the
+    blocks, as a loop; keys padded to a whole block sit at position
+    -10^9 and are never kept."""
+    b, sq, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    rep = h // g
+    if sk % kv_block:
+        pad = kv_block - sk % kv_block
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-10**9)
+        sk += pad
+    qf = (q.to(torch.float32) / (d ** 0.5)).reshape(b, sq, g, rep, d)
+    acc = torch.zeros((b, g, rep, sq, d), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((b, g, rep, sq), float("-inf"), dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, g, rep, sq), dtype=torch.float32, device=q.device)
+    for s0 in range(0, sk, kv_block):
+        kc, vc = k[:, s0:s0 + kv_block], v[:, s0:s0 + kv_block]
+        s = torch.einsum("bqgrd,bkgd->bgrqk", qf, kc.to(torch.float32))
+        keep = attention_scores_mask(q_pos, k_pos[s0:s0 + kv_block],
+                                     causal=causal, window=window)
+        s = torch.where(keep, s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, -1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, -1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgrqk,bkgd->bgrqd", p, vc.to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+    return out.to(q.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,21 +210,50 @@ def init_attention(generator: torch.Generator, cfg: AttnConfig,
 
 def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
                     cim: CIMConfig, *, positions: torch.Tensor,
-                    key: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal (or, with cfg.causal False, bidirectional) self-attention
-    without a KV cache: x (B, S, d_model) -> (B, S, d_model).
+                    cache: Optional[Dict] = None,
+                    kv_repeat_to: int = 0,
+                    x_kv: Optional[torch.Tensor] = None,
+                    cross_kv: Optional[Dict] = None,
+                    kv_positions: Optional[torch.Tensor] = None,
+                    key: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Causal (or, with cfg.causal False, bidirectional) self-attention,
+    x (B, S, d_model) -> (out (B, S, d_model), new_cache).
 
-    With cfg.impl == "pallas" and more than one query position the
-    attention runs on the flash kernels (forward and backward), with masks
-    from the positions 0..S-1; otherwise on `plain_attention`.  `key`
-    seeds the CIM noise model of the four projections (fold_in(key, i)
-    for q, k, v, o); None keeps them clean."""
+    Without a cache, with cfg.impl == "pallas" and more than one query
+    position the attention runs on the flash kernels (forward and
+    backward), with masks from the positions 0..S-1; otherwise, as with a
+    cache, on `plain_attention`, or on the streaming `flash_attention`
+    when more than one query meets more than cfg.flash_threshold keys.
+    new_cache is None without a cache.
+
+    With a cache from `init_kv_cache` (one shared 0-d write cursor
+    "idx") the S new K/V rows are written into the ring at idx % L, the
+    start clamped so that they fit (as jax.lax.dynamic_update_slice
+    clamps it), and the queries attend over the whole ring with each
+    slot's position.  With a slot-mapped cache from `init_slot_kv_cache`
+    (a (B,) per-slot cursor) each batch row writes its one token (S
+    must be 1) at its own cursor and attends with its own positions
+    (`positions` (B, 1)).  The rings are written in place: the returned
+    cache holds the same "k" and "v" tensors and a new cursor idx + S.
+    K/V are stored in the cache's dtype.
+
+    `key` seeds the CIM noise model of the four projections
+    (fold_in(key, i) for q, k, v, o); None keeps them clean."""
+    if x_kv is not None or cross_kv is not None or kv_positions is not None:
+        raise NotImplementedError(
+            "cross-attention (x_kv, cross_kv) is not ported (audio "
+            "family)")
+    if kv_repeat_to:
+        raise NotImplementedError(
+            "kv_repeat_to (the KV-head repeat for sharding) is not ported")
     b, s, _ = x.shape
     h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kq = kk = kv = ko = None
     if key is not None:
         kq, kk, kv, ko = (prng.fold_in(key, i) for i in range(4))
 
+    use_pallas = cfg.impl == "pallas" and s > 1 and cache is None
     q = cim_linear_apply(params["wq"], x, cim, key=kq)
     k = cim_linear_apply(params["wk"], x, cim, key=kk)
     v = cim_linear_apply(params["wv"], x, cim, key=kv)
@@ -181,21 +266,113 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
         inv = rope_frequencies(hd, cfg.rope_theta, device=x.device)
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
+    k_pos = positions
+    new_cache = None
+    if cache is not None and cache["idx"].dim() == 1:
+        # slot-mapped decode: every batch row writes one token at its own
+        # ring cursor and attends with its own (B, L) slot positions
+        if s != 1:
+            raise ValueError(
+                f"slot-mapped KV decode is single-token (s=1), got s={s}; "
+                "prefill per request and scatter into the slot with "
+                "write_slot_kv")
+        length = cache["k"].shape[1]
+        idx = cache["idx"]
+        write = torch.remainder(idx, length).long()
+        rows = torch.arange(b, device=x.device)
+        cache["k"][rows, write] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, write] = v[:, 0].to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
+        new_cache = {"k": k, "v": v, "idx": idx + s}
+        j = torch.arange(length, device=x.device)[None, :]
+        last = (idx + s - 1)[:, None].long()
+        k_pos = last - torch.remainder(last - j, length)
+        k_pos = torch.where(k_pos >= 0, k_pos, -10**9)
+    elif cache is not None:
+        # ring-buffer append at idx % L (multi-token prefill into the
+        # cache needs idx + s <= L)
+        length = cache["k"].shape[1]
+        idx = cache["idx"]
+        write = torch.remainder(idx, length).long()
+        start = torch.clamp(write, 0, length - s)
+        slots = start + torch.arange(s, device=x.device)
+        cache["k"].index_copy_(1, slots, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slots, v.to(cache["v"].dtype))
+        k, v = cache["k"], cache["v"]
+        new_cache = {"k": k, "v": v, "idx": idx + s}
+        j = torch.arange(length, device=x.device)
+        last = (idx + s - 1).long()
+        k_pos = last - torch.remainder(last - j, length)
+        k_pos = torch.where(k_pos >= 0, k_pos, -10**9)
 
-    if cfg.impl == "pallas" and s > 1:
-        from repro_torch.kernels.flash_attn.ops import flash_attention
-        out = flash_attention(q, k, v, cfg.causal, cfg.window)
-    elif s > cfg.flash_threshold:
-        raise NotImplementedError(
-            "the streaming attention (keys past flash_threshold) is not "
-            "ported; use impl='pallas'")
+    # per-slot decode keeps (B, S) query positions so the per-row masks
+    # line up; otherwise (B, S) positions collapse to row 0 (shared)
+    per_row = k_pos.dim() == 2
+    q_pos = positions if (positions.dim() == 1 or per_row) else positions[0]
+    if use_pallas:
+        from repro_torch.kernels.flash_attn.ops import flash_attention \
+            as flash_kernels
+        out = flash_kernels(q, k, v, cfg.causal, cfg.window)
+    elif k.shape[1] > cfg.flash_threshold and s > 1:
+        # the streaming path takes positions shared across the batch
+        if per_row:
+            q_pos, k_pos = q_pos[0], k_pos[0]
+        out = flash_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
+                              causal=cfg.causal, window=cfg.window)
     else:
-        pos = positions if positions.dim() == 1 else positions[0]
-        out = plain_attention(q, k, v, q_pos=pos, k_pos=pos,
+        out = plain_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
                               causal=cfg.causal and s > 1,
                               window=cfg.window)
-    return cim_linear_apply(params["wo"], out.reshape(b, s, h * hd), cim,
-                            key=ko)
+    y = cim_linear_apply(params["wo"], out.reshape(b, s, h * hd), cim,
+                         key=ko)
+    return y, new_cache
+
+
+def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
+                  dtype=torch.bfloat16, device=None) -> Dict:
+    """Ring-buffer decode cache with one shared write cursor (all batch
+    rows advance in lockstep, the classic static-batch serving shape):
+    zeroed "k"/"v" (batch, max_len, n_kv, head_dim) and a 0-d int32
+    "idx"."""
+    return {"k": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, max_len, n_kv, head_dim), dtype=dtype,
+                             device=device),
+            "idx": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def init_slot_kv_cache(slots: int, max_len: int, n_kv: int, head_dim: int,
+                       dtype=torch.bfloat16, device=None) -> Dict:
+    """Slot-mapped decode cache for in-flight (continuous) batching: the
+    layout of init_kv_cache with a (slots,) int32 per-slot write cursor,
+    so requests at different sequence offsets decode fused in one batch.
+    Admit a request with write_slot_kv, retire it with free_slot_kv."""
+    return {"k": torch.zeros((slots, max_len, n_kv, head_dim), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((slots, max_len, n_kv, head_dim), dtype=dtype,
+                             device=device),
+            "idx": torch.zeros((slots,), dtype=torch.int32, device=device)}
+
+
+def write_slot_kv(cache: Dict, slot: int, prefill: Dict) -> Dict:
+    """Admit one request: copy its prefilled batch-1 cache (an
+    init_kv_cache it was prefilled into) into `slot` and set the slot's
+    cursor to the prefill's.  Every other slot is left as it was.
+    Writes in place: the returned cache aliases `cache`."""
+    cache["k"][slot] = prefill["k"][0].to(cache["k"].dtype)
+    cache["v"][slot] = prefill["v"][0].to(cache["v"].dtype)
+    cache["idx"][slot] = prefill["idx"]
+    return {"k": cache["k"], "v": cache["v"], "idx": cache["idx"]}
+
+
+def free_slot_kv(cache: Dict, slot: int) -> Dict:
+    """Retire one request: reset the slot's write cursor to 0.  Its stale
+    K/V rows stay in place (a zero cursor masks every ring position but
+    the next write, and the next admission overwrites them), so
+    retirement moves no cache data.  Writes in place: the returned cache
+    aliases `cache`."""
+    cache["idx"][slot] = 0
+    return {"k": cache["k"], "v": cache["v"], "idx": cache["idx"]}
 
 
 # ---------------------------------------------------------------------------

@@ -5,22 +5,31 @@ Counterpart of the dense path of `repro/models/transformer.py`: the same
 parameter tree and forward, as functions over a dict of tensors.  Where
 the JAX package stacks the layers along a leading axis and scans over
 them, the port keeps `params["layers"]` as a list of per-layer dicts and
-loops; with `cfg.remat` each layer runs under `torch.utils.checkpoint`
-(non-reentrant), which recomputes its forward in the backward, as
-`jax.checkpoint` does.  Every projection runs through
+loops; with `cfg.remat` each layer of a cache-free forward runs under
+`torch.utils.checkpoint` (non-reentrant), which recomputes its forward in
+the backward, as `jax.checkpoint` does.  Every projection runs through
 `core.cim_layers.cim_linear_apply`.
+
+`forward(..., cache=)` decodes over a KV cache and returns JAX's
+`(logits, new_cache, aux)`.  The caches keep the JAX package's stacked
+layout, {"pos", "layers": {"kv": {"k", "v", "idx"}}} with a leading
+layer axis, so layer i's rings are views of one slab each; the rings are
+written in place, and a returned cache aliases the one passed in
+(`init_cache` for static batches, `init_slot_cache` /
+`write_slot_cache` / `free_slot_cache` for in-flight batching).
 
 `forward(key=)` seeds the CIM noise model of every projection, folded
 as the JAX package folds it (fold_in(key, layer), then 0/1 for the
 attention and MLP banks, then one fold per projection); a checkpointed
 layer's recompute redraws the same noise from the same key.
 
-Not ported: the moe, hybrid, ssm, vlm and audio families, the KV caches
-and decode, and the "dots" remat policy.
+Not ported: the moe, hybrid, ssm, vlm and audio families (and with them
+forward's `prefix_embeds` and `encoder_frames`), and the "dots" remat
+policy.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -100,38 +109,56 @@ def stacked_decay_mask(params: Dict) -> Dict:
 
 
 def _decoder_layer(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-                   positions: torch.Tensor,
-                   key: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One pre-norm decoder layer (attention + MLP); `key` seeds the noise
-    of its projections (fold_in(key, 0) the attention bank, 1 the MLP)."""
+                   positions: torch.Tensor, cache: Optional[Dict] = None,
+                   key: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """One pre-norm decoder layer (attention + MLP) -> (x, new layer
+    cache {"kv": ...} or None); `key` seeds the noise of its projections
+    (fold_in(key, 0) the attention bank, 1 the MLP)."""
     k_attn = k_ffn = None
     if key is not None:
         k_attn, k_ffn = prng.fold_in(key, 0), prng.fold_in(key, 1)
     h = cm.apply_norm(p["ln1"], x, cfg.norm_type)
-    x = x + cm.attention_block(p["attn"], h, _attn_cfg(cfg), cfg.cim,
-                               positions=positions, key=k_attn)
+    attn_out, new_kv = cm.attention_block(
+        p["attn"], h, _attn_cfg(cfg), cfg.cim, positions=positions,
+        cache=None if cache is None else cache["kv"], key=k_attn)
+    x = x + attn_out
     h = cm.apply_norm(p["ln2"], x, cfg.norm_type)
-    return x + cm.mlp_block(p["mlp"], h, cfg.cim, cfg.mlp_act, key=k_ffn)
+    x = x + cm.mlp_block(p["mlp"], h, cfg.cim, cfg.mlp_act, key=k_ffn)
+    return x, (None if cache is None else {"kv": new_kv})
 
 
 def _decoder_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
-                   positions: torch.Tensor,
-                   key: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The layers in order (JAX's lax.scan over stacked params); with
-    cfg.remat each layer is checkpointed and recomputed in the backward.
-    Layer i's noise key is fold_in(key, i)."""
+                   positions: torch.Tensor, cache: Optional[Dict] = None,
+                   key: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The layers in order (JAX's lax.scan over stacked params) -> (x,
+    new stacked layer cache or None).  Layer i reads slice i of each
+    stacked cache leaf (a view, written in place); the new cursors are
+    stacked back.  Without a cache and with cfg.remat each layer is
+    checkpointed and recomputed in the backward.  Layer i's noise key is
+    fold_in(key, i)."""
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat policy {cfg.remat_policy!r} is not ported (full only)")
+    kv = None if cache is None else cache["kv"]
+    idxs = []
     for i, p in enumerate(params["layers"]):
         lkey = None if key is None else prng.fold_in(key, i)
-        if cfg.remat:
-            new_x = checkpoint(_decoder_layer, cfg, p, x, positions, lkey,
-                               use_reentrant=False)
+        lc = None if kv is None else {"kv": {
+            "k": kv["k"][i], "v": kv["v"][i], "idx": kv["idx"][i]}}
+        if cfg.remat and lc is None:
+            new_x, _ = checkpoint(_decoder_layer, cfg, p, x, positions,
+                                  None, lkey, use_reentrant=False)
         else:
-            new_x = _decoder_layer(cfg, p, x, positions, lkey)
+            new_x, nc = _decoder_layer(cfg, p, x, positions, lc, lkey)
+            if nc is not None:
+                idxs.append(nc["kv"]["idx"])
         x = new_x.to(x.dtype)
-    return x
+    if kv is None:
+        return x, None
+    return x, {"kv": {"k": kv["k"], "v": kv["v"],
+                      "idx": torch.stack(idxs)}}
 
 
 def embed_tokens(cfg: ModelConfig, params: Dict,
@@ -143,25 +170,118 @@ def embed_tokens(cfg: ModelConfig, params: Dict,
 
 def lm_logits(cfg: ModelConfig, params: Dict,
               x: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head (tied embedding or a bypass-mode lm_head:
-    always digital)."""
+    """Final norm + LM head (tied embedding, a bypass-mode lm_head, or
+    deploy-quantized serving weights: always digital)."""
     x = cm.apply_norm(params["final_norm"], x, cfg.norm_type)
     if cfg.tie_embeddings:
         return x @ params["embed"].T.to(x.dtype)
-    return x @ params["lm_head"]["w"].to(x.dtype)
+    head = params["lm_head"]
+    if "w" in head:
+        return x @ head["w"].to(x.dtype)
+    return x @ (head["w_q"].to(x.dtype) * head["w_scale"].to(x.dtype))
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
-            key: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Logits (B, S, V) in the compute dtype for tokens (B, S); positions
-    default 0..S-1.  `key` (a host `core/prng` key) seeds the CIM noise
-    model of the projections when cfg.cim.noise is enabled.  (The JAX
-    package's forward also returns a cache and the MoE aux loss; the
-    dense family without a cache has neither.)"""
+            cache: Optional[Dict] = None,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            encoder_frames: Optional[torch.Tensor] = None,
+            key: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """(logits (B, S, V) in the compute dtype, new_cache, aux_loss) for
+    tokens (B, S).
+
+    positions default to 0..S-1, or with a cache to cache["pos"] + 0..S-1
+    (in-flight decode passes its per-slot (B, 1) positions).  new_cache
+    is None without a cache; with one it is {"pos": pos + S, "layers":
+    ...}, whose K/V rings are the cache's own, written in place.  aux is
+    the MoE load-balance loss, a float32 zero for the dense family.
+    `key` (a host `core/prng` key) seeds the CIM noise model of the
+    projections when cfg.cim.noise is enabled."""
     _check_family(cfg)
+    if prefix_embeds is not None or encoder_frames is not None:
+        raise NotImplementedError(
+            "prefix_embeds / encoder_frames (the vlm and audio families, "
+            "ROADMAP Queue 1 item 8) are not ported")
     x = embed_tokens(cfg, params, tokens)
+    s = tokens.shape[1]
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _decoder_stack(cfg, params, x, positions, key)
-    return lm_logits(cfg, params, x)
+        positions = torch.arange(s, device=tokens.device)
+        if cache is not None:
+            positions = cache["pos"] + positions
+    x, new_inner = _decoder_stack(
+        cfg, params, x, positions,
+        None if cache is None else cache["layers"], key)
+    logits = lm_logits(cfg, params, x)
+    new_cache = (None if cache is None
+                 else {"pos": cache["pos"] + s, "layers": new_inner})
+    return logits, new_cache, torch.zeros((), dtype=torch.float32,
+                                          device=logits.device)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def _kv_cache_len(cfg: ModelConfig, max_len: int, window: int) -> int:
+    if window > 0:
+        return min(max_len, window)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Dict:
+    """Decode cache {"pos": 0-d int32, "layers": {"kv": {"k", "v" (L,
+    batch, len, n_kv, head_dim), "idx" (L,) int32}}} for the dense
+    family, zeroed; len is max_len, or the sliding window if shorter."""
+    _check_family(cfg)
+    length = _kv_cache_len(cfg, max_len, cfg.sliding_window)
+    shape = (cfg.n_layers, batch, length, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
+            "layers": {"kv": {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "idx": torch.zeros((cfg.n_layers,), dtype=torch.int32,
+                                   device=device)}}}
+
+
+def init_slot_cache(cfg: ModelConfig, slots: int, max_len: int,
+                    dtype=torch.bfloat16, device=None) -> Dict:
+    """Slot-mapped decode cache for in-flight (continuous) batching:
+    {"pos": (slots,) per-slot positions, "layers": {"kv": stacked
+    common.init_slot_kv_cache}}, every slot on its own ring cursor."""
+    _check_family(cfg)
+    length = _kv_cache_len(cfg, max_len, cfg.sliding_window)
+    shape = (cfg.n_layers, slots, length, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {"pos": torch.zeros((slots,), dtype=torch.int32, device=device),
+            "layers": {"kv": {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "idx": torch.zeros((cfg.n_layers, slots), dtype=torch.int32,
+                                   device=device)}}}
+
+
+def write_slot_cache(cache: Dict, slot: int, prefill: Dict) -> Dict:
+    """Admit a prefilled request into slot `slot` of a slot-mapped cache:
+    copy the batch-1 `prefill` cache's K/V rings, per-layer cursors and
+    position into the slot; every other slot is left as it was.  Writes
+    in place: the returned cache aliases `cache`."""
+    pkv, kv = prefill["layers"]["kv"], cache["layers"]["kv"]
+    kv["k"][:, slot] = pkv["k"][:, 0].to(kv["k"].dtype)
+    kv["v"][:, slot] = pkv["v"][:, 0].to(kv["v"].dtype)
+    kv["idx"][:, slot] = pkv["idx"]
+    cache["pos"][slot] = prefill["pos"]
+    return {"pos": cache["pos"], "layers": {"kv": dict(kv)}}
+
+
+def free_slot_cache(cache: Dict, slot: int) -> Dict:
+    """Retire the request in slot `slot`: reset its cursors and position
+    only (its K/V rows stay until the next admission overwrites them;
+    per-row masks keep them from every other row).  Writes in place: the
+    returned cache aliases `cache`."""
+    kv = cache["layers"]["kv"]
+    kv["idx"][:, slot] = 0
+    cache["pos"][slot] = 0
+    return {"pos": cache["pos"], "layers": {"kv": dict(kv)}}

@@ -329,6 +329,14 @@ def bind_layer(lp: LayerPlan, params: Dict[str, torch.Tensor],
     }
 
 
+def bind_key(lp: LayerPlan, cfg: EngineConfig) -> tuple:
+    """Everything `bind_layer` reads besides the params: layer plans
+    with equal keys have equal bind products for equal params (plans of
+    one layer at different batch buckets share one)."""
+    return (lp.spec.k, lp.spec.n, lp.spec.r_w, lp.n_pad, lp.g0,
+            cfg.gamma_bits, cfg.max_gamma)
+
+
 def bind_network(plan: NetworkPlan, params: Params,
                  device: Optional[torch.device] = None
                  ) -> Tuple[Dict[str, torch.Tensor], ...]:

@@ -42,6 +42,15 @@ Counterpart of `repro/runtime/program.py` on the clean single-device path:
 * **Weight binding** - `bind(params)` runs engine.bind_network once on the
   host (weight quantization to the odd-integer grid, ABN gamma, col-tile
   padding) and moves the products to the program's device.
+* **Bound programs of per-call params** - `bound_for(program, params)`
+  is the one BoundProgram of a single-layer program over one layer's
+  weights, the engine-mode layer's (`core/cim_layers`): bound on first
+  sight, held as long as the weight tensor lives, and re-bound when the
+  layer's tensors are replaced or changed in place (`Tensor._version`,
+  `data_ptr`).  Programs of one layer at different batch buckets share
+  its bind products (`engine.bind_key`), so a weight is quantized once.
+  Repeated calls with the same weights replay their graphs and never
+  re-bind.
 * **Per-request isolation** - `serve(..., segments=)` quantizes each
   segment's rows with its own activation swing, and
   `serve_batch(..., isolate=True)` makes each request its own segment, so
@@ -65,6 +74,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -611,6 +621,109 @@ class BoundProgram:
     def stats(self) -> Dict[str, int]:
         """The backing program's counters."""
         return self.program.stats()
+
+
+# ---------------------------------------------------------------------------
+# bound programs of per-call params (the engine-mode layer)
+# ---------------------------------------------------------------------------
+
+def _version(t: torch.Tensor) -> Optional[int]:
+    """A tensor's in-place version counter (None for an inference tensor,
+    which keeps none)."""
+    try:
+        return t._version
+    except RuntimeError:
+        return None
+
+
+class _WeightBinds:
+    """One layer's weights as last seen by `bound_for`: weak references
+    to its tensors and their (data_ptr, version) stamps, its bind
+    products by (engine.bind_key, device), and its BoundProgram by
+    program."""
+
+    __slots__ = ("refs", "stamp", "binds", "bound")
+
+    def __init__(self, tensors: Tuple[torch.Tensor, ...], on_death):
+        self.refs = tuple(weakref.ref(t, on_death) if i == 0
+                          else weakref.ref(t) for i, t in enumerate(tensors))
+        self.stamp = tuple((t.data_ptr(), _version(t)) for t in tensors)
+        self.binds: Dict[tuple, Tuple[Dict, ...]] = {}
+        self.bound: Dict[CIMProgram, BoundProgram] = {}
+
+    def current(self, tensors: Tuple[torch.Tensor, ...]) -> bool:
+        """Whether these are the tensors seen, unchanged since."""
+        return (all(r() is t for r, t in zip(self.refs, tensors))
+                and self.stamp == tuple((t.data_ptr(), _version(t))
+                                        for t in tensors))
+
+
+# keyed by id() of the layer's weight tensor; an entry leaves with its
+# tensor (the weakref's callback), so the table holds live weights only
+_BOUND: Dict[int, _WeightBinds] = {}
+_BOUND_STATS = {"binds": 0, "rebinds": 0, "hits": 0}
+_LAYER_KEYS = ("w", "abn_log_gamma", "abn_beta")
+
+
+def bound_for(program: CIMProgram, params: Dict[str, torch.Tensor]
+              ) -> BoundProgram:
+    """The BoundProgram of a single-layer `program` over one layer's
+    params {"w", "abn_log_gamma", "abn_beta"}, bound once and reused.
+
+    The first call with these tensors binds them (engine.bind_network);
+    later calls return the same BoundProgram, so a clean dispatch on the
+    card replays its captured graph.  If any of the three tensors was
+    replaced or changed in place since (its `data_ptr` or `_version`
+    moved), every bind of the weights is dropped and made anew, equal to
+    a fresh bind.  Programs of the layer at other batch buckets share the
+    bind products (`engine.bind_key`).  An entry lives as long as its
+    weight tensor; per weight it holds one BoundProgram per program it
+    served (one per batch bucket and config)."""
+    if len(program.plan.layers) != 1:
+        raise ValueError(f"bound_for binds a single-layer program, got "
+                         f"{len(program.plan.layers)} layers")
+    tensors = tuple(params[k] for k in _LAYER_KEYS)
+    wid = id(tensors[0])
+    entry = _BOUND.get(wid)
+    if entry is not None and not entry.current(tensors):
+        _BOUND_STATS["rebinds"] += 1
+        entry = None
+    if entry is None:
+        entry = _WeightBinds(tensors, lambda _r, k=wid: _BOUND.pop(k, None))
+        _BOUND[wid] = entry
+    bound = entry.bound.get(program)
+    if bound is not None:
+        _BOUND_STATS["hits"] += 1
+        return bound
+    lp = program.plan.layers[0]
+    bkey = (rt.bind_key(lp, program.cfg), str(program.device))
+    binds = entry.binds.get(bkey)
+    if binds is None:
+        binds = rt.bind_network(program.plan, [params], program.device)
+        entry.binds[bkey] = binds
+        _BOUND_STATS["binds"] += 1
+    bound = BoundProgram(program, binds)
+    entry.bound[program] = bound
+    return bound
+
+
+def bound_cache_stats() -> Dict[str, int]:
+    """Counters of `bound_for`: weights (live entries), binds (bind
+    products made), rebinds (entries dropped because a tensor changed)
+    and hits (calls that found their BoundProgram)."""
+    return dict(_BOUND_STATS, weights=len(_BOUND))
+
+
+def dispatch_stats() -> Dict[str, int]:
+    """graphs_captured, graph_replays and eager_calls summed over the
+    programs of the plan table (the live programs of the cache)."""
+    out = {k: 0 for k in ("graphs_captured", "graph_replays",
+                          "eager_calls")}
+    for prog in _PLAN_PROGRAMS.values():
+        st = prog.stats()
+        for k in out:
+            out[k] += st[k]
+    return out
 
 
 class SharedInputProgram:

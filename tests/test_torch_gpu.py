@@ -5,7 +5,11 @@ OLMo-1B width against solo decode, a train step at full OLMo-1B width
 through the flash kernels, and the bound programs' captured CUDA graphs
 (replay == eager engine._forward at every rung, no capture after
 warm-up, replays out of capture order, launch counts, the route-B
-workspace, results held across replays, the eager routes).
+workspace, results held across replays, the eager routes), and the LM
+serving path (`launch/serve.py` at OLMo-1B's smoke config in engine
+mode: graph replays == the eager step, engine == fakequant bit for bit,
+no capture, plan or eager dispatch after the first decode step, the
+card's logits and tokens against the host run, in-flight == solo).
 
 These tests need an NVIDIA GPU (marker `gpu`) and skip without one.  They
 import neither JAX nor the JAX package, so they run where only PyTorch
@@ -726,3 +730,140 @@ def test_decode_captures_once_and_fused_equals_solo(cuda_device):
         assert out[r.uid] == decode_sequential(model, r)
     assert trt.CAPTURE_COUNT["n"] == captures
     assert sum(len(b.executables) for b in bounds) == held > 0
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path (launch/serve.py) at OLMo-1B's smoke config
+# ---------------------------------------------------------------------------
+
+def _serve_cfg(mode, dtype="bfloat16", **cim):
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("olmo_1b")
+    return cfg.replace(cim=CIMConfig(mode=mode, max_gamma=2.0**16, **cim),
+                       dtype=dtype)
+
+
+def _serve_params(cfg, device):
+    from repro_torch.models import transformer as ttf
+    return ttf.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+
+
+def _serve_prompt(device):
+    g = torch.Generator().manual_seed(1)
+    return torch.randint(0, 512, (4, 32), generator=g).to(device)
+
+
+def _eager_serve(bound, x, key=None, noise=None, *, segments=None,
+                 noise_ids=None, reference=False, point=""):
+    """BoundProgram.serve with the clean dispatch run by engine._forward
+    eagerly, padded to its bucket as serve pads it (no graph)."""
+    assert key is None and noise is None and not reference
+    prog = bound.program
+    xc, lead = prog._canon(x)
+    m = xc.shape[0]
+    b = prog.buckets.bucket_for(m)
+    xp = torch.cat([xc, xc[:1].expand((b - m,) + tuple(xc.shape[1:]))])
+    seg = None
+    if segments is not None:
+        sg = torch.as_tensor(segments).to(prog.device, torch.int64)
+        seg = torch.cat([sg, sg[:1].expand(b - m)])
+    y = trt._forward(prog.plan, bound._binds, xp, reference=False,
+                     m_valid=m, seg=seg)
+    return y[:m].reshape(lead + tuple(y.shape[1:]))
+
+
+@pytest.mark.gpu
+def test_serve_engine_decode_replay_equals_eager(cuda_device, monkeypatch):
+    """A cached engine-mode decode step replays one graph per projection
+    and equals the same step with every projection run eagerly."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as ttf
+    cfg = _serve_cfg("engine")
+    params = _serve_params(cfg, cuda_device)
+    out = serve.static_serve(cfg, params, _serve_prompt(cuda_device), 3,
+                             max_len=48)
+    cache = out["cache"]
+    tok = out["tokens"][:, -1:].to(cuda_device)
+    snap = {k: v.clone() for k, v in cache["layers"]["kv"].items()}
+    pos = cache["pos"].clone()
+    with torch.no_grad():
+        graph_logits = ttf.forward(cfg, params, tok, cache=cache)[0]
+        cache["layers"]["kv"].update({k: v.clone() for k, v in snap.items()})
+        cache["pos"] = pos
+        captures = trt.CAPTURE_COUNT["n"]
+        monkeypatch.setattr(tprog.BoundProgram, "serve", _eager_serve)
+        eager_logits = ttf.forward(cfg, params, tok, cache=cache)[0]
+    torch.cuda.synchronize()
+    assert trt.CAPTURE_COUNT["n"] == captures
+    assert torch.equal(graph_logits, eager_logits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_serve_engine_equals_fakequant_on_card(cuda_device, dtype):
+    from repro_torch.launch import serve
+    out = {}
+    for mode in ("fakequant", "engine"):
+        cfg = _serve_cfg(mode, dtype)
+        out[mode] = serve.static_serve(
+            cfg, _serve_params(cfg, cuda_device),
+            _serve_prompt(cuda_device), 4, max_len=48, keep_logits=True)
+    assert torch.equal(out["engine"]["tokens"], out["fakequant"]["tokens"])
+    for a, b in zip(out["engine"]["logits"], out["fakequant"]["logits"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_serve_no_capture_after_warmup(cuda_device):
+    """After the first decode step, no plan, no capture and no eager
+    dispatch: every projection replays its graph."""
+    from repro_torch.launch import serve
+    cfg = _serve_cfg("engine")
+    out = serve.static_serve(cfg, _serve_params(cfg, cuda_device),
+                             _serve_prompt(cuda_device), 6, max_len=48)
+    assert out["steps"] == 5
+    assert out["growth"] == {"plans": 0, "captures": 0, "eager_calls": 0}
+
+
+@pytest.mark.gpu
+def test_serve_card_matches_host(cuda_device):
+    """The card's engine-mode serve against the host's on the same
+    weights and prompt: tokens equal, each step's logits within 0.1 of
+    the host's (|card - host| / |host|; the float glue rounds
+    differently on the two devices, as against JAX, see
+    tests/test_torch_serve.py)."""
+    from repro_torch.launch import serve
+    cfg = _serve_cfg("engine")
+    params = _serve_params(cfg, cuda_device)
+    prompt = _serve_prompt(cuda_device)
+    card = serve.static_serve(cfg, params, prompt, 4, max_len=48,
+                              keep_logits=True)
+    host = serve.static_serve(cfg, _to_host(params), prompt.cpu(), 4,
+                              max_len=48, keep_logits=True)
+    assert torch.equal(card["tokens"], host["tokens"])
+    for a, b in zip(card["logits"], host["logits"]):
+        a, b = a.float().cpu(), b.float()
+        assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) < 0.1
+
+
+def _to_host(tree):
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_host(v) for v in tree]
+    return tree.cpu()
+
+
+@pytest.mark.gpu
+def test_serve_inflight_equals_solo_on_card(cuda_device):
+    from repro_torch.launch import serve
+    cfg = _serve_cfg("engine", isolate_rows=True)
+    params = _serve_params(cfg, cuda_device)
+    reqs = serve.make_requests(cfg.vocab_size, 6, 8, 5, seed=2)
+    fused = serve.inflight_serve(cfg, params, reqs, 4, max_len=24,
+                                 device=cuda_device)
+    assert fused["growth"] == {"plans": 0, "captures": 0, "eager_calls": 0}
+    for r in reqs:
+        solo = serve.inflight_serve(cfg, params, [dict(r, arrival=0)], 4,
+                                    max_len=24, device=cuda_device)
+        assert solo["tokens"][r["uid"]] == fused["tokens"][r["uid"]]

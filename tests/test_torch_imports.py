@@ -37,7 +37,15 @@ NOISE_SLICE = [
 ]
 
 
-@pytest.mark.parametrize("rel", TRAIN_SLICE + NOISE_SLICE)
+# the serving slice, beyond the training slice's modules (the CIM layer,
+# the LM, the step builders and convert.py, named above): the programs
+# the engine-mode layer binds, the engine, and the launcher
+SERVE_SLICE = [
+    "runtime/program.py", "runtime/engine.py", "launch/serve.py",
+]
+
+
+@pytest.mark.parametrize("rel", TRAIN_SLICE + NOISE_SLICE + SERVE_SLICE)
 def test_train_slice_module_is_checked(rel):
     assert PORT / rel in FILES
 
