@@ -147,7 +147,33 @@ a result:
                 host ms a step, tokens/s, graph pool, peak memory, and a
                 profiled decode step's device time, busy share and top
                 device operations.
-  9. times    - CUDA-event times of each kernel, its plain version and a
+  9. precision - workload-adaptive precision serving through the
+                library's entry points and the launcher: the four
+                projections of a decode block at OLMo-1B's widths (qkv
+                2048->6144, o 2048->2048, gate_up 2048->16384, down
+                8192->2048; m 8, batch 4, clean) calibrated over the
+                whole precision chain into a temporary profile cache
+                (one calibration run, 28 binds, cim_mbiw = the planned
+                tiles of every run; a second call hits the cache with an
+                equal profile), assign under DEFAULT_BUDGETS, and a
+                CIMDecodeLM.toy at OLMo-1B widths (depth cut to
+                PRECISION_DEPTH) serving "quality" and "throughput" from
+                that assignment over the same masters: every (point,
+                bucket extent) warmed up, 8 requests at capacity 4 with
+                alternating points, every stream == its solo decode,
+                plans / captures / eager dispatches flat after warm-up,
+                tokens by point, tokens/s and each point's point_report
+                TOPS/W (the IMAGINE macro model's projection, not a card
+                measurement).  LeNet calibrated chained under
+                NoiseConfig() (4 trials, batch 8; one draw a layer a
+                run), plan_ladder over the default budgets, each rung
+                bound and served at batch 256 through its CUDA graph ==
+                the card reference == the CPU run, host ms a serve.  Then
+                `launch/serve.py --arch olmo-1b --cim-mode engine
+                --inflight --precision-policy mixed --assert-no-recompile`
+                in-process.  The phase's cim_mbiw route counters,
+                captures and program-cache evictions.
+ 10. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
                 ring_decode and the flash kernels: yardsticks the port
@@ -178,6 +204,7 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -255,6 +282,15 @@ SERVE_GEN = 16
 SERVE_INFLIGHT_DEPTH = 4
 SERVE_INFLIGHT_SLOTS = 4
 SERVE_INFLIGHT_REQUESTS = 8
+# the precision path: the four projections of a decode block at OLMo-1B's
+# widths calibrated over the whole precision chain (clean, m 8, batch 4),
+# their assignment served in flight at depth PRECISION_DEPTH (the cut);
+# LeNet calibrated under noise (n_trials 4, batch 8), its ladder's rungs
+# served at LENET_BATCH
+PRECISION_DEPTH = 2
+PRECISION_CAL_BATCH = 4
+PRECISION_LENET_TRIALS = 4
+PRECISION_LENET_BATCH = 8
 
 
 def check(ok: bool, what: str) -> None:
@@ -1013,10 +1049,10 @@ def llm_serve_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
     return rec
 
 
-def decode_requests(vocab: int) -> list:
+def decode_requests(vocab: int, points=("", "quality")) -> list:
     """The decode schedule: numpy seed 0, DECODE_REQUESTS requests with
     prompts of 1-4 tokens, 1-6 new tokens, arrivals at steps 0-6, points
-    alternating "" and "quality".  Returns [(arrival, uid, prompt,
+    alternating over `points`.  Returns [(arrival, uid, prompt,
     max_new_tokens, point)]."""
     rng = np.random.default_rng(0)
     out = []
@@ -1025,8 +1061,271 @@ def decode_requests(vocab: int) -> list:
                        rng.integers(0, vocab, size=int(rng.integers(1, 5))))
         max_new = int(rng.integers(1, 7))
         out.append((int(rng.integers(0, 7)), uid, prompt, max_new,
-                    "" if uid % 2 == 0 else "quality"))
+                    points[uid % len(points)]))
     return out
+
+
+def precision_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
+    """Workload-adaptive precision serving (module docstring, phase 9):
+    calibrate, assign, serve mixed points in flight at OLMo-1B widths;
+    a noisy LeNet calibration and its ladder; the launcher's
+    --precision-policy mixed."""
+    import tempfile
+    from repro_torch import precision as tpr
+    from repro_torch.core import prng
+    from repro_torch.core.noise_model import NoiseConfig
+    from repro_torch.data.pseudo_mnist import make_dataset
+    from repro_torch.kernels.flash_attn import kernel as rmod
+    from repro_torch.kernels.prng import kernel as pk
+    from repro_torch.launch import serve
+    from repro_torch.models import cnn
+    from repro_torch.runtime.scheduler import (CIMDecodeLM,
+                                               InflightScheduler, Request,
+                                               decode_sequential)
+    ring, draw = rmod.ring_decode, pk.threefry_normal
+    rec: dict = {}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "chiprun_out"))
+    d, d_ff = DECODE_WIDTHS["d"], DECODE_WIDTHS["d_ff"]
+    ev0 = tprog.program_cache_stats()["evictions"]
+    cap_mark = len(clock.seconds)
+    # the path's counts: every count to 0 just before, read just after
+    reset_counts(kern)
+    ring.launches = draw.launches = 0
+
+    # -- independent calibration of OLMo-1B's four projections ----------------
+    specs = serve.precision_specs(d, d_ff)
+    cache = os.path.join(tmp.name, "profiles.json")
+    kw = dict(n_trials=1, batch=PRECISION_CAL_BATCH, seed=0, label="olmo-1b",
+              cache_path=cache, device=dev)
+    runs0, plans0 = tpr.CALIBRATION_RUNS["n"], trt.PLAN_COUNT["n"]
+    before = kernel_counts(kern)
+    with BindClock(trt) as binds:
+        t0 = time.perf_counter()
+        prof = tpr.calibrate(specs, trt.EngineConfig(), **kw)
+        torch.cuda.synchronize()
+        cal_s = time.perf_counter() - t0
+    cal_launches = tuple(a - b for a, b in zip(kernel_counts(kern), before))
+    check(tpr.CALIBRATION_RUNS["n"] == runs0 + 1,
+          "precision: the first calibration did not run")
+    # a run per (projection, point) plus each projection's reference
+    runs = len(specs) * (len(tpr.PRECISION_CHAIN) + 1)
+    check(len(binds.seconds) == runs,
+          f"precision: {len(binds.seconds)} binds != {runs} calibration runs")
+    want = {"tc": 0, "splitk": 0, "cuda_core": 0}
+    for spec in specs:
+        for p in (tpr.BASE_POINT,) + tpr.PRECISION_CHAIN:
+            plan = tprog.compile_program(
+                [dataclasses.replace(spec, r_in=p[0], r_w=p[1])],
+                device=dev).plan
+            for r, v in kmod.route_counts(
+                    plan.tile_calls(PRECISION_CAL_BATCH)).items():
+                want[r] += v
+    check(cal_launches == (sum(want.values()), want["tc"], want["splitk"]),
+          f"precision: calibration launches (all, tc, splitk) "
+          f"{cal_launches} != planned {want}")
+    for i in range(len(specs)):
+        check(prof.delta(i, tpr.BASE_POINT) == 0.0
+              and prof.agreement(i, tpr.BASE_POINT) == 1.0
+              and all(np.isfinite(prof.delta(i, p)) and prof.delta(i, p) >= 0
+                      for p in prof.points),
+              f"precision: projection {i} profile malformed: "
+              f"{prof.layers[i]}")
+    t0 = time.perf_counter()
+    again = tpr.calibrate(specs, trt.EngineConfig(), **kw)
+    hit_s = time.perf_counter() - t0
+    check(tpr.CALIBRATION_RUNS["n"] == runs0 + 1
+          and again.to_dict() == prof.to_dict(),
+          "precision: the second calibration missed the profile cache")
+    asg = {n: tpr.assign(prof, specs, f)
+           for n, f in tpr.DEFAULT_BUDGETS.items()}
+    points = {n: asg[n][0] for n in ("quality", "throughput")}
+    rec["calibration"] = {
+        "specs": [[s.m, s.k, s.n] for s in specs], "seconds": cal_s,
+        "cache_hit_s": hit_s, "binds": len(binds.seconds),
+        "bind_s": sum(binds.seconds),
+        "plans": trt.PLAN_COUNT["n"] - plans0,
+        "launches": dict(zip(("cim_mbiw", "cim_mbiw_tc", "cim_mbiw_splitk"),
+                             cal_launches)),
+        "profile": prof.to_dict(),
+        "assignments": {n: [list(map(list, a)), dl]
+                        for n, (a, dl) in asg.items()}}
+    print(f"precision calibration {tag}: OLMo-1B's four projections (qkv "
+          f"{d}->{3 * d}, o {d}->{d}, gate_up {d}->{2 * d_ff}, down "
+          f"{d_ff}->{d}; m 8, batch {PRECISION_CAL_BATCH}, clean) over "
+          f"{list(tpr.PRECISION_CHAIN)}: {runs} runs, {len(binds.seconds)} "
+          f"binds in {sum(binds.seconds):.1f} s, {cal_s:.1f} s in all; "
+          f"cim_mbiw {cal_launches} (all, tc, splitk) = planned; the second "
+          f"call hit the cache in {hit_s:.3f} s with an equal profile; "
+          f"assign under {tpr.DEFAULT_BUDGETS}: " + "; ".join(
+              f"{n} {list(a)} (delta {dl:.4g})" for n, (a, dl) in asg.items()),
+          flush=True)
+
+    # -- mixed-point in-flight decode at OLMo-1B widths -----------------------
+    t0 = time.perf_counter()
+    model = CIMDecodeLM.toy(torch.Generator().manual_seed(0),
+                            depth=PRECISION_DEPTH, r_in=tpr.BASE_POINT[0],
+                            r_w=tpr.BASE_POINT[1], points=points,
+                            **DECODE_WIDTHS)
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    names = tuple(points)
+    sched_in = decode_requests(model.vocab, names)
+    reqs = {u: Request(u, p, n, pt) for _, u, p, n, pt in sched_in}
+    t0 = time.perf_counter()
+    caps0 = trt.CAPTURE_COUNT["n"]
+    serve.warm_up_points(model, names, DECODE_CAPACITY)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_caps = trt.CAPTURE_COUNT["n"] - caps0
+    before = serve.counters()
+    sched = InflightScheduler(model, capacity=DECODE_CAPACITY)
+    t0 = time.perf_counter()
+    streams = sched.run([(t, reqs[u]) for t, u, *_ in sched_in])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    growth = serve._growth(before, dev)
+    check(growth == {"plans": 0, "captures": 0, "eager_calls": 0},
+          f"precision: the in-flight run after warm-up grew {growth}")
+    check(set(streams) == set(reqs), "precision: not every request finished")
+    for u, r in reqs.items():
+        check(len(streams[u]) == r.max_new_tokens
+              and all(0 <= t < model.vocab for t in streams[u]),
+              f"precision: request {u} stream {streams[u]} malformed")
+        check(decode_sequential(model, r) == streams[u],
+              f"precision: request {u} ({r.point!r}): fused != solo")
+    check(serve._growth(before, dev) == growth,
+          "precision: the solo decodes planned, captured or ran eagerly")
+    met = sched.metrics()
+    tops = {}
+    for n in names:
+        rep = sched.point_report(n)
+        check(rep["operating_point"]["name"] == n
+              and [(l["op"], lp.spec.r_in, lp.spec.r_w) for l, lp in zip(
+                  rep["layers"], model.bound_for(n).plan.layers)]
+              == [("dense",) + tuple(points[n][1])],
+              f"precision: point_report({n!r}) is not the point's o "
+              f"projection")
+        tops[n] = rep["operating_point"]["tops_per_w"]
+    rec["decode"] = {
+        "depth": PRECISION_DEPTH, "points": {n: list(map(list, a))
+                                             for n, a in points.items()},
+        "bind_s": bind_s, "warm_s": warm_s, "warm_captures": warm_caps,
+        "run_s": run_s, "metrics": met, "growth": growth,
+        "macro_model_tops_per_w": tops, "requests": sched_in,
+        "streams": {str(u): t for u, t in streams.items()}}
+    print(f"precision decode {tag}: OLMo-1B widths, depth "
+          f"{PRECISION_DEPTH}, points {points} over the same masters; bind "
+          f"{bind_s:.1f} s; warm-up {warm_caps} captures in {warm_s:.1f} s; "
+          f"{len(reqs)} requests at capacity {DECODE_CAPACITY}: every fused "
+          f"stream == decode_sequential at its point; after warm-up "
+          f"plans/captures/eager +0; tokens by point "
+          f"{met['tokens_by_point']}, {met['tokens_per_s']:.3f} tokens/s "
+          f"over {met['decode_steps']:.0f} fused steps; the o projection's "
+          f"macro-model projection (IMAGINE silicon model, not the card) "
+          + ", ".join(f"{n} {v:.2f} TOPS/W" for n, v in tops.items()),
+          flush=True)
+    del model, sched
+
+    # -- noisy chained LeNet calibration and its ladder -----------------------
+    lspecs, acts, pools = cnn.lenet_engine_specs(PRECISION_LENET_BATCH)
+    ncfg = trt.EngineConfig(noise=NoiseConfig())
+    d0 = draw.launches
+    t0 = time.perf_counter()
+    lprof = tpr.calibrate(lspecs, ncfg, n_trials=PRECISION_LENET_TRIALS,
+                          batch=PRECISION_LENET_BATCH, seed=1,
+                          activations=acts, pools=pools, cache_path="",
+                          device=dev)
+    torch.cuda.synchronize()
+    lcal_s = time.perf_counter() - t0
+    lruns = PRECISION_LENET_TRIALS * (1 + len(lspecs) * len(lprof.points))
+    check(draw.launches - d0 == lruns * len(lspecs),
+          f"precision: noisy LeNet calibration drew {draw.launches - d0} "
+          f"times != one a layer in each of {lruns} runs")
+    check(lprof.n_trials == PRECISION_LENET_TRIALS and lprof.chained
+          and all(lprof.delta(i, tpr.BASE_POINT) == 0.0
+                  for i in range(len(lspecs))),
+          "precision: noisy LeNet profile malformed")
+    ladder = tpr.plan_ladder(lprof, lspecs, activations=acts, pools=pools,
+                             device=dev)
+    hladder = tpr.plan_ladder(lprof, lspecs, activations=acts, pools=pools,
+                              device="cpu")
+    check(ladder.report() == hladder.report(),
+          "precision: ladder report on the card != on the host")
+    images = torch.from_numpy(make_dataset(n_train=1, n_test=LENET_BATCH,
+                                           seed=0)[2][..., None])
+    x = images.to(dev)
+    rungs = {}
+    for name in ladder.names():
+        prog, hprog = ladder.program(name), hladder.program(name)
+        params = prog.init_params(prng.key(2))
+        bound = prog.bind(params)
+        caps = trt.CAPTURE_COUNT["n"]
+        y = bound.serve(x, point=name)
+        check(trt.CAPTURE_COUNT["n"] == caps + 1,
+              f"precision: rung {name!r} did not capture its graph")
+        check(tuple(y.shape) == (LENET_BATCH, 10)
+              and bool(torch.isfinite(y).all())
+              and torch.equal(y, bound.serve(x, point=name))
+              and torch.equal(y, bound.reference(x, point=name)),
+              f"precision: rung {name!r} replay != card reference")
+        check(torch.equal(y.cpu(), hprog.bind(params).serve(images,
+                                                            point=name)),
+              f"precision: rung {name!r} card != CPU run")
+        lat = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bound.serve(x, point=name)
+            torch.cuda.synchronize()
+            lat.append(1e3 * (time.perf_counter() - t0))
+        op = ladder.point(name)
+        rungs[name] = {"assignment": [list(p) for p in op.assignment],
+                       "predicted_delta": op.predicted_delta,
+                       "macro_model_tops_per_w": op.predicted_tops_per_w,
+                       "serve_ms": lat,
+                       "median_serve_ms": statistics.median(lat[2:])}
+    rec["lenet"] = {"calibration_s": lcal_s, "runs": lruns,
+                    "profile": lprof.to_dict(), "rungs": rungs}
+    print(f"precision lenet {tag}: noisy chained calibration "
+          f"(NoiseConfig(), {PRECISION_LENET_TRIALS} trials, batch "
+          f"{PRECISION_LENET_BATCH}) {lruns} runs in {lcal_s:.1f} s, one "
+          f"draw a layer; ladder rungs at batch {LENET_BATCH} through their "
+          f"graphs == card reference == CPU run (bit for bit): " + "; ".join(
+              f"{n} {r['assignment']} median serve "
+              f"{r['median_serve_ms']:.3f} ms, macro model "
+              f"{r['macro_model_tops_per_w']:.2f} TOPS/W"
+              for n, r in rungs.items()), flush=True)
+
+    # -- the launcher: --precision-policy mixed --assert-no-recompile ---------
+    os.environ["REPRO_PRECISION_PROFILES"] = os.path.join(tmp.name,
+                                                          "launcher.json")
+    t0 = time.perf_counter()
+    out = serve.main(["--arch", "olmo-1b", "--cim-mode", "engine",
+                      "--inflight", "--precision-policy", "mixed",
+                      "--assert-no-recompile"])
+    launcher_s = time.perf_counter() - t0
+    del os.environ["REPRO_PRECISION_PROFILES"]
+    check(out["growth"] == {"plans": 0, "captures": 0, "eager_calls": 0},
+          f"precision: the launcher grew {out['growth']}")
+    tmp.cleanup()
+    torch.cuda.synchronize()
+    launches = kernel_counts(kern)
+    rec["launcher"] = {"seconds": launcher_s, "points": out["points"],
+                       "tokens_by_point": out["metrics"]["tokens_by_point"],
+                       "macro_model_tops_per_w": out["tops_per_w"]}
+    rec["launches"] = dict(zip(("cim_mbiw", "cim_mbiw_tc", "cim_mbiw_splitk"),
+                               launches), ring_decode=ring.launches,
+                           threefry_normal=draw.launches)
+    rec["captures"] = clock.since(cap_mark)
+    rec["evictions"] = tprog.program_cache_stats()["evictions"] - ev0
+    print(f"precision launcher {tag}: launch/serve.py --precision-policy "
+          f"mixed --assert-no-recompile passed in {launcher_s:.1f} s "
+          f"(points {out['points']}); phase launches {rec['launches']} "
+          f"(cim_mbiw all, tc, splitk), {rec['captures']['captures']} "
+          f"captures in {rec['captures']['seconds']:.1f} s, "
+          f"{rec['evictions']} program-cache evictions", flush=True)
+    return rec
 
 
 FLASH_PAIRS = ((1, 77), (77, 77), (512, 512), (4096, 4096), (77, 4096),
@@ -2101,7 +2400,18 @@ def main() -> int:
     phase_s["llm_serve"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 9. times -----------------------------------------------------------
+    # -- 9. workload-adaptive precision serving -------------------------------
+    cap_mark = len(clock.seconds)
+    prec = precision_phase(dev, tag, kern, kmod, tprog, trt, clock)
+    report["precision"] = prec
+    graphs["precision"] = dict(clock.since(cap_mark),
+                               capture_count=prec["captures"]["captures"],
+                               pool_bytes=graph_pool_bytes(tprog, dev))
+    torch.cuda.empty_cache()
+    phase_s["precision"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 10. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -2274,25 +2584,28 @@ def main() -> int:
     phase_s["profile"] = time.perf_counter() - t_phase
 
     # -- the kernels line ----------------------------------------------------
-    # cim_mbiw, one entry a route: launches over both main paths (LeNet
-    # and decode); times per (4, 2) LeNet forward at batch 256 summed over
-    # the route's tiles (fc1 runs its 784-row tile twice) for the
-    # tensor-core and CUDA-core routes, and one (4, 2) decode tile at M 4
-    # for split-K.  ring_decode: the decode path's shape.
+    # cim_mbiw, one entry a route: launches over every main path; times
+    # per (4, 2) LeNet forward at batch 256 summed over the route's tiles
+    # (fc1 runs its 784-row tile twice) for the tensor-core and CUDA-core
+    # routes, and one (4, 2) decode tile at M 4 for split-K.  ring_decode:
+    # the decode path's shape.
     fwd = [r for r in timing if r["shape"] == "lenet" and r["r_in"] == 4]
     dec = [r for r in timing if r["shape"] == "decode" and r["r_in"] == 4
            and r["m"] == DECODE_CAPACITY]
     nl, nd = noise["launches"], ndec["launches"]
-    ls = lserve["launches"]
+    ls, lp = lserve["launches"], prec["launches"]
     route_launches = {
-        "tc": main_routes["tc"] + nl["cim_mbiw_tc"] + ls["cim_mbiw_tc"],
+        "tc": main_routes["tc"] + nl["cim_mbiw_tc"] + ls["cim_mbiw_tc"]
+        + lp["cim_mbiw_tc"],
         "splitk": main_routes["splitk"] + dec_splitk + nl["cim_mbiw_splitk"]
-        + nd["cim_mbiw_splitk"] + ls["cim_mbiw_splitk"],
+        + nd["cim_mbiw_splitk"] + ls["cim_mbiw_splitk"]
+        + lp["cim_mbiw_splitk"],
         "cuda_core": main_routes["all"] - main_routes["tc"]
         - main_routes["splitk"] + dec_cim - dec_splitk + nl["cim_mbiw"]
         - nl["cim_mbiw_tc"] - nl["cim_mbiw_splitk"] + nd["cim_mbiw"]
         - nd["cim_mbiw_splitk"] + ls["cim_mbiw"] - ls["cim_mbiw_tc"]
-        - ls["cim_mbiw_splitk"]}
+        - ls["cim_mbiw_splitk"] + lp["cim_mbiw"] - lp["cim_mbiw_tc"]
+        - lp["cim_mbiw_splitk"]}
 
     def route_entry(name, route, src, rows):
         mult = [2 if r["k"] == 784 and r["shape"] == "lenet" else 1
@@ -2321,7 +2634,8 @@ def main() -> int:
         "name": "ring_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attn/csrc/ring_decode.cu",
         "replaces": "src/repro/kernels/flash_attn/ops.py:197",
-        "launches": dec_ring, "max_abs_err": rmax, "ms": r_ms,
+        "launches": dec_ring + lp["ring_decode"], "max_abs_err": rmax,
+        "ms": r_ms,
         "plain_ms": r_plain, "bound_ms": r_bnd, "bound_by": r_by,
         "library_ms": r_lib}]}
     # flash: the train path's launches (all on the tensor-core kernels);
@@ -2342,7 +2656,7 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     draw_launches = (noise["launches"]["threefry_normal"]
                      + ndec["launches"]["threefry_normal"]
-                     + train["noisy"]["launches"])
+                     + train["noisy"]["launches"] + lp["threefry_normal"])
     kernels["kernels"].append({
         "name": "threefry_normal", "route": "cuda",
         "source": "src/repro_torch/kernels/prng/csrc/threefry_normal.cu",
@@ -2375,7 +2689,8 @@ def main() -> int:
         "noise_decode": ndec["launches"],
         "train": train["launches"],
         "noise_train": {"threefry_normal": train["noisy"]["launches"]},
-        "llm_serve": lserve["launches"]}
+        "llm_serve": lserve["launches"],
+        "precision": prec["launches"]}
     report["total_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -35,7 +35,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 
@@ -91,19 +91,28 @@ def analytic_log_gamma_init(k: int, cfg: CIMConfig,
     return math.log2(gamma)
 
 
-def init_cim_linear(generator: torch.Generator, k: int, n: int,
-                    w_init_scale: Optional[float] = None,
+def init_cim_linear(source: Union[torch.Generator, torch.Tensor], k: int,
+                    n: int, w_init_scale: Optional[float] = None,
                     cfg: Optional[CIMConfig] = None) -> Dict:
-    """Init one CIM linear on the generator's device: fan-in-scaled
-    weights drawn from `generator`, plus the per-output-column ABN
-    gain/offset (gamma seeded analytically when `cfg` is given, else
-    unity)."""
+    """Init one CIM linear: fan-in-scaled weights plus the per-output-
+    column ABN gain/offset (gamma seeded analytically when `cfg` is
+    given, else unity).
+
+    `source` is a `torch.Generator`, whose device the weights are drawn
+    on, or a `core/prng` key ((2,) int64), which draws the JAX package's
+    weights bit for bit (`scale * jax.random.normal(key, (k, n))` in
+    float32) on the key's device."""
     scale = w_init_scale if w_init_scale is not None else (1.0 / k) ** 0.5
     lg = 0.0 if cfg is None else analytic_log_gamma_init(k, cfg)
-    dev = generator.device
+    if isinstance(source, torch.Generator):
+        dev = source.device
+        w = torch.randn((k, n), generator=source, dtype=torch.float32,
+                        device=dev)
+    else:
+        w = prng.normal(source, (k, n))
+        dev = w.device
     return {
-        "w": scale * torch.randn((k, n), generator=generator,
-                                 dtype=torch.float32, device=dev),
+        "w": scale * w,
         "abn_log_gamma": torch.full((n,), lg, dtype=torch.float32,
                                     device=dev),
         "abn_beta": torch.zeros((n,), dtype=torch.float32, device=dev),

@@ -94,6 +94,11 @@ class LayerSpec:
     kernel: Tuple[int, int] = (1, 1)   # (kh, kw) for conv layers
     conv: Optional[ConvGeometry] = None
 
+    @property
+    def op(self) -> str:
+        """Layer kind tag: "dense" or "conv" (conv-geometry-tagged)."""
+        return "dense" if self.conv is None else "conv"
+
 
 @dataclasses.dataclass(frozen=True)
 class MacroMapping:

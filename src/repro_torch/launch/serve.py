@@ -29,10 +29,22 @@ in engine mode every slot is its own activation-quantization segment
 (`CIMConfig.isolate_rows`), so a request's tokens do not depend on its
 batchmates.
 
+`--precision-policy {mixed,quality,balanced,throughput}` (with
+`--cim-mode engine --inflight`) runs the workload-adaptive precision
+demo instead of `--arch`'s model, at the JAX launcher's sizes: calibrate
+the four projections of a toy decode LM (`precision.calibrate`), assign
+per-layer (r_in, r_w) under the named quality budgets
+(`precision.assign`), bind one block stack per operating point over the
+same weights (`CIMDecodeLM.toy(points=)`) and serve requests tagged with
+their points in flight.  Every (point, bucket extent) is warmed up first;
+`--assert-no-recompile` then fails on any plan, capture or (on the card)
+eager dispatch, and every request's tokens must equal its solo decode.
+The projected TOPS/W it prints are the IMAGINE macro model's
+(`perfmodel`), not measurements of the device it runs on.
+
 Not ported (NotImplementedError, with the ROADMAP item that ports them):
-`--engine-devices` (Queue 1 item 6, sharding) and `--precision-policy`
-(item 3, precision and perfmodel); the vlm and audio families' inputs
-(item 8) raise in `transformer.forward`.
+`--engine-devices` (Queue 1 item 6, sharding); the vlm and audio
+families' inputs (item 8) raise in `transformer.forward`.
 """
 from __future__ import annotations
 
@@ -44,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import mapping
 from repro_torch.core.cim_layers import CIMConfig
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.launch.train import resolve_device
@@ -79,7 +92,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--precision-policy", default="off",
                     choices=["off", "mixed", "quality", "balanced",
                              "throughput"],
-                    help="workload-adaptive precision serving (not ported)")
+                    help="workload-adaptive precision serving: calibrate, "
+                         "assign per-layer precisions under the named "
+                         "budget(s) and serve mixed operating points in "
+                         "flight (needs --cim-mode engine --inflight)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
@@ -90,10 +106,6 @@ def build(args):
     """(cfg, params, device) for the parsed arguments: the config of
     --arch with the launcher's CIMConfig (max_gamma 2^16, rows isolated
     under --inflight) and seeded random weights on the device."""
-    if args.precision_policy != "off":
-        raise NotImplementedError(
-            "--precision-policy (precision/ and perfmodel/, ROADMAP Queue "
-            "1 item 3) is not ported")
     if args.engine_devices:
         raise NotImplementedError(
             "--engine-devices (the sharded engine, ROADMAP Queue 1 item 6) "
@@ -296,8 +308,14 @@ def _check_growth(args, growth: Dict[str, int], what: str) -> None:
             f"contract is broken")
 
 
-def main(argv: Optional[List[str]] = None) -> None:
-    args = parser().parse_args(argv)
+def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.precision_policy != "off":
+        if args.cim_mode != "engine" or not args.inflight:
+            ap.error("--precision-policy requires --cim-mode engine "
+                     "--inflight")
+        return _run_precision_inflight(args, resolve_device(args.device))
     cfg, params, dev = build(args)
     max_len = args.prompt_len + args.gen_len + 8
     if args.inflight:
@@ -340,6 +358,119 @@ def _run_inflight(args, cfg, params, dev, max_len: int) -> None:
     if out["decode_steps"]:
         _check_growth(args, out["growth"], "the in-flight loop")
     print("sample:", out["tokens"][reqs[0]["uid"]])
+
+
+# the precision demo's toy decode LM, the JAX launcher's sizes
+PRECISION_DEMO = dict(d=48, depth=2, vocab=61, d_ff=96)
+
+
+def precision_specs(d: int, d_ff: int, base=(8, 4), m: int = 8) -> tuple:
+    """The four projections of one decode block, (qkv, o, gate_up, down),
+    as independent LayerSpecs at the base point (the calibration's
+    layers; `assign` returns one point for each, in this order)."""
+    r = dict(r_in=base[0], r_w=base[1])
+    return (mapping.LayerSpec(m=m, k=d, n=3 * d, **r),
+            mapping.LayerSpec(m=m, k=d, n=d, **r),
+            mapping.LayerSpec(m=m, k=d, n=2 * d_ff, **r),
+            mapping.LayerSpec(m=m, k=d_ff, n=d, **r))
+
+
+def warm_up_points(model, points, slots: int) -> None:
+    """One decode step of `model` (a CIMDecodeLM) per operating point at
+    every bucket extent an in-flight scheduler of `slots` slots can
+    reach: the executables a served run then needs are all built (on the
+    card, every projection's graph is captured)."""
+    buckets = model.bound.program.buckets
+    extents = sorted({min(buckets.bucket_for(x), slots)
+                      for x in range(1, slots + 1)})
+    state = model.init_state(slots)
+    for name in points:
+        for e in extents:
+            rows = {k: a[:e] for k, a in state.items()}
+            model.step_rows(rows, torch.zeros((e,), dtype=torch.long),
+                            point=name)
+
+
+def _run_precision_inflight(args, dev: torch.device) -> Dict:
+    """Workload-adaptive precision serving demo: calibrate, plan the
+    ladder, serve mixed per-request operating points in flight.
+
+    (1) `precision.calibrate` profiles the toy decode LM's four
+    projection GEMMs; (2) `precision.assign` turns quality budgets into
+    per-layer (r_in, r_w) assignments; (3) `CIMDecodeLM.toy(points=...)`
+    compiles and binds one block stack per operating point over the SAME
+    weights; (4) the in-flight scheduler fuses same-point requests per
+    decode step.  Then the serving contracts: every fused request equal
+    to its solo decode at its point, no plan, capture or (on the card)
+    eager dispatch after warm-up (under --assert-no-recompile), and the
+    per-point projected TOPS/W next to the measured token counts.
+    Returns the run's numbers (assignments, metrics, counter growth)."""
+    from repro_torch.precision import DEFAULT_BUDGETS, assign, calibrate
+    from repro_torch.runtime.scheduler import (CIMDecodeLM,
+                                               InflightScheduler, Request,
+                                               decode_sequential)
+    d, depth, vocab, d_ff = (PRECISION_DEMO[k]
+                             for k in ("d", "depth", "vocab", "d_ff"))
+    base = (8, 4)
+    specs = precision_specs(d, d_ff, base)
+    t0 = time.perf_counter()
+    prof = calibrate(specs, rt_engine.EngineConfig(), n_trials=2, batch=4,
+                     seed=args.seed, label="serve-demo", device=dev)
+    names = (["quality", "throughput"] if args.precision_policy == "mixed"
+             else [args.precision_policy])
+    points = {}
+    for name in names:
+        asg, delta = assign(prof, specs, DEFAULT_BUDGETS[name])
+        points[name] = asg
+        print(f"precision: point {name!r} -> "
+              f"{[(ri, rw) for ri, rw in asg]} "
+              f"(predicted quality delta {delta:.4f})")
+    print(f"precision: profile + plan in {time.perf_counter() - t0:.1f}s")
+
+    model = CIMDecodeLM.toy(torch.Generator().manual_seed(args.seed), d=d,
+                            depth=depth, vocab=vocab, d_ff=d_ff,
+                            r_in=base[0], r_w=base[1], points=points,
+                            device=dev)
+    rng = np.random.default_rng(args.seed)
+    n_req = args.requests or 2 * args.batch
+    gen_hi = max(args.gen_len, 2)
+    reqs = [Request(uid=u,
+                    prompt=tuple(int(t) for t in rng.integers(
+                        0, vocab, size=max(args.prompt_len, 1))),
+                    max_new_tokens=int(rng.integers(1, gen_hi + 1)),
+                    point=names[u % len(names)])
+            for u in range(n_req)]
+
+    warm_up_points(model, names, args.batch)
+    _sync(dev)
+    before = counters()
+
+    sched = InflightScheduler(model, capacity=args.batch)
+    out = sched.run([(int(rng.integers(0, gen_hi)), r) for r in reqs])
+    m = sched.metrics()
+    growth = _growth(before, dev)
+
+    bad = [r.uid for r in reqs if out[r.uid] != decode_sequential(model, r)]
+    print(f"inflight: {int(m['requests'])} requests, "
+          f"{int(m['tokens'])} tokens, {int(m['decode_steps'])} fused "
+          f"steps over {args.batch} slots "
+          f"({m['tokens_per_s']:.1f} tok/s decode)")
+    tops_per_w = {}
+    for name in names:
+        op = sched.point_report(name)["operating_point"]
+        tops_per_w[name] = op["tops_per_w"]
+        toks = m["tokens_by_point"].get(name, 0.0)
+        print(f"point {name!r}: {int(toks)} tokens served, projected "
+              f"{op['tops_per_w']:.2f} TOPS/W (macro model)")
+    print(f"engine program cache: {rt_program.program_cache_stats()}")
+    print("per-request bit-exactness vs solo decode: "
+          + ("PASS" if not bad else f"FAIL {bad}"))
+    if bad:
+        raise SystemExit("FAIL: fused decode diverged from solo decode "
+                         f"for uids {bad}")
+    _check_growth(args, growth, "precision serving")
+    return {"points": points, "metrics": m, "growth": growth,
+            "tops_per_w": tops_per_w, "streams": out}
 
 
 if __name__ == "__main__":

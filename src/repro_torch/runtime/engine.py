@@ -42,7 +42,7 @@ and out are real-valued float32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -734,19 +734,27 @@ def _dispatch_noise(plan: NetworkPlan,
 
 
 def init_network_params(plan: NetworkPlan,
-                        generator: torch.Generator) -> Params:
+                        source: Union[torch.Generator, torch.Tensor]
+                        ) -> Params:
     """Distribution-aware per-layer parameters for a planned network
     (core/cim_layers init, one {"w", "abn_log_gamma", "abn_beta"} dict per
-    layer in plan order), drawn on the host from `generator`."""
+    layer in plan order).  `source` is a `torch.Generator` (weights drawn
+    on its device, in layer order) or a `core/prng` key, which draws the
+    JAX package's parameters bit for bit on the key's device: one
+    `split` per layer, the layer's weights from the second half."""
     from repro_torch.core.cim_layers import CIMConfig, init_cim_linear
     cfg = plan.cfg
+    keyed = not isinstance(source, torch.Generator)
     params = []
     for lp in plan.layers:
+        if keyed:
+            source, sub = prng.split(source)
+        else:
+            sub = source
         lcfg = CIMConfig(
             r_in=lp.spec.r_in, r_w=lp.spec.r_w, r_out=lp.spec.r_out,
             adaptive_swing=cfg.adaptive_swing,
             gamma_bits=cfg.gamma_bits, max_gamma=cfg.max_gamma,
             macro=cfg.macro)
-        params.append(init_cim_linear(generator, lp.spec.k, lp.spec.n,
-                                      cfg=lcfg))
+        params.append(init_cim_linear(sub, lp.spec.k, lp.spec.n, cfg=lcfg))
     return params

@@ -8,6 +8,7 @@ Counterpart of `repro/runtime/program.py` on the clean single-device path:
     y      = bound.serve(x)             # ragged batch -> bucketed dispatch
     ys     = bound.serve_batch([x1, x2, x3])
     prog.stats()                        # plans / dispatch shapes / buckets
+    prog.perf_report(point="quality")   # the macro model's projection
 
 * **Plan cache** - `compile_program` keys a module-level LRU cache on
   (specs, cfg, activations, pools, buckets, device), and behind it a
@@ -244,10 +245,21 @@ class CIMProgram:
         """The device every dispatch of this program runs on."""
         return self._device
 
-    def init_params(self, generator: torch.Generator) -> rt.Params:
+    def init_params(self, source) -> rt.Params:
         """Distribution-aware per-layer parameters (core/cim_layers init),
-        drawn on the host from `generator`."""
-        return rt.init_network_params(self._plan, generator)
+        drawn from a `torch.Generator` on its device, or from a
+        `core/prng` key ((2,) int64) on the key's device - the JAX
+        package's `init_params(key)` bit for bit."""
+        return rt.init_network_params(self._plan, source)
+
+    def perf_report(self, **kw) -> Dict[str, object]:
+        """perfmodel.schedule_report of the plan, with this program's
+        counters (`stats()`, the graph counters included) and bucket
+        ladder echoed under report["program"].  Its times and TOPS/W
+        are the IMAGINE macro model's projections, not measurements of
+        the device the program runs on."""
+        from repro_torch.perfmodel.macro_perf import schedule_report
+        return schedule_report(self._plan, program=self, **kw)
 
     def bind(self, params: rt.Params) -> "BoundProgram":
         """Pre-quantize/pack the weights on the host and move them to the
@@ -788,10 +800,11 @@ class SharedInputProgram:
         """The shared input width."""
         return self.program.plan.layers[0].spec.k
 
-    def init_params(self, generator: torch.Generator) -> Dict[str, Dict]:
+    def init_params(self, source) -> Dict[str, Dict]:
         """Distribution-aware init, split per head: {name: {"w",
-        "abn_log_gamma", "abn_beta"}} with w (k, n_i), on the host."""
-        (lay,) = list(self.program.init_params(generator))
+        "abn_log_gamma", "abn_beta"}} with w (k, n_i), from a
+        `torch.Generator` or a `core/prng` key (CIMProgram.init_params)."""
+        (lay,) = list(self.program.init_params(source))
         return {name: {"w": lay["w"][:, s:e],
                        "abn_log_gamma": lay["abn_log_gamma"][s:e],
                        "abn_beta": lay["abn_beta"][s:e]}

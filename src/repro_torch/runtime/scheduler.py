@@ -755,3 +755,13 @@ class InflightScheduler:
             "tokens_by_point": {k: float(v)
                                 for k, v in sorted(by_point.items())},
         }
+
+    def point_report(self, point: str = "") -> Dict[str, object]:
+        """Perf-model projection of one operating point's schedule:
+        `macro_perf.schedule_report` over the point's representative
+        program, with report["operating_point"] echoing the point's
+        projected TOPS/W (what `serve.py --precision-policy` prints next
+        to measured serving throughput).  The numbers are the IMAGINE
+        macro model's, not measurements of the device the model runs
+        on."""
+        return self.model.bound_for(point).program.perf_report(point=point)

@@ -9,7 +9,10 @@ workspace, results held across replays, the eager routes), and the LM
 serving path (`launch/serve.py` at OLMo-1B's smoke config in engine
 mode: graph replays == the eager step, engine == fakequant bit for bit,
 no capture, plan or eager dispatch after the first decode step, the
-card's logits and tokens against the host run, in-flight == solo).
+card's logits and tokens against the host run, in-flight == solo), and
+precision serving (calibration on the card == on the host, ladder rungs
+through their graphs == reference == host, `--precision-policy mixed`
+fused == solo with no growth after warm-up).
 
 These tests need an NVIDIA GPU (marker `gpu`) and skip without one.  They
 import neither JAX nor the JAX package, so they run where only PyTorch
@@ -867,3 +870,85 @@ def test_serve_inflight_equals_solo_on_card(cuda_device):
         solo = serve.inflight_serve(cfg, params, [dict(r, arrival=0)], 4,
                                     max_len=24, device=cuda_device)
         assert solo["tokens"][r["uid"]] == fused["tokens"][r["uid"]]
+
+
+# ---------------------------------------------------------------------------
+# workload-adaptive precision serving (precision/, perfmodel/)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_precision_ladder_rungs_on_card_equal_host(cuda_device):
+    """LeNet calibrated on the card (clean, two swept points) gives the
+    host's profile; each rung of the ladder planned from it serves
+    through its CUDA graph bit for bit equal to the card reference and
+    to the host's serve of the same params."""
+    from repro_torch import precision as tpr
+    specs, acts, pools = cnn.lenet_engine_specs(4)
+    kw = dict(points=((1, 1), (2, 2)), n_trials=1, batch=4, seed=3,
+              activations=acts, pools=pools, cache_path="")
+    card = tpr.calibrate(specs, trt.EngineConfig(), device=cuda_device, **kw)
+    host = tpr.calibrate(specs, trt.EngineConfig(), device="cpu", **kw)
+    assert card.to_dict() == host.to_dict()
+    ladder = tpr.plan_ladder(card, specs, activations=acts, pools=pools,
+                             device=cuda_device)
+    hladder = tpr.plan_ladder(card, specs, activations=acts, pools=pools,
+                              device="cpu")
+    assert ladder.report() == hladder.report()
+    x = torch.from_numpy(make_dataset(n_train=1, n_test=16,
+                                      seed=0)[2][..., None])
+    for name in ladder.names():
+        prog, hprog = ladder.program(name), hladder.program(name)
+        params = prog.init_params(prng.key(5, device=cuda_device))
+        hparams = hprog.init_params(prng.key(5))
+        for p, hp in zip(params, hparams):
+            assert all(torch.equal(p[k].cpu(), hp[k]) for k in p)
+        bound = prog.bind(params)
+        captures = trt.CAPTURE_COUNT["n"]
+        y = bound.serve(x.to(cuda_device), point=name)
+        assert trt.CAPTURE_COUNT["n"] == captures + 1
+        assert torch.equal(y, bound.reference(x.to(cuda_device), point=name))
+        assert torch.equal(y.cpu(), hprog.bind(hparams).serve(x, point=name))
+
+
+@pytest.mark.gpu
+def test_precision_policy_mixed_inflight_on_card(cuda_device, monkeypatch,
+                                                 tmp_path):
+    """`launch/serve.py --precision-policy mixed --assert-no-recompile`
+    on the card: every request == its solo decode at its point, no plan,
+    capture or eager dispatch after warm-up, the host's assignments."""
+    from repro_torch.launch import serve
+    monkeypatch.setenv("REPRO_PRECISION_PROFILES",
+                       str(tmp_path / "profiles.json"))
+    argv = ["--arch", "olmo-1b", "--cim-mode", "engine", "--inflight",
+            "--precision-policy", "mixed", "--assert-no-recompile"]
+    out = serve.main(argv)
+    assert out["growth"] == {"plans": 0, "captures": 0, "eager_calls": 0}
+    monkeypatch.setenv("REPRO_PRECISION_PROFILES",
+                       str(tmp_path / "host.json"))
+    host = serve.main(argv + ["--device", "cpu"])
+    assert host["points"] == out["points"]
+    assert host["streams"] == out["streams"]
+
+
+@pytest.mark.gpu
+def test_full_width_projection_calibration_equals_host(cuda_device):
+    """One projection of OLMo-1B at full width (down, 8192 -> 2048: eight
+    row tiles) calibrated on the card at (1, 1) and (2, 2): the params
+    drawn on the card from the key equal the host's, and so does the
+    profile."""
+    from repro_torch import precision as tpr
+    spec = tmap.LayerSpec(m=8, k=8192, n=2048, r_in=8, r_w=4)
+    kw = dict(points=((1, 1), (2, 2)), n_trials=1, batch=4, seed=0,
+              cache_path="")
+    card = tpr.calibrate([spec], trt.EngineConfig(), device=cuda_device,
+                         **kw)
+    host = tpr.calibrate([spec], trt.EngineConfig(), device="cpu", **kw)
+    assert card.to_dict() == host.to_dict()
+    assert 0 < card.delta(0, (2, 2)) < card.delta(0, (1, 1))
+    prog = tprog.compile_program([spec], activations=("none",),
+                                 device=cuda_device)
+    key = prng.fold_in(prng.key(0), 10)
+    (p,) = prog.init_params(key.to(cuda_device))
+    (hp,) = tprog.compile_program([spec], activations=("none",),
+                                  device="cpu").init_params(key)
+    assert all(p[k].is_cuda and torch.equal(p[k].cpu(), hp[k]) for k in p)

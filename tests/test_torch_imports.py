@@ -45,7 +45,17 @@ SERVE_SLICE = [
 ]
 
 
-@pytest.mark.parametrize("rel", TRAIN_SLICE + NOISE_SLICE + SERVE_SLICE)
+# the precision slice: calibration, the planner and the macro perf model,
+# and the scheduler that reports each point's projection
+PRECISION_SLICE = [
+    "precision/__init__.py", "precision/sensitivity.py",
+    "precision/planner.py", "perfmodel/__init__.py",
+    "perfmodel/macro_perf.py", "runtime/scheduler.py",
+]
+
+
+@pytest.mark.parametrize("rel", TRAIN_SLICE + NOISE_SLICE + SERVE_SLICE
+                         + PRECISION_SLICE)
 def test_train_slice_module_is_checked(rel):
     assert PORT / rel in FILES
 

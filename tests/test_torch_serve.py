@@ -321,10 +321,13 @@ def test_launcher_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(base + ["--cim-mode", "engine"])
-    for extra in (["--engine-devices", "2"],
-                  ["--precision-policy", "mixed"]):
-        with pytest.raises(NotImplementedError):
-            serve.main(base + ["--device", "cpu"] + extra)
+    with pytest.raises(NotImplementedError):
+        serve.main(base + ["--device", "cpu", "--engine-devices", "2"])
+    # --precision-policy is ported: it refuses, as the JAX launcher does,
+    # anything but --cim-mode engine --inflight
+    with pytest.raises(SystemExit) as exc:
+        serve.main(base + ["--device", "cpu", "--precision-policy", "mixed"])
+    assert exc.value.code == 2
     with pytest.raises(NotImplementedError):
         ttf.forward(get_smoke_config("olmo_1b"), {}, torch.zeros(
             (1, 1), dtype=torch.long), prefix_embeds=torch.zeros(1))
