@@ -87,10 +87,11 @@ a result:
                 torch.Generator.  8 requests from numpy seed 0 at capacity
                 4; every fused stream equals its solo decode_sequential,
                 cim_mbiw launched planned tiles x model calls, every one
-                on the split-K route, and ring_decode depth x model
-                calls (replays included), a bound projection equals
-                its card reference.  Every projection dispatch replays
-                a CUDA graph: the run's captures equal the graphs the
+                on the split-K route, and ring_decode two kernels x
+                depth x model calls (replays included), a bound
+                projection equals its card reference.  Every
+                projection dispatch replays a CUDA graph: the run's
+                captures equal the graphs the
                 bound programs hold (one a dispatch key), and the solo
                 decodes capture none.  Bind seconds, median fused-step
                 latency per point, tokens/s; last in the script, a fused
@@ -173,7 +174,30 @@ a result:
                 --inflight --precision-policy mixed --assert-no-recompile`
                 in-process.  The phase's cim_mbiw route counters,
                 captures and program-cache evictions.
- 10. times    - CUDA-event times of each kernel, its plain version and a
+ 10. tuner    - the schedule autotuner (repro_torch.tuner, the route tile
+                a tuned plan carries to cim_mbiw): every tile of
+                kernel.legal_tiles at one shape per route and plane count
+                (route A 256x784x{128,64}, B 4x1024x{128,64}, C 784x9x16)
+                == the plain version in both ADC modes; LeNet at batch
+                256, (4, 2) and (8, 4), through compile_program(...,
+                tune="off" | "analytic" | "measure") with a cache file a
+                mode under chiprun_out/: each layer's heuristic and
+                tuned tiles, predicted costs and CUDA-event time a
+                dispatch, serves by graph replay bit-equal across modes
+                and to the plain reference, .launches_tuned = 21 forwards
+                x the tiles that run a tuned tile (above 0 wherever a
+                tuned tile differs from route_for's), median serve ms of
+                the three modes; OLMo-1B's four projections (qkv
+                2048->6144, o 2048->2048, gate_up 2048->16384, down
+                8192->2048) as one-layer programs at (8, 4) and (2, 2),
+                rows 4 and 128, tuned in both modes == untuned, the event
+                time of the heuristic and the tuned tiles; a second tune
+                with the same file all hits (SEARCH_COUNT flat), a
+                corrupt file warns once, runs the heuristic and writes
+                nothing; Spearman >= 0.7 between the analytic cost and
+                the event time of JAX's five pinned shapes.  No gain is
+                claimed.
+ 11. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
                 ring_decode and the flash kernels: yardsticks the port
@@ -216,9 +240,15 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PEAK_INT8_OPS = 1979e12        # H100 SXM dense int8 tensor-core rate
-PEAK_F32_OPS = 67e12           # H100 SXM float32 rate outside the tensor cores
-PEAK_BYTES = 3.35e12           # H100 SXM HBM3 bandwidth
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# the card's published peaks: the one table the port's tuner reads too
+from repro_torch.core.hw import H100_SXM as CARD  # noqa: E402
+
+PEAK_INT8_OPS = CARD.int8_ops   # dense int8 tensor-core rate
+PEAK_F32_OPS = CARD.f32_flops   # float32 rate outside the tensor cores
+PEAK_BYTES = CARD.hbm_bw        # HBM3 bandwidth
+PEAK_BF16_OPS = CARD.bf16_flops  # dense bf16 tensor-core rate
+PEAK_INT32_OPS = CARD.int32_ops  # 64 INT32 lanes x 132 SMs x 1.98 GHz
 LENET_BATCH = 256
 # the edges of cim_mbiw's routes (kernel.route_for): M around the split-K
 # limit (63) and the tensor-core tiles (64, 128), N around the tile
@@ -238,7 +268,6 @@ DECODE_DEPTH = 4
 DECODE_POINTS = {"": (4, 2), "quality": (8, 4)}
 DECODE_CAPACITY = 4
 DECODE_REQUESTS = 8
-PEAK_BF16_OPS = 989e12         # H100 SXM dense bf16 tensor-core rate
 # the train path: OLMo-1B at full width and depth, SHAPES["train_4k"]'s
 # sequence, global batch cut from 256 to 2
 TRAIN_SEQ = 4096
@@ -265,7 +294,6 @@ DRAW_HOST_MAX = 1 << 22
 # counted as two: uniform, both log1p branches, erf_inv)
 DRAW_INT_OPS = 84
 DRAW_F32_OPS = 97
-PEAK_INT32_OPS = 16.7e12       # H100 SXM: 64 INT32 lanes x 132 SMs x 1.98 GHz
 # Monte-Carlo sweep of noisy LeNet: trials per scale; a scale multiplies
 # the random terms (thermal RMS and SA-offset sigma)
 MC_TRIALS = 8
@@ -361,6 +389,7 @@ def kernel_counts(kern) -> tuple:
 
 def reset_counts(kern) -> None:
     kern.launches = kern.launches_tc = kern.launches_splitk = 0
+    kern.launches_tuned = 0
 
 
 def eager_forward(rt, bound, x, segments=None) -> torch.Tensor:
@@ -1328,6 +1357,324 @@ def precision_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
     return rec
 
 
+# the tuner phase: LeNet at batch 256 at these points, OLMo-1B's four
+# projections (d 2048, d_ff 8192; qkv, o, gate_up, down) at these points
+# and at decode and prefill rows, one representative shape per route and
+# plane count for the every-legal-tile check, and JAX's five pinned
+# shapes of tests/test_tuner.py for the ranking
+TUNE_LENET_POINTS = ((4, 2), (8, 4))
+TUNE_PROJECTIONS = {"qkv": (2048, 6144), "o": (2048, 2048),
+                    "gate_up": (2048, 16384), "down": (8192, 2048)}
+TUNE_PROJ_POINTS = ((8, 4), (2, 2))
+TUNE_PROJ_ROWS = (4, 128)
+TUNE_TILE_SHAPES = (("A", 256, 784, 128, (4, 2)), ("A", 256, 784, 64, (8, 4)),
+                    ("B", 4, 1024, 128, (4, 2)), ("B", 4, 1024, 64, (8, 4)),
+                    ("C", 784, 9, 16, (4, 2)), ("C", 784, 9, 16, (8, 4)))
+TUNE_RANK_SHAPES = ((64, 1152, 128), (96, 1152, 256), (128, 1152, 512),
+                    (256, 1152, 512), (512, 1152, 1024))
+TUNE_MODES = ("off", "analytic", "measure")
+
+
+def spearman(a, b) -> float:
+    """Rank correlation of two equal-length sequences (no ties expected)."""
+    def rank(v):
+        r = [0] * len(v)
+        for pos, i in enumerate(sorted(range(len(v)), key=lambda i: v[i])):
+            r[i] = pos
+        return r
+    ra, rb = rank(a), rank(b)
+    n = len(a)
+    return 1.0 - 6.0 * sum((x - y) ** 2 for x, y in zip(ra, rb)) / (
+        n * (n * n - 1))
+
+
+def tuned_calls(plan, batch: int, kmod) -> int:
+    """cim_mbiw launches of one forward over `batch` samples that run a
+    tuned tile: each tile call of a layer with `blocks` whose own route is
+    the tile's (stream_rows 0: one dispatch a macro tile)."""
+    n = 0
+    for lp in plan.layers:
+        if lp.blocks is None:
+            continue
+        g = lp.spec.conv
+        rows = batch * (g.out_h * g.out_w if g is not None else 1)
+        for _, ksz in lp.k_slices:
+            if kmod.route_for(rows, lp.tile_n, ksz,
+                              lp.precision.n_planes).name == lp.blocks[0]:
+                n += len(lp.n_slices)
+    return n
+
+
+def tuner_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
+    """The schedule autotuner on the card (module docstring, phase 10)."""
+    import tempfile
+    import warnings
+    from repro_torch import tuner as ttuner
+    from repro_torch.core import prng
+    from repro_torch.core.cim_layers import CIMConfig, _engine_config
+    from repro_torch.core.hw import DEFAULT_MACRO
+    from repro_torch.core.mapping import LayerSpec, map_layer
+    from repro_torch.data.pseudo_mnist import make_dataset
+    from repro_torch.kernels.cim_mbiw import ref as kref
+    from repro_torch.models import cnn
+    from repro_torch.tuner import search as tsearch
+    rec: dict = {}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "chiprun_out"))
+
+    def cache(mode: str) -> str:
+        # one file a mode: the cache keys winners by layer, not by mode
+        return os.path.join(tmp.name, f"{mode}.json")
+
+    def event_ms(spec, choice) -> float:
+        return 1e3 * tsearch._measure_choice_s(spec, choice, DEFAULT_MACRO,
+                                               dev)
+
+    # -- every legal tile of each route against the plain version ------------
+    rng = np.random.default_rng(5)
+    tile_rows = {}
+    for label, m, k, n, (r_in, r_w) in TUNE_TILE_SHAPES:
+        shift, planes_n = kmod.plane_layout(r_in)
+        x = torch.from_numpy(rng.integers(0, 2 ** shift, (m, planes_n * k),
+                                          dtype=np.int8)).to(dev)
+        half = 2 ** (r_w - 1)
+        w = torch.from_numpy((2 * rng.integers(-half, half, (k, n))
+                              + 1).astype(np.int8)).to(dev)
+        gamma = torch.from_numpy((2.0 ** rng.uniform(0, 5, (1, n))).astype(
+            np.float32)).to(dev)
+        beta = torch.from_numpy(rng.uniform(-16, 16, (1, n)).astype(
+            np.float32)).to(dev)
+        tiles = kmod.legal_tiles(m, n, k, planes_n)
+        check(bool(tiles) and {t[0] for t in tiles} == {
+            kmod.route_for(m, n, k, planes_n).name},
+            f"legal tiles of {(m, k, n)}: {tiles}")
+        for fuse in (True, False):
+            kw = dict(plane_shift=shift, g0=0.01, r_out=8, fuse_adc=fuse)
+            want = kref.cim_mbiw_matmul_planes_ref(x, w, gamma, beta, **kw)
+            for tile in tiles:
+                got = kern(x, w, gamma, beta, tile=tile, **kw)
+                check(torch.equal(got, want),
+                      f"cim_mbiw at tile {tile} != plain at {(m, k, n)} "
+                      f"P={planes_n} fuse_adc={fuse}")
+        torch.cuda.synchronize()
+        tile_rows[f"{label} {m}x{k}x{n} P{planes_n}"] = len(tiles)
+    rec["legal_tiles_checked"] = tile_rows
+    print(f"tuner {tag}: every legal tile == plain in both ADC modes "
+          + ", ".join(f"{k_} ({v} tiles)" for k_, v in tile_rows.items()),
+          flush=True)
+
+    # -- the main path: LeNet at batch 256 and OLMo-1B's projections ---------
+    reset_counts(kern)
+    n0 = tsearch.SEARCH_COUNT["n"]
+    images = torch.from_numpy(make_dataset(n_train=1, n_test=LENET_BATCH,
+                                           seed=0)[2][..., None])
+    lenet = {}
+    tuned_expected = 0
+    for r_in, r_w in TUNE_LENET_POINTS:
+        cim = CIMConfig(r_in=r_in, r_w=r_w)
+        specs, acts, pools = cnn.lenet_engine_specs(LENET_BATCH, cim=cim)
+        cfg = _engine_config(cim)
+        check(cfg.stream_rows == 0, "LeNet streams its rows")
+        params = cnn.lenet_params_list(
+            cnn.init_lenet(torch.Generator().manual_seed(0), cim=cim))
+        row = {"layers": [], "serve_ms": {}, "compile_s": {}}
+        outs, ref = {}, None
+        for mode in TUNE_MODES:
+            t0 = time.perf_counter()
+            prog = tprog.compile_program(
+                specs, cfg, activations=acts, pools=pools, device=dev,
+                tune=mode, tune_cache=cache(mode))
+            row["compile_s"][mode] = time.perf_counter() - t0
+            bound = prog.bind(params)
+            before = kern.launches_tuned
+            y = bound.serve(images)               # captures the graph
+            lat = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y2 = bound.serve(images)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t0)
+            tuned_n = kern.launches_tuned - before
+            want_n = 21 * tuned_calls(prog.plan, LENET_BATCH, kmod)
+            tuned_expected += want_n
+            check(tuned_n == want_n,
+                  f"LeNet ({r_in},{r_w}) {mode}: {tuned_n} tuned launches "
+                  f"!= {want_n} (21 forwards x the tuned tiles)")
+            if any(lp.blocks is not None for lp in prog.plan.layers):
+                check(tuned_n > 0, f"LeNet ({r_in},{r_w}) {mode}: a tuned "
+                      "tile differs from route_for's but never ran")
+            check(torch.equal(y, y2), f"LeNet {mode}: replay != first serve")
+            if ref is None:
+                ref = bound.reference(images)
+            outs[mode] = y
+            row["serve_ms"][mode] = 1e3 * statistics.median(lat[3:])
+            row[f"plan_{mode}"] = [lp.blocks for lp in prog.plan.layers]
+            row[f"launches_tuned_{mode}"] = tuned_n
+            del bound
+        for mode in TUNE_MODES:
+            check(torch.equal(outs[mode], outs["off"])
+                  and torch.equal(outs[mode], ref),
+                  f"LeNet ({r_in},{r_w}) tune={mode} != tune=off / the "
+                  f"plain reference")
+        for i, spec in enumerate(specs):
+            heur = ttuner.heuristic_choice(spec, cfg)
+            lay = {"heuristic": heur.blocks,
+                   "heuristic_s": ttuner.layer_cost(spec, heur).total_s,
+                   "heuristic_card_s": ttuner.layer_cost(spec, heur).t_dma_s}
+            for mode in ("analytic", "measure"):
+                blocks = row[f"plan_{mode}"][i] or heur.blocks
+                lc = ttuner.layer_cost(spec, ttuner.ScheduleChoice(*blocks))
+                lay[mode] = {"tile": blocks, "predicted_s": lc.total_s,
+                             "card_s": lc.t_dma_s,
+                             "event_ms": event_ms(
+                                 spec, ttuner.ScheduleChoice(*blocks))}
+                check(lc.total_s <= lay["heuristic_s"],
+                      f"LeNet layer {i} {mode}: tuned cost above the "
+                      "heuristic's")
+            lay["heuristic_event_ms"] = event_ms(spec, heur)
+            row["layers"].append(lay)
+        lenet[f"{r_in},{r_w}"] = row
+        print(f"tuner lenet ({r_in},{r_w}) {tag}: batch {LENET_BATCH}, "
+              "tune=off/analytic/measure bit-equal to each other and to "
+              "the plain reference; layers (heuristic -> analytic / "
+              "measure tile, card term us heuristic -> tuned, event us a "
+              "dispatch): " + "; ".join(
+                  f"{i}: {l_['heuristic']} -> {l_['analytic']['tile']} / "
+                  f"{l_['measure']['tile']}, "
+                  f"{1e6 * l_['heuristic_card_s']:.3f} -> "
+                  f"{1e6 * l_['analytic']['card_s']:.3f}, "
+                  f"{1e3 * l_['heuristic_event_ms']:.2f} -> "
+                  f"{1e3 * l_['analytic']['event_ms']:.2f} / "
+                  f"{1e3 * l_['measure']['event_ms']:.2f}"
+                  for i, l_ in enumerate(row["layers"]))
+              + "; launches_tuned " + ", ".join(
+                  f"{m_} {row[f'launches_tuned_{m_}']}" for m_ in TUNE_MODES)
+              + "; median serve ms " + ", ".join(
+                  f"{m_} {v:.3f}" for m_, v in row["serve_ms"].items())
+              + " (no gain claimed)", flush=True)
+    rec["lenet"] = lenet
+
+    projections = []
+    g = torch.Generator(device=dev).manual_seed(3)
+    for (r_in, r_w) in TUNE_PROJ_POINTS:
+        for rows in TUNE_PROJ_ROWS:
+            for name, (k, n) in TUNE_PROJECTIONS.items():
+                spec = LayerSpec(m=rows, k=k, n=n, r_in=r_in, r_w=r_w)
+                progs = {mode: tprog.compile_program(
+                    [spec], trt.EngineConfig(), activations=("none",),
+                    device=dev, tune=mode, tune_cache=cache(mode))
+                    for mode in TUNE_MODES}
+                params = progs["off"].init_params(
+                    prng.fold_in(prng.key(0), rows).to(dev))
+                x = torch.randn((rows, k), generator=g, device=dev)
+                outs, bounds = {}, {}
+                for mode, prog in progs.items():
+                    if id(prog) not in bounds:
+                        bounds[id(prog)] = prog.bind(params)
+                    outs[mode] = bounds[id(prog)].serve(x)
+                for mode in TUNE_MODES:
+                    check(torch.equal(outs[mode], outs["off"]),
+                          f"{name} ({r_in},{r_w}) rows {rows}: tune={mode} "
+                          "!= tune=off")
+                del bounds
+                heur = ttuner.heuristic_choice(spec, trt.EngineConfig())
+                evals = map_layer(spec).macro_evals
+                row = {"name": name, "point": [r_in, r_w], "rows": rows,
+                       "k": k, "n": n, "dispatches": evals,
+                       "heuristic": heur.blocks,
+                       "heuristic_event_ms": event_ms(spec, heur),
+                       "heuristic_card_s": ttuner.layer_cost(
+                           spec, heur).t_dma_s}
+                for mode in ("analytic", "measure"):
+                    lp = progs[mode].plan.layers[0]
+                    ch = ttuner.ScheduleChoice(*(lp.blocks or heur.blocks))
+                    row[mode] = {"tile": ch.blocks,
+                                 "event_ms": event_ms(spec, ch),
+                                 "card_s": ttuner.layer_cost(spec,
+                                                             ch).t_dma_s}
+                    check(ttuner.layer_cost(spec, ch).score()
+                          <= ttuner.layer_cost(spec, heur).score()
+                          or mode == "measure",
+                          f"{name}: analytic tuned cost above heuristic's")
+                projections.append(row)
+    torch.cuda.synchronize()
+    counts = kernel_counts(kern)
+    rec["launches"] = dict(zip(("cim_mbiw", "cim_mbiw_tc", "cim_mbiw_splitk"),
+                               counts), cim_mbiw_tuned=kern.launches_tuned)
+    rec["projections"] = projections
+    rec["searches"] = tsearch.SEARCH_COUNT["n"] - n0
+    print(f"tuner projections {tag}: OLMo-1B qkv/o/gate_up/down at "
+          f"{TUNE_PROJ_POINTS} x rows {TUNE_PROJ_ROWS}, tune=analytic and "
+          "measure bit-equal to off; event us a dispatch heuristic -> "
+          "analytic / measure: " + "; ".join(
+              f"{r['name']} ({r['point'][0]},{r['point'][1]}) M{r['rows']} "
+              f"{r['heuristic'][0]}:{r['heuristic'][1:]} "
+              f"{1e3 * r['heuristic_event_ms']:.2f} -> "
+              f"{r['analytic']['tile'][1:]} "
+              f"{1e3 * r['analytic']['event_ms']:.2f} / "
+              f"{r['measure']['tile'][1:]} "
+              f"{1e3 * r['measure']['event_ms']:.2f}" for r in projections)
+          + f"; phase launches {rec['launches']}", flush=True)
+
+    # -- the cache on the card ----------------------------------------------
+    cim = CIMConfig(r_in=4, r_w=2)
+    specs, acts, pools = cnn.lenet_engine_specs(LENET_BATCH, cim=cim)
+    cfg = _engine_config(cim)
+    n1 = tsearch.SEARCH_COUNT["n"]
+    plan_hit, reps = ttuner.tune_network(specs, cfg, acts, pools,
+                                         mode="analytic",
+                                         cache_path=cache("analytic"),
+                                         device=dev)
+    check(tsearch.SEARCH_COUNT["n"] == n1
+          and all(r["cache"] == "hit" for r in reps),
+          f"second tune with the same file: {[r['cache'] for r in reps]}, "
+          f"{tsearch.SEARCH_COUNT['n'] - n1} searches")
+    check(plan_hit == tprog.compile_program(
+        specs, cfg, activations=acts, pools=pools, device=dev,
+        tune="analytic", tune_cache=cache("analytic")).plan,
+        "the cache's hit plan != the tuned plan")
+    bad = os.path.join(tmp.name, "corrupt.json")
+    with open(bad, "w") as fh:
+        fh.write("{ not json")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        plan_bad, reps = ttuner.tune_network(specs, cfg, acts, pools,
+                                             mode="analytic",
+                                             cache_path=bad, device=dev)
+    warned = [w_ for w_ in caught
+              if issubclass(w_.category, ttuner.TuneCacheWarning)]
+    with open(bad) as fh:
+        kept = fh.read()
+    check(len(warned) == 1 and all(r["cache"] == "invalid" for r in reps)
+          and tsearch.SEARCH_COUNT["n"] == n1 and kept == "{ not json"
+          and plan_bad == trt.plan_network(specs, cfg, acts, pools),
+          "a corrupt cache did not warn once, run the heuristic and write "
+          "nothing")
+    rec["cache"] = {"hits": len(specs), "corrupt_warnings": len(warned)}
+
+    # -- the analytic ranking against the card's event times ----------------
+    predicted, measured = [], []
+    for m, k, n in TUNE_RANK_SHAPES:
+        spec = LayerSpec(m=m, k=k, n=n, r_in=4, r_w=2)
+        heur = ttuner.heuristic_choice(spec, trt.EngineConfig())
+        predicted.append(ttuner.layer_cost(spec, heur).total_s)
+        measured.append(map_layer(spec).macro_evals * event_ms(spec, heur))
+    rho = spearman(predicted, measured)
+    rec["ranking"] = {"shapes": TUNE_RANK_SHAPES, "predicted_s": predicted,
+                      "event_ms": measured, "spearman": rho}
+    check(rho >= 0.7, f"Spearman {rho} < 0.7 between the analytic cost "
+          f"{predicted} and the event ms {measured}")
+    tmp.cleanup()
+    print(f"tuner cache and ranking {tag}: a second tune with the same file "
+          f"all hits ({len(specs)} layers, no search); a corrupt file warned "
+          f"{len(warned)}x, ran the heuristic, wrote nothing; Spearman "
+          f"{rho:.2f} between the analytic cost and the event ms of JAX's "
+          f"five pinned shapes ({', '.join(f'{v:.4f}' for v in measured)} "
+          f"ms); {rec['searches']} layers searched", flush=True)
+    return rec
+
+
 FLASH_PAIRS = ((1, 77), (77, 77), (512, 512), (4096, 4096), (77, 4096),
                (4096, 77), (512, 1), (77, 512))
 # the train path's attention: B, H, G, S, D (causal, bf16)
@@ -1909,7 +2256,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.core.cim_layers import CIMConfig
     from repro_torch.core import digital_ref
     from repro_torch.data.pseudo_mnist import make_dataset
@@ -2311,9 +2657,10 @@ def main() -> int:
           f"decode: {dec_cim - dec_splitk} of {dec_cim} cim_mbiw launches "
           f"not on the split-K route (every decode tile has M <= "
           f"{DECODE_CAPACITY})")
-    check(dec_ring == depth * sum(calls.values()),
-          f"decode ring_decode launches {dec_ring} != depth x calls "
-          f"{depth * sum(calls.values())}")
+    ring_want = rmod.RING_KERNELS * depth * sum(calls.values())
+    check(dec_ring == ring_want,
+          f"decode ring_decode launches {dec_ring} != two kernels x depth "
+          f"x calls {ring_want}")
     check(set(streams) == set(reqs), "not every request finished")
     for u, r in reqs.items():
         toks = streams[u]
@@ -2358,7 +2705,7 @@ def main() -> int:
           f"capacity {DECODE_CAPACITY}: every fused stream == "
           f"decode_sequential; launches cim_mbiw {dec_cim} (= planned "
           f"tiles x calls, all {dec_splitk} split-K), ring_decode "
-          f"{dec_ring} (= depth x calls "
+          f"{dec_ring} (= 2 kernels x depth x calls "
           f"{calls}); {cap_run} captures = {held} graphs held, one a "
           f"program's dispatch key, none in the solo decodes; "
           f"{dstats['graph_replays']} replays, "
@@ -2411,7 +2758,14 @@ def main() -> int:
     phase_s["precision"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 10. times -----------------------------------------------------------
+    # -- 10. the schedule autotuner ------------------------------------------
+    tune = tuner_phase(dev, tag, kern, kmod, tprog, trt)
+    report["tuner"] = tune
+    torch.cuda.empty_cache()
+    phase_s["tuner"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 11. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -2593,19 +2947,20 @@ def main() -> int:
     dec = [r for r in timing if r["shape"] == "decode" and r["r_in"] == 4
            and r["m"] == DECODE_CAPACITY]
     nl, nd = noise["launches"], ndec["launches"]
-    ls, lp = lserve["launches"], prec["launches"]
+    ls, lp, lt = lserve["launches"], prec["launches"], tune["launches"]
     route_launches = {
         "tc": main_routes["tc"] + nl["cim_mbiw_tc"] + ls["cim_mbiw_tc"]
-        + lp["cim_mbiw_tc"],
+        + lp["cim_mbiw_tc"] + lt["cim_mbiw_tc"],
         "splitk": main_routes["splitk"] + dec_splitk + nl["cim_mbiw_splitk"]
         + nd["cim_mbiw_splitk"] + ls["cim_mbiw_splitk"]
-        + lp["cim_mbiw_splitk"],
+        + lp["cim_mbiw_splitk"] + lt["cim_mbiw_splitk"],
         "cuda_core": main_routes["all"] - main_routes["tc"]
         - main_routes["splitk"] + dec_cim - dec_splitk + nl["cim_mbiw"]
         - nl["cim_mbiw_tc"] - nl["cim_mbiw_splitk"] + nd["cim_mbiw"]
         - nd["cim_mbiw_splitk"] + ls["cim_mbiw"] - ls["cim_mbiw_tc"]
         - ls["cim_mbiw_splitk"] + lp["cim_mbiw"] - lp["cim_mbiw_tc"]
-        - lp["cim_mbiw_splitk"]}
+        - lp["cim_mbiw_splitk"] + lt["cim_mbiw"] - lt["cim_mbiw_tc"]
+        - lt["cim_mbiw_splitk"]}
 
     def route_entry(name, route, src, rows):
         mult = [2 if r["k"] == 784 and r["shape"] == "lenet" else 1
@@ -2690,7 +3045,8 @@ def main() -> int:
         "train": train["launches"],
         "noise_train": {"threefry_normal": train["noisy"]["launches"]},
         "llm_serve": lserve["launches"],
-        "precision": prec["launches"]}
+        "precision": prec["launches"],
+        "tuner": tune["launches"]}
     report["total_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -1,7 +1,9 @@
 """Hardware constants and configuration for the IMAGINE CIM-SRAM macro.
 
-Counterpart of `repro/core/hw.py` (the macro description only; the
-TPU roofline table there has no use in the PyTorch port).
+Counterpart of `repro/core/hw.py`: the macro description, and in place
+of the TPU roofline table there, the one table of the card the port runs
+on (`GPUSpec`, `H100_SXM`), which the schedule tuner's cost model and
+`chip_smoke.py`'s bounds both read.
 
 All values come from the paper (Kneip et al., 2024, 22nm FD-SOI CERBERUS):
   - 1152x256 DP array, 32 DP units of 36 rows (3x3 kernel x C_in=4 granule)
@@ -93,4 +95,28 @@ class CIMMacroConfig:
         return -(-n_rows_used // self.rows_per_unit)
 
 
+@dataclasses.dataclass(frozen=True)
+class GPUSpec:
+    """Published peaks of one NVIDIA card (dense rates, no sparsity, at
+    the full power limit).  `int32_ops` counts 32-bit integer lane
+    instructions a second (one multiply-add each); the CUDA-core routes of
+    `cim_mbiw` are priced from it."""
+    name: str
+    int8_ops: float          # op/s, int8 tensor cores
+    bf16_flops: float        # FLOP/s, bf16 tensor cores
+    f32_flops: float         # FLOP/s, float32 outside the tensor cores
+    int32_ops: float         # instructions/s, 32-bit integer lanes
+    hbm_bw: float            # byte/s
+    sms: int
+    hbm_bytes: float
+    l2_bytes: int
+    smem_per_sm: int         # bytes of shared memory an SM holds
+
+
 DEFAULT_MACRO = CIMMacroConfig()
+# NVIDIA's H100 SXM data sheet and Hopper white paper (700 W); the int32
+# rate is 64 lanes x 132 SMs x 1.98 GHz
+H100_SXM = GPUSpec(name="h100_sxm", int8_ops=1979e12, bf16_flops=989e12,
+                   f32_flops=67e12, int32_ops=16.7e12, hbm_bw=3.35e12,
+                   sms=132, hbm_bytes=80e9, l2_bytes=50 * 2**20,
+                   smem_per_sm=228 * 2**10)

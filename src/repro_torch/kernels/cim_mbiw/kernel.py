@@ -17,20 +17,30 @@ front (`route_for`), and launches it for tensors on a CUDA device:
                 `__dp4a` kernel with a tile width fitted to N, for the rest
                 (K < 32: LeNet's conv1).
 
+The tile within the route is the shape's own unless the caller passes a
+tuned one (`tile=`, a `(route, bm, bn, kc)` tuple from `legal_tiles`, the
+schedule tuner's candidates): a tile of the route the shape takes runs in
+its place; a tile of another route is ignored, since the dispatched rows
+move with the batch bucket and a layer tuned at its design rows may land
+on another route at a small bucket.  Every tile computes the same integers
+(exact int32 sums; route B's chunk sums are associative), so a tile moves
+no bit.
+
 Tensors on the CPU run the plain PyTorch version
-(`ref.cim_mbiw_matmul_planes_ref`).  A CUDA tensor never reaches the plain
-version or another route: a launch of the chosen route either happens or
-raises.  `cim_mbiw_matmul_planes.launches` counts every launch,
-`.launches_tc` and `.launches_splitk` those of routes A and B.  A CUDA
-graph replay runs no Python, so a captured dispatch adds what its capture
-launched (`launch_counts`, `add_launches`).
+(`ref.cim_mbiw_matmul_planes_ref`), which ignores tiles.  A CUDA tensor
+never reaches the plain version or another route: a launch of the chosen
+route either happens or raises.  `cim_mbiw_matmul_planes.launches` counts
+every launch, `.launches_tc` and `.launches_splitk` those of routes A and
+B, `.launches_tuned` those that ran a tuned tile.  A CUDA graph replay
+runs no Python, so a captured dispatch adds what its capture launched
+(`launch_counts`, `add_launches`).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -73,28 +83,96 @@ CORE_BN = (16, 32, 64)
 MIN_K = 32
 
 
+# a tile: (route name, bm, bn, kc), as a Route spells it
+Tile = Tuple[str, int, int, int]
+
+
 @dataclasses.dataclass(frozen=True)
 class Route:
     """One launch plan: the route and its tile.  `bm` rows and `bn`
     columns a block (route B puts every row in a block, bm = 0); `kc` the
     K rows of a chunk (route B only); `grid` the blocks, (N tiles, M
     tiles) on route A, (N tiles, K chunks) on B, (M tiles, N tiles) on
-    C."""
+    C.  `tuned` marks a tile the caller chose in place of the shape's."""
     name: str
     bm: int
     bn: int
     kc: int
     grid: tuple
+    tuned: bool = False
+
+    @property
+    def tile(self) -> Tile:
+        return (self.name, self.bm, self.bn, self.kc)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _grid(name: str, m: int, n: int, k: int, bm: int, bn: int,
+          kc: int) -> tuple:
+    if name == "tc":
+        return (_cdiv(n, bn), _cdiv(m, bm))
+    if name == "splitk":
+        return (_cdiv(n, bn), _cdiv(k, kc))
+    return (_cdiv(m, bm), _cdiv(n, bn))
+
+
+def _launchable(tile, planes: int) -> bool:
+    if not (isinstance(tile, tuple) and len(tile) == 4):
+        return False
+    name, bm, bn, kc = tile
+    if not all(type(v) is int for v in (bm, bn, kc)):
+        return False
+    if name == "tc":
+        return (bm in TC_BM and bn in TC_BN and kc == 0
+                and 1 <= planes <= TC_MAX_PLANES and bn * planes <= TC_BN[-1])
+    if name == "splitk":
+        return bm == 0 and bn == SPLITK_BN and 1 <= kc <= SPLITK_KC[1]
+    if name == "cuda_core":
+        return bn in CORE_BN and bm == 4 * 256 // (bn // 4) and kc == 0
+    return False
+
+
+def check_tile(tile: Tile, planes: int) -> None:
+    """Raise ValueError unless `tile` is one its route launches at
+    `planes` input planes: route A a TC_BM x TC_BN tile with
+    bn * planes <= 128 (one or two planes); route B 64 columns and a kc
+    the launcher takes, 1-128 (the shape's own kc may fall below
+    SPLITK_KC's 8 at K < 64); route C a CORE_BN width with its fixed
+    height."""
+    if not _launchable(tile, planes):
+        raise ValueError(
+            f"tile {tile!r} is not a (route, bm, bn, kc) tile that a "
+            f"cim_mbiw route launches at {planes} plane(s)")
+
+
+def legal_tiles(m: int, n: int, k: int, planes: int) -> Tuple[Tile, ...]:
+    """Every tile of the route the shape takes (`route_for`): the schedule
+    tuner's candidates for one dispatch.  Route A: TC_BM x TC_BN with
+    bn * planes <= 128; route B: every kc of SPLITK_KC's range up to K;
+    route C: the CORE_BN widths."""
+    name = route_for(m, n, k, planes).name
+    if name == "tc":
+        return tuple(("tc", bm, bn, 0) for bm in TC_BM for bn in TC_BN
+                     if bn * planes <= TC_BN[-1])
+    if name == "splitk":
+        lo, hi = SPLITK_KC
+        return tuple(("splitk", 0, SPLITK_BN, kc)
+                     for kc in range(lo, min(hi, k) + 1))
+    return tuple(("cuda_core", 4 * 256 // (bn // 4), bn, 0)
+                 for bn in CORE_BN)
+
+
 @functools.lru_cache(maxsize=4096)
-def route_for(m: int, n: int, k: int, planes: int) -> Route:
+def route_for(m: int, n: int, k: int, planes: int,
+              tile: Optional[Tile] = None) -> Route:
     """The route and tile for an (M, K) x (K, N) call over `planes` input
-    planes, from the shape alone:
+    planes.  With `tile` (a tuned tile) of the route the shape takes, that
+    tile (`tuned` set; ValueError if its route does not launch it at
+    `planes`); a tile of another route is ignored.  Otherwise the tile
+    from the shape alone:
 
       "tc"        M >= 64, K >= 32, K % 16 == 0, planes <= 2: the largest
                   BM x BN (BM 64, or 128 from M 128 up; BN 16..128, no
@@ -109,6 +187,16 @@ def route_for(m: int, n: int, k: int, planes: int) -> Route:
       "cuda_core" everything else: BN 16, 32 or 64 from N, BM = 4 * 256 /
                   (BN / 4).
     """
+    own = _shape_route(m, n, k, planes)
+    if tile is None or tile[0] != own.name:
+        return own
+    check_tile(tile, planes)
+    _, bm, bn, kc = tile
+    return Route(own.name, bm, bn, kc, _grid(own.name, m, n, k, bm, bn, kc),
+                 tuned=True)
+
+
+def _shape_route(m: int, n: int, k: int, planes: int) -> Route:
     if min(m, n, k) < 1 or planes < 0:
         raise ValueError(f"no route for M={m} N={n} K={k} P={planes}")
     if m >= 64 and k >= MIN_K and k % TC_K_ALIGN == 0 \
@@ -121,16 +209,18 @@ def route_for(m: int, n: int, k: int, planes: int) -> Route:
         _, bn, bm = next((t for t in tiles
                           if _cdiv(m, t[2]) * _cdiv(n, t[1]) >= WAVE),
                          tiles[-1])
-        return Route("tc", bm, bn, 0, (_cdiv(n, bn), _cdiv(m, bm)))
+        return Route("tc", bm, bn, 0, _grid("tc", m, n, k, bm, bn, 0))
     if m <= SPLITK_MAX_M and k >= MIN_K:
         tiles = _cdiv(n, SPLITK_BN)
         lo, hi = SPLITK_KC
         chunks = max(1, min(_cdiv(k, lo), _cdiv(WAVE, tiles)))
         kc = min(hi, _cdiv(k, chunks))
-        return Route("splitk", 0, SPLITK_BN, kc, (tiles, _cdiv(k, kc)))
+        return Route("splitk", 0, SPLITK_BN, kc,
+                     _grid("splitk", m, n, k, 0, SPLITK_BN, kc))
     bn = next((b for b in CORE_BN if b >= n), CORE_BN[-1])
     bm = 4 * 256 // (bn // 4)
-    return Route("cuda_core", bm, bn, 0, (_cdiv(m, bm), _cdiv(n, bn)))
+    return Route("cuda_core", bm, bn, 0,
+                 _grid("cuda_core", m, n, k, bm, bn, 0))
 
 
 def route_counts(tiles) -> Dict[str, int]:
@@ -250,7 +340,8 @@ def launch(route: Route, x_planes: torch.Tensor, w_q: torch.Tensor,
 def cim_mbiw_matmul_planes(x_planes: torch.Tensor, w_q: torch.Tensor,
                            gamma: torch.Tensor, beta: torch.Tensor, *,
                            plane_shift: int, g0: float, r_out: int,
-                           fuse_adc: bool = True) -> torch.Tensor:
+                           fuse_adc: bool = True,
+                           tile: Optional[Tile] = None) -> torch.Tensor:
     """CIM matmul over input planes (any M, N, K: the kernels mask edges).
 
     x_planes : (M, P*K) int8 - P planes laid out plane-major along the last
@@ -259,6 +350,8 @@ def cim_mbiw_matmul_planes(x_planes: torch.Tensor, w_q: torch.Tensor,
     gamma    : (1, N) float32 ABN gain
     beta     : (1, N) float32 ABN offset in ADC codes - or (M, N) for a
                per-GEMM-row offset
+    tile     : a tuned (route, bm, bn, kc) tile, run where the shape takes
+               its route (`route_for`); None for the shape's own
     returns  : (M, N) int32 ADC codes in [0, 2^r_out - 1], or the raw int32
                dp accumulator when `fuse_adc=False`
     """
@@ -285,7 +378,7 @@ def cim_mbiw_matmul_planes(x_planes: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
     if m == 0 or n == 0:
         return out
-    route = route_for(m, n, k_dim, pk // k_dim)
+    route = route_for(m, n, k_dim, pk // k_dim, tile)
     launch(route, x_planes, w_q, gamma, beta, out, plane_shift=plane_shift,
            g0=g0, r_out=r_out, fuse_adc=fuse_adc)
     fn = cim_mbiw_matmul_planes
@@ -294,15 +387,19 @@ def cim_mbiw_matmul_planes(x_planes: torch.Tensor, w_q: torch.Tensor,
         fn.launches_tc += 1
     elif route.name == "splitk":
         fn.launches_splitk += 1
+    if route.tuned:
+        fn.launches_tuned += 1
     return out
 
 
 cim_mbiw_matmul_planes.launches = 0
 cim_mbiw_matmul_planes.launches_tc = 0
 cim_mbiw_matmul_planes.launches_splitk = 0
+cim_mbiw_matmul_planes.launches_tuned = 0
 
 
-LAUNCH_COUNTERS = ("launches", "launches_tc", "launches_splitk")
+LAUNCH_COUNTERS = ("launches", "launches_tc", "launches_splitk",
+                   "launches_tuned")
 
 
 def launch_counts() -> Dict[str, int]:

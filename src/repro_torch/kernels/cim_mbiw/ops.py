@@ -13,9 +13,12 @@ r_out); `kernel_variant` returns a callable specialized to that point
 (plane walk + accumulator shift from r_in, ADC epilogue from r_out) and
 caches it.  `kernel_variant_for_tile` clamps the preferred block sizes to
 one dispatched tile, exactly as the JAX package does, and keys the cache
-on them; the blocks are the schedule's tuning space, but the Hopper
-kernels take their route and tile from the shape alone
-(`kernel.route_for`), so the blocks change no launch.
+on them; on the card those Pallas blocks change no launch.  What the
+schedule tunes here is the Hopper route's tile: `kernel_variant_for_tile
+(..., tile=)` hands a tuned `(route, bm, bn, kc)` tile to
+`cim_mbiw_matmul_planes`, which runs it wherever the dispatch takes that
+route (`kernel.route_for`), and `block_candidates` lists the tiles a
+dispatch may take (`kernel.legal_tiles`).
 
 Units: inputs/weights are integer codes (unsigned < 2^r_in / odd ints in
 +/-(2^r_w - 1)); outputs are int32 ADC codes in [0, 2^r_out) - or raw
@@ -32,8 +35,8 @@ import torch
 
 from repro_torch.core import digital_ref
 from repro_torch.core.hw import CIMMacroConfig, DEFAULT_MACRO
-from repro_torch.kernels.cim_mbiw.kernel import (cim_mbiw_matmul_planes,
-                                                 plane_layout)
+from repro_torch.kernels.cim_mbiw.kernel import (Tile, cim_mbiw_matmul_planes,
+                                                 legal_tiles, plane_layout)
 
 _PLANE_SHIFT = 4  # legacy nibble-plane default (r_in > 7 inputs)
 
@@ -99,36 +102,17 @@ def _clamp_block(pref: int, dim: int, align: int = 8) -> int:
     return max(align, min(pref, -(-dim // align) * align))
 
 
-# preferred block-size palette of the schedule search; every entry is
-# clamped per tile, so duplicates collapse after clamping
-BM_PALETTE = (32, 64, 128, 256)
-BN_PALETTE = (32, 64, 128, 256)
-BK_PALETTE = (128, 256, 512, 1024)
-
-
 def block_candidates(rows: int, k: int, n: int,
-                     bms: Tuple[int, ...] = BM_PALETTE,
-                     bns: Tuple[int, ...] = BN_PALETTE,
-                     bks: Tuple[int, ...] = BK_PALETTE
-                     ) -> Tuple[Tuple[int, int, int], ...]:
-    """Deduplicated (bm, bn, bk) block choices for one dispatched tile of
-    GEMM shape (rows, k) x (k, n), each palette entry clamped exactly like
-    `kernel_variant_for_tile` clamps its preferred blocks."""
-    out: list = []
-    seen = set()
-    for bm in bms:
-        for bn in bns:
-            for bk in bks:
-                c = (_clamp_block(bm, rows), _clamp_block(bn, n),
-                     _clamp_block(bk, k))
-                if c not in seen:
-                    seen.add(c)
-                    out.append(c)
-    return tuple(out)
+                     planes: int) -> Tuple[Tile, ...]:
+    """The tiles one dispatched tile of GEMM shape (rows, k) x (k, n) over
+    `planes` input planes may run: every legal tile of the route the shape
+    takes (`kernel.legal_tiles`), the schedule tuner's search space."""
+    return legal_tiles(rows, n, k, planes)
 
 
 def kernel_variant(prec: KernelPrecision, bm: int = 256, bn: int = 256,
-                   bk: int = 512, fuse_adc: bool = True) -> Callable:
+                   bk: int = 512, fuse_adc: bool = True,
+                   tile: Optional[Tile] = None) -> Callable:
     """Precision-specialized kernel callable (cached per operating point).
 
     Returned fn: (x_q (M,K) uint<2^r_in, w_q (K,N) odd ints, gamma (N,),
@@ -137,46 +121,54 @@ def kernel_variant(prec: KernelPrecision, bm: int = 256, bn: int = 256,
     is keyed on the (plane_shift, n_planes) input walk and the r_out
     epilogue, so operating points differing only in r_w (weights arrive
     pre-decoded) or sharing a plane layout (e.g. r_in 5-8) share one
-    variant.
+    variant.  `tile` (a tuned route tile, or None) is part of the key and
+    reaches every launch of the variant.
     """
     shift, n_planes = plane_layout(prec.r_in)
     return _kernel_variant(shift, n_planes, prec.r_out, bm, bn, bk,
-                           fuse_adc)
+                           fuse_adc, tile)
 
 
 def kernel_variant_for_tile(prec: KernelPrecision, rows: int, k: int, n: int,
                             *, bm: int = 256, bn: int = 256, bk: int = 512,
-                            fuse_adc: bool = True) -> Callable:
+                            fuse_adc: bool = True,
+                            tile: Optional[Tile] = None) -> Callable:
     """Kernel variant fitted to one dispatched tile's geometry: the
     preferred (maximum) block sizes clamped per dimension to the tile's
-    (rows, k, n).  Numerically identical at any block size."""
+    (rows, k, n), and the tuned route tile `tile` (None: the shape's
+    own).  Numerically identical at any block size and tile."""
     return kernel_variant(prec, bm=_clamp_block(bm, rows),
                           bn=_clamp_block(bn, n), bk=_clamp_block(bk, k),
-                          fuse_adc=fuse_adc)
+                          fuse_adc=fuse_adc, tile=tile)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_variant(shift: int, n_planes: int, r_out: int, bm: int, bn: int,
-                    bk: int, fuse_adc: bool) -> Callable:
+                    bk: int, fuse_adc: bool,
+                    tile: Optional[Tile]) -> Callable:
     r_eff = shift * n_planes          # widest r_in with this plane layout
 
     def run(x_q, w_q, gamma, beta, g0: float):
         return cim_matmul(x_q, w_q, gamma, beta, r_in=r_eff, r_out=r_out,
-                          g0=g0, plane_shift=shift, fuse_adc=fuse_adc)
+                          g0=g0, plane_shift=shift, fuse_adc=fuse_adc,
+                          tile=tile)
     run.plane_shift = shift
     run.n_planes = n_planes
     run.blocks = (bm, bn, bk)
+    run.tile = tile
     return run
 
 
 def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor, gamma: torch.Tensor,
                beta: torch.Tensor, *, r_in: int, r_out: int, g0: float,
                plane_shift: Optional[int] = None,
-               fuse_adc: bool = True) -> torch.Tensor:
+               fuse_adc: bool = True,
+               tile: Optional[Tile] = None) -> torch.Tensor:
     """One macro row-tile (K <= n_rows recommended): int inputs -> ADC codes.
 
     x_q: (M, K) unsigned ints < 2^r_in; w_q: (K, N) odd ints; gamma (N,);
-    beta (N,) - or (M, N) for a per-GEMM-row offset.
+    beta (N,) - or (M, N) for a per-GEMM-row offset; `tile` a tuned route
+    tile (None: the shape's own).
     Returns (M, N) int32 codes (raw int32 dp when `fuse_adc=False`).
     """
     m = x_q.shape[0]
@@ -189,7 +181,8 @@ def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor, gamma: torch.Tensor,
         beta2 = beta.reshape(1, -1).to(torch.float32).contiguous()
     return cim_mbiw_matmul_planes(
         x_planes.contiguous(), w_q.to(torch.int8).contiguous(), gamma2,
-        beta2, plane_shift=shift, g0=g0, r_out=r_out, fuse_adc=fuse_adc)
+        beta2, plane_shift=shift, g0=g0, r_out=r_out, fuse_adc=fuse_adc,
+        tile=tile)
 
 
 def cim_linear(x_q: torch.Tensor, w_q: torch.Tensor, gamma: torch.Tensor,

@@ -12,12 +12,12 @@ wrappers.
 Each wrapper launches its CUDA kernel for tensors on a CUDA device and
 runs its plain PyTorch version (`ref.py`) for tensors on the CPU.  A CUDA
 tensor never reaches the plain version: a launch either happens or
-raises.  `<wrapper>.launches` counts the calls that launched
-(`ring_decode` runs a chunk kernel and a merge kernel a call and counts
-one).  `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` route bfloat16
-inputs with D in `FLASH_TC_HEAD_DIMS` to the tensor-core kernels (counted
-again in `<wrapper>.launches_tc`) and everything else to the CUDA-core
-kernels of `flash_fwd.cu` and `flash_bwd.cu`.
+raises.  `<wrapper>.launches` counts the kernels launched (a
+`ring_decode` call launches two, a chunk kernel and a merge kernel).
+`flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` route bfloat16 inputs
+with D in `FLASH_TC_HEAD_DIMS` to the tensor-core kernels (counted again
+in `<wrapper>.launches_tc`) and everything else to the CUDA-core kernels
+of `flash_fwd.cu` and `flash_bwd.cu`.
 """
 from __future__ import annotations
 
@@ -35,6 +35,8 @@ from repro_torch.kernels import build
 RING_CHUNK = 128
 MAX_WINDOW = 96 * RING_CHUNK
 MAX_HEAD_DIM = 256
+# kernels a ring_decode call launches: the chunk kernel and the merge
+RING_KERNELS = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -107,6 +109,16 @@ def ring_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((r, h, hd), dtype=torch.float32, device=q.device)
     if r == 0 or h == 0 or hd == 0:
         return out
+    _launch(q, k, v, bias, out)
+    return out
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch the chunk and merge kernels on checked tensors into `out`
+    and count both."""
+    r, h, hd = q.shape
+    win = k.shape[1]
     # the chunk partials: o (hd floats), max and sum per (row, head, chunk)
     n_chunks = -(-win // RING_CHUNK)
     work = torch.empty(r * h * n_chunks * (hd + 2), dtype=torch.float32,
@@ -124,8 +136,7 @@ def ring_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(
             f"ring_decode kernel launch failed: CUDA error {err} "
             f"({lib.ring_decode_error_string(err).decode()})")
-    ring_decode.launches += 1
-    return out
+    ring_decode.launches += RING_KERNELS
 
 
 ring_decode.launches = 0

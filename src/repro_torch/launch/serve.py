@@ -43,8 +43,8 @@ The projected TOPS/W it prints are the IMAGINE macro model's
 (`perfmodel`), not measurements of the device it runs on.
 
 Not ported (NotImplementedError, with the ROADMAP item that ports them):
-`--engine-devices` (Queue 1 item 6, sharding); the vlm and audio
-families' inputs (item 8) raise in `transformer.forward`.
+`--engine-devices` (Queue 1 item 4, sharding); the vlm and audio
+families' inputs (item 6) raise in `transformer.forward`.
 """
 from __future__ import annotations
 
@@ -108,7 +108,7 @@ def build(args):
     under --inflight) and seeded random weights on the device."""
     if args.engine_devices:
         raise NotImplementedError(
-            "--engine-devices (the sharded engine, ROADMAP Queue 1 item 6) "
+            "--engine-devices (the sharded engine, ROADMAP Queue 1 item 4) "
             "is not ported")
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

@@ -202,7 +202,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     if prefix_embeds is not None or encoder_frames is not None:
         raise NotImplementedError(
             "prefix_embeds / encoder_frames (the vlm and audio families, "
-            "ROADMAP Queue 1 item 8) are not ported")
+            "ROADMAP Queue 1 item 6) are not ported")
     x = embed_tokens(cfg, params, tokens)
     s = tokens.shape[1]
     if positions is None:

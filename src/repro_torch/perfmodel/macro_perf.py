@@ -21,10 +21,9 @@ measurements of any device this code runs on.
 
 Counterpart of `repro/perfmodel/macro_perf.py`: plain Python over the
 port's `LayerSpec`, `map_layer` and `CIMMacroConfig`, so every float
-equals the JAX package's.  The sharded and autotuned schedule reports
-(a plan whose layers carry `shard` or `blocks`, or whose config carries
-`sharding`) wait for the tuner and sharding slices (ROADMAP Queue 1
-items 5-6) and raise NotImplementedError.
+equals the JAX package's.  The sharded schedule report (a plan whose
+layers carry `shard`, or whose config carries `sharding`) waits for the
+sharding slice (ROADMAP Queue 1 item 4) and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -135,22 +134,17 @@ class EnergyModel:
 
 
 def _unported_schedule(plan) -> None:
-    """Raise on a plan that carries a device partition or a tuned
-    schedule: their report columns wait for the sharding and tuner
-    slices (ROADMAP Queue 1 items 5-6)."""
+    """Raise on a plan that carries a device partition: its report
+    columns wait for the sharding slice (ROADMAP Queue 1 item 4)."""
     if getattr(getattr(plan, "cfg", None), "sharding", None) is not None:
         raise NotImplementedError(
             "schedule_report of a sharded plan (cfg.sharding) waits for the "
-            "sharding slice (ROADMAP Queue 1 item 6)")
+            "sharding slice (ROADMAP Queue 1 item 4)")
     for i, lp in enumerate(plan.layers):
         if getattr(lp, "shard", None) is not None:
             raise NotImplementedError(
                 f"layer {i} carries a device partition (shard); its report "
-                "waits for the sharding slice (ROADMAP Queue 1 item 6)")
-        if getattr(lp, "blocks", None) is not None:
-            raise NotImplementedError(
-                f"layer {i} carries autotuned blocks; their report waits "
-                "for the tuner slice (ROADMAP Queue 1 item 5)")
+                "waits for the sharding slice (ROADMAP Queue 1 item 4)")
 
 
 def schedule_report(plan, *, clock_ns: float = 10.0, pipelined: bool = True,
@@ -159,15 +153,16 @@ def schedule_report(plan, *, clock_ns: float = 10.0, pipelined: bool = True,
     """Cycle/energy estimates for a runtime engine schedule.
 
     `plan` is a runtime.engine.NetworkPlan (duck-typed: only
-    `plan.layers[i].spec` / `.macro_evals` and `plan.cfg.noise` are read,
-    so there is no perfmodel -> runtime import cycle; a layer's `shard` /
-    `blocks` and `plan.cfg.sharding` are read to refuse the plans the
-    port cannot report yet).  Returns per-layer reports, per-precision
-    aggregates keyed "r{r_in}x{r_w}b", schedule totals, and an echo of
-    the schedule's noise settings (so a Monte-Carlo accuracy report and
-    its perf numbers always carry the operating point they were taken
-    at) - the model behind the paper's Fig. 22 precision-scaling curves,
-    applied to an executable schedule instead of a lone macro.
+    `plan.layers[i].spec` / `.macro_evals` / `.blocks` and
+    `plan.cfg.noise` are read, so there is no perfmodel -> runtime import
+    cycle; a layer's `shard` and `plan.cfg.sharding` are read to refuse
+    the sharded plans the port cannot report yet).  Returns per-layer
+    reports, per-precision aggregates keyed "r{r_in}x{r_w}b", schedule
+    totals, and an echo of the schedule's noise settings (so a
+    Monte-Carlo accuracy report and its perf numbers always carry the
+    operating point they were taken at) - the model behind the paper's
+    Fig. 22 precision-scaling curves, applied to an executable schedule
+    instead of a lone macro.
 
     `program` (optional, duck-typed on `.stats()`/`.buckets`) is the
     compiled runtime.program.CIMProgram executing the plan: when given,
@@ -176,6 +171,11 @@ def schedule_report(plan, *, clock_ns: float = 10.0, pipelined: bool = True,
     dispatch routes' graphs_captured / graph_replays / eager_calls) and
     the bucket ladder config - so a perf number always carries the
     amortization state it was measured under.
+
+    Autotuned plans (layers with `lp.blocks` set - see repro_torch.tuner)
+    additionally carry `rep["tune"]`: the chosen cim_mbiw tile `blocks`
+    and `shard_kind` (None: one device), plus the tuner's predicted cost
+    next to the heuristic schedule's cost.
 
     `point` (optional) names the serving operating point the schedule was
     taken at (a precision-ladder rung such as "quality"/"throughput");
@@ -198,6 +198,25 @@ def schedule_report(plan, *, clock_ns: float = 10.0, pipelined: bool = True,
         rep = ap.layer_report(lp.spec, gamma=gamma, pipelined=pipelined)
         if hasattr(lp, "macro_evals"):      # planned (k, n) tiles per M-row
             rep["macro_evals_schedule"] = lp.macro_evals
+        blocks = getattr(lp, "blocks", None)
+        if blocks is not None:
+            # this layer carries an autotuned tile: echo it and the cost
+            # model's predicted-vs-heuristic cost.  Lazy import -
+            # repro_torch.tuner imports this module
+            from repro_torch.tuner import cost as _tc
+            from repro_torch.tuner import search as _ts
+            cfg = getattr(plan, "cfg", None)
+            macro_cfg = getattr(cfg, "macro", DEFAULT_MACRO)
+            heur = _ts.heuristic_choice(lp.spec, cfg, macro_cfg)
+            rep["tune"] = {
+                "blocks": tuple(blocks),
+                "shard_kind": None,
+                "predicted_s": _tc.layer_cost(
+                    lp.spec, _tc.ScheduleChoice(*blocks),
+                    macro=macro_cfg).total_s,
+                "heuristic_s": _tc.layer_cost(
+                    lp.spec, heur, macro=macro_cfg).total_s,
+            }
         if noise_echo["enabled"]:
             rep["noise"] = dict(noise_echo)   # per-layer copy, no aliasing
         layers.append(rep)

@@ -55,6 +55,7 @@ from repro_torch.core.noise_model import NO_NOISE, NoiseConfig
 from repro_torch.core.quantization import (_static_reciprocal, quantize_act,
                                            quantize_weight)
 from repro_torch.kernels.cim_mbiw import ops as kops
+from repro_torch.kernels.cim_mbiw.kernel import Tile, check_tile
 from repro_torch.kernels.cim_mbiw.ref import cim_matmul_ref
 from repro_torch.kernels.prng.kernel import threefry_normal
 
@@ -99,7 +100,11 @@ class LayerPlan:
 
     `n_slices` are *uniform* col tiles (mapping.split_even_slices): every
     tile spans `tile_n` channels and the covered extent `n_pad` may exceed
-    spec.n - execution pads the column arrays and discards the excess."""
+    spec.n - execution pads the column arrays and discards the excess.
+    `blocks` is the schedule tuner's winner, a `(route, bm, bn, kc)`
+    cim_mbiw tile that every dispatch of the layer taking that route
+    runs (`kernel.route_for`), or None for the shape's own tiles; a
+    tile only moves where the integers are summed, never a bit."""
     spec: mapping.LayerSpec
     mp: mapping.MacroMapping
     precision: kops.KernelPrecision
@@ -108,6 +113,7 @@ class LayerPlan:
     n_slices: Tuple[Tuple[int, int], ...]  # (start, size) uniform col tiles
     activation: str = "none"             # "none" | "relu"
     pool: int = 1                        # max-pool window/stride epilogue
+    blocks: Optional[Tile] = None        # tuned route tile
 
     @property
     def macro_evals(self) -> int:
@@ -174,7 +180,9 @@ def _layer_g0(spec: mapping.LayerSpec, mp: mapping.MacroMapping,
 
 
 def plan_layer(spec: mapping.LayerSpec, cfg: EngineConfig = EngineConfig(),
-               activation: str = "none", pool: int = 1) -> LayerPlan:
+               activation: str = "none", pool: int = 1, *,
+               blocks: Optional[Tile] = None,
+               shard_kind: Optional[str] = None) -> LayerPlan:
     """Plan one layer: macro mapping, uniform col tiles, epilogues.
 
     Args:
@@ -182,11 +190,27 @@ def plan_layer(spec: mapping.LayerSpec, cfg: EngineConfig = EngineConfig(),
       cfg: shared execution config.
       activation: "none" | "relu" epilogue.
       pool: max-pool window/stride (conv layers only, 1 = none).
+      blocks: optional tuned cim_mbiw tile `(route, bm, bn, kc)` (the
+        schedule autotuner's winner); None keeps each dispatch's own
+        tile.  Numerics-neutral at any legal value.
+      shard_kind: an explicit shard kind; the port has no sharding, so
+        anything but None raises.
     Returns:
       LayerPlan (hashable; part of the NetworkPlan).
     """
     if pool < 1:
         raise ValueError(f"pool must be >= 1, got {pool}")
+    prec = kops.KernelPrecision(spec.r_in, spec.r_w, spec.r_out)
+    if blocks is not None:
+        blocks = tuple(blocks)
+        try:
+            check_tile(blocks, prec.n_planes)
+        except ValueError as e:
+            raise ValueError(f"blocks must be a legal cim_mbiw tile: {e}") \
+                from None
+    if shard_kind is not None:
+        raise ValueError("shard_kind override requires cfg.sharding, and "
+                         "the port plans no sharding yet")
     if pool > 1 and spec.conv is None:
         raise ValueError("pooling epilogue requires a conv layer")
     if spec.conv is not None:
@@ -199,12 +223,11 @@ def plan_layer(spec: mapping.LayerSpec, cfg: EngineConfig = EngineConfig(),
             raise ValueError(f"pool {pool} larger than conv output "
                              f"{g.out_h}x{g.out_w}")
     mp = mapping.map_layer(spec, cfg.macro)
-    prec = kops.KernelPrecision(spec.r_in, spec.r_w, spec.r_out)
     return LayerPlan(
         spec=spec, mp=mp, precision=prec, g0=_layer_g0(spec, mp, cfg),
         k_slices=tuple(mapping.split_k_slices(spec.k, mp.row_tiles)),
         n_slices=tuple(mapping.split_even_slices(spec.n, mp.col_tiles)),
-        activation=activation, pool=pool)
+        activation=activation, pool=pool, blocks=blocks)
 
 
 def _check_chain(layers: Sequence[LayerPlan]) -> None:
@@ -245,7 +268,8 @@ def _check_chain(layers: Sequence[LayerPlan]) -> None:
 def plan_network(specs: Sequence[mapping.LayerSpec],
                  cfg: EngineConfig = EngineConfig(),
                  activations: Optional[Sequence[str]] = None,
-                 pools: Optional[Sequence[int]] = None) -> NetworkPlan:
+                 pools: Optional[Sequence[int]] = None, *,
+                 schedule: Optional[Sequence] = None) -> NetworkPlan:
     """Plan a feed-forward network of dense and conv-tagged LayerSpecs.
 
     `activations`: per-layer epilogue nonlinearity; defaults to relu between
@@ -253,6 +277,10 @@ def plan_network(specs: Sequence[mapping.LayerSpec],
     window/stride (1 = none, conv layers only), applied after the
     activation - with the automatic conv -> dense flatten this covers the
     paper's LeNet-class CNNs.
+    `schedule`: optional per-layer overrides from the autotuner - one
+    `None` (heuristic) or `(blocks, shard_kind)` pair per layer, `blocks`
+    a tuned cim_mbiw tile or None (see plan_layer).  Overrides never
+    change numerics, only which tiles launch the same sums.
     """
     specs = list(specs)
     if activations is None:
@@ -263,8 +291,16 @@ def plan_network(specs: Sequence[mapping.LayerSpec],
         pools = [1] * len(specs)
     if len(pools) != len(specs):
         raise ValueError("one pool factor per layer required")
-    layers = tuple(plan_layer(s, cfg, act, pool)
-                   for s, act, pool in zip(specs, activations, pools))
+    if schedule is None:
+        schedule = [None] * len(specs)
+    if len(schedule) != len(specs):
+        raise ValueError("one schedule override (or None) per layer "
+                         "required")
+    layers = tuple(plan_layer(
+        s, cfg, act, pool,
+        blocks=None if sc is None else sc[0],
+        shard_kind=None if sc is None else sc[1])
+        for s, act, pool, sc in zip(specs, activations, pools, schedule))
     _check_chain(layers)
     PLAN_COUNT["n"] += 1
     return NetworkPlan(layers=layers, cfg=cfg)
@@ -650,7 +686,7 @@ def _kernel_matmul(lp: LayerPlan, cfg: EngineConfig):
     def matmul(xq, wqt, gamma_t, beta_t, g0):
         fn = kops.kernel_variant_for_tile(
             lp.precision, xq.shape[0], xq.shape[1], wqt.shape[1],
-            bm=cfg.bm, bn=cfg.bn, bk=cfg.bk, fuse_adc=fuse)
+            bm=cfg.bm, bn=cfg.bn, bk=cfg.bk, fuse_adc=fuse, tile=lp.blocks)
         return fn(xq, wqt, gamma_t, beta_t, g0)
     return matmul
 

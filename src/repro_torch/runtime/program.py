@@ -950,8 +950,13 @@ def compile_program(specs: Sequence[mapping.LayerSpec],
                     activations: Optional[Sequence[str]] = None,
                     pools: Optional[Sequence[int]] = None,
                     buckets: BatchBuckets = DEFAULT_BUCKETS,
-                    device: Device = None) -> CIMProgram:
+                    device: Device = None, tune: str = "off",
+                    tune_cache: Optional[str] = None) -> CIMProgram:
     """Compile (or fetch from the global cache) the program for a network.
+
+    The cache key is (specs, cfg, activations, pools, buckets, device)
+    plus, when tuning, (tune mode, resolved cache path), as in the JAX
+    package.
 
     Args:
       specs: the network's (conv-tagged) LayerSpecs, in order.
@@ -960,21 +965,46 @@ def compile_program(specs: Sequence[mapping.LayerSpec],
       buckets: the serve-path batch-bucket ladder.
       device: where the program runs; None means "cuda", and raises when
         there is no card (pass device="cpu" for the host path).
+      tune: schedule autotuning - "off" (default) runs each dispatch's
+        own cim_mbiw tile; "analytic" picks each layer's tile with the
+        repro_torch.tuner roofline model of the card; "measure"
+        additionally times the analytic top-k with CUDA events (a CUDA
+        program only: on the CPU it raises ValueError, since the plain
+        version ignores tiles).  Tuning is numerics-neutral: outputs are
+        bit-identical to tune="off", and a layer whose search keeps the
+        heuristic produces the *same* plan (hash-equal), sharing its
+        program.
+      tune_cache: autotune cache file; None uses
+        repro_torch.tuner.default_cache_path(), "" disables persistence
+        for this compile.  Corrupt/stale caches degrade to heuristic
+        schedules with a TuneCacheWarning - never an error.
     Returns:
       The cached (or freshly planned) CIMProgram.  An equal plan on the
       same device shares one program (through the plan table).
     """
+    if tune not in ("off", "analytic", "measure"):
+        raise ValueError(
+            f'tune must be "off", "analytic" or "measure", got {tune!r}')
     dev = resolve_device(device)
     specs = tuple(specs)
     acts, pls = _canonical_epilogues(len(specs), activations, pools)
     key = (specs, cfg, acts, pls, buckets, str(dev))
+    if tune != "off":
+        from repro_torch import tuner
+        resolved = (tuner.default_cache_path() if tune_cache is None
+                    else tune_cache)
+        key = key + (tune, resolved)
     _CACHE_STATS["lookups"] += 1
     prog = _cache_get(_PROGRAM_CACHE, key)
     if prog is not None:
         _CACHE_STATS["hits"] += 1
         return prog
-    prog = program_for_plan(rt.plan_network(specs, cfg, acts, pls),
-                            buckets, dev)
+    if tune != "off":
+        plan, _ = tuner.tune_network(specs, cfg, acts, pls, mode=tune,
+                                     cache_path=resolved, device=dev)
+    else:
+        plan = rt.plan_network(specs, cfg, acts, pls)
+    prog = program_for_plan(plan, buckets, dev)
     _cache_put(_PROGRAM_CACHE, key, prog)
     return prog
 

@@ -106,8 +106,20 @@ def test_split_planes_matches_jax(r_in):
                                       (50176, 144, 32), (256, 784, 64),
                                       (256, 128, 10), (17, 1152, 300)])
 def test_block_candidates_match_jax(rows, k, n):
-    assert tops.block_candidates(rows, k, n) == \
-        jops.block_candidates(rows, k, n)
+    """Each package lists the schedule tuner's space for one dispatched
+    tile, its own shape's choice among them: JAX the Pallas blocks
+    clamped to the tile, the port the Hopper tiles of the route the tile
+    takes (`kernel.legal_tiles`), each of which that route runs in place
+    of its own.  The Pallas blocks a variant records clamp as JAX's."""
+    assert jops.block_candidates(rows, k, n)
+    for planes in (1, 2):
+        cands = tops.block_candidates(rows, k, n, planes)
+        assert cands == tkernel.legal_tiles(rows, n, k, planes)
+        own = tkernel.route_for(rows, n, k, planes)
+        assert own.tile in cands and len(set(cands)) == len(cands)
+        for tile in cands:
+            r = tkernel.route_for(rows, n, k, planes, tile)
+            assert r.tuned and r.tile == tile and r.name == own.name
     for pref in (8, 128, 256, 512):
         assert tops._clamp_block(pref, k) == jops._clamp_block(pref, k)
 

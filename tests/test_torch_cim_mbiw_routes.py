@@ -17,6 +17,12 @@ is the choice of route and the integer arithmetic of each route:
   * the ADC epilogue as the kernels round it (each float32 step on its
     own), applied to the emulated dp, the FMA canary included.
 
+The schedule tuner's tiles (`kernel.legal_tiles`, a tile `route_for`
+runs in place of its own) are held too: every legal tile of each route -
+route A's (BM, BN) blocks, split-K at every KC, route C's widths - walked
+block by block with the ragged edges zero-filled as the kernels mask
+them, gives the plain version's dp and codes bit for bit.
+
 Each is held bit for bit against the plain version and against the JAX
 Pallas kernel in interpret mode, on random inputs (the JAX kernel's
 interpret mode contracts the epilogue into an FMA on canary-class inputs,
@@ -150,6 +156,36 @@ def test_route_for_refuses_empty_shapes():
             tk.route_for(*shape)
 
 
+@pytest.mark.parametrize("m,n,k,planes,route,count", [
+    (256, 128, 784, 1, "tc", 8), (256, 64, 784, 2, "tc", 6),
+    (4, 64, 1024, 2, "splitk", 121), (17, 33, 40, 2, "splitk", 33),
+    (200704, 16, 9, 1, "cuda_core", 3)])
+def test_legal_tiles_and_tuned_routes(m, n, k, planes, route, count):
+    """legal_tiles is the tile set of the route the shape takes; each one
+    runs in place of the shape's own (tuned, its grid recomputed), a tile
+    of another route is ignored, and a tile its route does not launch
+    raises."""
+    tiles = tk.legal_tiles(m, n, k, planes)
+    own = tk.route_for(m, n, k, planes)
+    assert len(tiles) == count == len(set(tiles)) and own.name == route
+    assert own.tile in tiles and not own.tuned
+    for tile in tiles:
+        r = tk.route_for(m, n, k, planes, tile)
+        assert r.tuned and r.tile == tile
+        assert r.grid == tk._grid(route, m, n, k, *tile[1:])
+        if route == "tc":
+            assert tile[1] in tk.TC_BM and tile[2] * planes <= 128
+        elif route == "splitk":
+            assert tile[1:3] == (0, 64) and 8 <= tile[3] <= min(128, k)
+    other = {"tc": ("splitk", 0, 64, 16), "splitk": ("tc", 64, 16, 0),
+             "cuda_core": ("tc", 64, 16, 0)}[route]
+    assert tk.route_for(m, n, k, planes, other) == own
+    bad = {"tc": ("tc", 64, 256, 0), "splitk": ("splitk", 0, 64, 129),
+           "cuda_core": ("cuda_core", 64, 16, 0)}[route]
+    with pytest.raises(ValueError, match="not a"):
+        tk.route_for(m, n, k, planes, bad)
+
+
 # -- each route's integer arithmetic, emulated --------------------------------
 
 def _to_i32(a: np.ndarray) -> np.ndarray:
@@ -278,6 +314,58 @@ def test_route_arithmetic_matches_plain_and_jax(route, m, k, n, r_in, r_w,
                                g0=g0, plane_shift=shift, interpret=True,
                                fuse_adc=fuse)
         np.testing.assert_array_equal(np.asarray(jout), want)
+
+
+def emulate_blocked(walk, x_planes, w, k, bm, bn):
+    """A route's walk block by block at a bm x bn tile: each block's rows
+    and columns past M and N zero-filled (TMA's fill, the kernels' masks),
+    only its live outputs kept."""
+    m, n = x_planes.shape[0], w.shape[1]
+    out = np.zeros((m, n), np.int32)
+    for i in range(0, m, bm):
+        xb = np.zeros((bm, x_planes.shape[1]), x_planes.dtype)
+        xb[:min(bm, m - i)] = x_planes[i:i + bm]
+        for j in range(0, n, bn):
+            wb = np.zeros((k, bn), w.dtype)
+            wb[:, :min(bn, n - j)] = w[:, j:j + bn]
+            out[i:i + bm, j:j + bn] = walk(xb, wb)[:m - i, :n - j]
+    return out
+
+
+@pytest.mark.parametrize("route,m,k,n,r_in,r_w,r_out", ROUTE_CASES,
+                         ids=[f"{c[0]}-{c[1]}x{c[2]}x{c[3]}-r{c[4]}"
+                              for c in ROUTE_CASES])
+def test_every_legal_tile_matches_plain(route, m, k, n, r_in, r_w, r_out):
+    """Every tile the tuner may pick for the shape (`legal_tiles`) walks
+    to the plain version's dp and, through the epilogue, its codes, bit
+    for bit: the tile moves no bit."""
+    x, w, gamma, beta = make_case(m, k, n, r_in, r_w, 3 * m + k, False)
+    shift, _ = tk.plane_layout(r_in)
+    planes, p = tops.split_planes(torch.from_numpy(x), r_in, shift)
+    xp = planes.numpy()
+    g0 = layer_g0(k, r_in, r_w, r_out)
+    tw = torch.from_numpy(w).to(torch.int8)
+    tg, tb = torch.from_numpy(gamma)[None], torch.from_numpy(beta)[None]
+    want = {fuse: tref.cim_mbiw_matmul_planes_ref(
+        planes, tw, tg, tb, plane_shift=shift, g0=g0, r_out=r_out,
+        fuse_adc=fuse).numpy() for fuse in (False, True)}
+    tiles = tk.legal_tiles(m, n, k, p)
+    assert tiles and all(t[0] == route for t in tiles)
+    for name, bm, bn, kc in tiles:
+        if name == "tc":
+            dp = emulate_blocked(lambda a, b: emulate_tc(a, b, k, shift),
+                                 xp, w, k, bm, bn)
+        elif name == "splitk":
+            chunks = -(-k // kc)
+            order = np.random.default_rng(kc).permutation(chunks)
+            dp = emulate_splitk(xp, w, k, shift, kc, order)
+        else:
+            dp = emulate_blocked(
+                lambda a, b: emulate_cuda_core(a, b, k, shift), xp, w, k,
+                bm, bn)
+        np.testing.assert_array_equal(dp, want[False])
+        np.testing.assert_array_equal(
+            epilogue_f32(dp, gamma, beta, g0, r_out), want[True])
 
 
 @pytest.mark.parametrize("seed", range(4))

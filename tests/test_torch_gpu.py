@@ -12,7 +12,10 @@ no capture, plan or eager dispatch after the first decode step, the
 card's logits and tokens against the host run, in-flight == solo), and
 precision serving (calibration on the card == on the host, ladder rungs
 through their graphs == reference == host, `--precision-policy mixed`
-fused == solo with no growth after warm-up).
+fused == solo with no growth after warm-up), and the schedule tuner
+(every tile of `kernel.legal_tiles` == plain, `compile_program(tune=...)`
+in both modes == untuned, and the analytic cost's ranking of JAX's five
+pinned shapes against CUDA-event times at Spearman >= 0.7).
 
 These tests need an NVIDIA GPU (marker `gpu`) and skip without one.  They
 import neither JAX nor the JAX package, so they run where only PyTorch
@@ -272,7 +275,7 @@ def test_ring_decode_kernel_matches_plain(cuda_device, r, h, hd, l,
     before = rkernel.ring_decode.launches
     got = rkernel.ring_decode(q, k, v, bias)
     torch.cuda.synchronize()
-    assert rkernel.ring_decode.launches == before + 1
+    assert rkernel.ring_decode.launches == before + rkernel.RING_KERNELS
     want = rref.ring_decode_attention_ref(q, k, v, bias)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     for i in range(r):
@@ -340,7 +343,9 @@ def test_decode_full_width_depth2_fused_equals_sequential(cuda_device):
                     for b in model.blocks_for(p)) for p in model.points}
     assert kern.launches == sum(tiles[p] * calls[p] for p in calls)
     assert kern.launches_splitk == kern.launches     # every tile: M <= 4
-    assert rkernel.ring_decode.launches == 2 * sum(calls.values())
+    # two kernels a call, depth 2
+    assert rkernel.ring_decode.launches == \
+        rkernel.RING_KERNELS * 2 * sum(calls.values())
     for _, r in reqs:
         assert out[r.uid] == decode_sequential(model, r)
         assert len(out[r.uid]) == r.max_new_tokens
@@ -634,9 +639,11 @@ def test_replay_launch_counts_equal_eager(cuda_device, kind):
     assert counts[0] == {c: 5 * n for c, n in first.items()}
     want = tkernel.route_counts(bound.plan.tile_calls(
         bound.program.buckets.bucket_for(x.shape[0])))
+    # an untuned plan runs no tuned tile
     assert first == {"launches": sum(want.values()),
                      "launches_tc": want["tc"],
-                     "launches_splitk": want["splitk"]}
+                     "launches_splitk": want["splitk"],
+                     "launches_tuned": 0}
 
 
 @pytest.mark.gpu
@@ -952,3 +959,108 @@ def test_full_width_projection_calibration_equals_host(cuda_device):
     (hp,) = tprog.compile_program([spec], activations=("none",),
                                   device="cpu").init_params(key)
     assert all(p[k].is_cuda and torch.equal(p[k].cpu(), hp[k]) for k in p)
+
+
+# ---- the schedule tuner ----------------------------------------------------
+
+# (m, k, n, r_in, r_w): route A at one and two planes (BM 128 below M 128
+# too), route B at one and two planes, route C
+TILE_SHAPES = [(256, 784, 128, 4, 2), (256, 784, 64, 8, 4),
+               (100, 1152, 64, 8, 4), (4, 1024, 128, 4, 2),
+               (4, 1024, 64, 8, 4), (784, 9, 16, 8, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,r_in,r_w", TILE_SHAPES)
+def test_every_legal_tile_matches_plain(cuda_device, m, k, n, r_in, r_w):
+    """Every tile the tuner may pick runs in place of the shape's own
+    (`.launches_tuned` rises once a call) and equals the plain version
+    bit for bit, in both ADC modes."""
+    shift, args = _case(m, k, n, r_in, r_w, m + k + n, False)
+    dev_args = [a.to(cuda_device) for a in args]
+    planes = args[0].shape[1] // k
+    kern = tkernel.cim_mbiw_matmul_planes
+    tiles = tkernel.legal_tiles(m, n, k, planes)
+    assert tiles
+    for fuse in (True, False):
+        kw = dict(plane_shift=shift, g0=0.01, r_out=8, fuse_adc=fuse)
+        want = tref.cim_mbiw_matmul_planes_ref(*dev_args, **kw)
+        for tile in tiles:
+            before = (kern.launches, kern.launches_tuned)
+            got = kern(*dev_args, tile=tile, **kw)
+            torch.cuda.synchronize()
+            assert (kern.launches, kern.launches_tuned) == \
+                (before[0] + 1, before[1] + 1)
+            assert torch.equal(got, want), tile
+
+
+def _spearman(a, b):
+    def rank(v):
+        r = [0] * len(v)
+        for pos, i in enumerate(sorted(range(len(v)), key=lambda i: v[i])):
+            r[i] = pos
+        return r
+    ra, rb = rank(a), rank(b)
+    n = len(a)
+    return 1.0 - 6.0 * sum((x - y) ** 2 for x, y in zip(ra, rb)) / (
+        n * (n * n - 1))
+
+
+@pytest.mark.gpu
+def test_tuned_lenet_bitexact_in_both_modes(cuda_device, tmp_path):
+    """compile_program(tune="analytic" | "measure") of LeNet at batch 256
+    serves bit for bit like tune="off" (through the graphs), and a tuned
+    tile that differs from route_for's ran (`.launches_tuned`)."""
+    from repro_torch.core.cim_layers import _engine_config
+    from repro_torch.tuner import search as tsearch
+    cim = CIMConfig(r_in=4, r_w=2)
+    specs, acts, pools = cnn.lenet_engine_specs(256, cim=cim)
+    params = cnn.lenet_params_list(
+        cnn.init_lenet(torch.Generator().manual_seed(0), cim=cim))
+    x = torch.from_numpy(make_dataset(n_train=1, n_test=256,
+                                      seed=0)[2][..., None])
+    kw = dict(activations=acts, pools=pools, device=cuda_device)
+    y0 = tprog.compile_program(specs, _engine_config(cim), **kw).bind(
+        params).serve(x)
+    kern = tkernel.cim_mbiw_matmul_planes
+    for mode in ("analytic", "measure"):
+        # one file a mode: the cache keys winners by layer, not by mode
+        path = str(tmp_path / f"{mode}.json")
+        prog = tprog.compile_program(specs, _engine_config(cim), tune=mode,
+                                     tune_cache=path, **kw)
+        tuned = [lp.blocks for lp in prog.plan.layers
+                 if lp.blocks is not None]
+        before = kern.launches_tuned
+        y = prog.bind(params).serve(x)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y0), mode
+        if mode == "analytic":
+            assert tuned
+        if tuned:
+            assert kern.launches_tuned > before
+        n0 = tsearch.SEARCH_COUNT["n"]
+        tprog.clear_program_cache()
+        tprog.compile_program(specs, _engine_config(cim), tune=mode,
+                              tune_cache=path, **kw)
+        assert tsearch.SEARCH_COUNT["n"] == n0      # every layer a hit
+
+
+@pytest.mark.gpu
+def test_cost_spearman_vs_event_time(cuda_device):
+    """The analytic cost of JAX's five pinned shapes (tests/test_tuner.py)
+    ranks them as the card's CUDA-event time of their dispatches does,
+    at Spearman >= 0.7."""
+    from repro_torch import tuner as ttuner
+    from repro_torch.tuner import search as tsearch
+    shapes = [(64, 1152, 128), (96, 1152, 256), (128, 1152, 512),
+              (256, 1152, 512), (512, 1152, 1024)]
+    predicted, measured = [], []
+    for m, k, n in shapes:
+        spec = tmap.LayerSpec(m=m, k=k, n=n, r_in=4, r_w=2)
+        heur = ttuner.heuristic_choice(spec, trt.EngineConfig())
+        predicted.append(ttuner.layer_cost(spec, heur).total_s)
+        mp = tmap.map_layer(spec)
+        measured.append(mp.macro_evals * tsearch._measure_choice_s(
+            spec, heur, DEFAULT_MACRO, cuda_device))
+    rho = _spearman(predicted, measured)
+    assert rho >= 0.7, (rho, predicted, measured)

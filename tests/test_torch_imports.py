@@ -54,8 +54,15 @@ PRECISION_SLICE = [
 ]
 
 
+# the tuner slice: the cost model, search and cache, and the card's table
+TUNER_SLICE = [
+    "tuner/__init__.py", "tuner/cost.py", "tuner/search.py",
+    "tuner/cache.py", "core/hw.py",
+]
+
+
 @pytest.mark.parametrize("rel", TRAIN_SLICE + NOISE_SLICE + SERVE_SLICE
-                         + PRECISION_SLICE)
+                         + PRECISION_SLICE + TUNER_SLICE)
 def test_train_slice_module_is_checked(rel):
     assert PORT / rel in FILES
 

@@ -174,8 +174,10 @@ def test_perf_report_program_echo_equal_jax():
 
 
 def test_sharded_or_tuned_plans_raise():
-    """A plan carrying a device partition, autotuned blocks or a sharded
-    config waits for the sharding and tuner slices."""
+    """A plan carrying a device partition or a sharded config waits for
+    the sharding slice and raises; a plan carrying autotuned blocks is
+    reported, with the tuner's "tune" entry (tests/test_torch_tuner.py
+    holds it against JAX's)."""
     _, plan = _plans("dense", (4, 2), False)
 
     @dataclasses.dataclass(frozen=True)
@@ -189,15 +191,22 @@ def test_sharded_or_tuned_plans_raise():
         shard: object = None
         blocks: object = None
 
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         tpm.schedule_report(dataclasses.replace(plan, cfg=Sharded()))
     spec = plan.layers[0].spec
-    for kw, item in ((dict(shard="col"), "item 6"),
-                     (dict(blocks=(8, 128, 256)), "item 5")):
-        fake = type("P", (), {"layers": (Layer(spec, **kw),),
-                              "cfg": plan.cfg})
-        with pytest.raises(NotImplementedError, match=item):
-            tpm.schedule_report(fake)
+    fake = type("P", (), {"layers": (Layer(spec, shard="col"),),
+                          "cfg": plan.cfg, "total_macro_evals": 1})
+    with pytest.raises(NotImplementedError, match="item 4"):
+        tpm.schedule_report(fake)
+    tuned = dataclasses.replace(
+        plan, layers=(dataclasses.replace(plan.layers[0],
+                                          blocks=("splitk", 0, 64, 40)),)
+        + plan.layers[1:])
+    rep = tpm.schedule_report(tuned)
+    assert rep["layers"][0]["tune"]["blocks"] == ("splitk", 0, 64, 40)
+    assert all("tune" not in lr for lr in rep["layers"][1:])
+    assert {k: v for k, v in rep["layers"][0].items() if k != "tune"} == \
+        tpm.schedule_report(plan)["layers"][0]
 
 
 # ---- the macro-model cases of tests/test_hlo_and_perf.py, on the port ------

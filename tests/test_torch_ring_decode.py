@@ -101,6 +101,35 @@ def test_wrapper_rejects_bad_shapes_and_devices():
     assert tkernel.ring_decode.launches == before
 
 
+class _StubLibrary:
+    """Stands in for the built ring_decode library: records each launch
+    and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ring_decode_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_launch_counts_both_kernels(monkeypatch):
+    """A call launches the chunk kernel and the merge kernel, and the
+    counter counts both: two a call, whatever the shape."""
+    lib = _StubLibrary()
+    monkeypatch.setattr(tkernel, "_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    before = tkernel.ring_decode.launches
+    for r, l, h, hd in SHAPES + [(4, 300, 2, 8)]:
+        q, k, v, bias = (torch.from_numpy(a) for a in _inputs(r, l, h, hd, 0))
+        tkernel._launch(q, k, v, bias, torch.empty((r, h, hd)))
+    assert tkernel.RING_KERNELS == 2 and len(lib.calls) == 4
+    assert tkernel.ring_decode.launches - before == 2 * len(lib.calls)
+    # the work buffer holds every chunk's partials (o, max, sum)
+    assert lib.calls[-1][6] == 4 * 2 * 3 * (8 + 2)
+
+
 # ---------------------------------------------------------------------------
 # the kernel's split-L order, emulated
 # ---------------------------------------------------------------------------
