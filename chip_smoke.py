@@ -31,7 +31,9 @@ a result:
                 one bf16 ulp away (rtol 2^-7, atol 2e-5), over causal /
                 non-causal x window {0, 256} x rep {1, 2, 16} x D {64,
                 128}, ragged Sq and Sk in {1, 77, 512, 4096}, q_off {0,
-                100}, the train shape, and long flat bf16 rows (q x 0.01,
+                100}, the train shape, the dense configs' step shapes
+                (phase 12: S 512, D 128, reps 4, 3 and 7, the last in
+                float32), and long flat bf16 rows (q x 0.01,
                 S 4096); each backward run twice, bit for bit equal; every
                 bf16 case at D 64 or 128 through the tensor-core forward,
                 dq and dk/dv kernels (their `.launches_tc` rise).  Peaked
@@ -197,7 +199,47 @@ a result:
                 nothing; Spearman >= 0.7 between the analytic cost and
                 the event time of JAX's five pinned shapes.  No gain is
                 claimed.
- 11. times    - CUDA-event times of each kernel, its plain version and a
+ 11. cnn_train - CIM-aware training of the paper's own CNN and MLP, as
+                examples/train_lenet_cim.py and benchmarks/
+                fig3_abn_accuracy.py run it.
+                LeNet (28x28x1 -> conv16 -> pool -> conv32 -> pool -> fc
+                1568->128 -> fc 128->10, weights from prng.key(0) as JAX
+                draws them) in fakequant at (4, 2) under NoiseConfig(),
+                pseudo-MNIST 4096 / 1024, batch 256, AdamW lr 1e-3,
+                CNN_EPOCHS epochs (per-step keys split from prng.key(1)):
+                step 0's clean and noisy logits == the port's CPU run bit
+                for bit, its gradients within _close_grad (the conv ABN
+                gains, sums over every output pixel of the batch, within
+                CONV_GAIN_ATOL of the largest; the least atol each needs
+                is read at batch 8, 32 and 256).  The recipe runs twice
+                from the same weights, under noise and clean (under noise
+                step 0's logits sit in the hundreds and LeNet stays at
+                chance in 32 steps; the clean run learns): each loss falls; for each, test accuracy in
+                fakequant (1024), sim (the voltage-domain macro) and
+                engine (lenet_program, a graph replay == the card
+                reference == the CPU engine run) on 128, and the engine
+                against fakequant on those same 128 images (top-1
+                agreement 1, mean relative distance at most 0.05, as
+                JAX's test states); host ms a step noisy and clean,
+                images/s, a profiled noisy step, peak memory.  conv1
+                and conv2 through cim_conv2d_apply(mode="engine") at batch
+                256 and (stride, padding) (1, 1), (2, SAME), (1, VALID),
+                within rtol 1e-4 / atol 1e-5 of fakequant.  The Fig. 3(b)
+                MLP (784-128-64-10) sweep: eight cases, 5 epochs of 2048
+                at batch 256, accuracies and the benchmark's two claims
+                (held or missed, not gated).  Every count is set to 0
+                before the phase and read after it (cim_mbiw and
+                threefry_normal both launch).
+ 12. dense    - granite-8b, minitron-4b and qwen2-7b at full width, depth
+                cut to 2: one fakequant (8, 4, 8) bf16 step each with the
+                flash kernels at batch 1 x 512 (finite loss, gradients and
+                parameters, 4 + 2 + 2 flash launches, on the tensor cores
+                but for qwen2-7b, whose float32 QKV bias makes its
+                attention float32, as in JAX; each attention shape is one
+                that phase 2 holds against the plain version),
+                train/decode consistency over 8 tokens (< 0.1), peak
+                memory.  The step runner (train_steps) is phase 7's.
+ 13. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
                 ring_decode and the flash kernels: yardsticks the port
@@ -1675,17 +1717,503 @@ def tuner_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
     return rec
 
 
+# the CIM-aware training path (phase 11): LeNet trained as
+# examples/train_lenet_cim.py trains it, at the paper's 4b point; LeNet's
+# convs through the engine; the Fig. 3(b) MLP sweep of
+# benchmarks/fig3_abn_accuracy.py
+CNN_BATCH = 256
+CNN_POINT = (4, 2)
+CNN_TRAIN, CNN_TEST = 4096, 1024
+CNN_EPOCHS = 2
+CNN_LR = 1e-3
+CNN_EVAL = 128
+CNN_CONV_GEOMETRIES = ((1, 1), (2, "SAME"), (1, "VALID"))
+# step 0's conv ABN gain gradients, card against CPU: _close_grad's atol
+# as a share of the largest (1e-5 for every other leaf).  The least atol
+# they need grows with the rows summed: on an H100 it read 9.1e-6 /
+# 1.2e-5 / 1.3e-5 (conv1) and 4.9e-6 / 1.2e-5 / 1.1e-4 (conv2) at batch
+# 8 / 32 / 256; the limit is about twice the largest
+CONV_GAINS = ("conv1/abn_log_gamma", "conv2/abn_log_gamma")
+CONV_GAIN_ATOL = 2.5e-4
+MLP_DIMS = (784, 128, 64, 10)
+MLP_TRAIN, MLP_TEST, MLP_EPOCHS, MLP_LR = 2048, 512, 5, 2e-3
+# the dense path (phase 12): the three dense configs at full width, depth
+# cut to DENSE_LAYERS
+DENSE_ARCHS = ("granite-8b", "minitron-4b", "qwen2-7b")
+DENSE_LAYERS = 2
+DENSE_SEQ = 512
+DENSE_DECODE = 8
+
+
+def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The examples' loss: mean negative log-likelihood of the labels
+    under the log-softmax of the logits."""
+    lp = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.gather(lp, 1, labels[:, None].long()))
+
+
+def model_step(fwd, params, opt, xb, yb, key, cim, ocfg) -> torch.Tensor:
+    """examples/train_lenet_cim.py's (and the Fig. 3(b) benchmark's) train
+    step in the port: the loss, autograd, AdamW in place."""
+    from repro_torch.optim import adamw_update
+    from repro_torch.optim.adamw import tree_leaves
+    loss = nll(fwd(params, xb, cim, key=key), yb)
+    leaves = tree_leaves(params)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+    adamw_update(params, grads, opt, ocfg)
+    return loss.detach()
+
+
+def least_atol(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The least atol, as a share of the largest |want|, at which
+    `_close_grad` (rtol 1e-4) holds `got` against `want`."""
+    g, w = got.double().cpu(), want.double().cpu()
+    return max(0.0, float(((g - w).abs() - 1e-4 * w.abs()).max()
+                          / max(float(w.abs().max()), 1e-30)))
+
+
+def grad_ratio(got: torch.Tensor, want: torch.Tensor, atol: float) -> float:
+    """The largest |got - want| over tests/test_torch_fakequant.py's
+    `_close_grad` limit (rtol 1e-4 plus atol x the largest |want|); at
+    most 1 where the gradients agree."""
+    g, w = got.double().cpu(), want.double().cpu()
+    lim = 1e-4 * w.abs() + atol * max(float(w.abs().max()), 1e-30)
+    return float(((g - w).abs() / lim).max())
+
+
+def cnn_train_phase(dev, tag, kern, kmod) -> dict:
+    """The CIM-aware training path (module docstring, phase 11)."""
+    from repro_torch.core import prng
+    from repro_torch.core.cim_layers import CIMConfig, cim_conv2d_apply
+    from repro_torch.core.noise_model import NoiseConfig
+    from repro_torch.data.pseudo_mnist import make_dataset
+    from repro_torch.kernels.prng import kernel as pk
+    from repro_torch.models import cnn
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    draw = pk.threefry_normal
+    r_in, r_w = CNN_POINT
+    cim_train = CIMConfig(mode="fakequant", r_in=r_in, r_w=r_w,
+                          noise=NoiseConfig())
+    cim_eval = CIMConfig(mode="fakequant", r_in=r_in, r_w=r_w)
+    ocfg = AdamWConfig(lr=CNN_LR, weight_decay=0.0)
+    out: dict = {"point": [r_in, r_w], "batch": CNN_BATCH}
+
+    # the main path: every count to 0 just before, read just after
+    reset_counts(kern)
+    draw.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    # -- LeNet, CIM-aware (the example's data, init, optimizer) --------------
+    xtr, ytr, xte, yte = make_dataset(n_train=CNN_TRAIN, n_test=CNN_TEST)
+    xtr_h = torch.from_numpy(xtr)[..., None]
+    xtr_d, ytr_d = xtr_h.to(dev), torch.from_numpy(ytr).long().to(dev)
+    xte_d = torch.from_numpy(xte)[..., None].to(dev)
+    yte_d = torch.from_numpy(yte).long().to(dev)
+    host = cnn.init_lenet(prng.key(0), cim=cim_train)
+    params = tree_map(lambda t: t.to(dev).requires_grad_(True), host)
+    host = tree_map(lambda t: t.requires_grad_(True), host)
+
+    # step 0, the card against the port's own CPU run: clean and noisy
+    # logits bit for bit, the noisy step's gradients within _close_grad
+    key = prng.key(1)
+    _, sub0 = prng.split(key)
+    xb_h, yb_h = xtr_h[:CNN_BATCH], torch.from_numpy(ytr[:CNN_BATCH]).long()
+    with torch.no_grad():
+        clean_d = cnn.lenet_forward(params, xtr_d[:CNN_BATCH], cim_eval)
+        clean_h = cnn.lenet_forward(host, xb_h, cim_eval)
+    check(torch.equal(clean_d.cpu(), clean_h),
+          "LeNet step 0: clean fakequant logits on the card != CPU run")
+    leaves_d, leaves_h = tree_leaves(params), tree_leaves(host)
+    noisy_d = cnn.lenet_forward(params, xtr_d[:CNN_BATCH], cim_train,
+                                key=sub0)
+    noisy_h = cnn.lenet_forward(host, xb_h, cim_train, key=sub0)
+    check(torch.equal(noisy_d.detach().cpu(), noisy_h.detach()),
+          "LeNet step 0: noisy logits on the card != CPU run (same key)")
+    check(not torch.equal(noisy_d.detach(), clean_d),
+          "LeNet step 0: the noisy logits equal the clean ones")
+    g_d = torch.autograd.grad(nll(noisy_d, ytr_d[:CNN_BATCH]), leaves_d)
+    g_h = torch.autograd.grad(nll(noisy_h, yb_h), leaves_h)
+    names = [f"{n}/{k}" for n in sorted(host) for k in sorted(host[n])]
+    ratios = {}
+    for name, a, b in zip(names, g_d, g_h):
+        # LeNet's conv ABN gains are sums over every output pixel of the
+        # batch (784 and 196 a image), each summed in its device's order
+        atol = CONV_GAIN_ATOL if name in CONV_GAINS else 1e-5
+        ratios[name] = grad_ratio(a, b, atol)
+    # the least atol each conv gain needs, card against CPU, as the rows
+    # grow: batch 8 and 32 (the CPU and gpu tests' sizes) and 256
+    gap = {CNN_BATCH: {n: least_atol(a, b) for n, a, b in
+                       zip(names, g_d, g_h) if n in CONV_GAINS}}
+    for nb in (8, 32):
+        nd = cnn.lenet_forward(params, xtr_d[:nb], cim_train, key=sub0)
+        nh = cnn.lenet_forward(host, xb_h[:nb], cim_train, key=sub0)
+        gd = torch.autograd.grad(nll(nd, ytr_d[:nb]), leaves_d)
+        gh = torch.autograd.grad(nll(nh, yb_h[:nb]), leaves_h)
+        gap[nb] = {n: least_atol(a, b) for n, a, b in zip(names, gd, gh)
+                   if n in CONV_GAINS}
+    bad = {k: v for k, v in ratios.items() if not v <= 1.0}
+    check(not bad, f"LeNet step 0: card gradients off the CPU's: {bad}")
+    out["step0"] = {"clean_equal": True, "noisy_equal": True,
+                    "grad_ratio_max": max(ratios.values()),
+                    "grad_ratio": ratios, "conv_gain_atol": CONV_GAIN_ATOL,
+                    "conv_gain_least_atol": {str(k): v for k, v in
+                                             sorted(gap.items())}}
+    print(f"cnn_train step0 {tag}: the least atol (share of the largest) "
+          f"at which the conv ABN gains' card gradients meet the CPU's, "
+          f"batch 8 / 32 / {CNN_BATCH}: " + "; ".join(
+              f"{n} " + " / ".join(f"{gap[nb][n]:.3g}"
+                                   for nb in (8, 32, CNN_BATCH))
+              for n in CONV_GAINS) + f"; limit {CONV_GAIN_ATOL:g}",
+          flush=True)
+    del host, g_d, g_h, noisy_d, noisy_h
+
+    # the recipe twice from the same weights: under noise with the
+    # example's per-step keys, and clean.  Under NoiseConfig() step 0's
+    # logits sit in the hundreds (loss ~780; the forward is JAX's bit for
+    # bit on the CPU) and 32 steps leave LeNet at chance; the clean run
+    # learns (tests/test_torch_cnn_train.py holds it against JAX's)
+    init = tree_map(lambda t: t.detach().clone(), params)
+
+    def train(p, cim, key):
+        opt, losses, step_ms = adamw_init(p), [], []
+        for _ in range(CNN_EPOCHS):
+            for i in range(0, CNN_TRAIN, CNN_BATCH):
+                sub = None
+                if key is not None:
+                    key, sub = prng.split(key)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = model_step(cnn.lenet_forward, p, opt,
+                                  xtr_d[i:i + CNN_BATCH],
+                                  ytr_d[i:i + CNN_BATCH], sub, cim, ocfg)
+                losses.append(float(loss))           # waits for the card
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+        check(all(np.isfinite(losses)), f"non-finite LeNet loss: {losses}")
+        check(np.mean(losses[-4:]) < np.mean(losses[:4]),
+              f"the LeNet loss did not fall: {losses}")
+        return opt, losses, step_ms
+
+    _, losses, step_ms = train(params, cim_train, key)
+    draws_train = draw.launches
+    cp = tree_map(lambda t: t.clone().requires_grad_(True), init)
+    cp_opt, clean_losses, clean_ms = train(cp, cim_eval, None)
+
+    def evaluate(det) -> dict:
+        """fakequant over the test set; sim and the engine on CNN_EVAL
+        images, the engine a graph replay == the card's plain reference
+        == the port's CPU engine run, and against fakequant on those same
+        images: fakequant's activation swing spans its whole batch, so
+        logits of batches of CNN_BATCH are another function.  JAX's
+        statement (tests/test_engine_conv.py, pseudo-MNIST at 4b): mean
+        relative distance at most 0.05, top-1 agreement 1."""
+        fq = torch.cat([cnn.lenet_forward(det, xte_d[i:i + CNN_BATCH],
+                                          cim_eval)
+                        for i in range(0, CNN_TEST, CNN_BATCH)])
+        xe, ye = xte_d[:CNN_EVAL], yte_d[:CNN_EVAL]
+        sim = cnn.lenet_forward(det, xe, cim_eval.replace(mode="sim"))
+        prog = cnn.lenet_program(CNN_EVAL, cim=cim_eval)
+        check(prog.device.type == "cuda", "the LeNet program is off the card")
+        bound = prog.bind(cnn.lenet_params_list(det))
+        eng = bound.serve(xe)                       # captures its graph
+        st0 = prog.stats()
+        eng2 = bound.serve(xe)                      # replays it
+        check(prog.stats()["graph_replays"] == st0["graph_replays"] + 1,
+              "the second engine serve did not replay a graph")
+        check(torch.equal(eng, eng2), "engine replay != its capture run")
+        check(torch.equal(eng, bound.reference(xe)),
+              "engine logits on the card != the card's plain reference")
+        det_h = tree_map(lambda t: t.cpu(), det)
+        eng_h = cnn.lenet_program(CNN_EVAL, cim=cim_eval, device="cpu").bind(
+            cnn.lenet_params_list(det_h)).serve(xe.cpu())
+        check(torch.equal(eng.cpu(), eng_h),
+              "engine logits on the card != the port's CPU engine run")
+        fq_e = cnn.lenet_forward(det, xe, cim_eval)
+        agree = float((eng.argmax(-1) == fq_e.argmax(-1)).float().mean())
+        rel = float((eng - fq_e).abs().mean() / (fq_e.abs().mean() + 1e-9))
+        check(rel <= 0.05 and agree == 1.0,
+              f"engine vs fakequant on the same {CNN_EVAL} images: mean "
+              f"relative distance {rel:.3g} (<= 0.05), top-1 agreement "
+              f"{agree:.4f} (== 1)")
+
+        def acc(logits, y):
+            return float((logits.argmax(-1) == y).float().mean())
+        return {"acc_fakequant": acc(fq, yte_d), "acc_sim_128": acc(sim, ye),
+                "acc_engine_128": acc(eng, ye),
+                "top1_agree_engine_fakequant": agree,
+                "engine_fakequant_mean_rel": rel,
+                "engine_fakequant_max_abs": float((eng - fq_e).abs().max()),
+                "top1_agree_engine_fakequant_of_batch": float(
+                    (eng.argmax(-1) == fq[:CNN_EVAL].argmax(-1))
+                    .float().mean())}
+
+    with torch.no_grad():
+        det = tree_map(lambda t: t.detach(), params)
+        ev = {"noisy": evaluate(det),
+              "clean": evaluate(tree_map(lambda t: t.detach(), cp))}
+    # one noisy step under the profiler, on the clean run's copy
+    xb, yb = xtr_d[:CNN_BATCH], ytr_d[:CNN_BATCH]
+    prof = device_profile(lambda: model_step(
+        cnn.lenet_forward, cp, cp_opt, xb, yb, prng.key(7), cim_train,
+        ocfg), 1, groups=("cim_mbiw", "threefry", "gemm", "elementwise"))
+    del cp, cp_opt, init
+    med_noisy = statistics.median(step_ms[2:])
+    med_clean = statistics.median(clean_ms[2:])
+    out["lenet"] = {
+        "losses": losses, "clean_losses": clean_losses, "step_ms": step_ms,
+        "clean_step_ms": clean_ms,
+        "median_noisy_step_ms": med_noisy, "median_clean_step_ms": med_clean,
+        "images_per_s_noisy": CNN_BATCH / (med_noisy / 1e3),
+        "images_per_s_clean": CNN_BATCH / (med_clean / 1e3),
+        "eval": ev, "draws_in_training": draws_train, "profile": prof,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    top = ", ".join(f"{k[:40]} {v:.0f}" for k, v in list(
+        prof.get("top_kernels_us", {}).items())[:4])
+    share = (f"a profiled noisy step: device {prof['device_us']:.0f} us, "
+             f"busy {100 * prof['device_busy']:.1f}%, top (us) {top}"
+             if prof else "device time not measured (profiler saw none)")
+
+    def curve(ls):
+        return (f"loss {ls[0]:.3f} -> {ls[-1]:.3f} (mean of first/last 4: "
+                f"{np.mean(ls[:4]):.3f} / {np.mean(ls[-4:]):.3f})")
+
+    def accs(e):
+        return (f"test acc fakequant {e['acc_fakequant']:.4f} ({CNN_TEST}), "
+                f"sim {e['acc_sim_128']:.4f}, engine "
+                f"{e['acc_engine_128']:.4f} ({CNN_EVAL}); engine vs "
+                f"fakequant on the same {CNN_EVAL}: top-1 "
+                f"{e['top1_agree_engine_fakequant']:.4f}, mean relative "
+                f"{e['engine_fakequant_mean_rel']:.3g}, max |diff| "
+                f"{e['engine_fakequant_max_abs']:.3g} (against fakequant "
+                f"over batches of {CNN_BATCH}: top-1 "
+                f"{e['top1_agree_engine_fakequant_of_batch']:.4f})")
+    print(f"cnn_train lenet {tag}: ({r_in},{r_w}) fakequant, batch "
+          f"{CNN_BATCH}, {len(losses)} steps from JAX's weights: step 0 "
+          f"clean and noisy logits == CPU run (bit for bit), gradients "
+          f"within _close_grad (worst {out['step0']['grad_ratio_max']:.3f} "
+          f"of the limit); engine a graph replay == card reference == CPU "
+          f"engine run. Under NoiseConfig(): {curve(losses)}; "
+          f"{accs(ev['noisy'])}. Clean: {curve(clean_losses)}; "
+          f"{accs(ev['clean'])}. Host ms a step noisy {med_noisy:.1f}, "
+          f"clean {med_clean:.1f} ({CNN_BATCH / (med_noisy / 1e3):.0f} / "
+          f"{CNN_BATCH / (med_clean / 1e3):.0f} images/s); peak "
+          f"{out['lenet']['peak_gb']:.2f} GB; {share}", flush=True)
+
+    # -- LeNet's convs through the engine --------------------------------
+    conv_rec = []
+    with torch.no_grad():
+        x1 = xtr_d[:CNN_BATCH]
+        h1 = cnn.max_pool_2x2(torch.relu(cim_conv2d_apply(
+            det["conv1"], x1, cim_eval)))
+        for name, x_in in (("conv1", x1), ("conv2", h1)):
+            for stride, padding in CNN_CONV_GEOMETRIES:
+                y_fq = cim_conv2d_apply(det[name], x_in, cim_eval,
+                                        stride=stride, padding=padding)
+                before = kern.launches
+                y_eng = cim_conv2d_apply(det[name], x_in,
+                                         cim_eval.replace(mode="engine"),
+                                         stride=stride, padding=padding)
+                torch.cuda.synchronize()
+                n_l = kern.launches - before
+                err = float((y_eng - y_fq).abs().max())
+                ok = torch.allclose(y_eng, y_fq, rtol=1e-4, atol=1e-5)
+                check(ok and n_l > 0 and y_eng.shape == y_fq.shape,
+                      f"engine {name} stride {stride} padding {padding}: "
+                      f"max |engine - fakequant| {err:.3g} (rtol 1e-4, "
+                      f"atol 1e-5), {n_l} cim_mbiw launches")
+                conv_rec.append({"layer": name, "stride": stride,
+                                 "padding": str(padding),
+                                 "shape": list(y_eng.shape),
+                                 "max_abs_err": err, "launches": n_l})
+    out["engine_conv"] = conv_rec
+    print(f"cnn_train conv {tag}: conv1 and conv2 at batch {CNN_BATCH}, "
+          f"(stride, padding) {CNN_CONV_GEOMETRIES}: engine within rtol "
+          f"1e-4 / atol 1e-5 of fakequant, max abs err "
+          f"{max(r['max_abs_err'] for r in conv_rec):.3g}; cim_mbiw "
+          f"launches {[r['launches'] for r in conv_rec]}", flush=True)
+
+    # -- the Fig. 3(b) MLP sweep ---------------------------------------------
+    xtr, ytr, xte, yte = make_dataset(n_train=MLP_TRAIN, n_test=MLP_TEST,
+                                      seed=0)
+    xs = torch.from_numpy(xtr.reshape(-1, 784)).to(dev)
+    ys = torch.from_numpy(ytr).long().to(dev)
+    xt = torch.from_numpy(xte.reshape(-1, 784)).to(dev)
+    yt = torch.from_numpy(yte).long().to(dev)
+    accs, mlp_s = {}, {}
+    mcfg = AdamWConfig(lr=MLP_LR, weight_decay=0.0)
+    fqk = dict(mode="fakequant")
+    cases = [             # benchmarks/fig3_abn_accuracy.py's, in its order
+        ("fp_baseline", CIMConfig(mode="bypass")),
+        ("adc8_gamma_free_adaptive", CIMConfig(**fqk)),
+        ("adc8_gamma0b_adaptive", CIMConfig(**fqk, gamma_bits=0)),
+        ("adc8_gamma2b_adaptive", CIMConfig(**fqk, gamma_bits=2)),
+        ("adc8_gamma3b_adaptive", CIMConfig(**fqk, gamma_bits=3)),
+        ("adc8_gamma3b_fixed", CIMConfig(**fqk, gamma_bits=3,
+                                         adaptive_swing=False)),
+        ("adc6_gamma3b_adaptive", CIMConfig(**fqk, gamma_bits=3, r_out=6)),
+        ("adc4_gamma3b_adaptive", CIMConfig(**fqk, gamma_bits=3, r_out=4))]
+    for name, cim in cases:
+        t0 = time.perf_counter()
+        p = tree_map(lambda t: t.to(dev).requires_grad_(True),
+                     cnn.init_mlp(prng.key(0), dims=MLP_DIMS, cim=cim))
+        o = adamw_init(p)
+        for _ in range(MLP_EPOCHS):
+            for i in range(0, MLP_TRAIN, CNN_BATCH):
+                model_step(cnn.mlp_forward, p, o, xs[i:i + CNN_BATCH],
+                           ys[i:i + CNN_BATCH], None, cim, mcfg)
+        with torch.no_grad():
+            logits = cnn.mlp_forward(p, xt, cim)
+        accs[name] = float((logits.argmax(-1) == yt).float().mean())
+        mlp_s[name] = time.perf_counter() - t0
+    claims = {
+        "gamma3b >= gamma0b (adaptive)":
+            accs["adc8_gamma3b_adaptive"] >= accs["adc8_gamma0b_adaptive"],
+        "adaptive >= fixed - 0.02 (gamma 3b)":
+            accs["adc8_gamma3b_adaptive"]
+            >= accs["adc8_gamma3b_fixed"] - 0.02}
+    out["fig3b"] = {"accuracy": accs, "seconds": mlp_s, "claims": claims}
+    print(f"cnn_train fig3b {tag}: MLP {MLP_DIMS}, {MLP_EPOCHS} epochs of "
+          f"{MLP_TRAIN} at batch {CNN_BATCH}, test {MLP_TEST}: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in accs.items()) + "; claims "
+          + "; ".join(f"{k}: {'held' if v else 'missed'}"
+                      for k, v in claims.items())
+          + " (reported, not gated)", flush=True)
+
+    counts = kernel_counts(kern)
+    out["launches"] = {
+        "cim_mbiw": counts[0], "cim_mbiw_tc": counts[1],
+        "cim_mbiw_splitk": counts[2], "threefry_normal": draw.launches}
+    check(counts[0] > 0 and draw.launches > 0,
+          f"cnn_train launched a kernel of its path no time: "
+          f"{out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"cnn_train launches {tag}: {out['launches']} in "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def dense_phase(dev, tag) -> dict:
+    """The dense configs' train step (module docstring, phase 12)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cim_layers import CIMConfig
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves
+    kerns = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
+    out: dict = {"archs": {}}
+    launches = dict.fromkeys(FLASH_NAMES, 0)
+    launches_tc = dict.fromkeys(FLASH_NAMES, 0)
+    t_phase = time.perf_counter()
+    for arch, shape in zip(DENSE_ARCHS, FLASH_DENSE):
+        cfg = get_config(arch).replace(
+            n_layers=DENSE_LAYERS, attn_impl="pallas",
+            cim=CIMConfig(mode="fakequant", max_gamma=2.0**16))
+        check(cfg.dtype == "bfloat16" and (cfg.cim.r_in, cfg.cim.r_w,
+                                           cfg.cim.r_out) == (8, 4, 8),
+              f"{arch}: not a bf16 fakequant (8, 4, 8) config")
+        q_dtype = torch.float32 if cfg.qkv_bias else torch.bfloat16
+        check((1, cfg.n_heads, cfg.n_kv_heads, DENSE_SEQ,
+               cfg.resolved_head_dim, q_dtype) == shape,
+              f"{arch}: its attention is not FLASH_DENSE's {shape}, the "
+              f"shape flash_checks holds against the plain version")
+        t0 = time.perf_counter()
+        state = steps.init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+        step_fn = steps.make_train_step(cfg, AdamWConfig(lr=3e-4),
+                                        total_steps=10, warmup=1)
+        toks, labels = SyntheticLM(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=DENSE_SEQ,
+            global_batch=1)).batch_at(0)
+        batch = {"tokens": torch.from_numpy(toks).long().to(dev),
+                 "labels": torch.from_numpy(labels).long().to(dev)}
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        state, rec = train_steps(cfg, state, step_fn, [batch], arch)
+        m = rec["metrics"][0]
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in tree_leaves(state["params"]))
+        check(finite, f"{arch}: non-finite parameters after the step")
+        # train/decode consistency (tests/test_models_smoke.py)
+        bcfg = cfg.replace(cim=CIMConfig(mode="bypass"))
+        g = torch.Generator().manual_seed(2)
+        dt = torch.randint(0, cfg.vocab_size, (1, DENSE_DECODE),
+                           generator=g).to(dev)
+        with torch.no_grad():
+            params = state["params"]
+            full, _, _ = tf.forward(bcfg, params, dt)
+            cache = tf.init_cache(bcfg, 1, max_len=16, device=dev)
+            outs = []
+            for t in range(DENSE_DECODE):
+                lg, cache, _ = tf.forward(bcfg, params, dt[:, t:t + 1],
+                                          cache=cache)
+                outs.append(lg[:, 0])
+        cons = float((full.float() - torch.stack(outs, 1).float())
+                     .abs().max())
+        check(cons < 0.1, f"{arch}: train/decode divergence {cons}")
+        # the step's launches and the full forward's (train_steps set the
+        # counts to 0 before the step)
+        for name, f in zip(FLASH_NAMES, kerns):
+            launches[name] += f.launches
+            launches_tc[name] += f.launches_tc
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        fl, fl_tc = list(rec["launches"].values()), list(
+            rec["launches_tc"].values())
+        out["archs"][arch] = {
+            "n_layers": DENSE_LAYERS, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, "n_params": n_params,
+            "loss": m["loss"], "grad_norm": m["grad_norm"],
+            "step_s": rec["step_ms"][0] / 1e3, "build_s": build_s,
+            "flash_launches": fl, "flash_launches_tc": fl_tc,
+            "train_decode_err": cons, "peak_gb": peak}
+        print(f"dense {arch} {tag}: full width (d {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}), depth cut to {DENSE_LAYERS}, "
+              f"{n_params / 1e9:.2f} B params: one fakequant (8,4,8) bf16 "
+              f"step at batch 1 x {DENSE_SEQ}, loss {m['loss']:.4f}, grad "
+              f"norm {m['grad_norm']:.4f} (finite), flash launches {fl}, "
+              f"{fl_tc} on the tensor cores, step "
+              f"{rec['step_ms'][0] / 1e3:.2f} s; train/decode max |diff| "
+              f"{cons:.4f} over {DENSE_DECODE} tokens (< 0.1); peak "
+              f"{peak:.1f} GB", flush=True)
+        del state, params, cache, full, outs
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["launches_tc"] = launches_tc
+    check(all(n > 0 for n in launches.values()),
+          f"the dense path launched a flash kernel no time: {launches}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"dense launches {tag}: {launches} ({launches_tc} on the tensor "
+          f"cores; the steps' and the full forwards' of the train/decode "
+          f"check) in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 FLASH_PAIRS = ((1, 77), (77, 77), (512, 512), (4096, 4096), (77, 4096),
                (4096, 77), (512, 1), (77, 512))
 # the train path's attention: B, H, G, S, D (causal, bf16)
 FLASH_TRAIN = (TRAIN_BATCH, 16, 16, TRAIN_SEQ, 128)
+# the dense path's attention (phase 12), one per config of DENSE_ARCHS:
+# B, H, G, S, D (causal) and the dtype of q; qwen2-7b's float32 QKV bias
+# promotes q, k and v to float32, as in JAX, so its step runs the float32
+# kernels
+FLASH_DENSE = ((1, 32, 8, DENSE_SEQ, 128, torch.bfloat16),
+               (1, 24, 8, DENSE_SEQ, 128, torch.bfloat16),
+               (1, 28, 4, DENSE_SEQ, 128, torch.float32))
 
 
 def flash_cases() -> list:
     """(b, h, g, sq, sk, d, causal, window, q_off, dtype): every causal x
     window {0, 256} x rep {1, 2, 16} x D {64, 128}, each at one (Sq, Sk)
     pair (cycling through ragged sizes in {1, 77, 512, 4096}), q_off and
-    dtype alternating; then the train shape in bf16 and float32."""
+    dtype alternating; then the train shape in bf16 and float32; then
+    the dense configs' step shapes (FLASH_DENSE, reps 4, 3 and 7)."""
     out = []
     i = 0
     for causal in (True, False):
@@ -1701,6 +2229,8 @@ def flash_cases() -> list:
     b, h, g, s, d = FLASH_TRAIN
     out.append((b, h, g, s, s, d, True, 0, 0, torch.bfloat16))
     out.append((b, h, g, s, s, d, True, 0, 0, torch.float32))
+    out += [(b, h, g, s, s, d, True, 0, 0, dtype)
+            for b, h, g, s, d, dtype in FLASH_DENSE]
     return out
 
 
@@ -1890,6 +2420,53 @@ def flash_checks(fk, fref, dev) -> dict:
     return {"cases": len(cases), "max_abs_err": errs, "stress": stress}
 
 
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def train_steps(cfg, state, step_fn, batches, what) -> tuple:
+    """make_train_step's step over `batches`, with the flash counts set to
+    0 just before and read just after: (state, record of the host ms a
+    step, each step's metrics, the flash launches, all and on the tensor
+    cores, and the peak memory).  Checks a finite loss and a finite,
+    nonzero gradient norm a step, and the flash launches: a forward a
+    layer (two with checkpointing: the recompute), a dq and a dk/dv, on
+    the tensor cores unless a float32 QKV bias makes q, k and v float32
+    (as in JAX)."""
+    from repro_torch.kernels.flash_attn import kernel as fk
+    kerns = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
+    torch.cuda.reset_peak_memory_stats()
+    for f in kerns:
+        f.launches = f.launches_tc = 0
+    step_ms, metrics = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        m = {k: float(v) for k, v in m.items()}     # waits for the card
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append(m)
+    launches = [f.launches for f in kerns]
+    launches_tc = [f.launches_tc for f in kerns]
+    per_step = cfg.n_layers * len(batches)
+    want = [(1 + int(cfg.remat)) * per_step, per_step, per_step]
+    want_tc = [0, 0, 0] if cfg.qkv_bias else want
+    check(launches == want,
+          f"{what}: flash launches {launches} over {len(batches)} steps != "
+          f"{want} ({cfg.n_layers} layers: forward and recompute, dq, "
+          f"dk/dv)")
+    check(launches_tc == want_tc,
+          f"{what}: tensor-core launches {launches_tc} != {want_tc}: a "
+          f"bf16 step must run the tensor-core kernels")
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+              and m["grad_norm"] > 0 for m in metrics),
+          f"{what}: non-finite loss or grad norm: {metrics}")
+    return state, {"step_ms": step_ms, "metrics": metrics,
+                   "launches": dict(zip(FLASH_NAMES, launches)),
+                   "launches_tc": dict(zip(FLASH_NAMES, launches_tc)),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 def train_phase(dev, tag) -> dict:
     """The train path (module docstring, phase 7).  Returns its record,
     with the flash launch counts of the TRAIN_STEPS steps."""
@@ -1924,34 +2501,11 @@ def train_phase(dev, tag) -> dict:
     batches = [batch_fn(i) for i in range(TRAIN_STEPS)]
 
     kerns = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
-    torch.cuda.reset_peak_memory_stats()
-    for f in kerns:
-        f.launches = 0
-    for f in kerns:
-        f.launches_tc = 0
-    step_ms, metrics = [], []
-    for batch in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step_fn(state, batch)
-        m = {k: float(v) for k, v in m.items()}     # waits for the card
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-        metrics.append(m)
-    launches = [f.launches for f in kerns]
-    launches_tc = [f.launches_tc for f in kerns]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    per_step = cfg.n_layers * TRAIN_STEPS
-    check(launches == [2 * per_step, per_step, per_step],
-          f"flash launches {launches} over {TRAIN_STEPS} steps != "
-          f"{[2 * per_step, per_step, per_step]} (16 forward + 16 "
-          f"recompute, 16 dq, 16 dk/dv a step)")
-    check(launches_tc == launches,
-          f"tensor-core launches {launches_tc} != every forward, dq and "
-          f"dk/dv launch {launches}: the bf16 train path must run the "
-          f"tensor-core kernels")
-    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
-              for m in metrics), f"non-finite loss or grad norm: {metrics}")
+    state, steps_rec = train_steps(cfg, state, step_fn, batches, "OLMo-1B")
+    step_ms, metrics = steps_rec["step_ms"], steps_rec["metrics"]
+    launches = list(steps_rec["launches"].values())
+    launches_tc = list(steps_rec["launches_tc"].values())
+    peak_gb = steps_rec["peak_gb"]
 
     # step 0's loss and gradient from the initial weights and first batch:
     # plain attention, flash attention, and flash attention with an
@@ -2025,10 +2579,8 @@ def train_phase(dev, tag) -> dict:
            "metrics": metrics,
            "plain_attention_step0": pm, "vs_plain_step0": vs,
            "vs_plain_limits": TRAIN_JNP_RTOL,
-           "launches": dict(zip(("flash_fwd", "flash_bwd_dq",
-                                 "flash_bwd_dkv"), launches)),
-           "launches_tc": dict(zip(("flash_fwd", "flash_bwd_dq",
-                                    "flash_bwd_dkv"), launches_tc)),
+           "launches": steps_rec["launches"],
+           "launches_tc": steps_rec["launches_tc"],
            "profile": prof, "noisy": noisy,
            "flash_share": flash_us / prof["device_us"] if prof else None}
     busy = (f"profiled step: device {prof['device_us'] / 1e3:.1f} ms, "
@@ -2765,7 +3317,20 @@ def main() -> int:
     phase_s["tuner"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 11. times -----------------------------------------------------------
+    # -- 11. CIM-aware CNN and MLP training ---------------------------------
+    ctrain = cnn_train_phase(dev, tag, kern, kmod)
+    report["cnn_train"] = ctrain
+    torch.cuda.empty_cache()
+    phase_s["cnn_train"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 12. the dense configs' train step ---------------------------------
+    dense = dense_phase(dev, tag)
+    report["dense"] = dense
+    phase_s["dense"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 13. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -2948,19 +3513,22 @@ def main() -> int:
            and r["m"] == DECODE_CAPACITY]
     nl, nd = noise["launches"], ndec["launches"]
     ls, lp, lt = lserve["launches"], prec["launches"], tune["launches"]
+    lc = ctrain["launches"]
     route_launches = {
         "tc": main_routes["tc"] + nl["cim_mbiw_tc"] + ls["cim_mbiw_tc"]
-        + lp["cim_mbiw_tc"] + lt["cim_mbiw_tc"],
+        + lp["cim_mbiw_tc"] + lt["cim_mbiw_tc"] + lc["cim_mbiw_tc"],
         "splitk": main_routes["splitk"] + dec_splitk + nl["cim_mbiw_splitk"]
         + nd["cim_mbiw_splitk"] + ls["cim_mbiw_splitk"]
-        + lp["cim_mbiw_splitk"] + lt["cim_mbiw_splitk"],
+        + lp["cim_mbiw_splitk"] + lt["cim_mbiw_splitk"]
+        + lc["cim_mbiw_splitk"],
         "cuda_core": main_routes["all"] - main_routes["tc"]
         - main_routes["splitk"] + dec_cim - dec_splitk + nl["cim_mbiw"]
         - nl["cim_mbiw_tc"] - nl["cim_mbiw_splitk"] + nd["cim_mbiw"]
         - nd["cim_mbiw_splitk"] + ls["cim_mbiw"] - ls["cim_mbiw_tc"]
         - ls["cim_mbiw_splitk"] + lp["cim_mbiw"] - lp["cim_mbiw_tc"]
         - lp["cim_mbiw_splitk"] + lt["cim_mbiw"] - lt["cim_mbiw_tc"]
-        - lt["cim_mbiw_splitk"]}
+        - lt["cim_mbiw_splitk"] + lc["cim_mbiw"] - lc["cim_mbiw_tc"]
+        - lc["cim_mbiw_splitk"]}
 
     def route_entry(name, route, src, rows):
         mult = [2 if r["k"] == 784 and r["shape"] == "lenet" else 1
@@ -2993,8 +3561,8 @@ def main() -> int:
         "ms": r_ms,
         "plain_ms": r_plain, "bound_ms": r_bnd, "bound_by": r_by,
         "library_ms": r_lib}]}
-    # flash: the train path's launches (all on the tensor-core kernels);
-    # times at its attention shape in bf16
+    # flash: the train paths' launches (OLMo-1B and the dense configs, all
+    # on the tensor-core kernels); times at OLMo's attention shape in bf16
     for kind, line, src in (("fwd", 41, "flash_fwd_tc.cu"),
                             ("dq", 134, "flash_bwd_dq_tc.cu"),
                             ("dkv", 168, "flash_bwd_dkv_tc.cu")):
@@ -3004,14 +3572,16 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/flash_attn/csrc/{src}",
             "replaces": f"src/repro/kernels/flash_attn/kernel.py:{line}",
-            "launches": train["launches_tc"][name],
+            "launches": train["launches_tc"][name]
+            + dense["launches_tc"][name],
             "max_abs_err": max(flash["max_abs_err"][kind].values()),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     draw_launches = (noise["launches"]["threefry_normal"]
                      + ndec["launches"]["threefry_normal"]
-                     + train["noisy"]["launches"] + lp["threefry_normal"])
+                     + train["noisy"]["launches"] + lp["threefry_normal"]
+                     + lc["threefry_normal"])
     kernels["kernels"].append({
         "name": "threefry_normal", "route": "cuda",
         "source": "src/repro_torch/kernels/prng/csrc/threefry_normal.cu",
@@ -3046,7 +3616,9 @@ def main() -> int:
         "noise_train": {"threefry_normal": train["noisy"]["launches"]},
         "llm_serve": lserve["launches"],
         "precision": prec["launches"],
-        "tuner": tune["launches"]}
+        "tuner": tune["launches"],
+        "cnn_train": lc,
+        "dense": dense["launches"]}
     report["total_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

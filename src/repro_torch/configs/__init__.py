@@ -1,8 +1,11 @@
 """Architecture registry: one module per architecture the port runs.
 
-Counterpart of `repro/configs/__init__.py`; only the archs whose family
-the port's `models/transformer.py` runs are registered (the dense
-`olmo_1b`).  `get_config` of another arch raises ValueError.
+Counterpart of `repro/configs/__init__.py`.  The port registers the four
+dense archs, the family its `models/transformer.py` runs: `olmo_1b`,
+`granite_8b`, `minitron_4b` and `qwen2_7b` (each module's `CONFIG` and
+`smoke_config()` equal the JAX package's field for field).  An arch of
+another family (moe, hybrid, ssm, vlm, audio) is not registered, and
+`get_config` of it raises ValueError.
 """
 from __future__ import annotations
 
@@ -13,11 +16,17 @@ __all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeConfig",
            "get_config", "get_smoke_config"]
 
 ARCH_IDS = [
+    "minitron_4b",
+    "qwen2_7b",
     "olmo_1b",
+    "granite_8b",
 ]
 
 _ALIASES = {
+    "minitron-4b": "minitron_4b",
+    "qwen2-7b": "qwen2_7b",
     "olmo-1b": "olmo_1b",
+    "granite-8b": "granite_8b",
 }
 
 

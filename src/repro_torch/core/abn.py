@@ -1,20 +1,32 @@
 """Analog batch-normalization (ABN): the paper's distribution-aware reshaping.
 
-Counterpart of `repro/core/abn.py` (gamma and its hardware quantizer, with
-the JAX package's gradients).  The DSCI-ADC implements y = floor(mid +
-gamma * g0 * dp + beta) where gamma is realized as a reference-ladder
-'zoom' and beta as a 5b charge-injection offset on the DPL; gamma may be
-explored at a configurable precision ("gamma bits", Fig. 3b).
+Counterpart of `repro/core/abn.py`, with the JAX package's gradients.  The
+DSCI-ADC implements y = floor(mid + gamma * g0 * dp + beta) where gamma is
+realized as a reference-ladder 'zoom' and beta as a 5b charge-injection
+offset on the DPL.  Hardware constraints (Sec. III.D): usable gamma values
+are powers of two in [1, 32] (Figs. 13, 17, 18); at train time gamma may
+be explored at a configurable precision ("gamma bits", Fig. 3b); beta is
+a 5b code covering +/-30 mV on the DPL.
+
+The module holds the hardware quantizers (with STE for training), the
+folding of learned BN statistics into (gamma, beta), and the
+distribution-aware initialisation from observed DP statistics.  Logs are
+XLA's (`xla_f32.log2_f32`), powers of two C's `exp2f` (`exp2_f32`) and a
+divide by a constant a multiply by its float32 reciprocal, so the
+quantizers round as jitted JAX does on the CPU, bit for bit; roots are
+correctly rounded (`xla_f32.sqrt_f32`).
 """
 from __future__ import annotations
 
 from decimal import Decimal, localcontext
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.quantization import _clip, ste
+from repro_torch.core.hw import CIMMacroConfig, DEFAULT_MACRO
+from repro_torch.core.quantization import _clip, ste, ste_round
+from repro_torch.core.xla_f32 import log2_f32, sqrt_f32
 
 
 def _exp2f_table(n: int = 32) -> np.ndarray:
@@ -105,26 +117,64 @@ def exp2_f32(x: torch.Tensor) -> torch.Tensor:
     return _Exp2F32.apply(x)
 
 
+def quantize_gamma_pow2(gamma: torch.Tensor, *, max_gamma: float = 32.0,
+                        min_gamma: float = 1.0) -> torch.Tensor:
+    """Snap gamma to the hardware's power-of-two ladder grid (STE)."""
+    g = _clip(gamma, min_gamma, max_gamma)
+    return ste(exp2_f32(torch.round(log2_f32(g))), g)
+
+
 def quantize_gamma_bits(gamma: torch.Tensor, bits: int, *,
                         max_gamma: float = 32.0) -> torch.Tensor:
     """Gamma at a given bit precision (Fig. 3b study): 2^bits log-spaced
-    levels between 1 and max_gamma (bits=0 -> fixed unity gain)."""
+    levels between 1 and max_gamma (bits=0 -> fixed unity gain).
+
+    The level index is log2(g) / step with XLA's log and the two constant
+    divides folded into one multiply, as jitted JAX computes it
+    (`xla_f32.log2_f32`); an eager JAX call divides by the step instead,
+    and the two disagree on a few inputs near a level's boundary."""
     if bits <= 0:
         return torch.ones_like(gamma)
     n_levels = 2 ** bits
     g = _clip(gamma, 1.0, max_gamma)
-    # the JAX package computes the step in f32 (jnp.log2 of the limit);
-    # a device tensor keeps the divide IEEE on CUDA as well
-    step = torch.log2(torch.tensor(max_gamma, dtype=torch.float32,
-                                   device=g.device)) / (n_levels - 1)
-    idx = torch.round(torch.log2(g) / step)
+    step = float(log2_f32(torch.tensor(max_gamma, dtype=torch.float32))
+                 / (n_levels - 1))
+    idx = torch.round(log2_f32(g, divisor=step))
     return ste(exp2_f32(idx * step), g)
+
+
+def quantize_beta_v(beta_v: torch.Tensor,
+                    cfg: CIMMacroConfig = DEFAULT_MACRO) -> torch.Tensor:
+    """5b ABN offset: +/-abn_offset_range_v in 2^abn_offset_bits steps."""
+    n = 2 ** cfg.abn_offset_bits
+    lsb = 2.0 * cfg.abn_offset_range_v / (n - 1)
+    r = cfg.abn_offset_range_v
+    return ste_round(_clip(beta_v, -r, r) * _recip_f32(lsb)) * lsb
+
+
+def beta_v_to_codes(beta_v: torch.Tensor, gamma: torch.Tensor, r_out: int,
+                    cfg: CIMMacroConfig = DEFAULT_MACRO) -> torch.Tensor:
+    """Convert a DPL-referred offset (volts) into ADC code units (Eq. 7:
+    the offset is applied before the zoom, so it is scaled by gamma)."""
+    lsb_v = cfg.alpha_adc() * cfg.vddh / 2.0 ** (r_out - 1)
+    return gamma * beta_v * _recip_f32(lsb_v)
+
+
+def _recip_f32(c: float) -> float:
+    """The float32 reciprocal of a constant divisor: jitted JAX divides
+    by a constant as a multiply by it."""
+    return float(np.float32(1.0) / np.float32(c))
 
 
 class ABNParams(NamedTuple):
     """Learnable per-output-channel ABN parameters (pre-hardware)."""
     log_gamma: torch.Tensor   # (N,) gamma = 2**log_gamma  (log2 domain)
     beta: torch.Tensor        # (N,) offset in ADC code units
+
+
+def init_abn(n: int) -> ABNParams:
+    return ABNParams(log_gamma=torch.zeros((n,), dtype=torch.float32),
+                     beta=torch.zeros((n,), dtype=torch.float32))
 
 
 def abn_gamma(params: ABNParams, *, gamma_bits: int = -1,
@@ -134,3 +184,40 @@ def abn_gamma(params: ABNParams, *, gamma_bits: int = -1,
     if gamma_bits < 0:
         return _clip(g, 2.0 ** -4, max_gamma)
     return quantize_gamma_bits(g, gamma_bits, max_gamma=min(max_gamma, 32.0))
+
+
+def fold_batchnorm(bn_scale: torch.Tensor, bn_bias: torch.Tensor,
+                   mean: torch.Tensor, var: torch.Tensor,
+                   eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold conventional BN(y) = scale*(y-mean)/sqrt(var+eps)+bias into the
+    ABN affine form gamma*y + beta (both in the same units as y).
+
+    The root is correctly rounded and the divide IEEE.  Jitted JAX turns
+    scale / sqrt(.) into scale * rsqrt(.), and XLA's CPU rsqrt refines the
+    host's reciprocal-root estimate, so the two agree to a few ulp, not
+    bit for bit."""
+    inv = bn_scale / sqrt_f32(var + eps)
+    return inv, bn_bias - mean * inv
+
+
+def distribution_aware_init(dp_sample: torch.Tensor, r_out: int, *,
+                            target_sigma_frac: float = 0.25) -> ABNParams:
+    """Distribution-aware reshaping init: choose per-channel gamma/beta so
+    the observed DP distribution fills the ADC range (the paper's Fig. 3a
+    fix).
+
+    dp_sample: (B, N) pre-ADC dot products in *ADC input units* (i.e.
+    already multiplied by the unity-gain code gain g0); gamma scales the
+    per-channel population std (`jnp.std`, so correction 0) to
+    target_sigma_frac of the half-range, beta centres the mean.  The sums
+    over the batch run in PyTorch's order, not XLA's, so the result
+    agrees with JAX's to a few ulp."""
+    half = 2.0 ** (r_out - 1)
+    x = dp_sample.to(torch.float32)
+    mu = torch.mean(x, dim=0)
+    sd = sqrt_f32(torch.var(x, dim=0, correction=0)) + 1e-6
+    num = torch.tensor(target_sigma_frac * half, dtype=torch.float32,
+                       device=sd.device)
+    gamma = _clip(num / sd, 1.0, 32.0)
+    beta = -gamma * mu
+    return ABNParams(log_gamma=log2_f32(gamma), beta=beta)

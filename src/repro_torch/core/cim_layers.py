@@ -21,11 +21,18 @@ through, in four of its modes:
                   the weights are quantized once, and on the card each
                   dispatch key replays a captured CUDA graph.  Bit-exact
                   with fakequant without noise.
+  * "sim"       : the voltage-domain behavioural macro
+                  (`core/cim_macro.py`), tiled per `core/mapping.py`; its
+                  noise draws run through the draw kernel's wrapper.
+                  Inference only: no gradient flows.
   * "deploy"    : int8 weight codes times a per-channel scale
                   (`quantize_params_for_serving`), a plain product.
 
-The voltage-domain "sim" mode is not ported (NotImplementedError), nor is
-a sharded engine layer (`CIMConfig.sharding`).
+`cim_conv2d_apply` runs a conv through the same modes: engine mode plans
+the conv natively (the runtime streams the im2col itself), every other
+mode materializes the patch tensor and detours through
+`cim_linear_apply`.  A sharded engine layer (`CIMConfig.sharding`) is
+not ported.
 
 Parameters per layer: {"w": (K, N) fp32 master weights,
                        "abn_log_gamma": (N,), "abn_beta": (N,)}.
@@ -40,7 +47,7 @@ from typing import Dict, Iterator, Optional, Union
 import torch
 
 from repro_torch.core import abn as abn_lib
-from repro_torch.core import digital_ref, mapping
+from repro_torch.core import cim_macro, digital_ref, mapping
 from repro_torch.core import noise_model as nm
 from repro_torch.core import prng
 from repro_torch.core.hw import CIMMacroConfig, DEFAULT_MACRO
@@ -53,7 +60,8 @@ from repro_torch.core.quantization import (_static_reciprocal, adc_quantize,
 @dataclasses.dataclass(frozen=True)
 class CIMConfig:
     """Per-layer CIM execution configuration."""
-    mode: str = "fakequant"          # bypass | fakequant | engine | deploy
+    mode: str = "fakequant"          # bypass | fakequant | sim | engine
+                                     # | deploy
     r_in: int = 8
     r_w: int = 4
     r_out: int = 8
@@ -205,9 +213,7 @@ def cim_linear_apply(params: Dict, x: torch.Tensor, cfg: CIMConfig,
     if cfg.mode == "engine":
         return _engine_forward(params, x, cfg, key)
     if cfg.mode == "sim":
-        raise NotImplementedError(
-            "CIM mode 'sim' (the behavioural macro, core/cim_macro.py) is "
-            "not ported")
+        return _sim_forward(params, x, cfg, key)
     raise ValueError(f"unknown CIM mode {cfg.mode!r}")
 
 
@@ -350,3 +356,124 @@ def _fakequant_forward(params: Dict, x: torch.Tensor, cfg: CIMConfig,
 
     y = rounding_barrier(dp_hat * aq.scale * wq.scale.reshape(-1))
     return y.to(x.dtype)
+
+
+@torch.no_grad()
+def _sim_forward(params: Dict, x: torch.Tensor, cfg: CIMConfig,
+                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's `_sim_forward`: tile per mapping.py and run the
+    behavioural macro on x's device.  No gradients (inference/fidelity
+    only).  Under noise (cfg.noise enabled and a key) the key splits once
+    for the SA-offset residues, shared by every row tile (the comparators
+    do not change between tiles), and once per row tile for that tile's
+    macro draws."""
+    w = params["w"]
+    k_dim, n = w.shape
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, k_dim).to(torch.float32)
+
+    aq = quantize_act(x2, cfg.r_in)
+    wq = quantize_weight(w, cfg.r_w, axis=0)
+    planes_full = digital_ref.encode_weight_planes(
+        wq.q.to(torch.int32), cfg.r_w)                    # (r_w, K, N)
+
+    gamma = abn_lib.abn_gamma(
+        abn_lib.ABNParams(params["abn_log_gamma"], params["abn_beta"]),
+        gamma_bits=cfg.gamma_bits, max_gamma=cfg.max_gamma)
+    spec = mapping.LayerSpec(m=x2.shape[0], k=k_dim, n=n, r_in=cfg.r_in,
+                             r_w=cfg.r_w, r_out=cfg.r_out)
+    mp = mapping.map_layer(spec, cfg.macro)
+    mid = 2.0 ** (cfg.r_out - 1)
+    lsb_v = cfg.macro.alpha_adc() * cfg.macro.vddh / 2.0 ** (cfg.r_out - 1)
+    beta_v = params["abn_beta"] * lsb_v / gamma           # code -> volts
+
+    if cfg.noise.enabled and key is not None:
+        key, ksa = prng.split(key)
+        sa_offset_v = nm.sample_column_residues(ksa, n, cfg.r_w, cfg.noise,
+                                                cfg.macro, device=x.device)
+    else:
+        sa_offset_v = torch.zeros((n,), dtype=torch.float32,
+                                  device=x.device)
+
+    dp_hat = torch.zeros((x2.shape[0], n), dtype=torch.float32,
+                         device=x.device)
+    for ks, ksz in mapping.split_k_slices(k_dim, mp.row_tiles):
+        sub = None
+        if key is not None:
+            key, sub = prng.split(key)
+        code = cim_macro.cim_macro_forward(
+            aq.q[:, ks:ks + ksz], planes_full[:, ks:ks + ksz, :],
+            r_in=cfg.r_in, r_out=cfg.r_out, gamma=gamma, beta_v=beta_v,
+            cfg=cfg.macro, noise=cfg.noise, key=sub,
+            sa_offset_v=sa_offset_v)
+        units = cfg.macro.units_for_rows(ksz)
+        n_dp = units * cfg.macro.rows_per_unit
+        g0 = digital_ref.adc_gain_factor(
+            cfg.r_in, cfg.r_w, cfg.r_out, n_dp,
+            cfg.macro.swing_efficiency(units), cfg.macro.alpha_adc())
+        dp_hat = dp_hat + (code.to(torch.float32) + 0.5 - mid
+                           - params["abn_beta"]) / (gamma * g0)
+    y = dp_hat * aq.scale * wq.scale.reshape(-1)
+    y = y + aq.zero * torch.sum(wq.q * wq.scale, dim=0)   # zero-point term
+    return y.reshape(lead + (n,)).to(x.dtype)
+
+
+def cim_conv2d_apply(params: Dict, x: torch.Tensor, cfg: CIMConfig,
+                     stride: int = 1, padding=1,
+                     key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Conv2D through the CIM stack (the accelerator's stage (ii)).
+
+    x: (B, H, W, C_in) (NHWC); params["w"]: (kh*kw*C_in, C_out) flattened
+    filters in (kh, kw, c) order.  `padding` accepts an int, "SAME"/
+    "VALID", or explicit per-edge pairs (mapping.resolve_padding).
+    mode="engine" plans the conv natively (the runtime performs the im2col
+    streaming itself); every other mode materializes the patch tensor
+    (`runtime.engine.im2col_patches`, slicing and stacking, so
+    differentiable) and detours through cim_linear_apply."""
+    from repro_torch.runtime.engine import im2col_patches
+
+    k_flat, c_out = params["w"].shape
+    kh = kw = int(round((k_flat // x.shape[-1]) ** 0.5))
+    if kh * kw * x.shape[-1] != k_flat:
+        raise ValueError(f"weights of {k_flat} rows are not a square "
+                         f"filter over {x.shape[-1]} input channels")
+    b, h, w, c_in = x.shape
+    spec = mapping.conv_layer_spec(
+        batch=b, h=h, w=w, c_in=c_in, c_out=c_out, kh=kh, kw=kw,
+        stride=stride, padding=padding,
+        r_in=cfg.r_in, r_w=cfg.r_w, r_out=cfg.r_out)
+    if cfg.mode == "engine":
+        return _engine_conv_forward(params, x, cfg, spec, key)
+    patches = im2col_patches(x, spec.conv)        # (B, OH, OW, kh*kw*C)
+    return cim_linear_apply(params, patches, cfg, key)
+
+
+def _engine_conv_forward(params: Dict, x: torch.Tensor, cfg: CIMConfig,
+                         spec: mapping.LayerSpec,
+                         key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's `_engine_conv_forward`: the conv spec rebuilt at
+    the batch bucket, its program from the program cache on x's device
+    (planned once per geometry and config) and the one BoundProgram of
+    these weights (`program.bound_for`), so a clean dispatch on the card
+    replays its CUDA graph.  With cfg.isolate_rows each image is its own
+    activation-quantization segment.  Inference only."""
+    from repro_torch.runtime.program import (DEFAULT_BUCKETS, bound_for,
+                                             compile_program)
+    if cfg.sharding is not None:
+        raise NotImplementedError(
+            "a sharded engine layer (CIMConfig.sharding) is not ported")
+    g = spec.conv
+    bucket = DEFAULT_BUCKETS.bucket_for(x.shape[0])
+    if bucket != g.batch:
+        spec = mapping.conv_layer_spec(
+            batch=bucket, h=g.h, w=g.w, c_in=g.c_in, c_out=g.c_out,
+            kh=g.kh, kw=g.kw, stride=g.stride, padding=g.padding,
+            r_in=spec.r_in, r_w=spec.r_w, r_out=spec.r_out)
+    prog = compile_program([spec], _engine_config(cfg), device=x.device)
+    segments = None
+    if cfg.isolate_rows:
+        # one segment per batch image (the engine repeats ids over the
+        # conv's out_h*out_w GEMM rows itself)
+        segments = torch.arange(x.shape[0], device=x.device)
+    return bound_for(prog, params).serve(x, key, segments=segments).to(
+        x.dtype)

@@ -1,7 +1,8 @@
 """Exact integer digital-equivalent of the IMAGINE macro datapath.
 
 Counterpart of `repro/core/digital_ref.py`: the ground-truth oracle the
-cim_mbiw kernel is held to bit for bit.
+cim_mbiw kernel is held to bit for bit, and the voltage-domain macro
+(`core/cim_macro.py`) to within one ADC code without noise.
 
 Numerics
 --------
@@ -62,6 +63,46 @@ def decode_weight_planes(planes: torch.Tensor) -> torch.Tensor:
         (r_w,) + (1,) * (planes.dim() - 1))
     return torch.sum(planes.to(torch.int32) * scale, dim=0,
                      dtype=torch.int32)
+
+
+def quantize_weight_odd(w_int: torch.Tensor, r_w: int) -> torch.Tensor:
+    """Snap integers in [-(2^r_w-1), 2^r_w-1] to the representable odd grid."""
+    full = 2**r_w - 1
+    w = torch.clamp(w_int, -full, full)
+    # nearest odd integer: 2*floor(w/2)+1 rounds {2k,2k+1} -> 2k+1
+    return (2 * torch.div(w, 2, rounding_mode="floor") + 1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# integer dot-product (the DP array + MBIW stages)
+# ---------------------------------------------------------------------------
+
+def bitplane_dot(x_uint: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """dp = X . W with W decoded from its +/-1 bit-planes.
+
+    x_uint : (..., K) unsigned ints < 2^r_in
+    planes : (r_w, K, N) +/-1
+    returns: (..., N) int32
+    """
+    return int_matmul(x_uint, decode_weight_planes(planes))
+
+
+def bitplane_dot_serial(x_uint: torch.Tensor, planes: torch.Tensor,
+                        r_in: int) -> torch.Tensor:
+    """Literal input-serial, weight-parallel evaluation (matches the macro's
+    MBIW sequencing): dp = sum_k 2^k sum_p 2^p (X[k] . S[p]).
+    Provided for the kernel oracle; equal to `x @ decode(planes)`."""
+    x = x_uint.to(torch.int32)
+    r_w = planes.shape[0]
+    acc = torch.zeros(tuple(x.shape[:-1]) + (planes.shape[-1],),
+                      dtype=torch.int32, device=x.device)
+    for k in range(r_in):
+        x_bit = (x >> k) & 1
+        per_bit = torch.zeros_like(acc)
+        for p in range(r_w):
+            per_bit = per_bit + (2**p) * int_matmul(x_bit, planes[p])
+        acc = acc + (2**k) * per_bit
+    return acc
 
 
 # ---------------------------------------------------------------------------

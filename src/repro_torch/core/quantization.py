@@ -67,28 +67,35 @@ class ActQuant(NamedTuple):
 
 
 def quantize_act(x: torch.Tensor, r_in: int, *,
+                 scale: Optional[torch.Tensor] = None,
+                 zero: Optional[torch.Tensor] = None,
                  segment_ids: Optional[torch.Tensor] = None,
                  num_segments: Optional[int] = None,
                  eps: float = 1e-8) -> ActQuant:
-    """Unsigned asymmetric activation quantization with a dynamic swing
-    (scale/zero from the tensor's own min/max, constants to the gradient;
-    the STE flows through the rounding only).
+    """Unsigned asymmetric activation quantization (the datapath's
+    signed-to-unsigned conversion + adaptive input swing).
+
+    A given `scale` or `zero` (a tensor or a float) is used as it is, and
+    the gradient flows into it as into any operand.  One left None is
+    computed from the tensor's own min/max (the dynamic swing), a
+    constant to the gradient; the STE flows through the rounding only.
 
     `segment_ids` (optional, shape (x.shape[0],) int, values in
-    [0, num_segments)) switches the min/max from tensor-global to
+    [0, num_segments)) switches the dynamic min/max from tensor-global to
     *per-segment* over the leading axis: rows sharing an id share one
     swing, rows of different segments never see each other's statistics.
     Min and max are exact, so a row's segment statistics equal its solo
-    statistics bit for bit, whatever its batchmates.  scale/zero then
-    broadcast per row, shape (x.shape[0], 1, ...).  `num_segments`
-    defaults to x.shape[0]."""
+    statistics bit for bit, whatever its batchmates.  The dynamic
+    scale/zero then broadcast per row, shape (x.shape[0], 1, ...).
+    `num_segments` defaults to x.shape[0]."""
     levels = 2.0 ** r_in - 1.0
     inv_levels = _static_reciprocal(levels)
+    if scale is not None:
+        scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
+    if zero is not None:
+        zero = torch.as_tensor(zero, dtype=x.dtype, device=x.device)
     xd = x.detach()
-    if segment_ids is None:
-        zero = torch.min(xd)
-        scale = torch.clamp_min(torch.max(xd) - zero, eps) * inv_levels
-    else:
+    if segment_ids is not None and (zero is None or scale is None):
         n_seg = x.shape[0] if num_segments is None else num_segments
         ids = segment_ids.to(device=x.device, dtype=torch.int64).reshape(-1)
         rows = xd.reshape(x.shape[0], -1)
@@ -100,8 +107,15 @@ def quantize_act(x: torch.Tensor, r_in: int, *,
                              device=x.device).scatter_reduce(
             0, ids, torch.amin(rows, dim=1), "amin")
         bshape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        zero = seg_min[ids].reshape(bshape)
-        scale = torch.clamp_min(seg_max[ids].reshape(bshape) - zero, eps) \
+        if zero is None:
+            zero = seg_min[ids].reshape(bshape)
+        if scale is None:
+            scale = torch.clamp_min(seg_max[ids].reshape(bshape)
+                                    - zero.detach(), eps) * inv_levels
+    if zero is None:
+        zero = torch.min(xd)
+    if scale is None:
+        scale = torch.clamp_min(torch.max(xd) - zero.detach(), eps) \
             * inv_levels
     q = ste_round(_clip((x - zero) / scale, 0.0, levels))
     return ActQuant(q=q, scale=scale, zero=zero)

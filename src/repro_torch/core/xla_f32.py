@@ -1,5 +1,5 @@
-"""XLA's float32 `log1p`, `erf_inv` and `exp`, rounded as XLA's CPU backend
-rounds them.
+"""XLA's float32 `log1p`, `erf_inv`, `exp` and `log2`, rounded as XLA's CPU
+backend rounds them.
 
 The JAX package draws its noise with `jax.random.normal`, which is
 `sqrt(2) * erf_inv(u)` over a uniform `u`, and settles the DPL with
@@ -34,7 +34,9 @@ doubles, each an exact float32.
 from __future__ import annotations
 
 import struct
+from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -168,6 +170,24 @@ def _log_f32(a: torch.Tensor) -> torch.Tensor:
                      _bits(r))
     rb = torch.where(ne0 & neinf, rb, torch.zeros_like(ib))
     return _float(sp | rb)
+
+
+def log2_f32(x: torch.Tensor, divisor: Optional[float] = None
+             ) -> torch.Tensor:
+    """`jnp.log2(x)` as jitted JAX computes it on the CPU, or
+    `jnp.log2(x) / divisor` for a constant float32 `divisor`.
+
+    `jnp.log2` is `log(x) / log(2)`: XLA's log, and the divide by the
+    constant turned into a multiply by its float32 reciprocal.  A further
+    divide by a constant folds into that one multiply, by f32(f32(1 /
+    log 2) * f32(1 / divisor)) (the ABN gamma quantizer's `log2(g) /
+    step`).  PyTorch's `log2` differs from it on about 30% of float32
+    inputs, and the result is rounded to a gamma level, so one ulp can
+    move a level."""
+    c = np.float32(1.0) / np.float32(np.log(np.float32(2.0)))
+    if divisor is not None:
+        c = np.float32(c * (np.float32(1.0) / np.float32(divisor)))
+    return _log_f32(x.to(torch.float32)) * float(c)
 
 
 def _poly(x: torch.Tensor, coeffs) -> torch.Tensor:

@@ -253,10 +253,11 @@ def test_noise_and_other_modes_raise():
     p = {"w": torch.zeros((4, 2)), "abn_log_gamma": torch.zeros(2),
          "abn_beta": torch.zeros(2)}
     x = torch.ones((1, 4))
-    # the engine and deploy modes are ported (tests/test_torch_serve.py);
-    # sim and a sharded engine layer are not
-    with pytest.raises(NotImplementedError):
-        tcl.cim_linear_apply(p, x, tcl.CIMConfig(mode="sim"))
+    # the engine and deploy modes are ported (tests/test_torch_serve.py),
+    # and sim (tests/test_torch_cim_macro.py); a sharded engine layer is
+    # not
+    assert tcl.cim_linear_apply(p, x, tcl.CIMConfig(mode="sim")).shape \
+        == (1, 2)
     with pytest.raises(NotImplementedError):
         tcl.cim_linear_apply(p, x, tcl.CIMConfig(mode="engine",
                                                  sharding=object()))

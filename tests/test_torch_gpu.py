@@ -15,7 +15,10 @@ through their graphs == reference == host, `--precision-policy mixed`
 fused == solo with no growth after warm-up), and the schedule tuner
 (every tile of `kernel.legal_tiles` == plain, `compile_program(tune=...)`
 in both modes == untuned, and the analytic cost's ranking of JAX's five
-pinned shapes against CUDA-event times at Spearman >= 0.7).
+pinned shapes against CUDA-event times at Spearman >= 0.7), and CIM-aware
+LeNet training (the card's fakequant logits == the host's, clean and
+noisy, gradients within `_close_grad`), engine-mode convs against
+fakequant and the host, and the sim mode against the host.
 
 These tests need an NVIDIA GPU (marker `gpu`) and skip without one.  They
 import neither JAX nor the JAX package, so they run where only PyTorch
@@ -1064,3 +1067,94 @@ def test_cost_spearman_vs_event_time(cuda_device):
             spec, heur, DEFAULT_MACRO, cuda_device))
     rho = _spearman(predicted, measured)
     assert rho >= 0.7, (rho, predicted, measured)
+
+
+def _nll(logits, labels):
+    lp = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.gather(lp, 1, labels[:, None].long()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noisy", (False, True))
+def test_lenet_train_step_on_card_matches_host(cuda_device, noisy):
+    """CIM-aware LeNet training (fakequant at (4, 2)): the card's logits
+    equal the host's bit for bit, clean and under one noise key (the
+    draws through threefry_normal), and the gradients agree within
+    tests/test_torch_fakequant.py's `_close_grad` (the conv ABN gains,
+    sums over every output pixel, within 1e-4 of the largest)."""
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    cim = CIMConfig(r_in=4, r_w=2, noise=NoiseConfig() if noisy
+                    else NoiseConfig(enabled=False))
+    host = tree_map(lambda t: t.requires_grad_(True),
+                    cnn.init_lenet(prng.key(0), cim=cim))
+    card = tree_map(lambda t: t.detach().to(cuda_device)
+                    .requires_grad_(True), host)
+    _, _, x, y = make_dataset(n_train=1, n_test=32, seed=4)
+    xh, yh = torch.from_numpy(x)[..., None], torch.from_numpy(y).long()
+    key = prng.key(3) if noisy else None
+    draw = pkernel.threefry_normal
+    before = draw.launches
+    yc = cnn.lenet_forward(card, xh.to(cuda_device), cim, key=key)
+    torch.cuda.synchronize()
+    assert (draw.launches > before) == noisy
+    yhost = cnn.lenet_forward(host, xh, cim, key=key)
+    assert torch.equal(yc.detach().cpu(), yhost.detach())
+    gc = torch.autograd.grad(_nll(yc, yh.to(cuda_device)), tree_leaves(card))
+    gh = torch.autograd.grad(_nll(yhost, yh), tree_leaves(host))
+    names = [f"{n}/{k}" for n in sorted(host) for k in sorted(host[n])]
+    for name, a, b in zip(names, gc, gh):
+        atol = 1e-4 if name.startswith("conv") and "gamma" in name else 1e-5
+        np.testing.assert_allclose(
+            a.cpu().numpy(), b.numpy(), rtol=1e-4,
+            atol=atol * max(float(b.abs().max()), 1e-30), err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride,padding", ((1, 1), (2, "SAME"),
+                                            (1, "VALID")))
+def test_engine_conv_on_card_tracks_fakequant(cuda_device, stride, padding):
+    """cim_conv2d_apply(mode="engine") on the card: the planned tiles on
+    cim_mbiw, within JAX's rtol 1e-4 / atol 1e-5 of fakequant, and equal
+    to the host's engine run bit for bit (LeNet's conv2 geometry)."""
+    from repro_torch.core import cim_layers as tcl
+    cim = CIMConfig(r_in=4, r_w=2)
+    p = tcl.init_cim_linear(prng.key(1), 9 * 16, 32, cfg=cim)
+    x = torch.relu(prng.normal(prng.key(2), (16, 14, 14, 16)))
+    pc = {k: v.to(cuda_device) for k, v in p.items()}
+    xc = x.to(cuda_device)
+    kern = tkernel.cim_mbiw_matmul_planes
+    before = kern.launches
+    y = tcl.cim_conv2d_apply(pc, xc, cim.replace(mode="engine"),
+                             stride=stride, padding=padding)
+    torch.cuda.synchronize()
+    assert kern.launches > before
+    fq = tcl.cim_conv2d_apply(pc, xc, cim, stride=stride, padding=padding)
+    assert y.shape == fq.shape
+    assert torch.allclose(y, fq, rtol=1e-4, atol=1e-5)
+    yh = tcl.cim_conv2d_apply(p, x, cim.replace(mode="engine"),
+                              stride=stride, padding=padding)
+    assert torch.equal(y.cpu(), yh)
+
+
+@pytest.mark.gpu
+def test_sim_layer_on_card_matches_host(cuda_device):
+    """The voltage-domain sim mode on the card: its codes are the host's
+    (integer dots, the same float chain), the dequantized output within
+    rtol 1e-5 of the host's (the zero-point column sums' order), and
+    under noise the draws run through threefry_normal."""
+    from repro_torch.core import cim_layers as tcl
+    cim = CIMConfig(mode="sim", r_in=4, r_w=2)
+    p = tcl.init_cim_linear(prng.key(5), 300, 24, cfg=cim)
+    x = prng.normal(prng.key(6), (32, 300))
+    pc = {k: v.to(cuda_device) for k, v in p.items()}
+    for noise, key in ((NoiseConfig(enabled=False), None),
+                       (NoiseConfig(), prng.key(7))):
+        c = cim.replace(noise=noise)
+        draw = pkernel.threefry_normal
+        before = draw.launches
+        y = tcl.cim_linear_apply(pc, x.to(cuda_device), c, key=key)
+        torch.cuda.synchronize()
+        assert (draw.launches > before) == noise.enabled
+        yh = tcl.cim_linear_apply(p, x, c, key=key)
+        np.testing.assert_allclose(y.cpu().numpy(), yh.numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(yh.abs().max()))

@@ -61,8 +61,19 @@ TUNER_SLICE = [
 ]
 
 
+# the CNN training slice: the conv layer and sim mode, the behavioural
+# macro, the ABN helpers, the models and data, and the dense configs
+CNN_SLICE = [
+    "core/cim_macro.py", "core/cim_layers.py", "core/digital_ref.py",
+    "core/abn.py", "core/quantization.py", "core/xla_f32.py",
+    "models/cnn.py", "data/pseudo_mnist.py", "optim/adamw.py",
+    "configs/granite_8b.py", "configs/minitron_4b.py",
+    "configs/qwen2_7b.py",
+]
+
+
 @pytest.mark.parametrize("rel", TRAIN_SLICE + NOISE_SLICE + SERVE_SLICE
-                         + PRECISION_SLICE + TUNER_SLICE)
+                         + PRECISION_SLICE + TUNER_SLICE + CNN_SLICE)
 def test_train_slice_module_is_checked(rel):
     assert PORT / rel in FILES
 

@@ -89,7 +89,12 @@ def test_lenet_schedule_pinned(monkeypatch):
 
 
 def test_lenet_forward_other_modes_not_ported():
+    """The other layer modes are ported (tests/test_torch_cnn_train.py
+    holds them against JAX); an unknown one raises."""
     params = tcnn.init_lenet(torch.Generator().manual_seed(1))
-    with pytest.raises(NotImplementedError):
-        tcnn.lenet_forward(params, torch.zeros(1, 28, 28, 1), CIMConfig(),
+    y = tcnn.lenet_forward(params, torch.zeros(1, 28, 28, 1), CIMConfig(),
                            device="cpu")
+    assert y.shape == (1, 10)
+    with pytest.raises(ValueError, match="unknown CIM mode"):
+        tcnn.lenet_forward(params, torch.zeros(1, 28, 28, 1),
+                           CIMConfig(mode="nope"))

@@ -263,8 +263,13 @@ def test_engine_layer_refuses_sharding_and_sim():
     with pytest.raises(NotImplementedError, match="sharded"):
         tcl.cim_linear_apply(p, x, tcl.CIMConfig(mode="engine",
                                                  sharding=object()))
-    with pytest.raises(NotImplementedError, match="sim"):
-        tcl.cim_linear_apply(p, x, tcl.CIMConfig(mode="sim"))
+    with pytest.raises(NotImplementedError, match="sharded"):
+        tcl.cim_conv2d_apply(
+            {**p, "w": p["w"][:36]}, torch.zeros((1, 3, 3, 4)),
+            tcl.CIMConfig(mode="engine", sharding=object()))
+    # the sim mode is ported (tests/test_torch_cim_macro.py)
+    assert tcl.cim_linear_apply(p, x, tcl.CIMConfig(mode="sim")).shape \
+        == (1, p["w"].shape[1])
 
 
 def test_engine_forward_under_a_noise_key():

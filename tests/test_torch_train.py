@@ -363,7 +363,10 @@ def test_bf16_digital_ops_match_jax_bit_for_bit(op):
 
 def test_configs_register_only_what_is_ported():
     from repro_torch.configs import ARCH_IDS, get_config
-    assert ARCH_IDS == ["olmo_1b"]
+    # the dense family (tests/test_torch_dense_configs.py holds the other
+    # three against JAX)
+    assert sorted(ARCH_IDS) == ["granite_8b", "minitron_4b", "olmo_1b",
+                                "qwen2_7b"]
     cfg = get_config("olmo-1b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
             cfg.vocab_size) == (16, 2048, 16, 8192, 50304)
