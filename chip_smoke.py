@@ -239,7 +239,38 @@ a result:
                 that phase 2 holds against the plain version),
                 train/decode consistency over 8 tokens (< 0.1), peak
                 memory.  The step runner (train_steps) is phase 7's.
- 13. times    - CUDA-event times of each kernel, its plain version and a
+ 13. shard    - the sharded multi-macro engine, every mesh folded onto
+                the card (ShardingConfig(fold_onto="cuda"), the port's
+                counterpart of the host device count the JAX package
+                fakes a bank of macros with).  LeNet at batch 256, (4, 2)
+                and (8, 4), D {1, 2, 4, 8}, each kind forced on every
+                layer through plan_network(schedule=): a clean serve by
+                graph replay, its eager run and the card reference, and a
+                noisy serve under prng.key(1), each == the unsharded
+                program bit for bit (itself == the CPU run, clean and
+                noisy; D 8 also == its own CPU run), a replay's cim_mbiw
+                launches == the plan's sharded tile calls (dummy tiles
+                and rows included); host ms, event ms and profiled
+                device ms of a serve at each D and kind.  Engine-mode
+                cim_linear_apply at OLMo-1B's projection widths
+                (2048->2048, 2048->8192, 8192->2048), rows 4 and 128,
+                D 4, both kinds == unsharded.  launch/serve.py's build
+                (sharding=ShardingConfig(devices=4, folded)) at OLMo-1B's
+                full width, depth cut to 4, bf16, engine (8, 4), batch 4,
+                prompt 32, 8 new tokens: tokens and the last step's
+                logits == the unsharded serve, no growth after warm-up;
+                in flight 8 requests at 4 slots over D 8: fused == each
+                request's sequential decode.  The tuner at D 4 on LeNet
+                (4, 2): every (tile, kind) candidate of every layer ==
+                untuned; the analytic winners and their event us.
+                flash_attention_sharded at B 2, H 16, S 4096, D 128,
+                causal, bf16 over a folded (data 1, model 4) mesh,
+                forward and backward: one tensor-core launch a piece
+                each, against the unsharded kernel calls within 2e-5
+                (the bf16 output one ulp) and 5e-5 (float32 gradients),
+                bit-equality reported.  Placement across cards runs only
+                with 2 cards; otherwise a line says it was not run.
+ 14. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
                 ring_decode and the flash kernels: yardsticks the port
@@ -2423,6 +2454,422 @@ def flash_checks(fk, fref, dev) -> dict:
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
+# the shard phase (phase 13): the sharded multi-macro engine, its
+# partitions folded onto the one card
+SHARD_DEVICES = (1, 2, 4, 8)
+SHARD_LENET_POINTS = ((4, 2), (8, 4))
+SHARD_PROJECTIONS = ((2048, 2048), (2048, 8192), (8192, 2048))
+SHARD_PROJ_ROWS = (4, 128)
+SHARD_PROJ_DEVICES = 4
+SHARD_SERVE_DEVICES = 4
+SHARD_SERVE_DEPTH = 4
+SHARD_SERVE_GEN = 8
+SHARD_INFLIGHT_DEVICES = 8
+SHARD_TUNE_DEVICES = 4
+SHARD_FLASH = (2, 16, 4096, 128)          # B, H (= kv heads), S, D
+SHARD_FLASH_MESH = ((1, 4), ("data", "model"))
+SHARD_CROSS_DEVICES = 2
+
+
+def shard_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
+    """The sharded multi-macro engine (module docstring, phase 13), every
+    mesh folded onto `dev` (ShardingConfig(fold_onto=...)), the one card
+    standing in for the bank of macros."""
+    from repro_torch.core import cim_layers as tcl
+    from repro_torch.core import mapping, prng
+    from repro_torch.core.hw import DEFAULT_MACRO
+    from repro_torch.core.noise_model import NoiseConfig
+    from repro_torch.data.pseudo_mnist import make_dataset
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import cnn
+    from repro_torch.models.sharding import use_mesh
+    from repro_torch.tuner import search as tsearch
+    fold = dev.type
+
+    def sharding(d):
+        return trt.ShardingConfig(devices=d, fold_onto=fold)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    rec: dict = {}
+    reset_counts(kern)
+    images = torch.from_numpy(make_dataset(n_train=1, n_test=LENET_BATCH,
+                                           seed=0)[2][..., None])
+
+    # -- LeNet at batch 256: D in SHARD_DEVICES x both kinds ------------------
+    lenet = {}
+    for r_in, r_w in SHARD_LENET_POINTS:
+        cim = tcl.CIMConfig(r_in=r_in, r_w=r_w)
+        specs, acts, pools = cnn.lenet_engine_specs(LENET_BATCH, cim=cim)
+        cfg = tcl._engine_config(cim)
+        ncfg = cfg.replace(noise=NoiseConfig())
+        params = cnn.lenet_params_list(
+            cnn.init_lenet(torch.Generator().manual_seed(0), cim=cim))
+        key = prng.key(1)
+        base = tprog.compile_program(specs, cfg, activations=acts,
+                                     pools=pools, device=dev).bind(params)
+        want = base.serve(images)
+        nwant = tprog.compile_program(specs, ncfg, activations=acts,
+                                      pools=pools, device=dev).bind(
+            params).serve(images, key)
+        host = tprog.compile_program(specs, cfg, activations=acts,
+                                     pools=pools, device="cpu").bind(params)
+        check(torch.equal(want.cpu(), host.serve(images)),
+              f"shard LeNet ({r_in},{r_w}): the unsharded card run != CPU")
+        nhost = tprog.compile_program(specs, ncfg, activations=acts,
+                                      pools=pools, device="cpu").bind(params)
+        check(torch.equal(nwant.cpu(), nhost.serve(images, key)),
+              f"shard LeNet ({r_in},{r_w}) noisy: card != CPU")
+        rows = {}
+        for d in SHARD_DEVICES:
+            for kind in ("col", "rows"):
+                sched = [(None, kind)] * len(specs)
+                plan = trt.plan_network(specs, cfg.replace(
+                    sharding=sharding(d)), acts, pools, schedule=sched)
+                bound = tprog.program_for_plan(plan, device=dev).bind(
+                    params)
+                first = bound.serve(images)          # warm-up and capture
+                before = kern.launches
+                y = bound.serve(images)              # a replay
+                sync()
+                calls = kern.launches - before
+                what = f"shard LeNet ({r_in},{r_w}) D={d} {kind}"
+                check(calls == len(plan.tile_calls(LENET_BATCH)),
+                      f"{what}: a replay launched {calls} cim_mbiw != the "
+                      f"{len(plan.tile_calls(LENET_BATCH))} planned calls")
+                check(torch.equal(first, want) and torch.equal(y, want)
+                      and torch.equal(eager_forward(trt, bound, images),
+                                      want)
+                      and torch.equal(bound.reference(images), want),
+                      f"{what}: replay / eager / reference != unsharded")
+                nplan = trt.plan_network(specs, ncfg.replace(
+                    sharding=sharding(d)), acts, pools, schedule=sched)
+                nb = tprog.program_for_plan(nplan, device=dev).bind(params)
+                check(torch.equal(nb.serve(images, key), nwant),
+                      f"{what} noisy: != the unsharded noisy serve")
+                if d == SHARD_DEVICES[-1]:
+                    hplan = trt.plan_network(specs, cfg.replace(
+                        sharding=trt.ShardingConfig(devices=d,
+                                                    fold_onto="cpu")),
+                        acts, pools, schedule=sched)
+                    check(torch.equal(tprog.program_for_plan(
+                        hplan, device="cpu").bind(params).serve(images)
+                        .to(y.device), y), f"{what}: != the CPU run")
+                lat = []
+                for _ in range(7):
+                    sync()
+                    t0 = time.perf_counter()
+                    bound.serve(images)
+                    sync()
+                    lat.append(1e3 * (time.perf_counter() - t0))
+                row = {"host_ms": statistics.median(lat[2:]),
+                       "launches_a_serve": calls,
+                       "kinds": [lp.shard.kind for lp in plan.layers]}
+                if dev.type == "cuda":
+                    row["event_ms"] = cuda_ms(lambda: bound.serve(images), 5)
+                    prof = device_profile(lambda: bound.serve(images), 3,
+                                          cpu=False)
+                    row["device_ms"] = (prof["device_us"] / 1e3
+                                        if prof else None)
+                rows[f"D{d} {kind}"] = row
+                del bound, nb
+        lat = []
+        for _ in range(7):
+            sync()
+            t0 = time.perf_counter()
+            base.serve(images)
+            sync()
+            lat.append(1e3 * (time.perf_counter() - t0))
+        rows["unsharded"] = {"host_ms": statistics.median(lat[2:])}
+        if dev.type == "cuda":
+            rows["unsharded"]["event_ms"] = cuda_ms(
+                lambda: base.serve(images), 5)
+        lenet[f"{r_in}x{r_w}"] = rows
+        txt = "; ".join(
+            f"{k} host {v['host_ms']:.2f} ms" + (
+                f", device {v['device_ms']:.3f} ms"
+                if v.get("device_ms") is not None else
+                ", device not measured" if "device_ms" in v else "")
+            for k, v in rows.items())
+        print(f"shard lenet {tag} ({r_in},{r_w}) batch {LENET_BATCH}: D "
+              f"{SHARD_DEVICES} x kinds col/rows folded onto {fold}, clean "
+              f"(graph replay and eager) and noisy (prng.key(1)) == the "
+              f"unsharded program == the card reference == the CPU run, "
+              f"bit for bit; launches = planned sharded calls; {txt}",
+              flush=True)
+    rec["lenet"] = lenet
+
+    # -- engine-mode projections at OLMo-1B widths, D = 4 ---------------------
+    proj = {}
+    cimp = tcl.CIMConfig(mode="engine", r_in=8, r_w=4, max_gamma=2.0**16)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for k, n in SHARD_PROJECTIONS:
+        p = tcl.init_cim_linear(gen, k, n, cfg=cimp)
+        for rows_n in SHARD_PROJ_ROWS:
+            x = torch.randn((rows_n, k), generator=gen, device=dev)
+            want = tcl.cim_linear_apply(p, x, cimp)
+            shd = cimp.replace(sharding=sharding(SHARD_PROJ_DEVICES))
+            got = tcl.cim_linear_apply(p, x, shd)
+            spec = mapping.LayerSpec(
+                m=tprog.DEFAULT_BUCKETS.bucket_for(rows_n), k=k, n=n,
+                r_in=8, r_w=4)
+            auto = trt.plan_layer(spec, tcl._engine_config(shd)).shard.kind
+            check(torch.equal(got, want), f"shard projection {k}->{n} rows "
+                  f"{rows_n} D={SHARD_PROJ_DEVICES} ({auto}): != unsharded")
+            other = "rows" if auto == "col" else "col"
+            plan = trt.plan_network([spec], tcl._engine_config(shd), ["none"],
+                                    schedule=[(None, other)])
+            got2 = tprog.bound_for(tprog.program_for_plan(plan, device=dev),
+                                   p).serve(x)
+            check(torch.equal(got2, want), f"shard projection {k}->{n} rows "
+                  f"{rows_n} D={SHARD_PROJ_DEVICES} ({other}): != unsharded")
+            proj[f"{k}x{n} rows {rows_n}"] = [auto, other]
+        del p
+    rec["projections"] = proj
+    print(f"shard projections {tag}: cim_linear_apply engine (8, 4) at "
+          f"{', '.join(f'{k}->{n}' for k, n in SHARD_PROJECTIONS)}, rows "
+          f"{SHARD_PROJ_ROWS}, D={SHARD_PROJ_DEVICES}, both kinds == "
+          f"unsharded bit for bit", flush=True)
+
+    # -- the LM serve launcher: OLMo-1B full width, depth cut ----------------
+    args = serve.parser().parse_args(
+        ["--arch", "olmo-1b", "--cim-mode", "engine", "--batch",
+         str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT), "--gen-len",
+         str(SHARD_SERVE_GEN), "--seed", "0", "--device", str(dev)])
+    max_len = SERVE_PROMPT + SHARD_SERVE_GEN + 8
+    runs = {}
+    for label, sh in (("unsharded", None),
+                      (f"D{SHARD_SERVE_DEVICES}",
+                       sharding(SHARD_SERVE_DEVICES))):
+        cfg, params, _ = serve.build(args, sh)
+        check(cfg.cim.sharding == sh and cfg.dtype == "bfloat16"
+              and (cfg.cim.r_in, cfg.cim.r_w) == (8, 4),
+              f"shard serve config: {cfg.cim}")
+        cfg = cfg.replace(n_layers=SHARD_SERVE_DEPTH)
+        params = dict(params, layers=params["layers"][:SHARD_SERVE_DEPTH])
+        prompt = serve.make_prompt(cfg.vocab_size, SERVE_BATCH,
+                                   SERVE_PROMPT, 0, dev)
+        t0 = time.perf_counter()
+        out = serve.static_serve(cfg, params, prompt, SHARD_SERVE_GEN,
+                                 max_len=max_len, keep_logits=True)
+        out["wall_s"] = time.perf_counter() - t0
+        growth = {k_: v for k_, v in out["growth"].items()}
+        check(all(v == 0 for v in growth.values()),
+              f"shard serve {label}: the decode loop grew {growth}")
+        runs[label] = out
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    a, b = runs.values()
+    check(torch.equal(a["tokens"], b["tokens"])
+          and torch.equal(a["logits"][-1], b["logits"][-1]),
+          "shard serve: sharded tokens or last logits != unsharded")
+    rec["serve"] = {lbl: {"tokens": o["tokens"].tolist(),
+                          "decode_host_ms_per_step":
+                          1e3 * o["decode_s"] / max(o["steps"], 1),
+                          "prefill_s": o["prefill_s"], "warm_s": o["warm_s"],
+                          "wall_s": o["wall_s"]}
+                    for lbl, o in runs.items()}
+    print(f"shard serve {tag}: OLMo-1B full width, depth {SHARD_SERVE_DEPTH} "
+          f"(cut from 16), bf16, engine (8, 4), batch {SERVE_BATCH}, prompt "
+          f"{SERVE_PROMPT}, gen {SHARD_SERVE_GEN}, build(sharding="
+          f"ShardingConfig(devices={SHARD_SERVE_DEVICES}, fold_onto="
+          f"{fold!r})): tokens and last logits == unsharded; no plan, "
+          f"capture or eager dispatch after warm-up; decode host ms a step "
+          + ", ".join(f"{k_} {v['decode_host_ms_per_step']:.1f}"
+                      for k_, v in rec["serve"].items()), flush=True)
+    del runs, a, b
+
+    # -- in flight over D = 8 -------------------------------------------------
+    cfg, params, _ = serve.build(args, sharding(SHARD_INFLIGHT_DEVICES))
+    icfg = cfg.replace(n_layers=SHARD_SERVE_DEPTH,
+                       cim=cfg.cim.replace(isolate_rows=True))
+    iparams = dict(params, layers=params["layers"][:SHARD_SERVE_DEPTH])
+    del params
+    reqs = serve.make_requests(icfg.vocab_size, SERVE_INFLIGHT_REQUESTS,
+                               SERVE_PROMPT, SHARD_SERVE_GEN, 0)
+    fused = serve.inflight_serve(icfg, iparams, reqs, SERVE_INFLIGHT_SLOTS,
+                                 max_len=max_len, device=dev)
+    check(all(v == 0 for v in fused["growth"].values()),
+          f"shard inflight: the loop after warm-up grew {fused['growth']}")
+    check(len(set(fused["slot"].values())) > 1,
+          "shard inflight: no request ever shared a step")
+    t0 = time.perf_counter()
+    for r in reqs:
+        solo = serve.inflight_serve(icfg, iparams, [dict(r, arrival=0)],
+                                    SERVE_INFLIGHT_SLOTS, max_len=max_len,
+                                    device=dev)
+        check(solo["tokens"][r["uid"]] == fused["tokens"][r["uid"]]
+              and len(solo["tokens"][r["uid"]]) == r["gen"],
+              f"shard inflight: request {r['uid']} != its solo decode")
+    rec["inflight"] = {
+        "devices": SHARD_INFLIGHT_DEVICES, "requests": len(reqs),
+        "decode_steps": fused["decode_steps"], "decode_s": fused["decode_s"],
+        "solo_check_s": time.perf_counter() - t0,
+        "streams": {str(u): t for u, t in fused["tokens"].items()}}
+    print(f"shard inflight {tag}: {len(reqs)} requests at "
+          f"{SERVE_INFLIGHT_SLOTS} slots over D={SHARD_INFLIGHT_DEVICES} "
+          f"folded, depth {SHARD_SERVE_DEPTH}: fused == sequential for "
+          f"every request, {fused['decode_steps']} fused steps in "
+          f"{fused['decode_s']:.2f} s", flush=True)
+    del iparams
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- the tuner at D = 4 on LeNet -------------------------------------------
+    cim = tcl.CIMConfig(r_in=4, r_w=2)
+    specs, acts, pools = cnn.lenet_engine_specs(LENET_BATCH, cim=cim)
+    cfg = tcl._engine_config(cim).replace(sharding=sharding(
+        SHARD_TUNE_DEVICES))
+    params = cnn.lenet_params_list(
+        cnn.init_lenet(torch.Generator().manual_seed(0), cim=cim))
+    want = tprog.compile_program(specs, tcl._engine_config(cim),
+                                 activations=acts, pools=pools,
+                                 device=dev).bind(params).serve(images)
+    n_cand = 0
+    for i, spec in enumerate(specs):
+        for c in tsearch.layer_candidates(spec, cfg, SHARD_TUNE_DEVICES):
+            sched = [None] * len(specs)
+            sched[i] = (c.blocks, c.shard_kind)
+            prog = tprog.program_for_plan(trt.plan_network(
+                specs, cfg, acts, pools, schedule=sched), device=dev)
+            check(torch.equal(prog.run(params, images), want),
+                  f"shard tuner: layer {i} candidate {c} != untuned")
+            n_cand += 1
+    plan, reps = tsearch.tune_network(specs, cfg, acts, pools,
+                                      mode="analytic", cache_path="",
+                                      device=dev)
+    check(torch.equal(tprog.program_for_plan(plan, device=dev).bind(
+        params).serve(images), want), "shard tuner: tuned plan != untuned")
+    winners = []
+    for spec, lp, rep in zip(specs, plan.layers, reps):
+        c = rep["choice"]
+        us = (1e6 * tsearch._measure_choice_s(spec, c, DEFAULT_MACRO, dev,
+                                              SHARD_TUNE_DEVICES)
+              if dev.type == "cuda" else None)
+        winners.append({"tile": list(c.blocks), "kind": lp.shard.kind,
+                        "predicted_s": rep["predicted_s"], "event_us": us})
+    rec["tuner"] = {"devices": SHARD_TUNE_DEVICES, "candidates": n_cand,
+                    "winners": winners}
+    print(f"shard tuner {tag}: LeNet (4, 2) batch {LENET_BATCH} at "
+          f"D={SHARD_TUNE_DEVICES} folded: {n_cand} (tile, kind) candidates "
+          f"== untuned; analytic winners " + "; ".join(
+              f"layer {i} {w['tile']} {w['kind']} "
+              + (f"{w['event_us']:.1f} us a dispatch"
+                 if w["event_us"] is not None else "not timed")
+              for i, w in enumerate(winners)), flush=True)
+    route_launches = kernel_counts(kern)
+
+    # -- flash_attention_sharded: a folded (data 1, model 4) mesh -------------
+    b, h, s, d = SHARD_FLASH
+    mesh = make_mesh(*SHARD_FLASH_MESH, fold_onto=fold)
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    kerns = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
+    for kf in kerns:
+        kf.launches = kf.launches_tc = 0
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    with use_mesh(mesh):
+        out = fops.flash_attention_sharded(qg, kg, vg, True, 0)
+    out.backward(do)
+    sync()
+    flash_launches = {kf.__name__: (kf.launches, kf.launches_tc)
+                      for kf in kerns}
+    pieces = fops.sharded_pieces(mesh, b, s)
+    check(len(pieces) == 4 and all(
+        n == (len(pieces), len(pieces) if dev.type == "cuda" else 0)
+        for n in flash_launches.values()),
+        f"shard flash: launches (all, tc) {flash_launches} != one a piece "
+        f"on the tensor cores")
+    o, lse = fops.sharded_forward(q, k, v, True, 0, pieces)
+    dq, dk, dv = fops.sharded_backward(q, k, v, o, lse, do, True, 0, pieces)
+    zero = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    o1, lse1 = fk.flash_fwd(qt, kt, vt, zero, causal=True)
+    o1 = o1.transpose(1, 2)
+    delta = torch.sum(do.float() * o1.float(), -1).transpose(1, 2) \
+        .contiguous()
+    args_b = (qt, kt, vt, dot, lse1, delta, zero)
+    dq1 = fk.flash_bwd_dq(*args_b, causal=True)
+    dk1, dv1 = fk.flash_bwd_dkv(*args_b, causal=True)
+    err = {"o": float((o.float() - o1.float()).abs().max()),
+           "lse": float((lse - lse1).abs().max()),
+           "dq": float((dq - dq1).abs().max()),
+           "dk": float((dk - dk1).abs().max()),
+           "dv": float((dv - dv1).abs().max())}
+    equal = {"o": torch.equal(o, o1), "lse": torch.equal(lse, lse1),
+             "dq": torch.equal(dq, dq1), "dk": torch.equal(dk, dk1),
+             "dv": torch.equal(dv, dv1)}
+    check(torch.equal(out, o) and torch.equal(
+        qg.grad, dq.transpose(1, 2).to(q.dtype)),
+        "shard flash: autograd through the pieces != the pieces' kernels")
+    check(torch.allclose(o.float(), o1.float(), rtol=2.0 ** -7, atol=2e-5)
+          and torch.allclose(lse, lse1, rtol=2e-5, atol=2e-5),
+          f"shard flash forward outside 2e-5 (o one bf16 ulp): {err}")
+    for name, got, ref in (("dq", dq, dq1), ("dk", dk, dk1),
+                           ("dv", dv, dv1)):
+        check(torch.allclose(got, ref, rtol=5e-5, atol=5e-5),
+              f"shard flash {name} outside 5e-5: {err}")
+    times = {}
+    if dev.type == "cuda":
+        def sharded_step():
+            fops.sharded_backward(q, k, v, o, lse, do, True, 0, pieces)
+            fops.sharded_forward(q, k, v, True, 0, pieces)
+
+        def plain_step():
+            fk.flash_bwd_dq(*args_b, causal=True)
+            fk.flash_bwd_dkv(*args_b, causal=True)
+            fk.flash_fwd(qt, kt, vt, zero, causal=True)
+        times = {"sharded_ms": cuda_ms(sharded_step, 5),
+                 "unsharded_ms": cuda_ms(plain_step, 5)}
+    rec["flash"] = {"shape": SHARD_FLASH, "mesh": SHARD_FLASH_MESH,
+                    "max_abs_err": err, "bit_equal": equal,
+                    "launches": flash_launches, **times}
+    print(f"shard flash {tag}: flash_attention_sharded B {b} H {h} S {s} D "
+          f"{d} causal bf16 over a folded (data 1, model 4) mesh, forward "
+          f"and backward: launches (all, tc) {flash_launches}; against the "
+          f"unsharded kernel calls max abs err {err}, bit-equal {equal}"
+          + (f"; fwd+bwd {times['sharded_ms']:.3f} ms sharded, "
+             f"{times['unsharded_ms']:.3f} ms unsharded" if times else ""),
+          flush=True)
+
+    # -- placement across cards ---------------------------------------------
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_cards >= SHARD_CROSS_DEVICES:
+        spec = [mapping.LayerSpec(m=8, k=1300, n=300, r_in=4, r_w=2)]
+        p1 = tprog.compile_program(spec, device=dev)
+        params = p1.init_params(torch.Generator().manual_seed(4))
+        xc = torch.randn((8, 1300), generator=torch.Generator().manual_seed(5))
+        want = p1.bind(params).serve(xc)
+        for kind in ("col", "rows"):
+            plan = trt.plan_network(spec, trt.EngineConfig(
+                sharding=trt.ShardingConfig(devices=SHARD_CROSS_DEVICES)),
+                schedule=[(None, kind)])
+            check(torch.equal(tprog.program_for_plan(plan, device=dev).bind(
+                params).serve(xc), want), f"shard across cards {kind}: != "
+                "unsharded")
+        rec["across_cards"] = "run"
+        print(f"shard across cards {tag}: D={SHARD_CROSS_DEVICES} on "
+              f"{n_cards} cards, both kinds == unsharded", flush=True)
+    else:
+        rec["across_cards"] = (f"not run: {n_cards} card(s) visible, "
+                               f"placement across cards needs "
+                               f"{SHARD_CROSS_DEVICES}")
+        print(f"shard across cards {tag}: not run - this machine shows "
+              f"{n_cards} card(s) and placement across cards needs "
+              f"{SHARD_CROSS_DEVICES}; not counted as a pass", flush=True)
+    rec["launches"] = {
+        "cim_mbiw": route_launches[0], "cim_mbiw_tc": route_launches[1],
+        "cim_mbiw_splitk": route_launches[2],
+        **{f"{name}_tc": n[1] for name, n in flash_launches.items()}}
+    return rec
+
+
 def train_steps(cfg, state, step_fn, batches, what) -> tuple:
     """make_train_step's step over `batches`, with the flash counts set to
     0 just before and read just after: (state, record of the host ms a
@@ -3330,7 +3777,18 @@ def main() -> int:
     phase_s["dense"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 13. times -----------------------------------------------------------
+    # -- 13. the sharded multi-macro engine ---------------------------------
+    cap_mark = len(clock.seconds)
+    shard = shard_phase(dev, tag, kern, kmod, tprog, trt)
+    report["shard"] = shard
+    graphs["shard"] = dict(clock.since(cap_mark),
+                           capture_count=trt.CAPTURE_COUNT["n"],
+                           pool_bytes=graph_pool_bytes(tprog, dev))
+    torch.cuda.empty_cache()
+    phase_s["shard"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 14. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -3513,14 +3971,15 @@ def main() -> int:
            and r["m"] == DECODE_CAPACITY]
     nl, nd = noise["launches"], ndec["launches"]
     ls, lp, lt = lserve["launches"], prec["launches"], tune["launches"]
-    lc = ctrain["launches"]
+    lc, lsh = ctrain["launches"], shard["launches"]
     route_launches = {
         "tc": main_routes["tc"] + nl["cim_mbiw_tc"] + ls["cim_mbiw_tc"]
-        + lp["cim_mbiw_tc"] + lt["cim_mbiw_tc"] + lc["cim_mbiw_tc"],
+        + lp["cim_mbiw_tc"] + lt["cim_mbiw_tc"] + lc["cim_mbiw_tc"]
+        + lsh["cim_mbiw_tc"],
         "splitk": main_routes["splitk"] + dec_splitk + nl["cim_mbiw_splitk"]
         + nd["cim_mbiw_splitk"] + ls["cim_mbiw_splitk"]
         + lp["cim_mbiw_splitk"] + lt["cim_mbiw_splitk"]
-        + lc["cim_mbiw_splitk"],
+        + lc["cim_mbiw_splitk"] + lsh["cim_mbiw_splitk"],
         "cuda_core": main_routes["all"] - main_routes["tc"]
         - main_routes["splitk"] + dec_cim - dec_splitk + nl["cim_mbiw"]
         - nl["cim_mbiw_tc"] - nl["cim_mbiw_splitk"] + nd["cim_mbiw"]
@@ -3528,7 +3987,8 @@ def main() -> int:
         - ls["cim_mbiw_splitk"] + lp["cim_mbiw"] - lp["cim_mbiw_tc"]
         - lp["cim_mbiw_splitk"] + lt["cim_mbiw"] - lt["cim_mbiw_tc"]
         - lt["cim_mbiw_splitk"] + lc["cim_mbiw"] - lc["cim_mbiw_tc"]
-        - lc["cim_mbiw_splitk"]}
+        - lc["cim_mbiw_splitk"] + lsh["cim_mbiw"] - lsh["cim_mbiw_tc"]
+        - lsh["cim_mbiw_splitk"]}
 
     def route_entry(name, route, src, rows):
         mult = [2 if r["k"] == 784 and r["shape"] == "lenet" else 1
@@ -3562,7 +4022,8 @@ def main() -> int:
         "plain_ms": r_plain, "bound_ms": r_bnd, "bound_by": r_by,
         "library_ms": r_lib}]}
     # flash: the train paths' launches (OLMo-1B and the dense configs, all
-    # on the tensor-core kernels); times at OLMo's attention shape in bf16
+    # on the tensor-core kernels) and flash_attention_sharded's pieces;
+    # times at OLMo's attention shape in bf16
     for kind, line, src in (("fwd", 41, "flash_fwd_tc.cu"),
                             ("dq", 134, "flash_bwd_dq_tc.cu"),
                             ("dkv", 168, "flash_bwd_dkv_tc.cu")):
@@ -3573,7 +4034,7 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/flash_attn/csrc/{src}",
             "replaces": f"src/repro/kernels/flash_attn/kernel.py:{line}",
             "launches": train["launches_tc"][name]
-            + dense["launches_tc"][name],
+            + dense["launches_tc"][name] + lsh[f"{name}_tc"],
             "max_abs_err": max(flash["max_abs_err"][kind].values()),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -3618,7 +4079,8 @@ def main() -> int:
         "precision": prec["launches"],
         "tuner": tune["launches"],
         "cnn_train": lc,
-        "dense": dense["launches"]}
+        "dense": dense["launches"],
+        "shard": lsh}
     report["total_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

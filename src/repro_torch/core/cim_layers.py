@@ -31,8 +31,9 @@ through, in four of its modes:
 `cim_conv2d_apply` runs a conv through the same modes: engine mode plans
 the conv natively (the runtime streams the im2col itself), every other
 mode materializes the patch tensor and detours through
-`cim_linear_apply`.  A sharded engine layer (`CIMConfig.sharding`) is
-not ported.
+`cim_linear_apply`.  An engine layer with `CIMConfig.sharding` (a
+runtime `ShardingConfig`) runs the sharded multi-macro schedule, bit for
+bit equal to the unsharded one.
 
 Parameters per layer: {"w": (K, N) fp32 master weights,
                        "abn_log_gamma": (N,), "abn_beta": (N,)}.
@@ -71,8 +72,9 @@ class CIMConfig:
     noise: NoiseConfig = NO_NOISE    # fakequant: injected under a key;
                                      # engine programs: their noise mode
     macro: CIMMacroConfig = DEFAULT_MACRO
-    sharding: Optional[object] = None   # the JAX package's sharded engine
-                                        # layer: not ported, raises
+    sharding: Optional[object] = None   # runtime.engine.ShardingConfig -
+                                        # multi-macro dispatch in mode
+                                        # "engine" (ignored by other modes)
     isolate_rows: bool = False          # mode "engine" only: each leading
                                         # batch row is its own activation-
                                         # quantization segment, so fused
@@ -150,9 +152,13 @@ def _engine_config(cfg: CIMConfig):
     """The runtime EngineConfig mirroring a layer-level CIMConfig (so equal
     layer configs hit one program-cache entry)."""
     from repro_torch.runtime import engine as rt
+    if cfg.sharding is not None \
+            and not isinstance(cfg.sharding, rt.ShardingConfig):
+        raise TypeError(f"CIMConfig.sharding must be a runtime "
+                        f"ShardingConfig, got {type(cfg.sharding).__name__}")
     return rt.EngineConfig(macro=cfg.macro, adaptive_swing=cfg.adaptive_swing,
                            gamma_bits=cfg.gamma_bits, max_gamma=cfg.max_gamma,
-                           noise=cfg.noise)
+                           noise=cfg.noise, sharding=cfg.sharding)
 
 
 def _engine_forward(params: Dict, x: torch.Tensor, cfg: CIMConfig,
@@ -171,9 +177,6 @@ def _engine_forward(params: Dict, x: torch.Tensor, cfg: CIMConfig,
     only: no gradient flows."""
     from repro_torch.runtime.program import (DEFAULT_BUCKETS, bound_for,
                                              compile_program)
-    if cfg.sharding is not None:
-        raise NotImplementedError(
-            "a sharded engine layer (CIMConfig.sharding) is not ported")
     k_dim, n = params["w"].shape
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, k_dim)
@@ -459,9 +462,6 @@ def _engine_conv_forward(params: Dict, x: torch.Tensor, cfg: CIMConfig,
     activation-quantization segment.  Inference only."""
     from repro_torch.runtime.program import (DEFAULT_BUCKETS, bound_for,
                                              compile_program)
-    if cfg.sharding is not None:
-        raise NotImplementedError(
-            "a sharded engine layer (CIMConfig.sharding) is not ported")
     g = spec.conv
     bucket = DEFAULT_BUCKETS.bucket_for(x.shape[0])
     if bucket != g.batch:

@@ -111,12 +111,15 @@ class GPUSpec:
     hbm_bytes: float
     l2_bytes: int
     smem_per_sm: int         # bytes of shared memory an SM holds
+    nvlink_bw: float         # byte/s one card receives over NVLink
 
 
 DEFAULT_MACRO = CIMMacroConfig()
 # NVIDIA's H100 SXM data sheet and Hopper white paper (700 W); the int32
-# rate is 64 lanes x 132 SMs x 1.98 GHz
+# rate is 64 lanes x 132 SMs x 1.98 GHz.  NVLink: the data sheet's
+# 900 GB/s is both directions of 18 fourth-generation links; one card
+# receives at most half of it.  A specification, not a measurement.
 H100_SXM = GPUSpec(name="h100_sxm", int8_ops=1979e12, bf16_flops=989e12,
                    f32_flops=67e12, int32_ops=16.7e12, hbm_bw=3.35e12,
                    sms=132, hbm_bytes=80e9, l2_bytes=50 * 2**20,
-                   smem_per_sm=228 * 2**10)
+                   smem_per_sm=228 * 2**10, nvlink_bw=450e9)

@@ -1,8 +1,8 @@
 """Layer -> macro tiling (Sec. III.A/IV): how a GEMM or conv maps onto the
-1152x256 array and how many macro invocations it costs.
+1152x256 array, how many macro invocations it costs, and how the
+resulting tile schedule partitions across replicated macros (devices).
 
-Counterpart of `repro/core/mapping.py` (without the multi-macro
-`shard_layer` partition, which waits for the sharding slice).
+Counterpart of `repro/core/mapping.py`.
 
 Constraints reproduced from the chip:
   * rows: K_eff = kernel_h*kernel_w*C_in bitcell rows per filter column,
@@ -13,8 +13,18 @@ Constraints reproduced from the chip:
     4-column block; 64 blocks -> 64 output channels per tile (r_w<=4).
   * minimum configuration: 4 input channels (one 36-row unit) in conv mode.
 
+Multi-macro sharding (the paper's system-level scaling assumption - the
+1152x256 macro is a building block replicated for the 40 TOPS/W system
+numbers): column tiles of one layer are independent macro programs, so a
+bank of D macros evaluates them in parallel (`shard_layer` kind "col"); a
+layer with fewer col tiles than macros instead splits its GEMM-row
+dimension M = batch*out_h*out_w, every macro holding the same weights
+("rows" kind - weight-stationary data parallelism).  Both choices
+preserve the single-macro numerics exactly: columns and GEMM rows never
+interact before the digital partial-sum recombination.
+
 Units note: everything in this module is *integer geometry* (rows, columns,
-tiles) - no voltages, no code units.
+tiles, devices) - no voltages, no code units.
 """
 from __future__ import annotations
 
@@ -210,3 +220,57 @@ def split_even_slices(n: int, tiles: int) -> List[Tuple[int, int]]:
     """
     size = math.ceil(n / max(tiles, 1))
     return [(i * size, size) for i in range(max(tiles, 1))]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerShard:
+    """How one layer's tile schedule partitions across `devices` macros.
+
+    kind "col": independent col tiles go to devices in contiguous groups
+    of `tiles_per_device` (the tile count is padded up to devices *
+    tiles_per_device with all-zero dummy tiles when it does not divide
+    evenly).  kind "rows": the M = batch*out_h*out_w GEMM-row dimension
+    splits into `rows_per_device`-row blocks instead (weights replicated).
+    `efficiency` is useful work / (devices x per-device work) - 1.0 when
+    the partition divides evenly."""
+    devices: int            # mesh axis size D (>= 1)
+    kind: str               # "col" | "rows"
+    tiles_per_device: int   # col tiles per device ("col" kind, else 0)
+    rows_per_device: int    # GEMM rows per device ("rows" kind, else 0)
+    efficiency: float       # load balance in [1/D, 1.0]
+
+
+def shard_layer(spec: LayerSpec, mp: MacroMapping,
+                devices: int, kind: Optional[str] = None) -> LayerShard:
+    """Partition one mapped layer across a bank of `devices` macros.
+
+    Args:
+      spec: the layer (spec.m supplies the GEMM-row extent for "rows").
+      mp:   its macro mapping (col_tiles decides the default kind).
+      devices: number of macros/devices (>= 1).
+      kind: None selects "col" when the layer offers at least one col
+        tile per device, else "rows"; an explicit "col" or "rows"
+        overrides it (the schedule autotuner scores both).  Both are
+        always legal: "col" with fewer col tiles than devices pads the
+        tile count with all-zero dummy tiles (the efficiency shows the
+        idle devices), and "rows" merely splits M.
+    Returns:
+      LayerShard; devices=1 degenerates to a one-device "col" plan with
+      every tile on the one device.
+    """
+    if devices < 1:
+        raise ValueError(f"devices must be >= 1, got {devices}")
+    if kind is None:
+        kind = "col" if mp.col_tiles >= devices else "rows"
+    if kind == "col":
+        tiles_per_device = max(1, math.ceil(mp.col_tiles / devices))
+        eff = mp.col_tiles / (devices * tiles_per_device)
+        return LayerShard(devices=devices, kind="col",
+                          tiles_per_device=tiles_per_device,
+                          rows_per_device=0, efficiency=eff)
+    if kind != "rows":
+        raise ValueError(f"shard kind must be 'col' or 'rows', got {kind!r}")
+    rows_per_device = math.ceil(spec.m / devices)
+    eff = spec.m / (devices * rows_per_device) if spec.m else 1.0
+    return LayerShard(devices=devices, kind="rows", tiles_per_device=0,
+                      rows_per_device=rows_per_device, efficiency=eff)

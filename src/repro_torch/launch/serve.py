@@ -42,9 +42,16 @@ eager dispatch, and every request's tokens must equal its solo decode.
 The projected TOPS/W it prints are the IMAGINE macro model's
 (`perfmodel`), not measurements of the device it runs on.
 
-Not ported (NotImplementedError, with the ROADMAP item that ports them):
-`--engine-devices` (Queue 1 item 4, sharding); the vlm and audio
-families' inputs (item 6) raise in `transformer.forward`.
+`--engine-devices D` (with `--cim-mode engine`) shards every engine-mode
+projection's macro schedule across D devices (`runtime.engine.
+ShardingConfig`): the first D cards, and a raise when fewer are visible,
+as the JAX launcher's D real devices.  `build(args, sharding=)` takes a
+ShardingConfig instead, so a caller can fold the D partitions onto one
+device (`ShardingConfig(devices=D, fold_onto="cuda")`); the token stream
+equals the unsharded serve's bit for bit either way.
+
+Not ported (NotImplementedError, with the ROADMAP queue that holds them):
+the vlm and audio families' inputs raise in `transformer.forward`.
 """
 from __future__ import annotations
 
@@ -76,7 +83,7 @@ def parser() -> argparse.ArgumentParser:
                     choices=["bypass", "fakequant", "engine"])
     ap.add_argument("--engine-devices", type=int, default=0,
                     help="shard the engine-mode macro schedule across this "
-                         "many devices (not ported)")
+                         "many devices (0 = no sharding; engine mode only)")
     ap.add_argument("--engine-axis", default="macro",
                     help="mesh axis name for the sharded engine dispatch")
     ap.add_argument("--assert-no-recompile", action="store_true",
@@ -102,17 +109,31 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build(args):
+def build(args, sharding: Optional[rt_engine.ShardingConfig] = None):
     """(cfg, params, device) for the parsed arguments: the config of
     --arch with the launcher's CIMConfig (max_gamma 2^16, rows isolated
-    under --inflight) and seeded random weights on the device."""
-    if args.engine_devices:
-        raise NotImplementedError(
-            "--engine-devices (the sharded engine, ROADMAP Queue 1 item 4) "
-            "is not ported")
+    under --inflight, and the engine's sharding) and seeded random
+    weights on the device.
+
+    `sharding` defaults to --engine-devices D on the first D devices
+    (ValueError, naming the devices, when fewer are visible); a given
+    ShardingConfig (a folded one, say) is taken as it is.  Either needs
+    --cim-mode engine."""
+    if sharding is None and args.engine_devices:
+        sharding = rt_engine.ShardingConfig(devices=args.engine_devices,
+                                            axis=args.engine_axis)
+    if sharding is not None and args.cim_mode != "engine":
+        raise ValueError("--engine-devices requires --cim-mode engine")
     dev = resolve_device(args.device)
+    if sharding is not None:
+        # the placement of every projection's partitions, checked before
+        # the weights are drawn
+        from repro_torch.launch.mesh import make_engine_mesh
+        make_engine_mesh(sharding.resolve_devices(), sharding.axis,
+                         device=dev, fold_onto=sharding.fold_onto)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(cim=CIMConfig(mode=args.cim_mode, max_gamma=2.0**16,
+                                    sharding=sharding,
                                     isolate_rows=args.inflight))
     params = tf.init_params(cfg,
                             torch.Generator(device=dev).manual_seed(args.seed))
@@ -316,6 +337,8 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
             ap.error("--precision-policy requires --cim-mode engine "
                      "--inflight")
         return _run_precision_inflight(args, resolve_device(args.device))
+    if args.engine_devices and args.cim_mode != "engine":
+        ap.error("--engine-devices requires --cim-mode engine")
     cfg, params, dev = build(args)
     max_len = args.prompt_len + args.gen_len + 8
     if args.inflight:

@@ -4,12 +4,13 @@ cache for decode), the KV caches and the MLP, every projection through
 `core.cim_layers.cim_linear_apply`.
 
 Counterpart of `repro/models/common.py`.  The JAX package's sharding
-constraints are dropped (the port runs on one card).  Its caches are
-updated functionally; the port writes the K/V rings in place, the
-PyTorch idiom, so a returned cache aliases the one passed in (its "k"
-and "v" are the same tensors).  Cross-attention (`x_kv`, `cross_kv`)
-and the KV-head repeat for sharding (`kv_repeat_to`) belong to the
-audio and MoE families and are not ported.
+constraints stand where it puts them (`models/sharding.shard`, the
+identity on a mesh folded onto one device), and `impl="pallas"`
+attention goes through the context-parallel `flash_attention_sharded`.
+Its caches are updated functionally; the port writes the K/V rings in
+place, the PyTorch idiom, so a returned cache aliases the one passed in
+(its "k" and "v" are the same tensors).  Cross-attention (`x_kv`,
+`cross_kv`) belongs to the audio family and is not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.core import prng
 from repro_torch.core.cim_layers import (CIMConfig, cim_linear_apply,
                                          init_cim_linear)
+from repro_torch.models.sharding import BATCH, TP, shard
 
 NEG_INF = -1e30    # masked score of the plain attention, as in JAX
 
@@ -208,6 +210,16 @@ def init_attention(generator: torch.Generator, cfg: AttnConfig,
     return p
 
 
+def _repeat_kv_to(x: torch.Tensor, target_heads: int) -> torch.Tensor:
+    """Repeat KV heads (B, S, G, D) -> (B, S, target_heads, D) so the head
+    axis divides a tensor-parallel mesh axis: each head repeated in
+    place, as jnp.repeat does (no-op when G >= target_heads)."""
+    g = x.shape[2]
+    if g >= target_heads:
+        return x
+    return torch.repeat_interleave(x, target_heads // g, dim=2)
+
+
 def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
                     cim: CIMConfig, *, positions: torch.Tensor,
                     cache: Optional[Dict] = None,
@@ -222,7 +234,9 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
 
     Without a cache, with cfg.impl == "pallas" and more than one query
     position the attention runs on the flash kernels (forward and
-    backward), with masks from the positions 0..S-1; otherwise, as with a
+    backward, `flash_attention_sharded`: split over the ambient mesh
+    where it divides the shapes), with masks from the positions 0..S-1;
+    otherwise, as with a
     cache, on `plain_attention`, or on the streaming `flash_attention`
     when more than one query meets more than cfg.flash_threshold keys.
     new_cache is None without a cache.
@@ -238,15 +252,16 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
     cache holds the same "k" and "v" tensors and a new cursor idx + S.
     K/V are stored in the cache's dtype.
 
+    `kv_repeat_to` (> G) repeats the K/V heads to that many after RoPE,
+    before the cache write, so the head axis divides a tensor-parallel
+    axis (a cache then holds the repeated heads).
+
     `key` seeds the CIM noise model of the four projections
     (fold_in(key, i) for q, k, v, o); None keeps them clean."""
     if x_kv is not None or cross_kv is not None or kv_positions is not None:
         raise NotImplementedError(
             "cross-attention (x_kv, cross_kv) is not ported (audio "
             "family)")
-    if kv_repeat_to:
-        raise NotImplementedError(
-            "kv_repeat_to (the KV-head repeat for sharding) is not ported")
     b, s, _ = x.shape
     h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kq = kk = kv = ko = None
@@ -260,12 +275,18 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(b, s, h, hd)
+    if not use_pallas:
+        # the pallas path's pieces define the layout themselves
+        q = shard(q, BATCH, None, TP, None)
     k = k.reshape(b, s, g, hd)
     v = v.reshape(b, s, g, hd)
     if cfg.use_rope:
         inv = rope_frequencies(hd, cfg.rope_theta, device=x.device)
         q = apply_rope(q, positions, inv)
         k = apply_rope(k, positions, inv)
+    if kv_repeat_to:
+        k = _repeat_kv_to(k, kv_repeat_to)
+        v = _repeat_kv_to(v, kv_repeat_to)
     k_pos = positions
     new_cache = None
     if cache is not None and cache["idx"].dim() == 1:
@@ -282,7 +303,8 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
         rows = torch.arange(b, device=x.device)
         cache["k"][rows, write] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, write] = v[:, 0].to(cache["v"].dtype)
-        k, v = cache["k"], cache["v"]
+        k = shard(cache["k"], BATCH, TP, None, None)
+        v = shard(cache["v"], BATCH, TP, None, None)
         new_cache = {"k": k, "v": v, "idx": idx + s}
         j = torch.arange(length, device=x.device)[None, :]
         last = (idx + s - 1)[:, None].long()
@@ -298,21 +320,25 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
         slots = start + torch.arange(s, device=x.device)
         cache["k"].index_copy_(1, slots, k.to(cache["k"].dtype))
         cache["v"].index_copy_(1, slots, v.to(cache["v"].dtype))
-        k, v = cache["k"], cache["v"]
+        k = shard(cache["k"], BATCH, TP, None, None)
+        v = shard(cache["v"], BATCH, TP, None, None)
         new_cache = {"k": k, "v": v, "idx": idx + s}
         j = torch.arange(length, device=x.device)
         last = (idx + s - 1).long()
         k_pos = last - torch.remainder(last - j, length)
         k_pos = torch.where(k_pos >= 0, k_pos, -10**9)
+    elif not use_pallas:
+        k = shard(k, BATCH, None, TP, None)
+        v = shard(v, BATCH, None, TP, None)
 
     # per-slot decode keeps (B, S) query positions so the per-row masks
     # line up; otherwise (B, S) positions collapse to row 0 (shared)
     per_row = k_pos.dim() == 2
     q_pos = positions if (positions.dim() == 1 or per_row) else positions[0]
     if use_pallas:
-        from repro_torch.kernels.flash_attn.ops import flash_attention \
-            as flash_kernels
-        out = flash_kernels(q, k, v, cfg.causal, cfg.window)
+        from repro_torch.kernels.flash_attn.ops import \
+            flash_attention_sharded
+        out = flash_attention_sharded(q, k, v, cfg.causal, cfg.window)
     elif k.shape[1] > cfg.flash_threshold and s > 1:
         # the streaming path takes positions shared across the batch
         if per_row:
@@ -325,7 +351,7 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
                               window=cfg.window)
     y = cim_linear_apply(params["wo"], out.reshape(b, s, h * hd), cim,
                          key=ko)
-    return y, new_cache
+    return shard(y, BATCH, None, None), new_cache
 
 
 def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
@@ -437,10 +463,13 @@ def mlp_block(params: Dict, x: torch.Tensor, cim: CIMConfig,
     if key is not None:
         k_up, k_gate, k_down = (prng.fold_in(key, i) for i in range(3))
     up = cim_linear_apply(params["w_up"], x, cim, key=k_up)
+    up = shard(up, BATCH, None, TP)
     fn = activation_fn(act)
     if "w_gate" in params:
         gate = cim_linear_apply(params["w_gate"], x, cim, key=k_gate)
+        gate = shard(gate, BATCH, None, TP)
         hidden = fn(gate) * up
     else:
         hidden = fn(up)
-    return cim_linear_apply(params["w_down"], hidden, cim, key=k_down)
+    y = cim_linear_apply(params["w_down"], hidden, cim, key=k_down)
+    return shard(y, BATCH, None, None)

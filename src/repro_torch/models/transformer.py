@@ -38,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.core.cim_layers import init_cim_linear
 from repro_torch.models import common as cm
+from repro_torch.models.sharding import BATCH, TP, shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -165,7 +166,8 @@ def embed_tokens(cfg: ModelConfig, params: Dict,
                  tokens: torch.Tensor) -> torch.Tensor:
     """Token-id lookup into the embedding table, cast to the model compute
     dtype."""
-    return params["embed"][tokens].to(_dtype(cfg))
+    emb = shard(params["embed"], TP, None)
+    return shard(emb[tokens].to(_dtype(cfg)), BATCH, None, None)
 
 
 def lm_logits(cfg: ModelConfig, params: Dict,
@@ -174,11 +176,13 @@ def lm_logits(cfg: ModelConfig, params: Dict,
     deploy-quantized serving weights: always digital)."""
     x = cm.apply_norm(params["final_norm"], x, cfg.norm_type)
     if cfg.tie_embeddings:
-        return x @ params["embed"].T.to(x.dtype)
-    head = params["lm_head"]
-    if "w" in head:
-        return x @ head["w"].to(x.dtype)
-    return x @ (head["w_q"].to(x.dtype) * head["w_scale"].to(x.dtype))
+        logits = x @ params["embed"].T.to(x.dtype)
+    elif "w" in params["lm_head"]:
+        logits = x @ params["lm_head"]["w"].to(x.dtype)
+    else:
+        head = params["lm_head"]
+        logits = x @ (head["w_q"].to(x.dtype) * head["w_scale"].to(x.dtype))
+    return shard(logits, BATCH, None, TP)
 
 
 def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
@@ -202,7 +206,7 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     if prefix_embeds is not None or encoder_frames is not None:
         raise NotImplementedError(
             "prefix_embeds / encoder_frames (the vlm and audio families, "
-            "ROADMAP Queue 1 item 6) are not ported")
+            "ROADMAP Queue 1, the other model families) are not ported")
     x = embed_tokens(cfg, params, tokens)
     s = tokens.shape[1]
     if positions is None:

@@ -21,9 +21,7 @@ measurements of any device this code runs on.
 
 Counterpart of `repro/perfmodel/macro_perf.py`: plain Python over the
 port's `LayerSpec`, `map_layer` and `CIMMacroConfig`, so every float
-equals the JAX package's.  The sharded schedule report (a plan whose
-layers carry `shard`, or whose config carries `sharding`) waits for the
-sharding slice (ROADMAP Queue 1 item 4) and raises NotImplementedError.
+equals the JAX package's, the sharded schedule's shard columns included.
 """
 from __future__ import annotations
 
@@ -133,30 +131,15 @@ class EnergyModel:
         return ops / (t * 1e-9) / 1e12
 
 
-def _unported_schedule(plan) -> None:
-    """Raise on a plan that carries a device partition: its report
-    columns wait for the sharding slice (ROADMAP Queue 1 item 4)."""
-    if getattr(getattr(plan, "cfg", None), "sharding", None) is not None:
-        raise NotImplementedError(
-            "schedule_report of a sharded plan (cfg.sharding) waits for the "
-            "sharding slice (ROADMAP Queue 1 item 4)")
-    for i, lp in enumerate(plan.layers):
-        if getattr(lp, "shard", None) is not None:
-            raise NotImplementedError(
-                f"layer {i} carries a device partition (shard); its report "
-                "waits for the sharding slice (ROADMAP Queue 1 item 4)")
-
-
 def schedule_report(plan, *, clock_ns: float = 10.0, pipelined: bool = True,
                     gamma: float = 1.0, program=None,
                     point=None) -> Dict[str, object]:
     """Cycle/energy estimates for a runtime engine schedule.
 
     `plan` is a runtime.engine.NetworkPlan (duck-typed: only
-    `plan.layers[i].spec` / `.macro_evals` / `.blocks` and
-    `plan.cfg.noise` are read, so there is no perfmodel -> runtime import
-    cycle; a layer's `shard` and `plan.cfg.sharding` are read to refuse
-    the sharded plans the port cannot report yet).  Returns per-layer
+    `plan.layers[i].spec` / `.macro_evals` / `.blocks` / `.shard` and
+    `plan.cfg.noise` / `.sharding` are read, so there is no perfmodel ->
+    runtime import cycle).  Returns per-layer
     reports, per-precision aggregates keyed "r{r_in}x{r_w}b", schedule
     totals, and an echo of the schedule's noise settings (so a
     Monte-Carlo accuracy report and its perf numbers always carry the
@@ -172,10 +155,19 @@ def schedule_report(plan, *, clock_ns: float = 10.0, pipelined: bool = True,
     the bucket ladder config - so a perf number always carries the
     amortization state it was measured under.
 
-    Autotuned plans (layers with `lp.blocks` set - see repro_torch.tuner)
-    additionally carry `rep["tune"]`: the chosen cim_mbiw tile `blocks`
-    and `shard_kind` (None: one device), plus the tuner's predicted cost
-    next to the heuristic schedule's cost.
+    Sharded plans (plan.cfg.sharding set) additionally report the device
+    partition: per-layer `rep["shard"]` carries the kind ("col" tiles vs
+    "rows" of the GEMM M dim), `macro_evals_per_device` (the
+    critical-path macro invocations one device performs) and
+    `parallel_efficiency` (useful work / devices x per-device work - 1.0
+    for an even split); the report totals gain the same two columns plus
+    a "sharding" echo.
+
+    Autotuned plans (layers with `lp.blocks` set or a non-automatic shard
+    kind - see repro_torch.tuner) additionally carry `rep["tune"]`: the
+    chosen cim_mbiw tile `blocks` (the heuristic's where only the kind
+    was tuned) and `shard_kind` (None on a one-device plan), plus the tuner's
+    predicted cost next to the heuristic schedule's cost.
 
     `point` (optional) names the serving operating point the schedule was
     taken at (a precision-ladder rung such as "quality"/"throughput");
@@ -184,38 +176,65 @@ def schedule_report(plan, *, clock_ns: float = 10.0, pipelined: bool = True,
     (`InflightScheduler.point_report`) always carries the projected
     TOPS/W of the point it dispatched.
     """
-    _unported_schedule(plan)
     noise = getattr(getattr(plan, "cfg", None), "noise", None)
     if noise is not None and noise.enabled:
         noise_echo = dict(dataclasses.asdict(noise))
     else:
         noise_echo = {"enabled": False}
+    sharding = getattr(getattr(plan, "cfg", None), "sharding", None)
     ap = AcceleratorPerfModel(clock_ns=clock_ns)
     layers = []
     per_prec: Dict[str, Dict[str, float]] = {}
     tot_ops = tot_ops8 = tot_e = tot_t = 0.0
+    tot_evals_dev = 0
     for lp in plan.layers:
         rep = ap.layer_report(lp.spec, gamma=gamma, pipelined=pipelined)
         if hasattr(lp, "macro_evals"):      # planned (k, n) tiles per M-row
             rep["macro_evals_schedule"] = lp.macro_evals
+        shard = getattr(lp, "shard", None)
+        if shard is not None:
+            # critical-path macro invocations one device performs: col
+            # sharding splits the col tiles, row sharding splits the M rows
+            row_tiles = len(lp.k_slices)
+            if shard.kind == "col":
+                evals_dev = row_tiles * shard.tiles_per_device * lp.spec.m
+            else:
+                evals_dev = lp.macro_evals * shard.rows_per_device
+            rep["shard"] = {
+                "kind": shard.kind,
+                "devices": shard.devices,
+                "macro_evals_per_device": evals_dev,
+                "parallel_efficiency": shard.efficiency,
+            }
+            tot_evals_dev += evals_dev
         blocks = getattr(lp, "blocks", None)
-        if blocks is not None:
-            # this layer carries an autotuned tile: echo it and the cost
-            # model's predicted-vs-heuristic cost.  Lazy import -
-            # repro_torch.tuner imports this module
+        tuned_kind = None
+        if shard is not None and hasattr(lp, "mp"):
+            auto = "col" if lp.mp.col_tiles >= shard.devices else "rows"
+            if shard.kind != auto:
+                tuned_kind = shard.kind
+        if blocks is not None or tuned_kind is not None:
+            # this layer carries an autotuned schedule: echo the chosen
+            # tile/kind and the cost model's predicted-vs-heuristic cost.
+            # Lazy import - repro_torch.tuner imports this module
             from repro_torch.tuner import cost as _tc
             from repro_torch.tuner import search as _ts
             cfg = getattr(plan, "cfg", None)
             macro_cfg = getattr(cfg, "macro", DEFAULT_MACRO)
+            devices = shard.devices if shard is not None else 1
             heur = _ts.heuristic_choice(lp.spec, cfg, macro_cfg)
+            chosen = _tc.ScheduleChoice(*(blocks or heur.blocks),
+                                        shard_kind=tuned_kind)
             rep["tune"] = {
-                "blocks": tuple(blocks),
-                "shard_kind": None,
+                "blocks": tuple(blocks) if blocks is not None
+                else heur.blocks,
+                "shard_kind": shard.kind if shard is not None else None,
                 "predicted_s": _tc.layer_cost(
-                    lp.spec, _tc.ScheduleChoice(*blocks),
+                    lp.spec, chosen, devices=devices,
                     macro=macro_cfg).total_s,
                 "heuristic_s": _tc.layer_cost(
-                    lp.spec, heur, macro=macro_cfg).total_s,
+                    lp.spec, heur, devices=devices,
+                    macro=macro_cfg).total_s,
             }
         if noise_echo["enabled"]:
             rep["noise"] = dict(noise_echo)   # per-layer copy, no aliasing
@@ -265,6 +284,23 @@ def schedule_report(plan, *, clock_ns: float = 10.0, pipelined: bool = True,
         if buckets is not None:
             prog_echo["buckets"] = dataclasses.asdict(buckets)
         report["program"] = prog_echo
+    if sharding is not None:
+        # schedule-level parallel efficiency: total one-device work over
+        # devices x the summed per-device critical paths.  Units:
+        # total["macro_evals"] counts (row x col) tiles per M-row batch;
+        # the two keys below count full macro invocations (x the GEMM-row
+        # extent m), the unit of every per-layer rep["macro_evals"]
+        tot_evals = sum(rep["macro_evals"] for rep in layers)
+        devices = max((getattr(lp, "shard").devices
+                       for lp in plan.layers
+                       if getattr(lp, "shard", None) is not None),
+                      default=1)
+        total["macro_evals_total"] = tot_evals
+        total["macro_evals_per_device"] = tot_evals_dev
+        total["parallel_efficiency"] = (
+            tot_evals / max(devices * tot_evals_dev, 1))
+        report["sharding"] = {"devices": devices,
+                              "axis": getattr(sharding, "axis", None)}
     return report
 
 

@@ -92,10 +92,11 @@ def profile_key(specs: Sequence[mapping.LayerSpec], cfg: rt.EngineConfig,
     Encodes everything the measured deltas depend on: per-layer tile
     geometry and reference precision, the swept points, trial count,
     batch extent, PRNG seed, whether noise was modeled, and the device
-    count (1: the port's EngineConfig has no sharding yet).  Distinct
-    *numeric* noise operating points at one geometry should distinguish
-    themselves via `label`.  The string equals the JAX package's."""
-    devices = 1
+    count (`cfg.sharding`'s, 1 without one).  Distinct *numeric* noise
+    operating points at one geometry should distinguish themselves via
+    `label`.  The string equals the JAX package's."""
+    devices = (cfg.sharding.resolve_devices()
+               if cfg.sharding is not None else 1)
     geo = "+".join(
         f"m{s.m}k{s.k}n{s.n}r{s.r_in}x{s.r_w}x{s.r_out}"
         + ("conv" if s.conv is not None else "dense") for s in specs)

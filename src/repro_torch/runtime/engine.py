@@ -1,4 +1,4 @@
-"""Precision-scalable CIM inference runtime (one device).
+"""Precision-scalable CIM inference runtime (single- and multi-macro).
 
 Counterpart of `repro/runtime/engine.py` on the clean path: a network
 described as `mapping.LayerSpec`s is *planned* into the macro's row/col
@@ -11,6 +11,23 @@ by `EngineConfig.stream_rows`), and max-pool epilogues plus the conv ->
 dense flatten are planned per layer, so a whole LeNet runs through one
 plan.  The deployment API (compile once, bind weights, serve ragged
 batches) is runtime/program.py.
+
+Multi-macro sharding: the 1152x256 macro is a building block - the
+paper's system-level 40 TOPS/W numbers assume it is replicated.  With
+`EngineConfig(sharding=ShardingConfig(devices=D))` each layer's schedule
+partitions across a mesh of D partitions (`launch/mesh.py`): layers with
+at least D independent col tiles shard those (`mapping.shard_layer` kind
+"col", disjoint output channels per partition), layers with fewer shard
+the GEMM-row dimension M = B*OH*OW ("rows" kind, weights replicated),
+and a plan may force either kind per layer (`plan_network(schedule=)`).
+Each partition runs the same `_schedule_rows` body as the serial path,
+on its device.  By default the mesh is the first D cards;
+`ShardingConfig(fold_onto=...)` places all D partitions on one device,
+the port's counterpart of the host device count the JAX package fakes
+a bank of macros with.  Both kinds are bit-exact with the one-device
+schedule, clean and noisy: columns and GEMM rows never interact before
+the digital recombination, and the noise terms are drawn once per layer,
+then padded and sliced per partition.
 
 Numerics: the kernel path is bit-exact with the plain reference path at
 every supported precision, and both are bit-exact with the JAX package.
@@ -79,6 +96,40 @@ NOISE_ROW_BLOCK = 128
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """Multi-macro (multi-device) partitioning of the planned schedule.
+
+    Attributes:
+      devices: mesh size D; 0 means every visible CUDA device (one, the
+        host, where there is none), resolved at plan time.  A dispatch
+        raises when its placement has fewer devices than D.
+      axis: mesh axis name (cosmetic, as in the JAX package).
+      fold_onto: None places partition i on the i-th visible card (the
+        CPU program's one host holds a mesh of one); a device ("cuda",
+        "cuda:0", "cpu") places all D partitions on that device, which
+        must be the program's.  This is the counterpart of the JAX
+        package's `--xla_force_host_platform_device_count=D`, with which
+        its sharded tests fake D devices on one host: the partitions run
+        one after another on the one device, each on its share of the
+        tiles or rows, and a clean dispatch is one CUDA graph.
+
+    Per-layer kind selection (col tiles vs GEMM rows) is automatic - see
+    `mapping.shard_layer` - unless the plan overrides it.  `devices=1` is
+    a valid degenerate case that still dispatches through the sharded
+    schedule on a mesh of one."""
+    devices: int = 0
+    axis: str = "macro"
+    fold_onto: Optional[str] = None
+
+    def resolve_devices(self) -> int:
+        """Concrete mesh size: `devices`, or every visible CUDA device
+        (one where there is none)."""
+        if self.devices > 0:
+            return self.devices
+        return max(torch.cuda.device_count(), 1)
+
+
+@dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Execution configuration shared by every layer of a schedule."""
     macro: CIMMacroConfig = DEFAULT_MACRO
@@ -92,6 +143,12 @@ class EngineConfig:
                                      # dispatch (0 = single dispatch)
     noise: NoiseConfig = NO_NOISE    # post-silicon equivalent noise model;
                                      # enabled -> runs require a PRNG key
+    sharding: Optional[ShardingConfig] = None  # multi-macro dispatch; None
+                                     # keeps the one-device path
+
+    def replace(self, **kw) -> "EngineConfig":
+        """A copy with the given fields replaced (dataclasses.replace)."""
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +158,7 @@ class LayerPlan:
     `n_slices` are *uniform* col tiles (mapping.split_even_slices): every
     tile spans `tile_n` channels and the covered extent `n_pad` may exceed
     spec.n - execution pads the column arrays and discards the excess.
+    `shard` is the layer's device partition (None on one-device plans).
     `blocks` is the schedule tuner's winner, a `(route, bm, bn, kc)`
     cim_mbiw tile that every dispatch of the layer taking that route
     runs (`kernel.route_for`), or None for the shape's own tiles; a
@@ -113,6 +171,7 @@ class LayerPlan:
     n_slices: Tuple[Tuple[int, int], ...]  # (start, size) uniform col tiles
     activation: str = "none"             # "none" | "relu"
     pool: int = 1                        # max-pool window/stride epilogue
+    shard: Optional[mapping.LayerShard] = None
     blocks: Optional[Tile] = None        # tuned route tile
 
     @property
@@ -152,20 +211,32 @@ class NetworkPlan:
         return sum(lp.macro_evals for lp in self.layers)
 
     def tile_calls(self, batch: int) -> List[Tuple[int, int, int, int]]:
-        """(m, n, k, planes) of every kernel call of one forward over
-        `batch` samples (the bucketed extent), in launch order; m counts
-        GEMM rows (a conv layer's batch x out_h x out_w, chunked by
-        cfg.stream_rows)."""
+        """(m, n, k, planes) of every kernel call of one kernel-path
+        forward over `batch` samples (the bucketed extent), in launch
+        order; m counts GEMM rows (a conv layer's batch x out_h x out_w,
+        chunked by cfg.stream_rows).  A sharded layer lists each
+        partition's calls in partition order: "col" partitions run their
+        tiles_per_device col tiles (dummy tiles included) over every row,
+        "rows" partitions every col tile over their ceil(rows / D) rows
+        (zero rows included)."""
         calls = []
         for lp in self.layers:
             g = lp.spec.conv
             rows = batch * (g.out_h * g.out_w if g is not None else 1)
+            sh = lp.shard
+            parts, n_tiles = 1, len(lp.n_slices)
+            if sh is not None and sh.kind == "col":
+                parts, n_tiles = sh.devices, sh.tiles_per_device
+            elif sh is not None:
+                parts, rows = sh.devices, -(-max(rows, 1) // sh.devices)
             chunk = self.cfg.stream_rows if self.cfg.stream_rows > 0 \
                 else max(rows, 1)
-            for s in range(0, max(rows, 1), chunk):
-                m = min(chunk, rows - s)
-                calls += [(m, lp.tile_n, ksz, lp.precision.n_planes)
-                          for _ in lp.n_slices for _, ksz in lp.k_slices]
+            for _ in range(parts):
+                for s in range(0, max(rows, 1), chunk):
+                    m = min(chunk, rows - s)
+                    calls += [(m, lp.tile_n, ksz, lp.precision.n_planes)
+                              for _ in range(n_tiles)
+                              for _, ksz in lp.k_slices]
         return calls
 
 
@@ -183,18 +254,20 @@ def plan_layer(spec: mapping.LayerSpec, cfg: EngineConfig = EngineConfig(),
                activation: str = "none", pool: int = 1, *,
                blocks: Optional[Tile] = None,
                shard_kind: Optional[str] = None) -> LayerPlan:
-    """Plan one layer: macro mapping, uniform col tiles, epilogues.
+    """Plan one layer: macro mapping, uniform col tiles, device partition,
+    epilogues.
 
     Args:
       spec: the GEMM/conv layer.
-      cfg: shared execution config.
+      cfg: shared execution config; cfg.sharding (if set) adds the layer's
+        LayerShard for cfg.sharding.resolve_devices() macros.
       activation: "none" | "relu" epilogue.
       pool: max-pool window/stride (conv layers only, 1 = none).
       blocks: optional tuned cim_mbiw tile `(route, bm, bn, kc)` (the
         schedule autotuner's winner); None keeps each dispatch's own
         tile.  Numerics-neutral at any legal value.
-      shard_kind: an explicit shard kind; the port has no sharding, so
-        anything but None raises.
+      shard_kind: optional explicit "col"/"rows" shard kind (requires
+        cfg.sharding); None keeps mapping.shard_layer's heuristic.
     Returns:
       LayerPlan (hashable; part of the NetworkPlan).
     """
@@ -208,9 +281,8 @@ def plan_layer(spec: mapping.LayerSpec, cfg: EngineConfig = EngineConfig(),
         except ValueError as e:
             raise ValueError(f"blocks must be a legal cim_mbiw tile: {e}") \
                 from None
-    if shard_kind is not None:
-        raise ValueError("shard_kind override requires cfg.sharding, and "
-                         "the port plans no sharding yet")
+    if shard_kind is not None and cfg.sharding is None:
+        raise ValueError("shard_kind override requires cfg.sharding")
     if pool > 1 and spec.conv is None:
         raise ValueError("pooling epilogue requires a conv layer")
     if spec.conv is not None:
@@ -223,11 +295,15 @@ def plan_layer(spec: mapping.LayerSpec, cfg: EngineConfig = EngineConfig(),
             raise ValueError(f"pool {pool} larger than conv output "
                              f"{g.out_h}x{g.out_w}")
     mp = mapping.map_layer(spec, cfg.macro)
+    shard = None
+    if cfg.sharding is not None:
+        shard = mapping.shard_layer(spec, mp, cfg.sharding.resolve_devices(),
+                                    kind=shard_kind)
     return LayerPlan(
         spec=spec, mp=mp, precision=prec, g0=_layer_g0(spec, mp, cfg),
         k_slices=tuple(mapping.split_k_slices(spec.k, mp.row_tiles)),
         n_slices=tuple(mapping.split_even_slices(spec.n, mp.col_tiles)),
-        activation=activation, pool=pool, blocks=blocks)
+        activation=activation, pool=pool, shard=shard, blocks=blocks)
 
 
 def _check_chain(layers: Sequence[LayerPlan]) -> None:
@@ -279,8 +355,10 @@ def plan_network(specs: Sequence[mapping.LayerSpec],
     paper's LeNet-class CNNs.
     `schedule`: optional per-layer overrides from the autotuner - one
     `None` (heuristic) or `(blocks, shard_kind)` pair per layer, `blocks`
-    a tuned cim_mbiw tile or None (see plan_layer).  Overrides never
-    change numerics, only which tiles launch the same sums.
+    a tuned cim_mbiw tile or None and `shard_kind` an explicit
+    "col"/"rows" or None (see plan_layer).  Overrides never change
+    numerics, only which tiles and which device partition launch the
+    same sums.
     """
     specs = list(specs)
     if activations is None:
@@ -366,11 +444,84 @@ def bind_layer(lp: LayerPlan, params: Dict[str, torch.Tensor],
 
 
 def bind_key(lp: LayerPlan, cfg: EngineConfig) -> tuple:
-    """Everything `bind_layer` reads besides the params: layer plans
-    with equal keys have equal bind products for equal params (plans of
-    one layer at different batch buckets share one)."""
+    """Everything `bind_layer` and the partition placement read besides
+    the params: layer plans with equal keys have equal bind products for
+    equal params (plans of one layer at different batch buckets share
+    one)."""
+    sh = lp.shard
     return (lp.spec.k, lp.spec.n, lp.spec.r_w, lp.n_pad, lp.g0,
-            cfg.gamma_bits, cfg.max_gamma)
+            cfg.gamma_bits, cfg.max_gamma, cfg.sharding,
+            None if sh is None else (sh.kind, sh.devices,
+                                     sh.tiles_per_device))
+
+
+def engine_mesh(plan: NetworkPlan, device=None):
+    """The mesh a sharded plan's partitions run on when its program runs
+    on `device` (None: the host), or None for a one-device plan
+    (`launch.mesh.make_engine_mesh`: the first D devices, or D folded
+    onto `ShardingConfig.fold_onto`).  Raises ValueError when the
+    placement has fewer devices than the plan's D."""
+    sh = plan.cfg.sharding
+    shards = [lp.shard for lp in plan.layers if lp.shard is not None]
+    if sh is None or not shards:
+        return None
+    from repro_torch.launch.mesh import make_engine_mesh
+    return make_engine_mesh(shards[0].devices, sh.axis,
+                            device="cpu" if device is None else device,
+                            fold_onto=sh.fold_onto)
+
+
+def _shard_width(lp: LayerPlan) -> int:
+    """Columns a layer's bind covers: the uniform col tiles, padded for a
+    "col" shard up to devices * tiles_per_device tiles."""
+    sh = lp.shard
+    if sh is not None and sh.kind == "col":
+        return max(lp.n_pad, sh.devices * sh.tiles_per_device * lp.tile_n)
+    return lp.n_pad
+
+
+def _place(lp: LayerPlan, b: Dict[str, torch.Tensor], mesh,
+           device: Optional[torch.device]) -> Dict[str, torch.Tensor]:
+    """Move one layer's host bind products to `device` and, for a sharded
+    layer, add "parts": one dict of {"wqq", "gamma_p", "beta_p", "g0"} per
+    partition, on the partition's mesh device.  A "col" partition holds
+    its contiguous group of tiles_per_device col tiles of the arrays
+    padded (zero weight columns, gamma 1.0, beta 0) to the shard's width;
+    a "rows" partition holds every column.  A partition on `device` holds
+    views of the layer's own tensors, so a folded mesh keeps one copy of
+    the weights; a partition on another card holds copies of its share."""
+    width = _shard_width(lp)
+    full = dict(b)
+    if width > lp.n_pad:
+        full["wqq"] = _pad_dim(b["wqq"], 1, width)
+        full["gamma_p"] = _pad_dim(b["gamma_p"], 0, width, value=1.0)
+        full["beta_p"] = _pad_dim(b["beta_p"], 0, width)
+    if device is not None:
+        full = {k: v.to(device) for k, v in full.items()}
+    out = dict(full)
+    if width > lp.n_pad:
+        out["wqq"] = full["wqq"][:, :lp.n_pad]
+        out["gamma_p"] = full["gamma_p"][:lp.n_pad]
+        out["beta_p"] = full["beta_p"][:lp.n_pad]
+    sh = lp.shard
+    if sh is None:
+        return out
+    home = full["wqq"].device
+    parts = []
+    for i, pdev in enumerate(mesh.devices):
+        if sh.kind == "col":
+            w = sh.tiles_per_device * lp.tile_n
+            cols = slice(i * w, (i + 1) * w)
+            part = {"wqq": full["wqq"][:, cols],
+                    "gamma_p": full["gamma_p"][cols],
+                    "beta_p": full["beta_p"][cols], "g0": full["g0"]}
+        else:
+            part = {k: out[k] for k in ("wqq", "gamma_p", "beta_p", "g0")}
+        if pdev != home:
+            part = {k: v.to(pdev) for k, v in part.items()}
+        parts.append(part)
+    out["parts"] = tuple(parts)
+    return out
 
 
 def bind_network(plan: NetworkPlan, params: Params,
@@ -378,18 +529,21 @@ def bind_network(plan: NetworkPlan, params: Params,
                  ) -> Tuple[Dict[str, torch.Tensor], ...]:
     """bind_layer over a whole plan, run on the host; the products then
     move to `device` (default: stay on the host), so every device serves
-    with the identical weight codes and gamma bits.  Validates the
-    per-layer param count."""
+    with the identical weight codes and gamma bits.  A sharded plan's
+    binds also carry each partition's padded column arrays on its mesh
+    device (`_place`; the mesh is `engine_mesh(plan, device)`, which
+    raises when too few devices are visible).  Validates the per-layer
+    param count."""
     if len(params) != len(plan.layers):
         raise ValueError(f"{len(params)} param dicts for "
                          f"{len(plan.layers)} planned layers")
+    mesh = engine_mesh(plan, device)
     binds = []
     for lp, p in zip(plan.layers, params):
         host = {k: torch.as_tensor(v).detach().to("cpu", torch.float32)
                 for k, v in p.items()}
-        b = bind_layer(lp, host, plan.cfg)
-        binds.append({k: v.to(device) if device is not None else v
-                      for k, v in b.items()})
+        binds.append(_place(lp, bind_layer(lp, host, plan.cfg), mesh,
+                            device))
     return tuple(binds)
 
 
@@ -418,7 +572,8 @@ class _LayerNoise:
     `thermal` holds the kT/C noise in dp units for every (row tile, col
     tile) over the layer's full GEMM-row extent - shape (k_tiles,
     n_tiles_padded, rows, tile_n) - so slicing rows (stream chunks) never
-    changes a draw."""
+    changes a draw, and neither does slicing or padding col tiles (device
+    partitions)."""
     offset_codes: torch.Tensor       # (n_cols_padded,) code units
     droop_codes: torch.Tensor        # (n_cols_padded,) code units
     gain_mult: float                 # multiplier on gamma * g0 (a float32)
@@ -427,6 +582,31 @@ class _LayerNoise:
     def rows(self, sl: slice) -> "_LayerNoise":
         """The context restricted to a GEMM-row slice."""
         return dataclasses.replace(self, thermal=self.thermal[:, :, sl, :])
+
+    def cols(self, tiles: slice, tile_n: int) -> "_LayerNoise":
+        """The context restricted to a range of col tiles: their columns
+        of the offsets and droop, their tiles of the thermal field."""
+        c = slice(tiles.start * tile_n, tiles.stop * tile_n)
+        return dataclasses.replace(
+            self, offset_codes=self.offset_codes[c],
+            droop_codes=self.droop_codes[c],
+            thermal=self.thermal[:, tiles])
+
+    def pad(self, tiles: int, rows: int, tile_n: int) -> "_LayerNoise":
+        """The context padded with zeros to `tiles` col tiles and `rows`
+        GEMM rows (the dummy tiles and rows of a partition)."""
+        return dataclasses.replace(
+            self, offset_codes=_pad_dim(self.offset_codes, 0,
+                                        tiles * tile_n),
+            droop_codes=_pad_dim(self.droop_codes, 0, tiles * tile_n),
+            thermal=_pad_dim(_pad_dim(self.thermal, 1, tiles), 2, rows))
+
+    def to(self, device: torch.device) -> "_LayerNoise":
+        """The context on `device` (no copy where it already is)."""
+        return dataclasses.replace(
+            self, offset_codes=self.offset_codes.to(device),
+            droop_codes=self.droop_codes.to(device),
+            thermal=self.thermal.to(device))
 
 
 def _stream_keys(lkey: Tuple[int, int], k_tiles: int, n_tiles: int,
@@ -595,16 +775,73 @@ def _schedule_rows(lp: LayerPlan, cfg: EngineConfig, q_rows: torch.Tensor,
     return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
 
 
+def _sharded_schedule(lp: LayerPlan, cfg: EngineConfig,
+                      q_rows: torch.Tensor, zp: torch.Tensor,
+                      bind: Dict[str, torch.Tensor], *, matmul,
+                      nctx: Optional[_LayerNoise]) -> torch.Tensor:
+    """Dispatch one layer's tile schedule across its mesh partitions
+    (bind["parts"], one per partition, on the partition's device).
+
+    kind "col": the uniform col tiles (padded up to devices *
+    tiles_per_device with all-zero dummy tiles) go to the partitions in
+    contiguous groups - each runs `_schedule_rows` on its tiles over every
+    row, and the output columns concatenate in partition order.  kind
+    "rows": the GEMM rows (zero-padded to a multiple of the device count)
+    split into equal blocks instead, every partition holding every col
+    tile; a per-row zero-point splits with its rows, a scalar one is
+    shared.  The body is the same `_schedule_rows` the serial path runs
+    (the tuned tile and route choice included), and the noise terms are
+    drawn once for the layer, then padded and sliced, so both kinds are
+    bit-exact with the one-device schedule: padding only adds discarded
+    rows and columns.  A partition on another device gets its rows (and
+    noise share) moved there and its output moved back to the rows'
+    device.  Returns dp_hat (m, padded columns); the caller slices the
+    columns."""
+    shard, m = lp.shard, q_rows.shape[0]
+    parts, home = bind["parts"], q_rows.device
+
+    def run(part, q, z, nl):
+        dev = part["wqq"].device
+        nl = None if nl is None else nl.to(dev)
+        y = _schedule_rows(lp, cfg, q.to(dev), z.to(dev), part,
+                           matmul=matmul, nctx=nl)
+        return y.to(home)
+
+    if shard.kind == "col":
+        tpd = shard.tiles_per_device
+        if nctx is not None:
+            nctx = nctx.pad(shard.devices * tpd, m, lp.tile_n)
+        return torch.cat([
+            run(part, q_rows, zp, None if nctx is None else nctx.cols(
+                slice(i * tpd, (i + 1) * tpd), lp.tile_n))
+            for i, part in enumerate(parts)], dim=1)
+
+    per = -(-max(m, 1) // shard.devices)
+    q_pad = _pad_dim(q_rows, 0, per * shard.devices)
+    zp_pad = zp if zp.dim() == 0 else _pad_dim(zp, 0, per * shard.devices)
+    if nctx is not None:
+        nctx = nctx.pad(nctx.thermal.shape[1], per * shard.devices,
+                        lp.tile_n)
+    outs = []
+    for i, part in enumerate(parts):
+        sl = slice(i * per, (i + 1) * per)
+        outs.append(run(part, q_pad[sl], zp if zp.dim() == 0 else zp_pad[sl],
+                        None if nctx is None else nctx.rows(sl)))
+    return torch.cat(outs, dim=0)[:m]
+
+
 def _layer_tiles(lp: LayerPlan, bind: Dict[str, torch.Tensor],
                  x2: torch.Tensor, cfg: EngineConfig, *, matmul,
                  key: Optional[Tuple[int, int]] = None,
                  noise: Optional[NoiseConfig] = None,
+                 sharded: bool = False,
                  seg_rows: Optional[torch.Tensor] = None,
                  nid_rows: Optional[torch.Tensor] = None,
                  sub_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run one layer's tile schedule over (M, K) GEMM rows: activation
-    quantization, the noise context, the tile schedule, dequant and
-    activation.
+    quantization, the noise context, the tile schedule (serially in stream
+    chunks, or with `sharded` across the layer's mesh partitions -
+    numerically identical paths), dequant and activation.
 
     `seg_rows` (optional, (M,) int) switches the activation quantization
     to per-segment statistics: the zero-point becomes per-row and folds
@@ -620,8 +857,12 @@ def _layer_tiles(lp: LayerPlan, bind: Dict[str, torch.Tensor],
     nctx = (_layer_noise(lp, cfg, noise, bind["gamma_p"], key, x2.shape[0],
                          row_ids=nid_rows, row_sub=sub_rows)
             if noise is not None else None)
-    dp_hat = _schedule_rows(lp, cfg, aq.q, zp, bind, matmul=matmul,
-                            nctx=nctx)
+    if sharded and lp.shard is not None:
+        dp_hat = _sharded_schedule(lp, cfg, aq.q, zp, bind, matmul=matmul,
+                                   nctx=nctx)
+    else:
+        dp_hat = _schedule_rows(lp, cfg, aq.q, zp, bind, matmul=matmul,
+                                nctx=nctx)
     y = dp_hat[:, :lp.spec.n] * aq.scale * bind["w_scale"]
     if lp.activation == "relu":
         y = torch.relu(y)
@@ -634,6 +875,7 @@ def _run_layer(lp: LayerPlan, bind: Dict[str, torch.Tensor],
                x: torch.Tensor, cfg: EngineConfig, *, matmul,
                key: Optional[Tuple[int, int]] = None,
                noise: Optional[NoiseConfig] = None,
+               sharded: bool = False,
                seg: Optional[torch.Tensor] = None,
                nids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One planned layer end-to-end: im2col (conv), tile schedule,
@@ -667,7 +909,8 @@ def _run_layer(lp: LayerPlan, bind: Dict[str, torch.Tensor],
                              f"got {x2.shape[-1]} from {tuple(x.shape)}")
         seg_rows, nid_rows = seg, nids
     y = _layer_tiles(lp, bind, x2, cfg, matmul=matmul, key=key, noise=noise,
-                     seg_rows=seg_rows, nid_rows=nid_rows, sub_rows=sub_rows)
+                     sharded=sharded, seg_rows=seg_rows, nid_rows=nid_rows,
+                     sub_rows=sub_rows)
     if g is not None:
         y = y.reshape(b, g.out_h, g.out_w, g.c_out)
     if lp.pool > 1:
@@ -723,7 +966,11 @@ def _forward(plan: NetworkPlan, binds: Sequence[Dict[str, torch.Tensor]],
     `noise` is the run's resolved operating point (`_dispatch_noise`:
     None runs clean) and `key` its PRNG key; layer i draws under
     fold_in(key, i).  `nids` ((B,) int, optional, on the host) key the
-    thermal draws by sample identity."""
+    thermal draws by sample identity.
+
+    A sharded plan's kernel path runs each layer across its mesh
+    partitions (`_sharded_schedule`); the reference always runs the
+    serial schedule."""
     if plan.cfg.noise.enabled and key is None:
         raise ValueError(
             "noise-injected engine run requires a PRNG key: pass key= to "
@@ -741,12 +988,14 @@ def _forward(plan: NetworkPlan, binds: Sequence[Dict[str, torch.Tensor]],
         base = prng.key_ints(key)
         noise = nm.leaves(noise)
     mk = _reference_matmul if reference else _kernel_matmul
+    sharded = (not reference) and plan.cfg.sharding is not None
     for i, (lp, bind) in enumerate(zip(plan.layers, binds)):
         if m_valid is not None:
             xc = _mask_pad_rows(xc, m_valid)
         lkey = prng.fold_in_int(base, i) if noisy else None
         xc = _run_layer(lp, bind, xc, plan.cfg, matmul=mk(lp, plan.cfg),
-                        key=lkey, noise=noise, seg=seg, nids=nids)
+                        key=lkey, noise=noise, sharded=sharded, seg=seg,
+                        nids=nids)
     return xc
 
 

@@ -1,6 +1,6 @@
 """Compiled CIM programs: plan once, serve many (the deployment API).
 
-Counterpart of `repro/runtime/program.py` on the clean single-device path:
+Counterpart of `repro/runtime/program.py`:
 
     prog   = compile_program(specs, EngineConfig(...))   # plan once; CUDA
     params = prog.init_params(torch.Generator().manual_seed(0))
@@ -32,8 +32,9 @@ Counterpart of `repro/runtime/program.py` on the clean single-device path:
   buffers, and the caller gets a clone of its static output.  Every other
   dispatch runs eagerly, as a declared route: the CPU, keyed or noisy
   dispatches (their stream keys and noise terms derive on the host),
-  `reference=True` (the plain oracle reads numpy) and per-call params
-  (`CIMProgram.run`/`serve` bind on every call).  engine.CAPTURE_COUNT
+  `reference=True` (the plain oracle reads numpy), per-call params
+  (`CIMProgram.run`/`serve` bind on every call) and a sharded dispatch
+  whose partitions span cards.  engine.CAPTURE_COUNT
   counts captures (flat after warm-up); `stats()` counts
   graphs_captured, graph_replays and eager_calls.  Graphs of one device
   share one memory pool: safe because their inputs sit outside it, their
@@ -58,6 +59,15 @@ Counterpart of `repro/runtime/program.py` on the clean single-device path:
   a fused request is bit-identical to serving it alone.
 * **Shared-input fusion** - `SharedInputProgram` serves several
   projections of one input (Q/K/V, gate/up) as one wide program.
+* **Sharded plans** (EngineConfig.sharding) serve through the same API:
+  each layer's tiles or rows run across the plan's mesh partitions
+  (engine._sharded_schedule), and the bucket padding composes with both
+  shard kinds bit for bit.  The dispatch key carries the mesh size D.
+  `bind` places each partition's share of the weights on its device
+  (views of one copy when the partitions are folded onto the program's
+  device).  A clean dispatch whose partitions all sit on the program's
+  device is one CUDA graph like any other; one whose partitions span
+  cards runs eagerly and counts in eager_calls.
 
 * **Noise** - a program planned with `EngineConfig(noise=...)` runs the
   noise model and needs a PRNG key (`core/prng.key`) on every dispatch;
@@ -66,7 +76,8 @@ Counterpart of `repro/runtime/program.py` on the clean single-device path:
   isolate=True)` is bit-identical to each request's solo serve under
   `request_noise_ids`.  A key with a NO_NOISE plan is ignored.
 
-A program runs on one device, CUDA by default: with no card,
+A program runs on one device (its partitions on its mesh), CUDA by
+default: with no card,
 `compile_program` raises rather than carry on on the CPU, and the CPU
 path (the kernels' plain versions) must be asked for with device="cpu".
 """
@@ -270,6 +281,16 @@ class CIMProgram:
 
     # -- dispatch ----------------------------------------------------------
 
+    def _devices(self) -> int:
+        sh = self._plan.cfg.sharding
+        return sh.resolve_devices() if sh is not None else 1
+
+    def _on_one_device(self) -> bool:
+        """Whether every partition of the plan runs on the program's device
+        (always, for a one-device plan): the condition for a CUDA graph."""
+        mesh = rt.engine_mesh(self._plan, self._device)
+        return mesh is None or set(mesh.devices) == {self._device}
+
     def _canon(self, x) -> Tuple[torch.Tensor, Tuple[int, ...]]:
         """Collapse leading dims to one canonical batch axis on the
         program's device."""
@@ -350,7 +371,8 @@ class CIMProgram:
         nid = self._canon_ids(noise_ids, xc.shape[0])
         self._note_dispatch(
             executable_key("exact", xc.shape[0], noise=nz is not None,
-                           keyed=key is not None, devices=1, bound=False,
+                           keyed=key is not None, devices=self._devices(),
+                           bound=False,
                            reference=bool(reference),
                            segmented=seg is not None,
                            identity=nid is not None),
@@ -378,7 +400,8 @@ class CIMProgram:
         """One bucketed dispatch.  `execs` is the bound program's table of
         captured executables (None with per-call params): a clean
         dispatch on the card replays (or captures) the graph of its key,
-        every other runs engine._forward eagerly."""
+        every other (a sharded dispatch across cards included) runs
+        engine._forward eagerly."""
         nz = rt._dispatch_noise(self._plan, noise)
         xc, lead = self._canon(x)
         m = xc.shape[0]
@@ -396,14 +419,16 @@ class CIMProgram:
             if nid is not None:
                 nid = torch.cat([nid, nid[:1].expand(bucket - m)])
         ekey = executable_key("bucket", bucket, noise=nz is not None,
-                              keyed=key is not None, devices=1,
+                              keyed=key is not None,
+                              devices=self._devices(),
                               bound=execs is not None, reference=reference,
                               segmented=seg is not None,
                               identity=nid is not None, point=str(point))
         self._note_dispatch(ekey, bucketed=True)
         st = self._stats
         if (execs is not None and self._device.type == "cuda"
-                and key is None and nz is None and not reference):
+                and key is None and nz is None and not reference
+                and self._on_one_device()):
             ex = execs.get(ekey)
             if ex is None:
                 ex, y = _Executable.capture(self._plan, binds, xc, bucket,

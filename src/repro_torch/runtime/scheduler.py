@@ -36,6 +36,12 @@ thermal draws are keyed by its identity (request uid, model call, and
 projection: `noise_id`, `_proj_ids`), never by its slot, so a fused
 noisy stream equals `decode_sequential(model, request, key)` bit for
 bit.
+
+Sharding: a model whose programs are planned with
+`EngineConfig(sharding=ShardingConfig(...))` runs every projection
+through the sharded multi-macro schedule (runtime/engine.py); each
+partition keeps the row's segment and noise identity, so isolation and
+the mixed-point grouping hold on the sharded engine as on one device.
 """
 from __future__ import annotations
 

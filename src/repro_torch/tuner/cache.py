@@ -36,7 +36,7 @@ SCHEMA_VERSION = 1
 # statuses TuneCache.get can report for a key
 HIT, MISS, INVALID = "hit", "miss", "invalid"
 
-_KINDS = (None,)                 # the port plans one device
+_KINDS = (None, "col", "rows")
 
 
 class TuneCacheWarning(UserWarning):
@@ -55,15 +55,17 @@ def default_cache_path() -> str:
 
 def cache_key(spec: LayerSpec, devices: int,
               macro: CIMMacroConfig = DEFAULT_MACRO,
-              gpu: GPUSpec = H100_SXM) -> str:
+              gpu: GPUSpec = H100_SXM, *, folded: bool = False) -> str:
     """The string key one layer's winner is stored under: tile geometry,
-    precision, conv/dense kind, device count, macro geometry and the card
-    table.  The schema version lives at the file level, not in the key."""
+    precision, conv/dense kind, device count (with "f" when the
+    partitions are folded onto one card, which the cost prices apart),
+    macro geometry and the card table.  The schema version lives at the
+    file level, not in the key."""
     kind = "conv" if spec.conv is not None else "dense"
     return (f"m{spec.m}k{spec.k}n{spec.n}"
             f"r{spec.r_in}x{spec.r_w}x{spec.r_out}"
-            f"{kind}d{int(devices)}g{macro.n_rows}x{macro.n_cols}"
-            f"@{gpu.name}")
+            f"{kind}d{int(devices)}{'f' if folded else ''}"
+            f"g{macro.n_rows}x{macro.n_cols}@{gpu.name}")
 
 
 def _entry_choice(entry, planes: int) -> Optional[ScheduleChoice]:

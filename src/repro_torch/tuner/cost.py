@@ -2,19 +2,24 @@
 
 Counterpart of `repro/tuner/cost.py`.  One `ScheduleChoice` - a cim_mbiw
 route tile `(route, bm, bn, bk)` plus an optional shard kind - is scored
-per layer with the hardware tables the rest of the port reads:
+per layer on `devices` macros with the hardware tables the rest of the
+port reads:
 
-  * macro time: the IMAGINE macro's own projection, macro evaluations x
-    `macro_perf.cim_eval_time_ns` (the Sec. III.C/D phase sequence).
-    `macro_evals`, `macro_evals_per_device`, `adc_conversions` and
-    `t_macro_s` equal the JAX package's `layer_cost` on the same spec.
-    It is the same for every candidate of a layer, so within a layer the
-    ranking falls to the card term through `LayerCost.score()`, as the
-    JAX package's falls to its DMA term.
+  * macro time: the IMAGINE macro's own projection, the per-device
+    critical-path macro evaluations (the shard arithmetic
+    `macro_perf.schedule_report` reports) x `macro_perf.cim_eval_time_ns`
+    (the Sec. III.C/D phase sequence).  `macro_evals`,
+    `macro_evals_per_device`, `adc_conversions`, `t_macro_s` and
+    `collective_bytes` equal the JAX package's `layer_cost` on the same
+    spec, choice and device count.  It is the same for every tile of
+    one shard kind, so among those the ranking falls to the card term
+    through `LayerCost.score()`, as the JAX package's falls to its DMA
+    term.
   * card time (`t_dma_s`, in JAX's field): the Hopper route's work at
-    its tile, per dispatch (one per (row tile, col tile) of the macro
-    mapping, each `mp.rows_per_tile` deep, as the JAX model charges it),
-    the larger of
+    its tile, per dispatch of one partition (one per (row tile, local
+    col tile) of the macro mapping over the partition's rows, each
+    `mp.rows_per_tile` deep, as the JAX model charges it), the larger
+    of
       - the route's HBM bytes over `hw.H100_SXM.hbm_bw`: routes A and C
         re-read x once per column block and w once per row block;
         route B reads x once per N tile and w once, and writes and
@@ -26,7 +31,13 @@ per layer with the hardware tables the rest of the port reads:
         rate; route C one `__dp4a` (four multiply-adds) an int32 lane
         instruction; route B one multiply-add a lane instruction, its
         planes combined before the products.
-  * collective time: the port plans one device (no sharding yet), so 0.
+    A partition per card runs in parallel with the others; partitions
+    folded onto one card run one after another, so there the card time
+    and bytes are the devices' sum.
+  * collective time: the output all-gather of the shard kind, JAX's
+    `collective_bytes` (each partition receives the others' int32
+    slabs), over `GPUSpec.nvlink_bw` across cards or `GPUSpec.hbm_bw`
+    folded onto one card (the gather is then a copy in its memory).
 
 The score is the roofline bound max(t_macro, t_dma, t_collective); ties
 break toward the lower card time and bytes and then toward the heuristic
@@ -55,8 +66,9 @@ class ScheduleChoice:
 
     `route` names the route ("tc", "splitk" or "cuda_core"), `bm` x `bn`
     its block and `bk` the K rows of a route B chunk (0 on routes A and
-    C).  `shard_kind` is None (the port plans one device).  Choices are
-    hashable - they key the autotune cache entries."""
+    C).  `shard_kind` is None (the automatic kind, the only one on one
+    device) or an explicit "col"/"rows" for a multi-device plan.  Choices are hashable
+    - they key the autotune cache entries."""
     route: str
     bm: int
     bn: int
@@ -75,7 +87,8 @@ class LayerCost:
 
     The macro counts are exact geometry (equal to macro_perf's
     layer_report); `dma_bytes` and `t_dma_s` are the card's HBM bytes
-    and time of the chosen route at its tile.  `total_s` is the roofline
+    and time of the chosen route at its tile (one partition's, or the
+    sum of the partitions folded onto one card).  `total_s` is the roofline
     bound max(macro, card, collective) - the scalar the search
     minimizes."""
     macro_evals: int              # total macro invocations (all devices)
@@ -142,34 +155,58 @@ def _card_s(rows: int, k: int, n: int, tile: Optional[Tile],
 
 def layer_cost(spec: mapping.LayerSpec, choice: ScheduleChoice, *,
                devices: int = 1, macro: CIMMacroConfig = DEFAULT_MACRO,
-               gpu: GPUSpec = H100_SXM) -> LayerCost:
-    """Score one layer under one schedule choice.
+               gpu: GPUSpec = H100_SXM, folded: bool = False) -> LayerCost:
+    """Score one layer under one schedule choice on `devices` macros.
 
-    The macro term counts every macro evaluation of the layer (one
-    device); the card term sums the route's cost over the layer's
-    dispatches, `spec.m` rows each.  The port plans one device: any other
-    count raises."""
+    The macro term uses the per-device critical-path eval count; the card
+    term sums the route's cost over one partition's dispatches (times the
+    device count when `folded`: the partitions share one card); the
+    collective term charges the output all-gather of the chosen shard
+    kind over NVLink, or over the card's memory when `folded`.
+    devices=1 has no collective and the full schedule on the one device,
+    whatever `choice.shard_kind` says."""
     if devices < 1:
         raise ValueError(f"devices must be >= 1, got {devices}")
-    if devices != 1:
-        raise NotImplementedError(
-            "a sharded layer's cost waits for the sharding slice (ROADMAP "
-            "Queue 1 item 4)")
     mp = mapping.map_layer(spec, macro)
     kt, nt = mp.row_tiles, mp.col_tiles
     tile_n = math.ceil(spec.n / nt)      # uniform col-tile width
     _, n_planes = plane_layout(spec.r_in)
-    evals = mp.macro_evals * spec.m
+    evals_total = mp.macro_evals * spec.m
+    if devices == 1:
+        rows_local, nt_local = spec.m, nt
+        evals_dev = evals_total
+        coll_bytes = 0
+    else:
+        shard = mapping.shard_layer(spec, mp, devices,
+                                    kind=choice.shard_kind)
+        if shard.kind == "col":
+            rows_local = spec.m
+            nt_local = shard.tiles_per_device
+            evals_dev = kt * nt_local * spec.m
+            # all-gather of the output columns: each device receives the
+            # other devices' (m, tiles_per_device * tile_n) int32 slabs
+            n_tot = shard.devices * nt_local * tile_n
+            coll_bytes = spec.m * (n_tot - nt_local * tile_n) * 4
+        else:
+            rows_local = shard.rows_per_device
+            nt_local = nt
+            evals_dev = mp.macro_evals * rows_local
+            # all-gather of the output rows (padded col extent)
+            m_tot = shard.devices * rows_local
+            coll_bytes = (m_tot - rows_local) * nt * tile_n * 4
     t_eval_ns = cim_eval_time_ns(spec.r_in, spec.r_w, spec.r_out, macro)
-    t_macro = evals * t_eval_ns * 1e-9
+    t_macro = evals_dev * t_eval_ns * 1e-9
     # every row tile charged at mp.rows_per_tile rows (the last may be
     # smaller): monotone and upper-bounding, as the JAX model
-    dispatch = (spec.m, mp.rows_per_tile, tile_n, choice.blocks, n_planes)
-    dma = nt * kt * kernel_dma_bytes(*dispatch)
-    t_dma = nt * kt * _card_s(*dispatch, gpu)
+    dispatch = (rows_local, mp.rows_per_tile, tile_n, choice.blocks,
+                n_planes)
+    share = devices if folded else 1
+    dma = share * nt_local * kt * kernel_dma_bytes(*dispatch)
+    t_dma = share * nt_local * kt * _card_s(*dispatch, gpu)
+    t_coll = coll_bytes / (gpu.hbm_bw if folded else gpu.nvlink_bw)
     return LayerCost(
-        macro_evals=evals, macro_evals_per_device=evals,
-        adc_conversions=evals * min(tile_n, spec.n),
-        dma_bytes=dma, collective_bytes=0,
-        t_macro_s=t_macro, t_dma_s=t_dma, t_collective_s=0.0,
-        total_s=max(t_macro, t_dma, 0.0))
+        macro_evals=evals_total, macro_evals_per_device=evals_dev,
+        adc_conversions=evals_dev * min(tile_n, spec.n),
+        dma_bytes=dma, collective_bytes=coll_bytes,
+        t_macro_s=t_macro, t_dma_s=t_dma, t_collective_s=t_coll,
+        total_s=max(t_macro, t_dma, t_coll))

@@ -4,9 +4,11 @@ Counterpart of `repro/tuner/search.py`.  `tune_network` is the tuner's
 entry point (what `runtime.program.compile_program(tune=...)` calls): for
 each layer it enumerates the tiles the layer's dispatch may run
 (`kernels.cim_mbiw.ops.block_candidates`: every legal tile of the route
-`route_for` takes at `spec.m` rows, one row tile deep and one col tile
-wide), scores each with `cost.layer_cost`, and keeps the strict-best - the
-heuristic candidate (`route_for`'s own tile) is scored FIRST, so the tuned
+`route_for` takes at the dispatch's rows, one row tile deep and one col
+tile wide) crossed, on a multi-device plan, with the two shard kinds (a
+"rows" partition dispatches ceil(M / D) rows, so its tiles are those of
+that shape), scores each with `cost.layer_cost`, and keeps the
+strict-best - the heuristic candidate (`route_for`'s own tile) is scored FIRST, so the tuned
 schedule's analytic cost is <= the heuristic's by construction.  In
 "measure" mode the analytic top-k candidates are additionally timed on
 the card with CUDA events (a captured graph of many launches of the tile
@@ -74,29 +76,50 @@ def heuristic_choice(spec: mapping.LayerSpec, cfg,
 def layer_candidates(spec: mapping.LayerSpec, cfg, devices: int,
                      macro: CIMMacroConfig = DEFAULT_MACRO
                      ) -> List[ScheduleChoice]:
-    """Every candidate the search scores for one layer, heuristic first:
-    the legal tiles of the dispatch's route, deduplicated, order-stable.
-    Shard kinds: {None} (the port plans one device)."""
+    """Every candidate the search scores for one layer, heuristic first.
+
+    Tiles are the legal tiles of the dispatch's route at the rows a
+    partition dispatches; shard kinds are {None} on one device and the
+    automatic kind first, then the other "col"/"rows", on a multi-device
+    plan.  Deduplicated, order-stable."""
     rows, k, n, planes = _dispatch(spec, macro)
+    mp = mapping.map_layer(spec, macro)
+    if devices <= 1:
+        kinds: Tuple[Optional[str], ...] = (None,)
+    else:
+        auto = "col" if mp.col_tiles >= devices else "rows"
+        kinds = (auto, "rows" if auto == "col" else "col")
     out = [heuristic_choice(spec, cfg, macro)]
     seen = {out[0]}
-    for tile in kops.block_candidates(rows, k, n, planes):
-        c = ScheduleChoice(*tile)
-        if c not in seen:
-            seen.add(c)
-            out.append(c)
+    for kind in kinds:
+        rows_local = rows
+        if kind == "rows":
+            rows_local = mapping.shard_layer(spec, mp, devices,
+                                             kind=kind).rows_per_device
+        for tile in kops.block_candidates(rows_local, k, n, planes):
+            c = ScheduleChoice(*tile, shard_kind=kind)
+            if c not in seen:
+                seen.add(c)
+                out.append(c)
     return out
 
 
 def _measure_choice_s(spec: mapping.LayerSpec, choice: ScheduleChoice,
-                      macro: CIMMacroConfig, device: torch.device) -> float:
+                      macro: CIMMacroConfig, device: torch.device,
+                      devices: int = 1) -> float:
     """Seconds one launch of the candidate's tile takes on the card, on
-    seeded synthetic data for one dispatch: `_MEASURE_LAUNCHES` launches
-    captured in a CUDA graph (after an eager warm-up, which also grows
+    seeded synthetic data for one dispatch (of a "rows" partition's
+    ceil(M / D) rows where the choice shards rows): `_MEASURE_LAUNCHES`
+    launches captured in a CUDA graph (after an eager warm-up, which also grows
     route B's workspace outside the capture), replayed between CUDA
     events, min of `_MEASURE_ITERS`.  Forced through `kernel.launch`,
     which counts nothing.  Used only for ranking - never for numerics."""
     rows, k, n, planes = _dispatch(spec, macro)
+    if devices > 1:
+        mp = mapping.map_layer(spec, macro)
+        sh = mapping.shard_layer(spec, mp, devices, kind=choice.shard_kind)
+        if sh.kind == "rows":
+            rows = sh.rows_per_device
     shift, _ = kmod.plane_layout(spec.r_in)
     rng = np.random.default_rng(0)
     x = rng.integers(0, 2 ** min(shift, spec.r_in), (rows, planes * k),
@@ -138,20 +161,22 @@ def tune_layer(spec: mapping.LayerSpec, cfg, devices: int, *,
                mode: str = "analytic",
                cache: Optional[tcache.TuneCache] = None,
                macro: CIMMacroConfig = DEFAULT_MACRO,
-               device: Optional[torch.device] = None
-               ) -> Tuple[ScheduleChoice, dict]:
+               device: Optional[torch.device] = None,
+               folded: bool = False) -> Tuple[ScheduleChoice, dict]:
     """Pick one layer's schedule: cache hit -> stored winner (no search);
     miss -> full candidate scan (SEARCH_COUNT += 1) + write-back;
     invalid/degraded cache entry -> heuristic with the cache's warning.
-    `device` is the card "measure" mode times on.
+    `device` is the card "measure" mode times on; `folded` prices the
+    `devices` partitions on one card (`cost.layer_cost`).
 
     Returns (choice, report); the report echoes the cache status, the
     heuristic and tuned analytic costs, the candidate count and, in
     "measure" mode, the seconds a launch each timed candidate took
     (`measured_s`, keyed by tile)."""
     heur = heuristic_choice(spec, cfg, macro)
-    heur_cost = layer_cost(spec, heur, devices=devices, macro=macro)
-    key = tcache.cache_key(spec, devices, macro)
+    heur_cost = layer_cost(spec, heur, devices=devices, macro=macro,
+                           folded=folded)
+    key = tcache.cache_key(spec, devices, macro, folded=folded)
     report = {"key": key, "mode": mode, "heuristic": heur,
               "heuristic_s": heur_cost.total_s}
 
@@ -159,7 +184,8 @@ def tune_layer(spec: mapping.LayerSpec, cfg, devices: int, *,
     if cache is not None:
         status, cached = cache.get(key, kmod.plane_layout(spec.r_in)[1])
         if status == tcache.HIT:
-            c_cost = layer_cost(spec, cached, devices=devices, macro=macro)
+            c_cost = layer_cost(spec, cached, devices=devices, macro=macro,
+                                folded=folded)
             report.update(cache=tcache.HIT, choice=cached,
                           predicted_s=c_cost.total_s, candidates=0)
             return cached, report
@@ -171,7 +197,8 @@ def tune_layer(spec: mapping.LayerSpec, cfg, devices: int, *,
     SEARCH_COUNT["n"] += 1
     cands = layer_candidates(spec, cfg, devices, macro)
     scored: List[Tuple[LayerCost, ScheduleChoice]] = [
-        (layer_cost(spec, c, devices=devices, macro=macro), c)
+        (layer_cost(spec, c, devices=devices, macro=macro,
+                    folded=folded), c)
         for c in cands]
     best_cost, best = scored[0]        # the heuristic - ties keep it
     for lc, c in scored[1:]:
@@ -180,7 +207,8 @@ def tune_layer(spec: mapping.LayerSpec, cfg, devices: int, *,
 
     if mode == "measure":
         ranked = sorted(scored, key=lambda sc: sc[0].score())
-        timed = [(_measure_choice_s(spec, c, macro, device), lc, c)
+        timed = [(_measure_choice_s(spec, c, macro, device, devices), lc,
+                  c)
                  for lc, c in ranked[:MEASURE_TOP_K]]
         _, best_cost, best = min(timed, key=lambda t: t[0])
         report["measured_s"] = {c.blocks: t for t, _, c in timed}
@@ -226,6 +254,9 @@ def tune_network(specs: Sequence[mapping.LayerSpec], cfg,
             'there is nothing to measure (use tune="analytic")')
     from repro_torch.runtime import engine  # avoid a module-load cycle
 
+    sharding = getattr(cfg, "sharding", None)
+    devices = sharding.resolve_devices() if sharding is not None else 1
+    folded = sharding is not None and sharding.fold_onto is not None
     macro = getattr(cfg, "macro", DEFAULT_MACRO)
     cache = None
     if cache_path != "":
@@ -235,8 +266,9 @@ def tune_network(specs: Sequence[mapping.LayerSpec], cfg,
     schedule, reports = [], []
     wrote = False
     for spec in specs:
-        choice, rep = tune_layer(spec, cfg, 1, mode=mode, cache=cache,
-                                 macro=macro, device=dev)
+        choice, rep = tune_layer(spec, cfg, devices, mode=mode,
+                                 cache=cache, macro=macro, device=dev,
+                                 folded=folded)
         wrote = wrote or rep.get("cache") == tcache.MISS
         schedule.append(_fold(choice, rep["heuristic"]))
         reports.append(rep)

@@ -254,11 +254,12 @@ def test_noise_and_other_modes_raise():
          "abn_beta": torch.zeros(2)}
     x = torch.ones((1, 4))
     # the engine and deploy modes are ported (tests/test_torch_serve.py),
-    # and sim (tests/test_torch_cim_macro.py); a sharded engine layer is
-    # not
+    # sim (tests/test_torch_cim_macro.py) and the sharded engine layer
+    # (tests/test_torch_sharding.py), which takes a runtime ShardingConfig
+    # only
     assert tcl.cim_linear_apply(p, x, tcl.CIMConfig(mode="sim")).shape \
         == (1, 2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ShardingConfig"):
         tcl.cim_linear_apply(p, x, tcl.CIMConfig(mode="engine",
                                                  sharding=object()))
     with pytest.raises(ValueError):

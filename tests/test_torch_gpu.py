@@ -1158,3 +1158,140 @@ def test_sim_layer_on_card_matches_host(cuda_device):
         yh = tcl.cim_linear_apply(p, x, c, key=key)
         np.testing.assert_allclose(y.cpu().numpy(), yh.numpy(), rtol=1e-5,
                                    atol=1e-6 * float(yh.abs().max()))
+
+
+# ---- the sharded multi-macro engine ----------------------------------------
+
+def _sharded(devices, *, fold=True, noise=False):
+    cfg = trt.EngineConfig(noise=NoiseConfig()) if noise \
+        else trt.EngineConfig()
+    return cfg.replace(sharding=trt.ShardingConfig(
+        devices=devices, fold_onto="cuda" if fold else None))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noise", (False, True), ids=("clean", "noisy"))
+@pytest.mark.parametrize("devices", (1, 2, 4, 8))
+def test_folded_sharded_lenet_on_card(cuda_device, devices, noise):
+    """LeNet at (4, 2) with D partitions folded onto the card, both kinds
+    forced on every layer: equal to the unsharded program, the card's
+    reference and the host's sharded run, bit for bit."""
+    cim = CIMConfig(r_in=4, r_w=2)
+    specs, acts, pools = cnn.lenet_engine_specs(32, cim=cim)
+    params = cnn.lenet_params_list(
+        cnn.init_lenet(torch.Generator().manual_seed(3), cim=cim))
+    x = torch.from_numpy(make_dataset(1, 32, seed=3)[2][..., None])
+    key = prng.key(1) if noise else None
+    base = trt.EngineConfig(noise=NoiseConfig()) if noise \
+        else trt.EngineConfig()
+    want = tprog.compile_program(specs, base, activations=acts, pools=pools,
+                                 device=cuda_device).bind(params).serve(
+        x, key)
+    for kind in ("col", "rows"):
+        sched = [(None, kind)] * len(specs)
+        plan = trt.plan_network(specs, _sharded(devices, noise=noise), acts,
+                                pools, schedule=sched)
+        bound = tprog.program_for_plan(plan, device=cuda_device).bind(params)
+        got = bound.serve(x, key)
+        assert torch.equal(got, want)
+        assert torch.equal(got, bound.reference(x, key))
+        host = trt.plan_network(specs, base.replace(
+            sharding=trt.ShardingConfig(devices=devices, fold_onto="cpu")),
+            acts, pools, schedule=sched)
+        assert torch.equal(got.cpu(), tprog.program_for_plan(
+            host, device="cpu").bind(params).serve(x, key))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("col", "rows"))
+def test_sharded_dispatch_is_one_graph(cuda_device, kind):
+    """A clean folded sharded dispatch is captured as one CUDA graph: its
+    replays equal the eager forward at every rung, the capture's
+    cim_mbiw launches are the plan's sharded tile calls, and the weights
+    are not copied per partition."""
+    specs = [tmap.LayerSpec(m=8, k=1300, n=300, r_in=4, r_w=2),
+             tmap.LayerSpec(m=8, k=300, n=10, r_in=4, r_w=2)]
+    plan = trt.plan_network(specs, _sharded(4), schedule=[(None, kind)] * 2)
+    prog = tprog.program_for_plan(plan, device=cuda_device)
+    bound = prog.bind(prog.init_params(torch.Generator().manual_seed(4)))
+    for b in bound._binds:
+        assert all(p["wqq"].untyped_storage().data_ptr()
+                   == b["wqq"].untyped_storage().data_ptr()
+                   for p in b["parts"])
+    x = torch.randn((20, 1300), generator=torch.Generator().manual_seed(5))
+    st0 = bound.stats()
+    for b in prog.buckets.ladder(20):
+        rows = x[:min(b, 20)]
+        first = bound.serve(rows)
+        before = tkernel.cim_mbiw_matmul_planes.launches
+        again = bound.serve(rows)
+        torch.cuda.synchronize()
+        assert tkernel.cim_mbiw_matmul_planes.launches - before == \
+            len(plan.tile_calls(b))
+        want = _eager(bound, rows)
+        assert torch.equal(first, want) and torch.equal(again, want)
+    st = bound.stats()
+    rungs = len(prog.buckets.ladder(20))
+    assert st["graphs_captured"] - st0["graphs_captured"] == rungs
+    assert st["eager_calls"] == st0["eager_calls"]
+
+
+@pytest.mark.gpu
+def test_sharded_across_cards(cuda_device):
+    """The default placement: partition i on card i, the outputs gathered
+    on the program's card; such a dispatch runs eagerly.  Needs D cards."""
+    devices = 2
+    if torch.cuda.device_count() < devices:
+        pytest.skip(f"placement across cards needs {devices} cards, this "
+                    f"host has {torch.cuda.device_count()}")
+    specs = [tmap.LayerSpec(m=8, k=1300, n=300, r_in=4, r_w=2)]
+    p1 = tprog.compile_program(specs, device="cuda:0")
+    params = p1.init_params(torch.Generator().manual_seed(4))
+    x = torch.randn((8, 1300), generator=torch.Generator().manual_seed(5))
+    want = p1.bind(params).serve(x)
+    for kind in ("col", "rows"):
+        plan = trt.plan_network(specs, _sharded(devices, fold=False),
+                                schedule=[(None, kind)])
+        prog = tprog.program_for_plan(plan, device="cuda:0")
+        bound = prog.bind(params)
+        assert {p["wqq"].device.index for p in bound._binds[0]["parts"]} \
+            == {0, 1}
+        eager0 = bound.stats()["eager_calls"]
+        assert torch.equal(bound.serve(x), want)
+        assert bound.stats()["eager_calls"] == eager0 + 1
+
+
+@pytest.mark.gpu
+def test_flash_attention_sharded_on_card(cuda_device):
+    """flash_attention_sharded over a folded (data 2, model 4) mesh in
+    bf16 through the tensor-core kernels: the forward equal to the
+    unsharded kernel call (each query row meets the same key blocks in
+    the same order), the float32 gradients within flash's 5e-5."""
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import use_mesh
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    b, s, h, d = 2, 1024, 4, 128
+    q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=cuda_device,
+                               dtype=torch.bfloat16) for _ in range(4))
+    mesh = make_mesh((2, 4), ("data", "model"), fold_onto="cuda")
+    pieces = fops.sharded_pieces(mesh, b, s)
+    o, lse = fops.sharded_forward(q, k, v, True, 0, pieces)
+    zero = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    o1, lse1 = rkernel.flash_fwd(qt, kt, vt, zero, causal=True)
+    assert torch.equal(o, o1.transpose(1, 2)) and torch.equal(lse, lse1)
+    dq, dk, dv = fops.sharded_backward(q, k, v, o, lse, do, True, 0, pieces)
+    delta = torch.sum(do.float() * o.float(), -1).transpose(1, 2) \
+        .contiguous()
+    args = (qt, kt, vt, dot, lse1, delta, zero)
+    dq1 = rkernel.flash_bwd_dq(*args, causal=True)
+    dk1, dv1 = rkernel.flash_bwd_dkv(*args, causal=True)
+    for got, want in ((dq, dq1), (dk, dk1), (dv, dv1)):
+        torch.testing.assert_close(got, want, rtol=5e-5, atol=5e-5)
+    qg = q.clone().requires_grad_()
+    with use_mesh(mesh):
+        out = fops.flash_attention_sharded(qg, k, v, True, 0)
+    assert torch.equal(out, o)
+    out.backward(do)
+    assert torch.equal(qg.grad, dq.transpose(1, 2).to(torch.bfloat16))

@@ -72,8 +72,22 @@ CNN_SLICE = [
 ]
 
 
+# the sharding slice: the shard partition, the meshes, the sharded engine,
+# its programs, scheduler, layer, perf model, tuner and calibration key,
+# the model-level helpers and the context-parallel flash entry
+SHARDING_SLICE = [
+    "core/mapping.py", "launch/mesh.py", "runtime/engine.py",
+    "runtime/program.py", "runtime/scheduler.py", "core/cim_layers.py",
+    "perfmodel/macro_perf.py", "tuner/cost.py", "tuner/search.py",
+    "tuner/cache.py", "precision/sensitivity.py", "models/sharding.py",
+    "kernels/flash_attn/ops.py", "models/common.py",
+    "models/transformer.py", "launch/serve.py",
+]
+
+
 @pytest.mark.parametrize("rel", TRAIN_SLICE + NOISE_SLICE + SERVE_SLICE
-                         + PRECISION_SLICE + TUNER_SLICE + CNN_SLICE)
+                         + PRECISION_SLICE + TUNER_SLICE + CNN_SLICE
+                         + SHARDING_SLICE)
 def test_train_slice_module_is_checked(rel):
     assert PORT / rel in FILES
 

@@ -247,9 +247,22 @@ def test_attention_block_slot_cache():
 
 
 def test_cross_attention_and_kv_repeat_raise():
+    """Cross-attention is not ported and raises NotImplementedError.
+    kv_repeat_to (ported with the sharding slice; held against JAX in
+    tests/test_torch_sharding.py) raises only where JAX's does, past the
+    query heads (8 KV heads for 4 queries), and at the KV head count
+    leaves the block as it was."""
     _, tp, _, acfg_t = _block_setup(3)
     x = torch.zeros((1, 2, 64))
-    for kw in ({"x_kv": x}, {"cross_kv": {}}, {"kv_repeat_to": 8}):
+    for kw in ({"x_kv": x}, {"cross_kv": {}}):
         with pytest.raises(NotImplementedError):
             tcm.attention_block(tp, x, acfg_t, CIMConfig(mode="bypass"),
                                 positions=torch.arange(2), **kw)
+    with pytest.raises(RuntimeError):
+        tcm.attention_block(tp, x, acfg_t, CIMConfig(mode="bypass"),
+                            positions=torch.arange(2), kv_repeat_to=8)
+    xr = torch.randn((1, 2, 64), generator=torch.Generator().manual_seed(0))
+    outs = [tcm.attention_block(tp, xr, acfg_t, CIMConfig(mode="bypass"),
+                                positions=torch.arange(2), **kw)[0]
+            for kw in ({}, {"kv_repeat_to": 4})]
+    assert torch.equal(outs[0], outs[1])

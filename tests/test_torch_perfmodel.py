@@ -173,37 +173,54 @@ def test_perf_report_program_echo_equal_jax():
     assert techo["eager_calls"] - tst0["eager_calls"] == 5
 
 
-def test_sharded_or_tuned_plans_raise():
-    """A plan carrying a device partition or a sharded config waits for
-    the sharding slice and raises; a plan carrying autotuned blocks is
-    reported, with the tuner's "tune" entry (tests/test_torch_tuner.py
-    holds it against JAX's)."""
+@pytest.mark.parametrize("devices", (2, 4, 8))
+@pytest.mark.parametrize("net", ("lenet", "dense"))
+def test_sharded_schedule_report_equal_jax(net, devices):
+    """A sharded plan's report - per-layer shard columns, the totals'
+    macro_evals_total / macro_evals_per_device / parallel_efficiency and
+    the "sharding" echo - equals JAX's exactly, with each layer's
+    automatic kind and with every layer forced to the other kind (whose
+    "tune" entry echoes the forced kind; its times are each card's
+    model, held in tests/test_torch_tuner.py)."""
+    jplan, tplan = _plans(net, (4, 2), False)
+    jcfg = jplan.cfg.replace(sharding=jrt.ShardingConfig(devices=devices))
+    tcfg = tplan.cfg.replace(sharding=trt.ShardingConfig(devices=devices))
+    jspecs = [lp.spec for lp in jplan.layers]
+    tspecs = [lp.spec for lp in tplan.layers]
+    acts = [lp.activation for lp in tplan.layers]
+    pools = [lp.pool for lp in tplan.layers]
+    auto = trt.plan_network(tspecs, tcfg, acts, pools)
+    other = [(None, "rows" if lp.shard.kind == "col" else "col")
+             for lp in auto.layers]
+    for sched in (None, other):
+        want = jpm.schedule_report(jrt.plan_network(jspecs, jcfg, acts,
+                                                    pools, schedule=sched))
+        got = tpm.schedule_report(trt.plan_network(tspecs, tcfg, acts,
+                                                   pools, schedule=sched))
+        tunes = [(lt.pop("tune", None), lw.pop("tune", None))
+                 for lt, lw in zip(got["layers"], want["layers"])]
+        assert got == want
+        for t, w in tunes:
+            assert (t is None) == (w is None) == (sched is None)
+            if t is not None:
+                assert t["shard_kind"] == w["shard_kind"]
+    assert got["sharding"] == {"devices": devices, "axis": "macro"}
+    assert 0.0 < got["total"]["parallel_efficiency"] <= 1.0
+    assert "sharding" not in tpm.schedule_report(tplan)
+
+
+def test_tuned_plans_carry_tune_entry():
+    """A plan carrying autotuned blocks is reported with the tuner's
+    "tune" entry (tests/test_torch_tuner.py holds it against JAX's), and
+    its other columns are the untuned plan's."""
     _, plan = _plans("dense", (4, 2), False)
-
-    @dataclasses.dataclass(frozen=True)
-    class Sharded:
-        sharding: object = "mesh"
-        noise: object = tnm.NO_NOISE
-
-    @dataclasses.dataclass(frozen=True)
-    class Layer:
-        spec: object
-        shard: object = None
-        blocks: object = None
-
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tpm.schedule_report(dataclasses.replace(plan, cfg=Sharded()))
-    spec = plan.layers[0].spec
-    fake = type("P", (), {"layers": (Layer(spec, shard="col"),),
-                          "cfg": plan.cfg, "total_macro_evals": 1})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tpm.schedule_report(fake)
     tuned = dataclasses.replace(
         plan, layers=(dataclasses.replace(plan.layers[0],
                                           blocks=("splitk", 0, 64, 40)),)
         + plan.layers[1:])
     rep = tpm.schedule_report(tuned)
     assert rep["layers"][0]["tune"]["blocks"] == ("splitk", 0, 64, 40)
+    assert rep["layers"][0]["tune"]["shard_kind"] is None
     assert all("tune" not in lr for lr in rep["layers"][1:])
     assert {k: v for k, v in rep["layers"][0].items() if k != "tune"} == \
         tpm.schedule_report(plan)["layers"][0]

@@ -259,14 +259,21 @@ def test_bound_program_cache():
 
 
 def test_engine_layer_refuses_sharding_and_sim():
+    """The sharded engine layer is ported (tests/test_torch_sharding.py
+    holds it bit for bit): it refuses a sharding that is not a runtime
+    ShardingConfig, and one whose partitions need more devices than the
+    host shows, in the linear and the conv layer alike."""
+    from repro_torch.runtime.engine import ShardingConfig
     p, x = _layer(1), torch.zeros((1, 40))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tcl.cim_linear_apply(p, x, tcl.CIMConfig(mode="engine",
-                                                 sharding=object()))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tcl.cim_conv2d_apply(
-            {**p, "w": p["w"][:36]}, torch.zeros((1, 3, 3, 4)),
-            tcl.CIMConfig(mode="engine", sharding=object()))
+    conv_p, conv_x = {**p, "w": p["w"][:36]}, torch.zeros((1, 3, 3, 4))
+    for sharding, err, msg in ((object(), TypeError, "ShardingConfig"),
+                               (ShardingConfig(devices=2), ValueError,
+                                "devices")):
+        cfg = tcl.CIMConfig(mode="engine", sharding=sharding)
+        with pytest.raises(err, match=msg):
+            tcl.cim_linear_apply(p, x, cfg)
+        with pytest.raises(err, match=msg):
+            tcl.cim_conv2d_apply(conv_p, conv_x, cfg)
     # the sim mode is ported (tests/test_torch_cim_macro.py)
     assert tcl.cim_linear_apply(p, x, tcl.CIMConfig(mode="sim")).shape \
         == (1, p["w"].shape[1])
@@ -326,7 +333,12 @@ def test_launcher_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(base + ["--cim-mode", "engine"])
-    with pytest.raises(NotImplementedError):
+    # --engine-devices is ported: D real devices (the host shows one), and
+    # engine mode only
+    with pytest.raises(ValueError, match="devices"):
+        serve.main(base + ["--device", "cpu", "--cim-mode", "engine",
+                           "--engine-devices", "2"])
+    with pytest.raises(SystemExit):
         serve.main(base + ["--device", "cpu", "--engine-devices", "2"])
     # --precision-policy is ported: it refuses, as the JAX launcher does,
     # anything but --cim-mode engine --inflight

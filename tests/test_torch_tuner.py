@@ -101,13 +101,34 @@ def test_cost_macro_fields_equal_jax(r_in, r_w):
             assert got.collective_bytes == 0 and got.t_collective_s == 0.0
 
 
-def test_cost_refuses_other_device_counts():
-    spec = tmap.LayerSpec(m=8, k=64, n=16, r_in=4, r_w=2)
-    choice = ttuner.heuristic_choice(spec, trt.EngineConfig())
+@pytest.mark.parametrize("devices", (2, 4, 8))
+def test_cost_sharded_devices_equal_jax(devices):
+    """At D > 1 the search scores the shard kinds JAX's does (none, then
+    the automatic kind, then the other), and every candidate's macro
+    fields and collective bytes equal JAX's `layer_cost` for its kind;
+    devices < 1 raises."""
+    for m, k, n in ((8, 144, 320), (64, 1300, 700), (3, 2304, 16)):
+        jspec = jmap.LayerSpec(m=m, k=k, n=n, r_in=4, r_w=2)
+        tspec = tmap.LayerSpec(m=m, k=k, n=n, r_in=4, r_w=2)
+        jcfg = jrt.EngineConfig(sharding=jrt.ShardingConfig(devices=devices))
+        tcfg = trt.EngineConfig(sharding=trt.ShardingConfig(devices=devices))
+        jkinds = [c.shard_kind for c in jtuner.layer_candidates(
+            jspec, jcfg, devices)]
+        tkinds = [c.shard_kind for c in ttuner.layer_candidates(
+            tspec, tcfg, devices)]
+        assert list(dict.fromkeys(tkinds)) == list(dict.fromkeys(jkinds))
+        for choice in ttuner.layer_candidates(tspec, tcfg, devices):
+            want = jtuner.layer_cost(
+                jspec, jtuner.ScheduleChoice(64, 64, 256, choice.shard_kind),
+                devices=devices)
+            got = ttuner.layer_cost(tspec, choice, devices=devices)
+            for f in MACRO_FIELDS + ("collective_bytes",):
+                assert getattr(got, f) == getattr(want, f), (m, k, n, f)
+            assert got.t_collective_s == \
+                got.collective_bytes / thw.H100_SXM.nvlink_bw
+    choice = ttuner.heuristic_choice(tspec, trt.EngineConfig())
     with pytest.raises(ValueError, match="devices"):
-        ttuner.layer_cost(spec, choice, devices=0)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ttuner.layer_cost(spec, choice, devices=4)
+        ttuner.layer_cost(tspec, choice, devices=0)
 
 
 @pytest.mark.parametrize("route,base,tile", [
