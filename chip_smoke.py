@@ -270,7 +270,29 @@ a result:
                 (the bf16 output one ulp) and 5e-5 (float32 gradients),
                 bit-equality reported.  Placement across cards runs only
                 with 2 cards; otherwise a line says it was not run.
- 14. times    - CUDA-event times of each kernel, its plain version and a
+ 14. cimcheck - static verification (repro_torch.analysis) on the card:
+                (a) `python -m repro_torch.analysis --strict` in process
+                at smoke widths (LeNet and OLMo-1B's projections over
+                r_in {1,2,4,8} x r_w {1,2,4}, the noisy, folded-sharded
+                and mixed-ladder points, the SASS pass), then OLMo-1B's
+                four projections at full width (d 2048, d_ff 8192, m 8,
+                (8, 4)); any ERROR fails the run.  (b) the SASS pass
+                over every built library: floor sinks and FFMAs on their
+                slices per function; any finding on a cim_mbiw route
+                fails.  (c) a seeded contractible epilogue, floorf(mid +
+                gain*dp + beta) with plain operators, compiled with
+                kernels/build.py's flags: the pass must report it.  (d)
+                compile_program(verify="strict") against "off", fresh
+                each time, on LeNet (4, 2) at batch 256 and on each
+                OLMo-1B projection: both times printed; no capture, bind
+                or launch counter moves.  (e) the legacy entries
+                (run_network, CIMInferenceEngine's call and reference,
+                run_network_reference) == program.run on LeNet at batch
+                256, clean and noisy, and on one OLMo-1B projection at 4
+                rows (the split-K route); monte_carlo's 4 trials == 4
+                runs under the split keys.  The launches of (e), the
+                slice's main path, join the kernels line.
+ 15. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
                 ring_decode and the flash kernels: yardsticks the port
@@ -2471,6 +2493,221 @@ SHARD_FLASH_MESH = ((1, 4), ("data", "model"))
 SHARD_CROSS_DEVICES = 2
 
 
+CIMCHECK_FULL_POINT = (8, 4)
+CIMCHECK_VERIFY_REPS = 2
+CIMCHECK_MC_TRIALS = 4
+CIMCHECK_DENSE = (4, 2048, 2048, 8, 4)     # rows, k, n, r_in, r_w
+
+
+def cimcheck_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
+    """Static verification on the card (module docstring, phase 14)."""
+    from repro_torch.analysis import __main__ as cli
+    from repro_torch.analysis import sass
+    from repro_torch.core import mapping, prng
+    from repro_torch.core.cim_layers import CIMConfig, _engine_config
+    from repro_torch.core.noise_model import NoiseConfig
+    from repro_torch.data.pseudo_mnist import make_dataset
+    from repro_torch.kernels.prng.kernel import threefry_normal
+    from repro_torch.models import cnn
+    rec: dict = {}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+
+    # (a) the CLI sweep, strict, then OLMo-1B's projections at full width
+    t0 = time.perf_counter()
+    rc = cli.main(["--strict", "--device", str(dev), "--json",
+                   os.path.join(out_dir, "cimcheck_sweep.json")])
+    sweep_s = time.perf_counter() - t0
+    check(rc == 0, f"cimcheck sweep exited {rc}")
+    t0 = time.perf_counter()
+    rc = cli.main(["--strict", "--device", str(dev), "--arch", "olmo-1b",
+                   "--r-in", str(CIMCHECK_FULL_POINT[0]),
+                   "--r-w", str(CIMCHECK_FULL_POINT[1]), "--full-width",
+                   "--no-extra", "--no-sass", "--json",
+                   os.path.join(out_dir, "cimcheck_full_width.json")])
+    full_s = time.perf_counter() - t0
+    check(rc == 0, f"cimcheck at OLMo-1B's full width exited {rc}")
+    rec["sweep_s"], rec["full_width_s"] = sweep_s, full_s
+    print(f"cimcheck (a) {tag}: sweep of LeNet and OLMo-1B (smoke widths) "
+          f"over r_in x r_w, noisy, folded-sharded and ladder points, SASS "
+          f"pass: strict exit 0 in {sweep_s:.1f} s; OLMo-1B's projections "
+          f"at full width {CIMCHECK_FULL_POINT}: exit 0 in {full_s:.1f} s",
+          flush=True)
+
+    # (b) the SASS pass over every built library
+    t0 = time.perf_counter()
+    res = sass.lint_built()
+    sass_s = time.perf_counter() - t0
+    per_lib: dict = {}
+    for f in res.functions:
+        lib = per_lib.setdefault(f.library, {"functions": 0, "sinks": 0,
+                                             "ffma_on_slice": 0,
+                                             "ffma_total": 0})
+        lib["functions"] += 1
+        lib["sinks"] += f.sinks
+        lib["ffma_on_slice"] += f.ffma_on_slice
+        lib["ffma_total"] += f.ffma_total
+    rec["sass"] = {"seconds": sass_s, "libraries": per_lib,
+                   "functions": [dataclasses.asdict(f)
+                                 for f in res.functions],
+                   "findings": [f.to_dict() for f in res.findings]}
+    for lib, v in per_lib.items():
+        print(f"cimcheck (b) {tag}: SASS {lib}: {v['functions']} functions, "
+              f"{v['sinks']} floor sinks, {v['ffma_on_slice']} FFMA on "
+              f"their slices ({v['ffma_total']} FFMA in all)", flush=True)
+    for name in ("cim_mbiw", "cim_mbiw_tc", "cim_mbiw_splitk"):
+        lib = per_lib.get(name, {})
+        check(lib.get("sinks", 0) > 0,
+              f"SASS pass found no floor in {name}")
+        bad = [f.format() for f in res.findings if f.where.startswith(name)]
+        check(not bad, f"SASS pass: FFMA on the ADC floor of {name}: {bad}")
+
+    # (c) a seeded contractible epilogue must be reported
+    t0 = time.perf_counter()
+    seeded = sass.lint_path(sass.compile_source(sass.SEEDED_EPILOGUE,
+                                                "cimcheck_seeded"))
+    seeded_s = time.perf_counter() - t0
+    st = seeded.totals()
+    check(st["ffma_on_slice"] >= 1 and seeded.findings
+          and {f.code for f in seeded.findings} == {"NB102"},
+          f"the SASS pass missed the seeded FFMA epilogue: {st}")
+    rec["seeded"] = {"seconds": seeded_s, **st,
+                     "findings": [f.to_dict() for f in seeded.findings]}
+    print(f"cimcheck (c) {tag}: seeded floorf(mid + gain*dp + beta) with "
+          f"plain operators: {st['sinks']} floor sink(s), "
+          f"{st['ffma_on_slice']} FFMA on the slice, reported as NB102 "
+          f"(compile + pass {seeded_s:.1f} s)", flush=True)
+
+    # (d) compile_program(verify=) against verify="off", fresh each call
+    # (a bucket ladder no earlier compile used: a cache miss)
+    cim = CIMConfig(r_in=4, r_w=2)
+    l_specs, l_acts, l_pools = cnn.lenet_engine_specs(LENET_BATCH, cim=cim)
+    r_in, r_w = CIMCHECK_FULL_POINT
+    targets = [("lenet (4,2)", l_specs, _engine_config(cim), l_acts,
+                l_pools)] + [
+        (f"olmo-1b/{name}", [spec], trt.EngineConfig(), None, None)
+        for name, spec in zip(("qkv", "o", "gate_up", "down"),
+                              cli.llm_specs("olmo-1b", r_in, r_w,
+                                            full_width=True))]
+    fresh = [1 << 20]
+
+    def compile_ms(specs, cfg, acts, pools, verify):
+        fresh[0] += 1
+        buckets = tprog.BatchBuckets(max_bucket=fresh[0])
+        t = time.perf_counter()
+        tprog.compile_program(specs, cfg, activations=acts, pools=pools,
+                              buckets=buckets, device=dev, verify=verify)
+        return 1e3 * (time.perf_counter() - t)
+    marks = (dict(trt.CAPTURE_COUNT), tprog.bound_cache_stats(),
+             kmod.launch_counts(), threefry_normal.launches)
+    verify = {}
+    for label, specs, cfg, acts, pools in targets:
+        off = [compile_ms(specs, cfg, acts, pools, "off")
+               for _ in range(CIMCHECK_VERIFY_REPS)]
+        strict = [compile_ms(specs, cfg, acts, pools, "strict")
+                  for _ in range(CIMCHECK_VERIFY_REPS)]
+        verify[label] = {"off_ms": off, "strict_ms": strict,
+                         "off_median_ms": statistics.median(off),
+                         "strict_median_ms": statistics.median(strict)}
+    check((dict(trt.CAPTURE_COUNT), tprog.bound_cache_stats(),
+           kmod.launch_counts(), threefry_normal.launches) == marks,
+          "verify=strict moved a capture, bind or launch counter")
+    rec["verify"] = verify
+    print(f"cimcheck (d) {tag}: compile_program ms, median of "
+          f"{CIMCHECK_VERIFY_REPS} fresh compiles, verify off / strict: "
+          + "; ".join(f"{k} {v['off_median_ms']:.1f} / "
+                      f"{v['strict_median_ms']:.1f}"
+                      for k, v in verify.items())
+          + "; no capture, bind or launch counter moved", flush=True)
+
+    # (e) the legacy entries, the slice's main path
+    images = torch.from_numpy(make_dataset(n_train=1, n_test=LENET_BATCH,
+                                           seed=5)[2][..., None])
+    rows, k, n, dr_in, dr_w = CIMCHECK_DENSE
+    xd = torch.randn((rows, k), generator=torch.Generator().manual_seed(6))
+    cases = [("lenet", l_specs, l_acts, l_pools, images),
+             ("olmo-1b/o", [mapping.LayerSpec(m=rows, k=k, n=n, r_in=dr_in,
+                                              r_w=dr_w)], None, None, xd)]
+    import warnings
+    reset_counts(kern)
+    threefry_normal.launches = 0
+    forwards: dict = {}
+    legacy = {}
+    for label, specs, acts, pools, x in cases:
+        for noisy in (False, True):
+            cfg = trt.EngineConfig(noise=NoiseConfig(enabled=noisy))
+            eng = trt.CIMInferenceEngine(specs, cfg, acts, pools,
+                                         device=dev)
+            check(eng.program.device.type == dev.type,
+                  "legacy engine is not on the card")
+            params = eng.init_params(prng.key(0))
+            key = prng.key(1) if noisy else None
+            t = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                y = eng(params, x, key)
+                y_net = trt.run_network(eng.plan, params, x, key,
+                                        device=dev)
+            y_run = eng.program.run(params, x, key)
+            y_ref = eng.reference(params, x, key)
+            y_netref = trt.run_network_reference(eng.plan, params, x, key,
+                                                 device=dev)
+            n_fwd, n_ref = 3, 2
+            check(torch.equal(y, y_net) and torch.equal(y, y_run)
+                  and torch.equal(y, y_ref) and torch.equal(y, y_netref),
+                  f"legacy {label} noisy={noisy}: the entries differ")
+            check(bool(torch.isfinite(y).all()),
+                  f"legacy {label} noisy={noisy}: non-finite outputs")
+            entry = {"shape": list(y.shape)}
+            if noisy:
+                mc = eng.monte_carlo(params, x, prng.key(7),
+                                     CIMCHECK_MC_TRIALS)
+                runs = [eng.program.run(params, x, kk) for kk in
+                        prng.split(prng.key(7), CIMCHECK_MC_TRIALS)]
+                n_fwd += 2 * CIMCHECK_MC_TRIALS
+                check(all(torch.equal(mc[i], r) for i, r in enumerate(runs)),
+                      f"legacy {label}: monte_carlo != runs under the "
+                      "split keys")
+                check(not torch.equal(mc[0], mc[1]),
+                      f"legacy {label}: two trials drew the same noise")
+                entry["mc_trials"] = CIMCHECK_MC_TRIALS
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            entry["seconds"] = time.perf_counter() - t
+            legacy[f"{label} noisy={noisy}"] = entry
+            forwards[(label, noisy)] = (eng.plan, x.shape[0], n_fwd, n_ref)
+    counts = kernel_counts(kern)
+    draws = threefry_normal.launches
+    want = [0, 0, 0]
+    want_draws = 0
+    for (label, noisy), (plan, batch, n_fwd, n_ref) in forwards.items():
+        rc_ = kmod.route_counts(plan.tile_calls(batch))
+        want[0] += n_fwd * sum(rc_.values())
+        want[1] += n_fwd * rc_["tc"]
+        want[2] += n_fwd * rc_["splitk"]
+        # one draw a layer of every noisy forward, the references' too
+        want_draws += (n_fwd + n_ref) * len(plan.layers) * noisy
+    check(counts == tuple(want), f"legacy entries launched cim_mbiw "
+          f"{counts} (all, tc, split-K), not {tuple(want)}")
+    check(draws == want_draws, f"legacy entries launched threefry_normal "
+          f"{draws} times, not one a layer a noisy forward ({want_draws})")
+    cuda_core = counts[0] - counts[1] - counts[2]
+    check(min(counts[1], counts[2], cuda_core) > 0 and draws > 0,
+          f"legacy entries missed a route: {counts}, draws {draws}")
+    rec["legacy"] = legacy
+    rec["launches"] = {"cim_mbiw": counts[0], "cim_mbiw_tc": counts[1],
+                       "cim_mbiw_splitk": counts[2],
+                       "threefry_normal": draws}
+    print(f"cimcheck (e) {tag}: run_network, CIMInferenceEngine call and "
+          f"reference, run_network_reference == program.run on LeNet at "
+          f"batch {LENET_BATCH} and OLMo-1B's o projection at {rows} rows, "
+          f"clean and noisy; monte_carlo x{CIMCHECK_MC_TRIALS} == runs "
+          f"under the split keys; launches cim_mbiw {counts[0]} (tensor "
+          f"cores {counts[1]}, split-K {counts[2]}, CUDA cores "
+          f"{cuda_core}), threefry_normal {draws}", flush=True)
+    return rec
+
+
 def shard_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
     """The sharded multi-macro engine (module docstring, phase 13), every
     mesh folded onto `dev` (ShardingConfig(fold_onto=...)), the one card
@@ -3788,7 +4025,14 @@ def main() -> int:
     phase_s["shard"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 14. times -----------------------------------------------------------
+    # -- 14. cimcheck: static verification and the legacy entries --------
+    cim = cimcheck_phase(dev, tag, kern, kmod, tprog, trt)
+    report["cimcheck"] = cim
+    torch.cuda.empty_cache()
+    phase_s["cimcheck"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 15. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -3971,15 +4215,16 @@ def main() -> int:
            and r["m"] == DECODE_CAPACITY]
     nl, nd = noise["launches"], ndec["launches"]
     ls, lp, lt = lserve["launches"], prec["launches"], tune["launches"]
-    lc, lsh = ctrain["launches"], shard["launches"]
+    lc, lsh, lcc = ctrain["launches"], shard["launches"], cim["launches"]
     route_launches = {
         "tc": main_routes["tc"] + nl["cim_mbiw_tc"] + ls["cim_mbiw_tc"]
         + lp["cim_mbiw_tc"] + lt["cim_mbiw_tc"] + lc["cim_mbiw_tc"]
-        + lsh["cim_mbiw_tc"],
+        + lsh["cim_mbiw_tc"] + lcc["cim_mbiw_tc"],
         "splitk": main_routes["splitk"] + dec_splitk + nl["cim_mbiw_splitk"]
         + nd["cim_mbiw_splitk"] + ls["cim_mbiw_splitk"]
         + lp["cim_mbiw_splitk"] + lt["cim_mbiw_splitk"]
-        + lc["cim_mbiw_splitk"] + lsh["cim_mbiw_splitk"],
+        + lc["cim_mbiw_splitk"] + lsh["cim_mbiw_splitk"]
+        + lcc["cim_mbiw_splitk"],
         "cuda_core": main_routes["all"] - main_routes["tc"]
         - main_routes["splitk"] + dec_cim - dec_splitk + nl["cim_mbiw"]
         - nl["cim_mbiw_tc"] - nl["cim_mbiw_splitk"] + nd["cim_mbiw"]
@@ -3988,7 +4233,8 @@ def main() -> int:
         - lp["cim_mbiw_splitk"] + lt["cim_mbiw"] - lt["cim_mbiw_tc"]
         - lt["cim_mbiw_splitk"] + lc["cim_mbiw"] - lc["cim_mbiw_tc"]
         - lc["cim_mbiw_splitk"] + lsh["cim_mbiw"] - lsh["cim_mbiw_tc"]
-        - lsh["cim_mbiw_splitk"]}
+        - lsh["cim_mbiw_splitk"] + lcc["cim_mbiw"] - lcc["cim_mbiw_tc"]
+        - lcc["cim_mbiw_splitk"]}
 
     def route_entry(name, route, src, rows):
         mult = [2 if r["k"] == 784 and r["shape"] == "lenet" else 1
@@ -4042,7 +4288,7 @@ def main() -> int:
     draw_launches = (noise["launches"]["threefry_normal"]
                      + ndec["launches"]["threefry_normal"]
                      + train["noisy"]["launches"] + lp["threefry_normal"]
-                     + lc["threefry_normal"])
+                     + lc["threefry_normal"] + lcc["threefry_normal"])
     kernels["kernels"].append({
         "name": "threefry_normal", "route": "cuda",
         "source": "src/repro_torch/kernels/prng/csrc/threefry_normal.cu",
@@ -4080,7 +4326,8 @@ def main() -> int:
         "tuner": tune["launches"],
         "cnn_train": lc,
         "dense": dense["launches"],
-        "shard": lsh}
+        "shard": lsh,
+        "cimcheck": lcc}
     report["total_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

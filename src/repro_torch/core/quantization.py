@@ -12,7 +12,9 @@ activation divide `(x - zero) / scale` is an IEEE divide whose divisor is a
 tensor on the operand's device, and rounding is half-to-even
 (`torch.round`, like `jnp.round`).  Eager PyTorch runs each operator as its
 own kernel and never fuses or contracts them, so the JAX package's
-`rounding_barrier` is the identity here.
+`rounding_barrier` is the identity here; it stays at every place the
+JAX package puts it, and under a cimcheck trace it leaves the marker the
+barrier lint stops at (`repro_torch.analysis.barriers`).
 
 Gradients follow the JAX package's: rounding and flooring pass the
 gradient straight through (`ste`), swing and weight scales are constants
@@ -21,6 +23,7 @@ gradient is 1/2 at either bound, as `jnp.clip`'s (`torch.clamp`'s is 1).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -40,10 +43,40 @@ def ste_floor(x: torch.Tensor) -> torch.Tensor:
     return ste(torch.floor(x), x)
 
 
+# the recorder of a cimcheck trace while one runs, else None
+# (analysis.graph_walk.trace)
+_LINT_TRACE = None
+
+
 def rounding_barrier(x: torch.Tensor) -> torch.Tensor:
     """The identity: eager PyTorch never fuses or contracts the float ops
-    around it (see the module docstring)."""
+    around it (see the module docstring).  Under a cimcheck trace it
+    returns `aten.alias(x)`, a node the trace keeps and the barrier lint
+    stops at; eagerly it costs one branch and no operator."""
+    if _LINT_TRACE is not None:
+        return torch.ops.aten.alias(x)
     return x
+
+
+def lint_opaque(fn=None, *, record: bool = True):
+    """Mark `fn` as one fresh value to cimcheck, as the JAX package's
+    jaxpr holds a transcendental or a draw as one primitive.  Under a lint
+    trace the nodes its call records are tagged ``cimcheck_opaque``, and
+    the barrier lint neither starts at a rounding op among them nor walks
+    into them (the port's copies of XLA's routines fuse by design); with
+    ``record=False`` the call is not recorded and its result enters the
+    graph as a constant (for a draw: thousands of integer ops that no
+    float contract reads).  Eagerly the call passes straight through."""
+    if fn is None:
+        return functools.partial(lint_opaque, record=record)
+
+    @functools.wraps(fn)
+    def opaque(*args, **kwargs):
+        if _LINT_TRACE is None:
+            return fn(*args, **kwargs)
+        with _LINT_TRACE.opaque(record):
+            return fn(*args, **kwargs)
+    return opaque
 
 
 def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:

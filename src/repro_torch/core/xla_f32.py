@@ -39,6 +39,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.quantization import lint_opaque
+
 
 def _h(hexdouble: str) -> float:
     """The float an LLVM IR hex double constant names (an exact float32)."""
@@ -172,6 +174,7 @@ def _log_f32(a: torch.Tensor) -> torch.Tensor:
     return _float(sp | rb)
 
 
+@lint_opaque
 def log2_f32(x: torch.Tensor, divisor: Optional[float] = None
              ) -> torch.Tensor:
     """`jnp.log2(x)` as jitted JAX computes it on the CPU, or
@@ -200,6 +203,7 @@ def _poly(x: torch.Tensor, coeffs) -> torch.Tensor:
     return p
 
 
+@lint_opaque
 def log1p_f32(x: torch.Tensor) -> torch.Tensor:
     """XLA CPU's float32 log1p: a rational approximation below sqrt(2) - 1
     in magnitude, log(1 + x) above."""
@@ -211,6 +215,7 @@ def log1p_f32(x: torch.Tensor) -> torch.Tensor:
                            _log_f32(x + 1.0)))
 
 
+@lint_opaque
 def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 erf_inv (`jax.lax.erf_inv`): w = -log1p(-x^2), one
     of Giles' degree-8 polynomials in w - 2.5 (w < 5) or sqrt(w) - 3, times
@@ -231,6 +236,7 @@ def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
     return x * p
 
 
+@lint_opaque
 def exp_f32(x: torch.Tensor) -> torch.Tensor:
     """XLA CPU's float32 exp (Cephes expf): n = floor(x log2(e) + 1/2)
     clamped to +/-127, a degree-5 polynomial in the reduced argument, times

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core import digital_ref
 from repro_torch.core.digital_ref import int_matmul
+from repro_torch.core.quantization import rounding_barrier
 from repro_torch.kernels.cim_mbiw.kernel import plane_layout
 
 
@@ -44,8 +45,9 @@ def _adc_epilogue(dp: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     mid = 2.0 ** (r_out - 1)
     # g0 rounds to f32 first, as JAX's weak-typed Python scalar does
     g0_t = torch.tensor(g0, dtype=torch.float32, device=gamma.device)
-    gain = gamma_b * g0_t
-    t = gain * dp.to(torch.float32)
+    # barriered as the JAX package's oracle and the kernel's epilogue
+    gain = rounding_barrier(gamma_b * g0_t)
+    t = rounding_barrier(gain * dp.to(torch.float32))
     code = torch.floor((mid + t) + beta_b)
     return torch.clamp(code, 0.0, 2.0 ** r_out - 1.0).to(torch.int32)
 

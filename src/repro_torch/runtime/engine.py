@@ -70,7 +70,7 @@ from repro_torch.core import prng
 from repro_torch.core.hw import CIMMacroConfig, DEFAULT_MACRO
 from repro_torch.core.noise_model import NO_NOISE, NoiseConfig
 from repro_torch.core.quantization import (_static_reciprocal, quantize_act,
-                                           quantize_weight)
+                                           quantize_weight, rounding_barrier)
 from repro_torch.kernels.cim_mbiw import ops as kops
 from repro_torch.kernels.cim_mbiw.kernel import Tile, check_tile
 from repro_torch.kernels.cim_mbiw.ref import cim_matmul_ref
@@ -93,6 +93,22 @@ CAPTURE_COUNT = {"n": 0}
 # total row extent, so batch-bucket padding and stream_rows chunking reuse
 # identical draws
 NOISE_ROW_BLOCK = 128
+
+_DEPRECATION = {"warned": False}
+
+
+def _warn_legacy_entry(name: str) -> None:
+    """One DeprecationWarning per process for the per-call API."""
+    if _DEPRECATION["warned"]:
+        return
+    _DEPRECATION["warned"] = True
+    import warnings
+    warnings.warn(
+        f"{name} re-enters the engine per call; compile once with "
+        "repro_torch.runtime.program.compile_program(...) (or "
+        "CIMInferenceEngine.compile()) and serve through the returned "
+        "CIMProgram/BoundProgram for the plan-once/serve-many path",
+        DeprecationWarning, stacklevel=3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -673,14 +689,14 @@ def _layer_noise(lp: LayerPlan, cfg: EngineConfig, noise: NoiseConfig,
     lsb0_v = macro.alpha_adc() * macro.vddh / 2.0 ** (spec.r_out - 1)
     # volts -> codes: a static f32 reciprocal, as the JAX package
     inv_lsb0 = _static_reciprocal(lsb0_v)
-    offset_codes = gamma_p * res_v * inv_lsb0
+    offset_codes = rounding_barrier(gamma_p * res_v * inv_lsb0)
     # leakage droop on V_acc, attenuated by the weight-parallel combination
     droop_v = nm.leakage_droop(spec.r_in, macro.t_dp_ns, noise) \
         * (1.0 - 2.0 ** (-spec.r_w))
     # the scalars are float32 values on the host; as Python floats they
     # multiply on the device with no copy (a product rounds them to
     # float32, which they are)
-    droop_codes = gamma_p * float(droop_v) * inv_lsb0
+    droop_codes = rounding_barrier(gamma_p * float(droop_v) * inv_lsb0)
     settle = nm.settle_fraction(units, macro.t_dp_ns, noise)
     ci = nm.charge_injection_gain(spec.r_in, noise, macro)
     sigma_dp = nm.thermal_sigma_dp(noise, spec.r_out, lp.g0)
@@ -704,7 +720,8 @@ def _noise_adc_code(lp: LayerPlan, dp: torch.Tensor, gamma_t: torch.Tensor,
     mid = 2.0 ** (lp.spec.r_out - 1)
     # products by Python scalars round them to float32 first, as JAX's
     # weak-typed scalars: gamma * f32(g0) * gain_mult * dp, step by step
-    code = torch.floor(mid + gamma_t * lp.g0 * float(nctx.gain_mult) * dp
+    code = torch.floor(mid + rounding_barrier(gamma_t * lp.g0
+                                              * float(nctx.gain_mult) * dp)
                        + beta_eff
                        + nctx.offset_codes[ns:ne] - nctx.droop_codes[ns:ne])
     return torch.clamp(code, 0.0, 2.0 ** lp.spec.r_out - 1.0).to(
@@ -728,7 +745,7 @@ def _tile_schedule(lp: LayerPlan, q_rows: torch.Tensor, zp: torch.Tensor,
     g0 = lp.g0
     tsz = lp.tile_n
     wqq, gamma, beta = bind["wqq"], bind["gamma_p"], bind["beta_p"]
-    gain = gamma * bind["g0"]
+    gain = rounding_barrier(gamma * bind["g0"])
     dp_hat = []
     for ni in range(wqq.shape[1] // tsz):
         ns, ne = ni * tsz, (ni + 1) * tsz
@@ -739,7 +756,7 @@ def _tile_schedule(lp: LayerPlan, q_rows: torch.Tensor, zp: torch.Tensor,
             # zero-point: x = q*s + z -> z*colsum is per-channel constant,
             # folded into the ABN offset inside the ADC floor
             zp_dp = zp * torch.sum(wqq[ks:ke, ns:ne], dim=0)
-            beta_eff = beta[ns:ne] + gain[ns:ne] * zp_dp
+            beta_eff = beta[ns:ne] + rounding_barrier(gain[ns:ne] * zp_dp)
             out = matmul(q_rows[:, ks:ke], wqq[ks:ke, ns:ne],
                          gamma[ns:ne], beta_eff, g0)
             codes = out if nctx is None else _noise_adc_code(
@@ -1043,3 +1060,127 @@ def init_network_params(plan: NetworkPlan,
             macro=cfg.macro)
         params.append(init_cim_linear(sub, lp.spec.k, lp.spec.n, cfg=lcfg))
     return params
+
+
+# ---------------------------------------------------------------------------
+# the per-call entry points (the JAX package's legacy API)
+# ---------------------------------------------------------------------------
+
+def run_network(plan: NetworkPlan, params: Params, x: torch.Tensor,
+                key=None, noise: Optional[NoiseConfig] = None, *,
+                segments: Optional[torch.Tensor] = None,
+                device=None) -> torch.Tensor:
+    """Execute the planned schedule through the cim_mbiw kernel routes.
+
+    .. deprecated:: the per-call entry point; it keeps working (backed by
+       the program cache of runtime/program.py: repeated calls at one plan
+       reuse one program) but new code compiles once with
+       `compile_program` and serves through the CIMProgram/BoundProgram.
+
+    Args:
+      plan: the NetworkPlan; with plan.cfg.sharding set each layer runs
+        across its mesh partitions.
+      params: one {"w", "abn_log_gamma", "abn_beta"} dict per layer.
+      x: (..., K0) activations for a dense-first plan, or (..., H, W,
+        C_in) NHWC images for a conv-first plan.
+      key: `core/prng` key of a noise-enabled plan (ignored under
+        NO_NOISE).
+      noise: optional NoiseConfig overriding the planned numeric terms.
+      segments: optional (B,) per-sample segment ids (segment-wise
+        activation quantization).
+      device: where it runs; None means CUDA (raises without a card).
+    Returns:
+      (..., N_last) activations, or (..., out_h, out_w, C_out) if the
+      last layer is a conv; on the program's device.
+    """
+    _warn_legacy_entry("run_network")
+    from repro_torch.runtime.program import program_for_plan
+    return program_for_plan(plan, device=device).run(
+        params, x, key, noise, segments=segments)
+
+
+def run_network_reference(plan: NetworkPlan, params: Params,
+                          x: torch.Tensor, key=None,
+                          noise: Optional[NoiseConfig] = None, *,
+                          device=None) -> torch.Tensor:
+    """The plain digital oracle of the identical schedule (bit-exact with
+    the kernel path, under noise too, where both share the epilogue and
+    the draws, and for sharded plans, which the oracle runs serially)."""
+    from repro_torch.runtime.program import program_for_plan
+    return program_for_plan(plan, device=device).run(
+        params, x, key, noise, reference=True)
+
+
+class CIMInferenceEngine:
+    """Thin compatibility wrapper over a compiled `CIMProgram`.
+
+    Construction goes through the program cache of runtime/program.py, so
+    two engines over equal (specs, cfg, device) share one plan and one
+    program.  New code holds the program itself: `engine.compile()` (or
+    `compile_program(specs, cfg)`) returns it."""
+
+    def __init__(self, specs: Sequence[mapping.LayerSpec],
+                 cfg: EngineConfig = EngineConfig(),
+                 activations: Optional[Sequence[str]] = None,
+                 pools: Optional[Sequence[int]] = None, *, device=None):
+        from repro_torch.runtime.program import compile_program
+        self.cfg = cfg
+        self.program = compile_program(specs, cfg, activations=activations,
+                                       pools=pools, device=device)
+
+    @property
+    def plan(self) -> NetworkPlan:
+        """The backing program's NetworkPlan."""
+        return self.program.plan
+
+    def compile(self):
+        """The backing CIMProgram - the plan-once/serve-many artifact
+        (bind weights with .bind(params), serve with .serve /
+        .serve_batch)."""
+        return self.program
+
+    def init_params(self, source) -> Params:
+        """Distribution-aware per-layer parameters (core/cim_layers init)
+        from a `torch.Generator` or a `core/prng` key (the JAX package's
+        `init_params(key)` bit for bit)."""
+        return init_network_params(self.plan, source)
+
+    def __call__(self, params: Params, x: torch.Tensor, key=None,
+                 noise: Optional[NoiseConfig] = None) -> torch.Tensor:
+        """Exact-shape dispatch of the compiled schedule (legacy per-call
+        API; prefer engine.compile() + program.bind(params).serve(x))."""
+        _warn_legacy_entry("CIMInferenceEngine.__call__")
+        return self.program.run(params, x, key, noise)
+
+    def reference(self, params: Params, x: torch.Tensor, key=None,
+                  noise: Optional[NoiseConfig] = None) -> torch.Tensor:
+        """The plain digital oracle of the same plan (bit-exact with
+        __call__ at every precision, clean or under a common key)."""
+        return self.program.run(params, x, key, noise, reference=True)
+
+    def monte_carlo(self, params: Params, x: torch.Tensor, key,
+                    n_trials: int,
+                    noise: Optional[NoiseConfig] = None) -> torch.Tensor:
+        """Seeded noise trials: (n_trials, *engine(params, x).shape).
+
+        Splits `key` into one subkey per trial with the port's threefry
+        split (`core/prng.split`, JAX's `jax.random.split`), so trial t
+        is the JAX package's trial t bit for bit, and stacks the outputs:
+        n_trials dispatches of one program.  Requires a noise-enabled
+        plan."""
+        if not self.cfg.noise.enabled:
+            raise ValueError("monte_carlo requires EngineConfig(noise=...) "
+                             "with noise enabled")
+        if n_trials < 1:
+            raise ValueError(f"n_trials must be >= 1, got {n_trials}")
+        keys = prng.split(key, n_trials)
+        return torch.stack([self.program.run(params, x, k, noise)
+                            for k in keys])
+
+    def perf_report(self, **kw):
+        """The IMAGINE macro model's per-layer and aggregate cycle and
+        energy projections (perfmodel.schedule_report; not measurements
+        of the device), with the backing program's counters under
+        "program"."""
+        from repro_torch.perfmodel.macro_perf import schedule_report
+        return schedule_report(self.plan, program=self.program, **kw)

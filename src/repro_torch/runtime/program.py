@@ -975,7 +975,8 @@ def compile_program(specs: Sequence[mapping.LayerSpec],
                     activations: Optional[Sequence[str]] = None,
                     pools: Optional[Sequence[int]] = None,
                     buckets: BatchBuckets = DEFAULT_BUCKETS,
-                    device: Device = None, tune: str = "off",
+                    device: Device = None, verify: str = "off",
+                    tune: str = "off",
                     tune_cache: Optional[str] = None) -> CIMProgram:
     """Compile (or fetch from the global cache) the program for a network.
 
@@ -990,6 +991,13 @@ def compile_program(specs: Sequence[mapping.LayerSpec],
       buckets: the serve-path batch-bucket ladder.
       device: where the program runs; None means "cuda", and raises when
         there is no card (pass device="cpu" for the host path).
+      verify: cimcheck static verification of a freshly made program
+        (`repro_torch.analysis.verify_program` over its bound serving
+        graphs) - "strict" raises `repro_torch.analysis.CimcheckError` on
+        any ERROR finding, "warn" prints the findings to stderr, "off"
+        (default) skips.  A cache hit skips it (the program was checked
+        then, or deliberately not); the cache key does not hold it.  It
+        binds, captures and plans nothing (see `repro_torch.analysis`).
       tune: schedule autotuning - "off" (default) runs each dispatch's
         own cim_mbiw tile; "analytic" picks each layer's tile with the
         repro_torch.tuner roofline model of the card; "measure"
@@ -1010,6 +1018,9 @@ def compile_program(specs: Sequence[mapping.LayerSpec],
     if tune not in ("off", "analytic", "measure"):
         raise ValueError(
             f'tune must be "off", "analytic" or "measure", got {tune!r}')
+    if verify not in ("off", "warn", "strict"):
+        raise ValueError(f"unknown cimcheck mode {verify!r}; expected "
+                         "'strict', 'warn' or 'off'")
     dev = resolve_device(device)
     specs = tuple(specs)
     acts, pls = _canonical_epilogues(len(specs), activations, pools)
@@ -1031,6 +1042,11 @@ def compile_program(specs: Sequence[mapping.LayerSpec],
         plan = rt.plan_network(specs, cfg, acts, pls)
     prog = program_for_plan(plan, buckets, dev)
     _cache_put(_PROGRAM_CACHE, key, prog)
+    if verify != "off":
+        # inline verification lints the bound serving graphs; the sweep
+        # of every variant is python -m repro_torch.analysis's job
+        from repro_torch.analysis import verify_program
+        verify_program(prog, mode=verify, graphs="serving")
     return prog
 
 

@@ -50,6 +50,18 @@ from repro_torch.core import quantization as tq
 from repro_torch.core.hw import DEFAULT_MACRO
 from repro_torch.core.noise_model import NO_NOISE, NoiseConfig
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for this module, the previous count back after
+    it: where pytest-xdist workers share the cores, PyTorch's pool spins
+    at the barrier of each small CPU op (test_torch_sharding.py's note)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MACRO_CASES = [(8, 4, 8, 144, 1.0), (8, 4, 8, 1152, 4.0), (4, 2, 6, 300, 2.0),
                (1, 1, 1, 36, 1.0), (8, 1, 8, 72, 16.0), (2, 3, 5, 500, 8.0)]
 

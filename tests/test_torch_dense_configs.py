@@ -46,6 +46,18 @@ from repro_torch.models import transformer as tf
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim.adamw import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for this module, the previous count back after
+    it: where pytest-xdist workers share the cores, PyTorch's pool spins
+    at the barrier of each small CPU op (test_torch_sharding.py's note)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("granite_8b", "minitron_4b", "qwen2_7b")
 ALIASES = {"granite_8b": "granite-8b", "minitron_4b": "minitron-4b",
            "qwen2_7b": "qwen2-7b"}

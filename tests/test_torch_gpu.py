@@ -1295,3 +1295,98 @@ def test_flash_attention_sharded_on_card(cuda_device):
     assert torch.equal(out, o)
     out.backward(do)
     assert torch.equal(qg.grad, dq.transpose(1, 2).to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# cimcheck on the card: the SASS pass, verify=, the legacy entries
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ("cim_mbiw", "cim_mbiw_tc",
+                                  "cim_mbiw_splitk"))
+def test_sass_pass_clean_on_cim_mbiw_routes(cuda_device, name):
+    """Every route's ADC floor, as the card runs it, has no FFMA on its
+    slice, and the pass found the floors it checked."""
+    from repro_torch.analysis import sass
+    rep = sass.lint_built([name])
+    tot = rep.totals()
+    assert tot["sinks"] > 0 and tot["ffma_on_slice"] == 0
+    assert rep.findings == []
+
+
+@pytest.mark.gpu
+def test_sass_pass_reports_the_seeded_epilogue(cuda_device):
+    """The contract's expression with plain operators, compiled with the
+    kernels' flags, is fused by nvcc, and the pass reports it."""
+    from repro_torch.analysis import sass
+    path = sass.compile_source(sass.SEEDED_EPILOGUE, "cimcheck_seeded")
+    rep = sass.lint_path(path)
+    assert rep.totals()["ffma_on_slice"] >= 1
+    assert {f.code for f in rep.findings} == {"NB102"}
+
+
+@pytest.mark.gpu
+def test_verify_strict_captures_and_binds_nothing(cuda_device):
+    specs = [tmap.LayerSpec(m=8, k=144, n=40, r_in=4, r_w=2),
+             tmap.LayerSpec(m=8, k=40, n=10, r_in=4, r_w=2)]
+    tprog.clear_program_cache()
+    before = (dict(trt.CAPTURE_COUNT), tprog.bound_cache_stats(),
+              tkernel.launch_counts())
+    prog = tprog.compile_program(specs, trt.EngineConfig(), verify="strict")
+    assert prog.device.type == "cuda"
+    assert (dict(trt.CAPTURE_COUNT), tprog.bound_cache_stats(),
+            tkernel.launch_counts()) == before
+    assert prog.stats()["graphs_captured"] == 0
+
+
+@pytest.mark.gpu
+def test_key_budget_graph_count_is_what_a_bound_program_captures(
+        cuda_device):
+    """RC001 counts the clean keys a bound program captures a graph for;
+    serving every rung with and without segments captures exactly
+    them."""
+    from repro_torch.analysis import recompile
+    buckets = tprog.BatchBuckets(max_bucket=8)
+    prog = tprog.compile_program(
+        [tmap.LayerSpec(m=8, k=64, n=16, r_in=4, r_w=2)], trt.EngineConfig(),
+        buckets=buckets)
+    keys = recompile.reachable_keys(buckets, 8, devices=1,
+                                    noise_enabled=False)
+    want = len(recompile.capturable_keys(keys))
+    bound = prog.bind(prog.init_params(torch.Generator().manual_seed(0)))
+    x = torch.randn((8, 64), device=cuda_device)
+    n0 = trt.CAPTURE_COUNT["n"]
+    for m in range(1, 9):
+        bound.serve(x[:m])
+        bound.serve(x[:m], segments=torch.zeros(m, dtype=torch.int64))
+    assert trt.CAPTURE_COUNT["n"] - n0 == want == 2 * len(buckets.ladder(8))
+    assert len(bound.executables) == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noisy", (False, True))
+def test_legacy_entries_equal_program_run_on_card(cuda_device, noisy):
+    """run_network, CIMInferenceEngine's call and reference, and
+    program.run on a LeNet batch: bit-equal on the card, clean and noisy;
+    monte_carlo's trials equal runs under the split keys."""
+    import warnings
+    from repro_torch.models.cnn import lenet_engine_specs
+    cfg = trt.EngineConfig(noise=NoiseConfig(enabled=noisy))
+    specs, acts, pools = lenet_engine_specs(16)
+    eng = trt.CIMInferenceEngine(specs, cfg, acts, pools)
+    params = eng.init_params(prng.key(0))
+    x = torch.from_numpy(make_dataset(1, 16, seed=4)[2][..., None])
+    key = prng.key(2) if noisy else None
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        y = eng(params, x, key)
+        assert torch.equal(y, trt.run_network(eng.plan, params, x, key))
+    assert y.is_cuda
+    assert torch.equal(y, eng.program.run(params, x, key))
+    assert torch.equal(y, eng.reference(params, x, key))
+    assert torch.equal(y, trt.run_network_reference(eng.plan, params, x,
+                                                     key))
+    if noisy:
+        mc = eng.monte_carlo(params, x, prng.key(5), 3)
+        for t, k in enumerate(prng.split(prng.key(5), 3)):
+            assert torch.equal(mc[t], eng.program.run(params, x, k))

@@ -85,9 +85,20 @@ SHARDING_SLICE = [
 ]
 
 
+# the cimcheck slice: the analysis passes, the SASS pass, the CLI, and
+# the engine's legacy entries and compile_program(verify=)
+ANALYSIS_SLICE = [
+    "analysis/__init__.py", "analysis/__main__.py", "analysis/findings.py",
+    "analysis/plan_checks.py", "analysis/noise_keys.py",
+    "analysis/recompile.py", "analysis/graph_walk.py",
+    "analysis/barriers.py", "analysis/sass.py", "runtime/engine.py",
+    "runtime/program.py", "core/quantization.py",
+]
+
+
 @pytest.mark.parametrize("rel", TRAIN_SLICE + NOISE_SLICE + SERVE_SLICE
                          + PRECISION_SLICE + TUNER_SLICE + CNN_SLICE
-                         + SHARDING_SLICE)
+                         + SHARDING_SLICE + ANALYSIS_SLICE)
 def test_train_slice_module_is_checked(rel):
     assert PORT / rel in FILES
 

@@ -43,6 +43,17 @@ from repro_torch.runtime import engine as trt
 from repro_torch.runtime import scheduler as tsch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for this module, the previous count back after
+    it: where pytest-xdist workers share the cores, PyTorch's pool spins
+    at the barrier of each small CPU op (test_torch_sharding.py's note)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _layer(k, n, seed):
     rng = np.random.default_rng(seed)
     return {"w": rng.normal(0, k ** -0.5, (k, n)).astype(np.float32),

@@ -38,6 +38,18 @@ from repro_torch.runtime import engine as trt
 from repro_torch.runtime import program as tprog
 from repro_torch.runtime.scheduler import InflightScheduler
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for this module, the previous count back after
+    it: where pytest-xdist workers share the cores, PyTorch's pool spins
+    at the barrier of each small CPU op (test_torch_sharding.py's note)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MSE_RTOL = 1e-6
 # tests/test_precision.py's chained net and reduced sweep
 SPECS = (dict(m=4, k=32, n=16, r_in=8, r_w=4),

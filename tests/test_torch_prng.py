@@ -26,6 +26,18 @@ import torch
 from repro_torch.convert import key_from_numpy
 from repro_torch.core import prng, xla_f32
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for this module, the previous count back after
+    it: where pytest-xdist workers share the cores, PyTorch's pool spins
+    at the barrier of each small CPU op (test_torch_sharding.py's note)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KEYS = (0, 1, 42, -7, 2**31 - 1)
 SHAPES = ((1,), (7,), (128, 16), (3, 5, 7), (70000,))
 

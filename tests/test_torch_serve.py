@@ -63,6 +63,18 @@ from repro_torch.launch import serve
 from repro_torch.models import transformer as ttf
 from repro_torch.runtime import program as tprog
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread for this module, the previous count back after
+    it: where pytest-xdist workers share the cores, PyTorch's pool spins
+    at the barrier of each small CPU op (test_torch_sharding.py's note)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 B, P, GEN, MAX_LEN = 2, 8, 4, 16
 GRID = [(r_in, r_w) for r_in in (1, 2, 4, 8) for r_w in (1, 2, 4)]
