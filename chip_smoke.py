@@ -33,7 +33,9 @@ a result:
                 128}, ragged Sq and Sk in {1, 77, 512, 4096}, q_off {0,
                 100}, the train shape, the dense configs' step shapes
                 (phase 12: S 512, D 128, reps 4, 3 and 7, the last in
-                float32), and long flat bf16 rows (q x 0.01,
+                float32), the moe phase's (phase 13: reps 4, 6 and 8 at
+                S 512, 512 with mixtral's window 4096, and 768), and
+                long flat bf16 rows (q x 0.01,
                 S 4096); each backward run twice, bit for bit equal; every
                 bf16 case at D 64 or 128 through the tensor-core forward,
                 dq and dk/dv kernels (their `.launches_tc` rise).  Peaked
@@ -239,10 +241,49 @@ a result:
                 that phase 2 holds against the plain version),
                 train/decode consistency over 8 tokens (< 0.1), peak
                 memory.  The step runner (train_steps) is phase 7's.
- 13. shard    - the sharded multi-macro engine, every mesh folded onto
+ 13. moe      - the moe and vlm families at full width (widths, heads,
+                experts, vocabularies as published; each depth cut is
+                printed), bf16, weights from a seeded torch.Generator.
+                One phi3.5-moe expert bank (E 16, capacity 8, 4096 ->
+                6400): the engine on the card == fakequant on the card
+                == fakequant on the CPU bit for bit at (8, 4) and (1, 2),
+                and noisy under prng.key(11) at (8, 4), the kernel path
+                == reference=True; a moe_block at full width on 64
+                tokens: top_idx card == CPU, output within 2e-2.  One
+                fakequant (8, 4, 8) train step at batch 1 x 512 through
+                launch/steps and the flash kernels: phi3.5-moe at depth
+                2 (step 0 against plain attention within TRAIN_JNP_RTOL
+                with the CIM layers in bypass, and reported in fakequant,
+                where the discontinuous routing amplifies ulps; nonzero
+                router, bank and per-expert ABN gain gradients),
+                mixtral-8x22b at depth 1 (if it fits the card; if not,
+                the peak reached is printed), internvl2-76b at depth 1
+                with its 256-token prefix; finite loss, gradients and
+                parameters, the profiled step's device time by kind.
+                Static engine serves through launch/serve.py's build
+                (depth cut), make_prompt, make_prefix and static_serve,
+                each == its fakequant serve bit for bit (prefill and
+                every decode logit), cim_mbiw launched the planned tiles
+                (family_tiles: attention at the rows' bucket, 2E + E
+                expert serves at the capacity's), no plan, bind, capture
+                or eager dispatch after warm-up, a decode step profiled:
+                first the main path, phi3.5-moe at depth 4 (batch 4,
+                prompt 128: expert capacity 80 on the tensor cores, gen
+                16; first-prefill, bind and capture seconds, decode ms a
+                step, tokens/s, peak memory), in flight at depth 4 (8
+                requests at 4 slots, prompt 32; every launch split-K and
+                planned, no growth after warm-up), and over its first 2
+                layers and their binds the sharded serve (batch 4, prompt
+                8, gen 4, --engine-devices 4 folded onto the card:
+                tokens and every logit == unsharded); then mixtral at
+                depth 1 (batch 4, prompt 32, gen 4) and internvl2 at
+                depth 2 (batch 2, prompt 32 behind the prefix, gen 4).
+ 14. shard    - the sharded multi-macro engine, every mesh folded onto
                 the card (ShardingConfig(fold_onto="cuda"), the port's
                 counterpart of the host device count the JAX package
-                fakes a bank of macros with).  LeNet at batch 256, (4, 2)
+                fakes a bank of macros with; phi3.5-moe's sharded serve
+                runs in phase 13, over its weights and binds).  LeNet at
+                batch 256, (4, 2)
                 and (8, 4), D {1, 2, 4, 8}, each kind forced on every
                 layer through plan_network(schedule=): a clean serve by
                 graph replay, its eager run and the card reference, and a
@@ -270,10 +311,11 @@ a result:
                 (the bf16 output one ulp) and 5e-5 (float32 gradients),
                 bit-equality reported.  Placement across cards runs only
                 with 2 cards; otherwise a line says it was not run.
- 14. cimcheck - static verification (repro_torch.analysis) on the card:
+ 15. cimcheck - static verification (repro_torch.analysis) on the card:
                 (a) `python -m repro_torch.analysis --strict` in process
-                at smoke widths (LeNet and OLMo-1B's projections over
-                r_in {1,2,4,8} x r_w {1,2,4}, the noisy, folded-sharded
+                at smoke widths (LeNet, OLMo-1B's and phi3.5-moe's
+                projections over r_in {1,2,4,8} x r_w {1,2,4}, the
+                noisy, folded-sharded
                 and mixed-ladder points, the SASS pass), then OLMo-1B's
                 four projections at full width (d 2048, d_ff 8192, m 8,
                 (8, 4)); any ERROR fails the run.  (b) the SASS pass
@@ -292,7 +334,7 @@ a result:
                 rows (the split-K route); monte_carlo's 4 trials == 4
                 runs under the split keys.  The launches of (e), the
                 slice's main path, join the kernels line.
- 15. times    - CUDA-event times of each kernel, its plain version and a
+ 16. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
                 ring_decode and the flash kernels: yardsticks the port
@@ -917,30 +959,43 @@ def noisy_decode_phase(dev, tag, kern) -> dict:
     return rec
 
 
-def projection_tiles(cfg, layers: int, rows: int, kmod, tprog) -> dict:
-    """Planned cim_mbiw launches of one forward of `layers` decoder layers
-    at `rows` GEMM rows, per route: each projection's program (from the
-    program cache the engine-mode layer uses) at the rows' bucket."""
+def family_tiles(cfg, layers: int, rows: int, kmod, tprog) -> dict:
+    """Planned cim_mbiw launches of one engine forward of `layers` layers
+    of a decoder family at `rows` token rows, per route: the four
+    attention projections at the rows' bucket, and the FFN: an MLP (gate
+    and up, or up alone, and down) at the same bucket, or an MoE block's
+    2E (d -> d_ff) and E (d_ff -> d) expert serves at the bucket of its
+    capacity."""
     from repro_torch.core import mapping
     from repro_torch.core.cim_layers import _engine_config
-    d, f, c = cfg.d_model, cfg.d_ff, cfg.cim
-    qkv = cfg.n_heads * cfg.resolved_head_dim
-    shapes = [(d, qkv)] * 3 + [(qkv, d), (d, f), (d, f), (f, d)]
-    bucket = tprog.DEFAULT_BUCKETS.bucket_for(rows)
+    from repro_torch.models.moe import capacity
+    d, c = cfg.d_model, cfg.cim
+    qn = cfg.n_heads * cfg.resolved_head_dim
+    kvn = cfg.n_kv_heads * cfg.resolved_head_dim
+    ffn_rows, e, g = rows, 1, 2 if cfg.gated_mlp else 1
+    if cfg.family == "moe":
+        e, g = cfg.moe_experts, 2
+        ffn_rows = capacity(rows, e, cfg.moe_top_k, cfg.moe_capacity_factor)
     total = {"tc": 0, "splitk": 0, "cuda_core": 0}
-    for k, n in shapes:
-        prog = tprog.compile_program(
-            [mapping.LayerSpec(m=bucket, k=k, n=n, r_in=c.r_in, r_w=c.r_w,
-                               r_out=c.r_out)], _engine_config(c),
-            device="cuda")
-        for r, v in kmod.route_counts(prog.plan.tile_calls(bucket)).items():
-            total[r] += layers * v
+    for shapes, m in (([(d, qn), (d, kvn), (d, kvn), (qn, d)], rows),
+                      ([(d, cfg.d_ff)] * g * e + [(cfg.d_ff, d)] * e,
+                       ffn_rows)):
+        bucket = tprog.DEFAULT_BUCKETS.bucket_for(m)
+        for k, n in shapes:
+            prog = tprog.compile_program(
+                [mapping.LayerSpec(m=bucket, k=k, n=n, r_in=c.r_in,
+                                   r_w=c.r_w, r_out=c.r_out)],
+                _engine_config(c), device="cuda")
+            for r, v in kmod.route_counts(
+                    prog.plan.tile_calls(bucket)).items():
+                total[r] += layers * v
     return total
 
 
 class BindClock:
-    """Wraps engine.bind_network to time each one-time bind (host
-    quantization of the weights and the copy to the card)."""
+    """Wraps engine.bind_network to time each one-time bind (the weights'
+    quantization, on the card for weights already there, and the copy to
+    the card of those bound on the host)."""
 
     def __init__(self, trt):
         self.trt, self.seconds = trt, []
@@ -983,8 +1038,8 @@ def llm_serve_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
     prompt = serve.make_prompt(cfg.vocab_size, SERVE_BATCH, SERVE_PROMPT, 0,
                                dev)
     rows = SERVE_BATCH * SERVE_PROMPT
-    plan_pre = projection_tiles(cfg, cfg.n_layers, rows, kmod, tprog)
-    plan_dec = projection_tiles(cfg, cfg.n_layers, SERVE_BATCH, kmod, tprog)
+    plan_pre = family_tiles(cfg, cfg.n_layers, rows, kmod, tprog)
+    plan_dec = family_tiles(cfg, cfg.n_layers, SERVE_BATCH, kmod, tprog)
 
     # -- static batch: the launcher's loop, engine mode ----------------------
     cap_mark, cap_n0 = len(clock.seconds), trt.CAPTURE_COUNT["n"]
@@ -1003,7 +1058,8 @@ def llm_serve_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
           and plan_pre["cuda_core"] == plan_dec["cuda_core"] == 0,
           f"serve: cim_mbiw launches (all, tc, splitk) {launches} != the "
           f"planned prefill {plan_pre} + {SERVE_GEN} x decode {plan_dec}")
-    check(eng["growth"] == {"plans": 0, "captures": 0, "eager_calls": 0},
+    check(eng["growth"] == {"plans": 0, "captures": 0, "binds": 0,
+                   "eager_calls": 0},
           f"serve: decode loop after warm-up grew {eng['growth']}")
     toks = eng["tokens"]
     check(tuple(toks.shape) == (SERVE_BATCH, 1 + SERVE_GEN)
@@ -1122,10 +1178,11 @@ def llm_serve_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
     torch.cuda.synchronize()
     ilaunch = kernel_counts(kern)
     icaps = clock.since(cap_mark)
-    check(fused["growth"] == {"plans": 0, "captures": 0, "eager_calls": 0},
+    check(fused["growth"] == {"plans": 0, "captures": 0, "binds": 0,
+                   "eager_calls": 0},
           f"serve inflight: the loop after warm-up grew {fused['growth']}")
-    i_pre = projection_tiles(icfg, icfg.n_layers, SERVE_PROMPT, kmod, tprog)
-    i_dec = projection_tiles(icfg, icfg.n_layers, SERVE_INFLIGHT_SLOTS, kmod,
+    i_pre = family_tiles(icfg, icfg.n_layers, SERVE_PROMPT, kmod, tprog)
+    i_dec = family_tiles(icfg, icfg.n_layers, SERVE_INFLIGHT_SLOTS, kmod,
                              tprog)
     want = len(reqs) * i_pre["splitk"] + fused["decode_steps"] * i_dec[
         "splitk"]
@@ -1309,7 +1366,8 @@ def precision_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     growth = serve._growth(before, dev)
-    check(growth == {"plans": 0, "captures": 0, "eager_calls": 0},
+    check(growth == {"plans": 0, "captures": 0, "binds": 0,
+                   "eager_calls": 0},
           f"precision: the in-flight run after warm-up grew {growth}")
     check(set(streams) == set(reqs), "precision: not every request finished")
     for u, r in reqs.items():
@@ -1430,7 +1488,8 @@ def precision_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
                       "--assert-no-recompile"])
     launcher_s = time.perf_counter() - t0
     del os.environ["REPRO_PRECISION_PROFILES"]
-    check(out["growth"] == {"plans": 0, "captures": 0, "eager_calls": 0},
+    check(out["growth"] == {"plans": 0, "captures": 0, "binds": 0,
+                   "eager_calls": 0},
           f"precision: the launcher grew {out['growth']}")
     tmp.cleanup()
     torch.cuda.synchronize()
@@ -2248,6 +2307,625 @@ def dense_phase(dev, tag) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the moe and vlm decoder families at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_DEPTH = 4                     # of 32
+MOE_BATCH = 4
+MOE_PROMPT = 128                  # prefill 512 tokens: capacity 80, bucket 128
+MOE_GEN = 16
+MOE_INFLIGHT_PROMPT = 32          # a solo prefill's capacity is 8, decode's
+MOE_INFLIGHT_SLOTS = 4
+MOE_INFLIGHT_REQUESTS = 8
+MOE_BANK = (16, 8, 4096, 6400)    # E, capacity, fan-in, fan-out
+MOE_BANK_POINTS = ((8, 4), (1, 2))
+MOE_BLOCK_TOKENS = 64
+MOE_BLOCK_RTOL = 2e-2             # card vs host, |d| / |host| of the block
+MOE_TRAIN_DEPTH = 2
+MOE_TRAIN_SEQ = 512
+MOE_SHARD_DEPTH = 2
+MOE_SHARD_PROMPT = 8              # 32 rows: expert capacity 8
+MOE_SHARD_DEVICES = 4
+MOE_SHARD_GEN = 4
+MIXTRAL_ARCH = "mixtral-8x22b"
+MIXTRAL_DEPTH = 1                 # of 56
+MIXTRAL_PROMPT = 32
+MIXTRAL_GEN = 4
+VLM_ARCH = "internvl2-76b"
+VLM_SERVE_DEPTH = 2               # of 80
+VLM_TRAIN_DEPTH = 1
+VLM_BATCH = 2
+VLM_PROMPT = 32
+VLM_GEN = 4
+
+
+def _free(dev) -> None:
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _peak_gb(dev) -> float:
+    return (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else 0.0)
+
+
+def moe_bank_checks(dev, tag) -> dict:
+    """One phi3.5-moe expert bank at full width (MOE_BANK): the engine on
+    the card == fakequant on the card == fakequant on the CPU, bit for
+    bit, clean at each of MOE_BANK_POINTS and noisy under one key at the
+    first (the card's kernel path == its reference=True); then a whole
+    moe_block at full width on MOE_BLOCK_TOKENS tokens: the card's top_idx
+    == the CPU's and the output within MOE_BLOCK_RTOL."""
+    from repro_torch.core import prng
+    from repro_torch.core.cim_layers import CIMConfig
+    from repro_torch.core.noise_model import NO_NOISE, NoiseConfig
+    from repro_torch.models import moe
+    e, c, k, n = MOE_BANK
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((e, c, k), generator=g, device=dev)
+    w = torch.randn((e, k, n), generator=g, device=dev) * k ** -0.5
+    lg = torch.rand((e, n), generator=g, device=dev) * 5
+    bt = torch.rand((e, n), generator=g, device=dev) * 8 - 4
+    hx, hw, hlg, hbt = (t.cpu() for t in (x, w, lg, bt))
+    rec: dict = {}
+    cases = [(p, None) for p in MOE_BANK_POINTS] + [(MOE_BANK_POINTS[0],
+                                                     prng.key(11))]
+    for (r_in, r_w), key in cases:
+        cim = CIMConfig(mode="fakequant", r_in=r_in, r_w=r_w,
+                        noise=NoiseConfig() if key is not None else NO_NOISE)
+        with torch.no_grad():
+            fq = moe._expert_gemm(x, w, cim, (lg, bt), key=key)
+            host = moe._expert_gemm(hx, hw, cim, (hlg, hbt), key=key)
+            en = cim.replace(mode="engine")
+            eng = moe._expert_gemm(x, w, en, (lg, bt), key=key)
+        label = f"({r_in},{r_w})" + (" noisy" if key is not None else "")
+        check(torch.equal(fq.cpu(), host),
+              f"moe bank {label}: fakequant on the card != on the CPU")
+        if key is None:
+            check(torch.equal(eng, fq),
+                  f"moe bank {label}: engine != fakequant on the card")
+        else:
+            with torch.no_grad():
+                ref = moe._expert_gemm(x, w, en, (lg, bt), key=key,
+                                       reference=True)
+            check(torch.equal(eng, ref),
+                  f"moe bank {label}: engine kernels != reference=True")
+            del ref
+        rec[label] = {"finite": bool(torch.isfinite(eng).all()),
+                      "mean_abs": float(eng.abs().mean())}
+        del fq, host, eng
+    del x, w, lg, bt, hx, hw, hlg, hbt
+    _free(dev)
+    bank_s = time.perf_counter() - t0
+
+    # a whole block at full width, card against host (fakequant, (8, 4))
+    t0 = time.perf_counter()
+    params = moe.init_moe(torch.Generator(device=dev).manual_seed(8), k, n, e)
+    hparams = {kk: v.cpu() for kk, v in params.items()}
+    xb = torch.randn((1, MOE_BLOCK_TOKENS, k),
+                     generator=torch.Generator(device=dev).manual_seed(9),
+                     device=dev)
+    cim = CIMConfig(mode="fakequant", r_in=8, r_w=4)
+    kw = dict(n_experts=e, top_k=2, capacity_factor=1.25, cim=cim)
+    with torch.no_grad():
+        out, aux = moe.moe_block(params, xb, **kw)
+        hout, haux = moe.moe_block(hparams, xb.cpu(), **kw)
+        idx = moe.route(xb[0], params["router"], e, 2)[2]
+        hidx = moe.route(xb[0].cpu(), hparams["router"], e, 2)[2]
+    rel = float(torch.linalg.norm(out.cpu() - hout) / torch.linalg.norm(hout))
+    check(torch.equal(idx.cpu(), hidx),
+          "moe block: the card's top_idx != the CPU's")
+    check(rel <= MOE_BLOCK_RTOL and bool(torch.isfinite(out).all()),
+          f"moe block: card vs CPU relative {rel} > {MOE_BLOCK_RTOL}")
+    rec["block"] = {"tokens": MOE_BLOCK_TOKENS, "rel": rel,
+                    "exact": bool(torch.equal(out.cpu(), hout)),
+                    "aux": float(aux), "aux_host": float(haux),
+                    "seconds": time.perf_counter() - t0}
+    del params, hparams, out, hout
+    _free(dev)
+    rec["bank_s"] = bank_s
+    print(f"moe bank {tag}: phi3.5-moe's expert bank at full width (E {e}, "
+          f"capacity {c}, {k} -> {n}): engine on the card == fakequant on "
+          f"the card == fakequant on the CPU bit for bit at "
+          f"{', '.join(str(p) for p in MOE_BANK_POINTS)} clean and "
+          f"{MOE_BANK_POINTS[0]} under key 11 (where the kernels == "
+          f"reference=True); "
+          f"{bank_s:.1f} s.  moe_block at full width on "
+          f"{MOE_BLOCK_TOKENS} tokens: top_idx card == CPU, output "
+          f"relative {rel:.3g} (<= {MOE_BLOCK_RTOL}; bit-equal "
+          f"{rec['block']['exact']}), aux {float(aux):.6f} / "
+          f"{float(haux):.6f}", flush=True)
+    return rec
+
+
+def family_train_step(dev, tag, arch, depth, *, prefix: bool = False,
+                      vs_plain: bool = False) -> dict:
+    """One fakequant (8, 4, 8) bf16 train step of `arch` at full width,
+    depth cut to `depth`, the flash kernels, batch 1 x MOE_TRAIN_SEQ text
+    tokens (plus a vlm model's seeded prefix), through launch/steps.
+    With `vs_plain` first step 0's loss and gradient against plain
+    attention: with the CIM layers in bypass within TRAIN_JNP_RTOL, in
+    fakequant reported; and, for an MoE model, nonzero gradients of every
+    bank, router and per-expert ABN gain in every layer (the offsets'
+    norms are reported).  The step is
+    timed on the host, then profiled.  A step that does not fit the card
+    (CUDA out of memory) is reported with the peak reached."""
+    from repro_torch.core.cim_layers import CIMConfig
+    from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
+    from repro_torch.launch import serve
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cfg = serve.get_config(arch).replace(
+        n_layers=depth, attn_impl="pallas",
+        cim=CIMConfig(mode="fakequant", max_gamma=2.0**16))
+    rec = {"arch": cfg.name, "depth": depth, "fits": True}
+    toks, labels = SyntheticLM(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=MOE_TRAIN_SEQ,
+        global_batch=1)).batch_at(0)
+    batch = {"tokens": torch.from_numpy(toks).long().to(dev),
+             "labels": torch.from_numpy(labels).long().to(dev)}
+    if prefix:
+        batch["prefix_embeds"] = serve.make_prefix(cfg, 1, 0, dev)
+    shape = (1, cfg.n_heads, cfg.n_kv_heads, MOE_TRAIN_SEQ + (
+        cfg.vision_tokens if prefix else 0), cfg.resolved_head_dim,
+        cfg.sliding_window)
+    check(shape in FLASH_MOE, f"{arch}: its attention {shape} is not one of "
+          f"FLASH_MOE, the shapes flash_checks holds against the plain "
+          f"version")
+    try:
+        rec.update(_train_body(dev, cfg, batch, vs_plain))
+    except torch.OutOfMemoryError as exc:
+        rec.update(fits=False, peak_gb=_peak_gb(dev),
+                   error=str(exc).splitlines()[0][:200],
+                   launches=dict.fromkeys(FLASH_NAMES, 0),
+                   launches_tc=dict.fromkeys(FLASH_NAMES, 0))
+    _free(dev)
+    if not rec["fits"]:
+        print(f"moe train {tag}: {cfg.name} at full width, depth cut to "
+              f"{depth}: one fakequant bf16 step at batch 1 x "
+              f"{MOE_TRAIN_SEQ} does not fit the card (peak "
+              f"{rec['peak_gb']:.1f} GB reached: {rec['error']})",
+              flush=True)
+        return rec
+    prof = rec["profile"]
+    kinds = (", ".join(f"{g} {prof[f'{g}_us'] / 1e3:.1f}"
+                       for g in ("flash", "gemm", "elementwise", "reduce",
+                                 "index"))
+             + f" of {prof['device_us'] / 1e3:.1f} ms device"
+             if prof else "not profiled" if prof is None
+             else "device time not measured")
+    s0 = rec.get("step0")
+    vs_txt = ("; step 0 vs plain attention (loss / grad norm / grad), "
+              "bypass " + " / ".join(
+                  f"{s0['vs_plain_bypass'][m]:.3g}" for m in TRAIN_JNP_RTOL)
+              + f" (limits {TRAIN_JNP_RTOL}), fakequant " + " / ".join(
+                  f"{s0['vs_plain'][m]:.3g}" for m in TRAIN_JNP_RTOL)
+              + " (routing flips, reported)" + (
+            "; smallest layer gradient norm " + ", ".join(
+                f"{k_} {v:.3g}" for k_, v in s0["grad_norm_min"].items())
+            if s0["grad_norm_min"] else "") if s0 else "")
+    print(f"moe train {tag}: {cfg.name} at full width (d {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), depth cut to {depth}, "
+          f"{rec['n_params'] / 1e9:.2f} B params: one fakequant (8,4,8) "
+          f"bf16 step, flash, batch 1 x {MOE_TRAIN_SEQ}"
+          + (f" + {cfg.vision_tokens} prefix" if prefix else "")
+          + f": loss {rec['loss']:.4f} (ce {rec['ce']:.4f}, aux "
+          f"{rec['aux']:.4f}), grad norm {rec['grad_norm']:.4f}, flash "
+          f"{list(rec['launches'].values())}, host {rec['step_ms']:.0f} ms, "
+          f"peak {rec['peak_gb']:.1f} GB; profiled step: {kinds}{vs_txt}",
+          flush=True)
+    return rec
+
+
+def _train_body(dev, cfg, batch, vs_plain: bool) -> dict:
+    """family_train_step's work, in a frame of its own: where it runs out
+    of device memory its tensors go with the frame."""
+    from repro_torch.core.cim_layers import CIMConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, global_norm
+    from repro_torch.optim.adamw import tree_leaves
+    rec: dict = {}
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    rec["n_params"] = sum(p.numel() for p in tree_leaves(params))
+    if vs_plain:
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+
+        def loss_grads(c):
+            loss, parts = steps.loss_fn(c, params, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return (float(loss.detach()), float(parts["aux"].detach()),
+                    [torch.zeros_like(p) if gg is None else gg
+                     for p, gg in zip(leaves, grads)])
+
+        def against_plain(c):
+            p_loss, _, p_grads = loss_grads(c.replace(attn_impl="jnp"))
+            loss, aux, grads = loss_grads(c)
+            p_norm = float(global_norm(p_grads))
+            vs = {"loss": abs(loss - p_loss) / abs(p_loss),
+                  "grad_norm": abs(float(global_norm(grads)) - p_norm)
+                  / p_norm,
+                  "grad": float(global_norm(a - b for a, b in zip(
+                      grads, p_grads))) / p_norm}
+            return loss, aux, grads, vs
+        # with the CIM layers in bypass the flash step holds to plain
+        # attention; in fakequant the top-2 routing is discontinuous and
+        # each activation swing is the min / max of the whole tensor, so
+        # the few ulps between flash and plain flip some tokens' experts
+        # (in float32 as in bf16) and with them the swing of every code
+        # after: that comparison is reported, not held
+        byp = cfg.replace(cim=CIMConfig(mode="bypass"))
+        _, _, grads, vs_bypass = against_plain(byp)
+        del grads
+        check(all(vs_bypass[m] <= lim for m, lim in TRAIN_JNP_RTOL.items()),
+              f"{cfg.name}: step 0 flash vs plain (bypass) outside "
+              f"{TRAIN_JNP_RTOL}: {vs_bypass}")
+        loss, aux, grads, vs = against_plain(cfg)
+        nonzero = {}
+        by_id = {id(p): gg for p, gg in zip(leaves, grads)}
+        if cfg.family == "moe":
+            for name in ("router", "w_gate", "w_up", "w_down",
+                         "abn_log_gamma", "abn_beta"):
+                nonzero[name] = min(
+                    float(by_id[id(lay["moe"][name])].norm())
+                    for lay in params["layers"])
+            # the offsets' STE gradient is zero but where a code clips
+            # (floor(.. + beta) - beta passes 1 - 1), so it is reported
+            check(all(v > 0 for k_, v in nonzero.items()
+                      if k_ != "abn_beta"),
+                  f"{cfg.name}: a zero gradient at step 0: {nonzero}")
+        rec["step0"] = {"loss": loss, "aux": aux, "vs_plain": vs,
+                        "vs_plain_bypass": vs_bypass,
+                        "grad_norm_min": nonzero}
+        del grads, by_id
+    state = steps.train_state(params)
+    del params
+    step_fn = steps.make_train_step(cfg, AdamWConfig(lr=3e-4),
+                                    total_steps=10, warmup=1)
+    state, srec = train_steps(cfg, state, step_fn, [batch], cfg.name)
+    m = srec["metrics"][0]
+    check(all(bool(torch.isfinite(p).all())
+              for p in tree_leaves(state["params"])),
+          f"{cfg.name}: non-finite parameters after the step")
+    # the main path's step (vs_plain) is profiled, the others are not
+    prof = device_profile(
+        lambda: step_fn(state, batch)[1]["loss"].item(), 1, cpu=False,
+        groups=("flash", "gemm", "elementwise", "reduce", "index")
+    ) if vs_plain else None
+    rec.update(loss=m["loss"], ce=m["ce"], aux=m["aux"],
+               grad_norm=m["grad_norm"], step_ms=srec["step_ms"][0],
+               launches=srec["launches"],
+               launches_tc=srec["launches_tc"], profile=prof,
+               peak_gb=_peak_gb(dev))
+    return rec
+
+
+def family_serve(dev, tag, arch, depth, batch, prompt_len, gen, kern, kmod,
+                 tprog, trt, clock) -> tuple:
+    """A static engine serve of `arch` at full width through
+    launch/serve.py (build with the depth cut, make_prompt, make_prefix
+    for vlm, static_serve; bf16, (8, 4)): cim_mbiw launched the planned
+    tiles of the prefill and of every decode step (family_tiles); no
+    plan, bind, capture or eager dispatch after warm-up; one decode step
+    profiled; then the same serve in fakequant, whose tokens and every
+    logit equal the engine's.  Returns (record, cfg, params, prompt,
+    prefix)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    args = serve.parser().parse_args(
+        ["--arch", arch, "--cim-mode", "engine", "--batch", str(batch),
+         "--prompt-len", str(prompt_len), "--gen-len", str(gen), "--seed",
+         "0", "--device", str(dev)])
+    t0 = time.perf_counter()
+    cfg, params, _ = serve.build(args, n_layers=depth)
+    check(cfg.dtype == "bfloat16" and cfg.n_layers == depth
+          and (cfg.cim.mode, cfg.cim.r_in, cfg.cim.r_w) == ("engine", 8, 4),
+          f"{arch}: serve config is not bf16, engine at (8, 4): {cfg}")
+    max_len = serve.serve_max_len(cfg, prompt_len, gen)
+    prompt = serve.make_prompt(cfg.vocab_size, batch, prompt_len, 0, dev)
+    prefix = (serve.make_prefix(cfg, batch, 0, dev)
+              if cfg.family == "vlm" else None)
+    build_s = time.perf_counter() - t0
+    rows = batch * (prompt_len + (0 if prefix is None
+                                  else cfg.vision_tokens))
+    plan_pre = family_tiles(cfg, depth, rows, kmod, tprog)
+    plan_dec = family_tiles(cfg, depth, batch, kmod, tprog)
+    cap_mark, cap_n0 = len(clock.seconds), trt.CAPTURE_COUNT["n"]
+    reset_counts(kern)
+    with BindClock(trt) as binds:
+        eng = serve.static_serve(cfg, params, prompt, gen, max_len=max_len,
+                                 keep_logits=True, prefix=prefix)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = kernel_counts(kern)
+    caps = clock.since(cap_mark)
+    check(caps["captures"] == trt.CAPTURE_COUNT["n"] - cap_n0,
+          f"{arch}: capture clock and counter disagree")
+    want = {r: plan_pre[r] + gen * plan_dec[r] for r in plan_pre}
+    check(launches == (sum(want.values()), want["tc"], want["splitk"]),
+          f"{arch}: cim_mbiw launches (all, tc, splitk) {launches} != the "
+          f"planned prefill {plan_pre} + {gen} x decode {plan_dec}")
+    check(eng["growth"] == {"plans": 0, "captures": 0, "binds": 0,
+                            "eager_calls": 0},
+          f"{arch}: decode loop after warm-up grew {eng['growth']}")
+    toks = eng["tokens"]
+    check(tuple(toks.shape) == (batch, 1 + gen)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+          and all(bool(torch.isfinite(lg).all()) for lg in eng["logits"]),
+          f"{arch}: tokens or logits malformed")
+    peak = _peak_gb(dev)
+    per_step_s = eng["decode_s"] / max(eng["steps"], 1)
+
+    # one more decode step from the served cache, profiled (device only)
+    cache, tok = eng["cache"], toks[:, -1:].to(dev)
+    captures = trt.CAPTURE_COUNT["n"]
+
+    def step():
+        with torch.no_grad():
+            return tf.forward(cfg, params, tok, cache=cache)[0]
+    prof = device_profile(step, 1, cpu=False,
+                          groups=("cim_mbiw", "index", "elementwise",
+                                  "reduce", "gemm"))
+    check(trt.CAPTURE_COUNT["n"] == captures,
+          f"{arch}: the profiled decode step captured")
+    del cache, eng["cache"]
+
+    # engine == fakequant bit for bit, prefill and every decode step
+    fq_cfg = cfg.replace(cim=cfg.cim.replace(mode="fakequant"))
+    fq = serve.static_serve(fq_cfg, params, prompt, gen, max_len=max_len,
+                            keep_logits=True, prefix=prefix)
+    diff = [i for i, (a, b) in enumerate(zip(eng["logits"], fq["logits"]))
+            if not torch.equal(a, b)]
+    check(not diff and torch.equal(eng["tokens"], fq["tokens"]),
+          f"{arch}: engine != fakequant at steps {diff} (0 = prefill)")
+    del fq
+    rec = {"arch": cfg.name, "depth": depth, "batch": batch,
+           "prompt": prompt_len, "gen": gen,
+           "prefix": 0 if prefix is None else cfg.vision_tokens,
+           "build_s": build_s, "prefill_first_s": eng["prefill_s"],
+           "warm_s": eng["warm_s"], "decode_steps": eng["steps"],
+           "decode_s": eng["decode_s"],
+           "decode_host_ms_per_step": 1e3 * per_step_s,
+           "tokens_per_s": batch / per_step_s,
+           "binds": len(binds.seconds), "bind_s": sum(binds.seconds),
+           "captures": caps, "launches": dict(zip(
+               ("cim_mbiw", "cim_mbiw_tc", "cim_mbiw_splitk"), launches)),
+           "planned_prefill": plan_pre, "planned_decode_step": plan_dec,
+           "growth": eng["growth"], "peak_gb": peak, "profile": prof,
+           "graph_pool_bytes": graph_pool_bytes(tprog, dev),
+           "tokens": toks.tolist()}
+    dev_txt = (f"device {prof['device_us'] / 1e3:.1f} ms a step (cim_mbiw "
+               f"{prof['cim_mbiw_us'] / 1e3:.1f}), busy "
+               f"{100 * prof['device_busy']:.1f}% of a profiled "
+               f"{prof['wall_us'] / 1e3:.0f} ms step"
+               if prof else "device time not measured")
+    print(f"moe serve {tag}: {cfg.name} at full width (d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}"
+          + (f", {cfg.moe_experts} experts top-{cfg.moe_top_k}"
+             if cfg.family == "moe" else "")
+          + f", vocab {cfg.vocab_size}), depth cut to {depth}, bf16, "
+          f"engine (8, 4) via launch/serve.py, batch {batch}, prompt "
+          f"{prompt_len}" + (f" behind {cfg.vision_tokens} prefix tokens"
+                             if prefix is not None else "")
+          + f", gen {gen}: engine == fakequant bit for bit (prefill and "
+          f"{gen} decode logits, tokens); after warm-up plans/binds/"
+          f"captures/eager +0; cim_mbiw {launches} (all, tc, splitk; the "
+          f"rest on the CUDA cores) = planned; first prefill "
+          f"{eng['prefill_s']:.2f} s with "
+          f"{len(binds.seconds)} binds in {sum(binds.seconds):.1f} s and "
+          f"{caps['captures']} captures in {caps['seconds']:.1f} s; decode "
+          f"{1e3 * per_step_s:.1f} ms a step host, "
+          f"{batch / per_step_s:.2f} tokens/s; {dev_txt}; peak "
+          f"{peak:.1f} GB, graph pool {rec['graph_pool_bytes'] / 2**30:.1f} "
+          f"GiB", flush=True)
+    return rec, cfg, params, prompt, prefix
+
+
+def moe_inflight(dev, tag, cfg, params, kern, kmod, tprog, clock) -> dict:
+    """phi3.5-moe in flight through serve.inflight_serve at the served
+    model's depth: MOE_INFLIGHT_REQUESTS requests at MOE_INFLIGHT_SLOTS
+    slots, prompts of MOE_INFLIGHT_PROMPT tokens (a solo prefill's expert
+    capacity is 8, the decode steps' bucket), every launch split-K and
+    planned, no growth after warm-up.  In-flight MoE is not equal to solo
+    decoding (the expert groups mix requests), so nothing holds that."""
+    from repro_torch.launch import serve
+    icfg = cfg.replace(cim=cfg.cim.replace(isolate_rows=True))
+    reqs = serve.make_requests(cfg.vocab_size, MOE_INFLIGHT_REQUESTS,
+                               MOE_INFLIGHT_PROMPT, MOE_GEN, 0)
+    max_len = serve.serve_max_len(cfg, MOE_INFLIGHT_PROMPT, MOE_GEN)
+    cap_mark = len(clock.seconds)
+    reset_counts(kern)
+    fused = serve.inflight_serve(icfg, params, reqs, MOE_INFLIGHT_SLOTS,
+                                 max_len=max_len, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = kernel_counts(kern)
+    caps = clock.since(cap_mark)
+    check(fused["growth"] == {"plans": 0, "captures": 0, "binds": 0,
+                              "eager_calls": 0},
+          f"moe inflight: the loop after warm-up grew {fused['growth']}")
+    pre = family_tiles(icfg, cfg.n_layers, MOE_INFLIGHT_PROMPT, kmod, tprog)
+    dec = family_tiles(icfg, cfg.n_layers, MOE_INFLIGHT_SLOTS, kmod, tprog)
+    want = len(reqs) * pre["splitk"] + fused["decode_steps"] * dec["splitk"]
+    check(launches == (want, 0, want) and pre["tc"] == pre["cuda_core"]
+          == dec["tc"] == dec["cuda_core"] == 0,
+          f"moe inflight: cim_mbiw launches {launches} != planned {want}, "
+          f"all split-K")
+    check(len(set(fused["slot"].values())) > 1,
+          "moe inflight: no request ever shared a step")
+    check(all(len(fused["tokens"][r["uid"]]) == r["gen"] for r in reqs),
+          "moe inflight: a request has the wrong length")
+    toks = sum(len(t) for t in fused["tokens"].values())
+    rec = {"depth": cfg.n_layers, "slots": MOE_INFLIGHT_SLOTS,
+           "requests": len(reqs), "prompt": MOE_INFLIGHT_PROMPT,
+           "tokens": toks, "decode_steps": fused["decode_steps"],
+           "decode_s": fused["decode_s"], "wall_s": fused["wall_s"],
+           "tokens_per_s_decode": toks / fused["decode_s"],
+           "captures": caps, "growth": fused["growth"],
+           "launches": dict(zip(("cim_mbiw", "cim_mbiw_tc",
+                                 "cim_mbiw_splitk"), launches)),
+           "streams": {str(u): t for u, t in fused["tokens"].items()}}
+    print(f"moe inflight {tag}: {cfg.name} depth {cfg.n_layers}, "
+          f"{len(reqs)} requests at {MOE_INFLIGHT_SLOTS} slots, prompt "
+          f"{MOE_INFLIGHT_PROMPT}, {toks} tokens in {fused['decode_steps']} "
+          f"fused steps: after warm-up plans/binds/captures/eager +0; "
+          f"cim_mbiw {launches} (all split-K) = planned; "
+          f"{caps['captures']} captures in {caps['seconds']:.1f} s; decode "
+          f"{toks / fused['decode_s']:.2f} tokens/s over "
+          f"{fused['decode_s']:.1f} s, wall {fused['wall_s']:.1f} s",
+          flush=True)
+    return rec
+
+
+def moe_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
+    """The moe and vlm families at full width (module docstring, phase
+    13): the bank checks, the train steps, then phi3.5-moe's serve (the
+    main path: static, in flight, and the sharded serve over its layers
+    and binds), mixtral's and internvl2's."""
+    from repro_torch.kernels.prng import kernel as pk
+    t_phase = time.perf_counter()
+    draw = pk.threefry_normal
+    draw.launches = 0
+    rec: dict = {"cuts": {
+        MOE_ARCH: {"serve_depth": MOE_DEPTH, "train_depth": MOE_TRAIN_DEPTH,
+                   "shard_depth": MOE_SHARD_DEPTH, "of": 32},
+        MIXTRAL_ARCH: {"depth": MIXTRAL_DEPTH, "of": 56},
+        VLM_ARCH: {"serve_depth": VLM_SERVE_DEPTH,
+                   "train_depth": VLM_TRAIN_DEPTH, "of": 80}}}
+    print(f"moe cuts {tag}: {MOE_ARCH} serve depth {MOE_DEPTH} of 32 (gen "
+          f"{MOE_GEN}), train depth {MOE_TRAIN_DEPTH}, sharded serve depth "
+          f"{MOE_SHARD_DEPTH}; {MIXTRAL_ARCH} depth {MIXTRAL_DEPTH} of 56; "
+          f"{VLM_ARCH} serve depth {VLM_SERVE_DEPTH}, train depth "
+          f"{VLM_TRAIN_DEPTH} of 80; widths, heads, experts and "
+          f"vocabularies as published", flush=True)
+    launches = dict.fromkeys(("cim_mbiw", "cim_mbiw_tc", "cim_mbiw_splitk"),
+                             0)
+    flash = dict.fromkeys(FLASH_NAMES, 0)
+    secs: dict = {}
+
+    def add(lc):
+        for k_ in launches:
+            launches[k_] += lc[k_]
+
+    t0 = time.perf_counter()
+    reset_counts(kern)
+    rec["bank"] = moe_bank_checks(dev, tag)
+    add(dict(zip(launches, kernel_counts(kern))))
+    secs["bank"] = time.perf_counter() - t0
+    rec["train"] = {}
+    for arch, depth, prefix, vs in (
+            (MOE_ARCH, MOE_TRAIN_DEPTH, False, True),
+            (MIXTRAL_ARCH, MIXTRAL_DEPTH, False, False),
+            (VLM_ARCH, VLM_TRAIN_DEPTH, True, False)):
+        t0 = time.perf_counter()
+        tr = family_train_step(dev, tag, arch, depth, prefix=prefix,
+                               vs_plain=vs)
+        rec["train"][arch] = tr
+        for k_ in FLASH_NAMES:
+            flash[k_] += tr["launches_tc"][k_]
+        check(tr["fits"] or arch == MIXTRAL_ARCH,
+              f"{arch}: the train step did not fit the card")
+        secs[f"train {arch}"] = time.perf_counter() - t0
+    # the main path: phi3.5-moe static, in flight, sharded
+    t0 = time.perf_counter()
+    srec, cfg, params, _, _ = family_serve(
+        dev, tag, MOE_ARCH, MOE_DEPTH, MOE_BATCH, MOE_PROMPT, MOE_GEN, kern,
+        kmod, tprog, trt, clock)
+    rec["serve"] = {MOE_ARCH: srec}
+    add(srec["launches"])
+    rec["inflight"] = moe_inflight(dev, tag, cfg, params, kern, kmod, tprog,
+                                   clock)
+    add(rec["inflight"]["launches"])
+    reset_counts(kern)
+    rec["shard"] = moe_shard_check(dev, tag, cfg, params)
+    add(dict(zip(launches, kernel_counts(kern))))
+    del params
+    _free(dev)
+    secs[f"serve {MOE_ARCH}"] = time.perf_counter() - t0
+    for arch, depth, batch, plen, gen in (
+            (MIXTRAL_ARCH, MIXTRAL_DEPTH, MOE_BATCH, MIXTRAL_PROMPT,
+             MIXTRAL_GEN),
+            (VLM_ARCH, VLM_SERVE_DEPTH, VLM_BATCH, VLM_PROMPT, VLM_GEN)):
+        t0 = time.perf_counter()
+        srec, *_ = family_serve(dev, tag, arch, depth, batch, plen, gen,
+                                kern, kmod, tprog, trt, clock)
+        rec["serve"][arch] = srec
+        add(srec["launches"])
+        _free(dev)
+        secs[f"serve {arch}"] = time.perf_counter() - t0
+    rec["launches"] = dict(launches, threefry_normal=draw.launches,
+                           **{f"{k_}_tc": v for k_, v in flash.items()})
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["part_s"] = secs
+    print(f"moe launches {tag}: {rec['launches']} in {rec['seconds']:.1f} s ("
+          + ", ".join(f"{k_} {v:.1f}" for k_, v in secs.items()) + ")",
+          flush=True)
+    return rec
+
+
+def moe_shard_check(dev, tag, cfg, params) -> dict:
+    """phi3.5-moe at full width, its first MOE_SHARD_DEPTH layers (the
+    static serve's weights and binds), batch MOE_BATCH x MOE_SHARD_PROMPT
+    (32 rows: each expert's capacity is the decode steps' 8, so the
+    unsharded serve replays the static serve's expert graphs), through
+    serve.static_serve unsharded and with the launcher's CIMConfig
+    sharded over MOE_SHARD_DEVICES macros folded onto the card
+    (--engine-devices): tokens and every logit bit for bit equal, no
+    growth after warm-up in either."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import ShardingConfig
+    cfg = cfg.replace(n_layers=MOE_SHARD_DEPTH)
+    params = dict(params, layers=params["layers"][:MOE_SHARD_DEPTH])
+    prompt = serve.make_prompt(cfg.vocab_size, MOE_BATCH, MOE_SHARD_PROMPT,
+                               1, dev)
+    max_len = serve.serve_max_len(cfg, MOE_SHARD_PROMPT, MOE_SHARD_GEN)
+
+    def sharding(d):
+        return ShardingConfig(devices=d, fold_onto=dev.type)
+    runs = {}
+    for label, sh in (("unsharded", None),
+                      (f"D{MOE_SHARD_DEVICES}", sharding(MOE_SHARD_DEVICES))):
+        c = cfg.replace(cim=cfg.cim.replace(sharding=sh))
+        t0 = time.perf_counter()
+        out = serve.static_serve(c, params, prompt, MOE_SHARD_GEN,
+                                 max_len=max_len, keep_logits=True)
+        out["wall_s"] = time.perf_counter() - t0
+        check(all(v == 0 for v in out["growth"].values()),
+              f"moe shard serve {label}: the decode loop grew "
+              f"{out['growth']}")
+        del out["cache"]
+        runs[label] = out
+    a, b = runs.values()
+    check(torch.equal(a["tokens"], b["tokens"])
+          and all(torch.equal(x, y) for x, y in zip(a["logits"],
+                                                    b["logits"])),
+          "moe shard serve: sharded tokens or logits != unsharded")
+    rec = {lbl: {"tokens": o["tokens"].tolist(), "wall_s": o["wall_s"],
+                 "prefill_s": o["prefill_s"],
+                 "decode_host_ms_per_step":
+                 1e3 * o["decode_s"] / max(o["steps"], 1)}
+           for lbl, o in runs.items()}
+    print(f"shard moe {tag}: {cfg.name} at full width, depth "
+          f"{MOE_SHARD_DEPTH} (cut from 32), bf16, engine (8, 4), batch "
+          f"{prompt.shape[0]}, prompt {prompt.shape[1]}, gen "
+          f"{MOE_SHARD_GEN}, --engine-devices {MOE_SHARD_DEVICES} folded: "
+          f"tokens and every logit == unsharded; no growth after warm-up; "
+          + ", ".join(f"{k_} wall {v['wall_s']:.1f} s" for k_, v in
+                      rec.items()), flush=True)
+    return rec
+
+
 FLASH_PAIRS = ((1, 77), (77, 77), (512, 512), (4096, 4096), (77, 4096),
                (4096, 77), (512, 1), (77, 512))
 # the train path's attention: B, H, G, S, D (causal, bf16)
@@ -2259,6 +2937,12 @@ FLASH_TRAIN = (TRAIN_BATCH, 16, 16, TRAIN_SEQ, 128)
 FLASH_DENSE = ((1, 32, 8, DENSE_SEQ, 128, torch.bfloat16),
                (1, 24, 8, DENSE_SEQ, 128, torch.bfloat16),
                (1, 28, 4, DENSE_SEQ, 128, torch.float32))
+# the moe phase's train steps (phase 13): B, H, G, S, D, window, causal,
+# bf16 - phi3.5-moe, mixtral (its 4096 window over 512 tokens) and
+# internvl2 (512 text tokens behind 256 prefix tokens)
+FLASH_MOE = ((1, 32, 8, MOE_TRAIN_SEQ, 128, 0),
+             (1, 48, 8, MOE_TRAIN_SEQ, 128, 4096),
+             (1, 64, 8, MOE_TRAIN_SEQ + 256, 128, 0))
 
 
 def flash_cases() -> list:
@@ -2266,7 +2950,8 @@ def flash_cases() -> list:
     window {0, 256} x rep {1, 2, 16} x D {64, 128}, each at one (Sq, Sk)
     pair (cycling through ragged sizes in {1, 77, 512, 4096}), q_off and
     dtype alternating; then the train shape in bf16 and float32; then
-    the dense configs' step shapes (FLASH_DENSE, reps 4, 3 and 7)."""
+    the dense configs' step shapes (FLASH_DENSE, reps 4, 3 and 7) and
+    the moe phase's (FLASH_MOE, reps 4, 6 and 8)."""
     out = []
     i = 0
     for causal in (True, False):
@@ -2284,6 +2969,8 @@ def flash_cases() -> list:
     out.append((b, h, g, s, s, d, True, 0, 0, torch.float32))
     out += [(b, h, g, s, s, d, True, 0, 0, dtype)
             for b, h, g, s, d, dtype in FLASH_DENSE]
+    out += [(b, h, g, s, s, d, True, window, 0, torch.bfloat16)
+            for b, h, g, s, d, window in FLASH_MOE]
     return out
 
 
@@ -2476,7 +3163,7 @@ def flash_checks(fk, fref, dev) -> dict:
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
-# the shard phase (phase 13): the sharded multi-macro engine, its
+# the shard phase (phase 14): the sharded multi-macro engine, its
 # partitions folded onto the one card
 SHARD_DEVICES = (1, 2, 4, 8)
 SHARD_LENET_POINTS = ((4, 2), (8, 4))
@@ -2500,7 +3187,7 @@ CIMCHECK_DENSE = (4, 2048, 2048, 8, 4)     # rows, k, n, r_in, r_w
 
 
 def cimcheck_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
-    """Static verification on the card (module docstring, phase 14)."""
+    """Static verification on the card (module docstring, phase 15)."""
     from repro_torch.analysis import __main__ as cli
     from repro_torch.analysis import sass
     from repro_torch.core import mapping, prng
@@ -2528,11 +3215,11 @@ def cimcheck_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
     full_s = time.perf_counter() - t0
     check(rc == 0, f"cimcheck at OLMo-1B's full width exited {rc}")
     rec["sweep_s"], rec["full_width_s"] = sweep_s, full_s
-    print(f"cimcheck (a) {tag}: sweep of LeNet and OLMo-1B (smoke widths) "
-          f"over r_in x r_w, noisy, folded-sharded and ladder points, SASS "
-          f"pass: strict exit 0 in {sweep_s:.1f} s; OLMo-1B's projections "
-          f"at full width {CIMCHECK_FULL_POINT}: exit 0 in {full_s:.1f} s",
-          flush=True)
+    print(f"cimcheck (a) {tag}: sweep of LeNet, OLMo-1B and phi3.5-moe "
+          f"(smoke widths) over r_in x r_w, noisy, folded-sharded and ladder "
+          f"points, SASS pass: strict exit 0 in {sweep_s:.1f} s; OLMo-1B's "
+          f"projections at full width {CIMCHECK_FULL_POINT}: exit 0 in "
+          f"{full_s:.1f} s", flush=True)
 
     # (b) the SASS pass over every built library
     t0 = time.perf_counter()
@@ -2709,7 +3396,7 @@ def cimcheck_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
 
 
 def shard_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
-    """The sharded multi-macro engine (module docstring, phase 13), every
+    """The sharded multi-macro engine (module docstring, phase 14), every
     mesh folded onto `dev` (ShardingConfig(fold_onto=...)), the one card
     standing in for the bank of macros."""
     from repro_torch.core import cim_layers as tcl
@@ -4014,7 +4701,17 @@ def main() -> int:
     phase_s["dense"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 13. the sharded multi-macro engine ---------------------------------
+    # -- 13. the moe and vlm families at full width -----------------------
+    cap_mark = len(clock.seconds)
+    moe = moe_phase(dev, tag, kern, kmod, tprog, trt, clock)
+    report["moe"] = moe
+    graphs["moe"] = dict(clock.since(cap_mark),
+                         capture_count=trt.CAPTURE_COUNT["n"],
+                         pool_bytes=graph_pool_bytes(tprog, dev))
+    phase_s["moe"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 14. the sharded multi-macro engine ---------------------------------
     cap_mark = len(clock.seconds)
     shard = shard_phase(dev, tag, kern, kmod, tprog, trt)
     report["shard"] = shard
@@ -4025,14 +4722,14 @@ def main() -> int:
     phase_s["shard"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 14. cimcheck: static verification and the legacy entries --------
+    # -- 15. cimcheck: static verification and the legacy entries --------
     cim = cimcheck_phase(dev, tag, kern, kmod, tprog, trt)
     report["cimcheck"] = cim
     torch.cuda.empty_cache()
     phase_s["cimcheck"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 15. times -----------------------------------------------------------
+    # -- 16. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -4216,15 +4913,16 @@ def main() -> int:
     nl, nd = noise["launches"], ndec["launches"]
     ls, lp, lt = lserve["launches"], prec["launches"], tune["launches"]
     lc, lsh, lcc = ctrain["launches"], shard["launches"], cim["launches"]
+    lm = moe["launches"]
     route_launches = {
         "tc": main_routes["tc"] + nl["cim_mbiw_tc"] + ls["cim_mbiw_tc"]
         + lp["cim_mbiw_tc"] + lt["cim_mbiw_tc"] + lc["cim_mbiw_tc"]
-        + lsh["cim_mbiw_tc"] + lcc["cim_mbiw_tc"],
+        + lsh["cim_mbiw_tc"] + lcc["cim_mbiw_tc"] + lm["cim_mbiw_tc"],
         "splitk": main_routes["splitk"] + dec_splitk + nl["cim_mbiw_splitk"]
         + nd["cim_mbiw_splitk"] + ls["cim_mbiw_splitk"]
         + lp["cim_mbiw_splitk"] + lt["cim_mbiw_splitk"]
         + lc["cim_mbiw_splitk"] + lsh["cim_mbiw_splitk"]
-        + lcc["cim_mbiw_splitk"],
+        + lcc["cim_mbiw_splitk"] + lm["cim_mbiw_splitk"],
         "cuda_core": main_routes["all"] - main_routes["tc"]
         - main_routes["splitk"] + dec_cim - dec_splitk + nl["cim_mbiw"]
         - nl["cim_mbiw_tc"] - nl["cim_mbiw_splitk"] + nd["cim_mbiw"]
@@ -4234,7 +4932,8 @@ def main() -> int:
         - lt["cim_mbiw_splitk"] + lc["cim_mbiw"] - lc["cim_mbiw_tc"]
         - lc["cim_mbiw_splitk"] + lsh["cim_mbiw"] - lsh["cim_mbiw_tc"]
         - lsh["cim_mbiw_splitk"] + lcc["cim_mbiw"] - lcc["cim_mbiw_tc"]
-        - lcc["cim_mbiw_splitk"]}
+        - lcc["cim_mbiw_splitk"] + lm["cim_mbiw"] - lm["cim_mbiw_tc"]
+        - lm["cim_mbiw_splitk"]}
 
     def route_entry(name, route, src, rows):
         mult = [2 if r["k"] == 784 and r["shape"] == "lenet" else 1
@@ -4280,7 +4979,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/flash_attn/csrc/{src}",
             "replaces": f"src/repro/kernels/flash_attn/kernel.py:{line}",
             "launches": train["launches_tc"][name]
-            + dense["launches_tc"][name] + lsh[f"{name}_tc"],
+            + dense["launches_tc"][name] + lsh[f"{name}_tc"]
+            + lm[f"{name}_tc"],
             "max_abs_err": max(flash["max_abs_err"][kind].values()),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4288,7 +4988,8 @@ def main() -> int:
     draw_launches = (noise["launches"]["threefry_normal"]
                      + ndec["launches"]["threefry_normal"]
                      + train["noisy"]["launches"] + lp["threefry_normal"]
-                     + lc["threefry_normal"] + lcc["threefry_normal"])
+                     + lc["threefry_normal"] + lcc["threefry_normal"]
+                     + lm["threefry_normal"])
     kernels["kernels"].append({
         "name": "threefry_normal", "route": "cuda",
         "source": "src/repro_torch/kernels/prng/csrc/threefry_normal.cu",
@@ -4326,6 +5027,7 @@ def main() -> int:
         "tuner": tune["launches"],
         "cnn_train": lc,
         "dense": dense["launches"],
+        "moe": lm,
         "shard": lsh,
         "cimcheck": lcc}
     report["total_s"] = time.perf_counter() - t_start

@@ -1,8 +1,10 @@
 """cimcheck CLI: sweep the model zoo through the port's static verification.
 
 Counterpart of `scripts/cimcheck.py`.  Compiles every zoo workload (the
-LeNet conv chain, OLMo-1B's projection GEMMs) across the precision grid
-and runs every `repro_torch.analysis` pass over the programs: the
+LeNet conv chain, OLMo-1B's and phi3.5-moe's projection GEMMs; an
+expert's gate_up / down GEMM is the one program its E experts share)
+across the precision grid and runs every `repro_torch.analysis` pass
+over the programs: the
 numerics-barrier lint, noise-key injectivity, the dispatch-key budget,
 plan validation.  A noise-enabled LeNet point, a sharded LeNet folded
 onto the program's device, and a mixed-precision-per-layer ladder point
@@ -11,9 +13,9 @@ card the SASS pass then reads every kernel library `kernels/build.py`
 builds (building them first) and holds the ADC floor free of fused
 multiply-adds; on the CPU it is skipped, and the summary says so.
 
-Programs compile for the card unless ``--device cpu`` is given.  The
-arch ``phi3.5-moe-42b-a6.6b`` of the JAX package's sweep is not
-registered in `repro_torch.configs`: the sweep names it and skips it.
+Programs compile for the card unless ``--device cpu`` is given.
+``--full-width`` takes each arch's published widths in place of its
+smoke widths.
 
 Exit status: nonzero under --strict when any ERROR finding survives the
 suppressions.  --json writes the findings (readable with
@@ -42,8 +44,6 @@ from repro_torch.runtime.program import compile_program, resolve_device
 R_IN_GRID = (1, 2, 4, 8)
 R_W_GRID = (1, 2, 4)
 ARCHS = ("lenet", "olmo-1b", "phi3.5-moe-42b-a6.6b")
-# archs of the JAX package's sweep that the port does not register
-UNPORTED = ("phi3.5-moe-42b-a6.6b",)
 
 # the operating-point tags a full precision ladder serves under: RC001
 # budgets the dispatch-key set they multiply into
@@ -163,11 +163,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     merged = Report(suppressions=sups)
     per_config = []
-    for arch in archs:
-        if arch in UNPORTED:
-            print(f"cimcheck: {arch}: not registered in repro_torch.configs "
-                  "(another model family); skipped")
-    points = [(arch, r_in, r_w) for arch in archs if arch not in UNPORTED
+    points = [(arch, r_in, r_w) for arch in archs
               for r_in in r_ins for r_w in r_ws]
     for arch, r_in, r_w in points:
         for label, prog in programs_for(arch, r_in, r_w, dev,

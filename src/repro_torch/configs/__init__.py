@@ -1,11 +1,12 @@
 """Architecture registry: one module per architecture the port runs.
 
-Counterpart of `repro/configs/__init__.py`.  The port registers the four
-dense archs, the family its `models/transformer.py` runs: `olmo_1b`,
-`granite_8b`, `minitron_4b` and `qwen2_7b` (each module's `CONFIG` and
-`smoke_config()` equal the JAX package's field for field).  An arch of
-another family (moe, hybrid, ssm, vlm, audio) is not registered, and
-`get_config` of it raises ValueError.
+Counterpart of `repro/configs/__init__.py`.  The port registers the archs
+of the families its `models/transformer.py` runs, in the JAX package's
+order: the moe archs `phi35_moe` and `mixtral_8x22b`, the dense archs
+`minitron_4b`, `qwen2_7b`, `olmo_1b` and `granite_8b`, and the vlm arch
+`internvl2_76b` (each module's `CONFIG` and `smoke_config()` equal the
+JAX package's field for field).  An arch of another family (hybrid, ssm,
+audio) is not registered, and `get_config` of it raises ValueError.
 """
 from __future__ import annotations
 
@@ -16,17 +17,23 @@ __all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeConfig",
            "get_config", "get_smoke_config"]
 
 ARCH_IDS = [
+    "phi35_moe",
+    "mixtral_8x22b",
     "minitron_4b",
     "qwen2_7b",
     "olmo_1b",
     "granite_8b",
+    "internvl2_76b",
 ]
 
 _ALIASES = {
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "mixtral-8x22b": "mixtral_8x22b",
     "minitron-4b": "minitron_4b",
     "qwen2-7b": "qwen2_7b",
     "olmo-1b": "olmo_1b",
     "granite-8b": "granite_8b",
+    "internvl2-76b": "internvl2_76b",
 }
 
 

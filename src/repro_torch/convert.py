@@ -11,7 +11,9 @@ port's, so both packages can train the same weights, and
 (int8 codes kept as int8); `cache_from_numpy` turns a JAX decode cache
 into the port's (the same stacked layout, dtypes kept);
 `key_from_numpy` turns JAX key data into the port's PRNG key, so both
-draw the same noise.
+draw the same noise.  The MoE family's stacked (L, E, D, F) expert banks,
+router and per-expert ABN cross over like every other per-layer leaf;
+`moe_params_from_numpy` converts one `init_moe` tree on its own.
 """
 from __future__ import annotations
 
@@ -144,6 +146,21 @@ def deploy_params_from_numpy(tree: Mapping, device="cpu") -> Dict:
     `quantize_params_for_serving`: each leaf keeps its dtype (the int8
     weight codes "w_q", the float32 scales and everything else)."""
     return _lm_tree_from_numpy(tree, lambda a: _array_to_tensor(a, device))
+
+
+MOE_KEYS = ("router", "w_gate", "w_up", "w_down", "abn_log_gamma",
+            "abn_beta")
+
+
+def moe_params_from_numpy(tree: Mapping, device="cpu") -> Dict:
+    """The port's `models/moe.init_moe` tree from the JAX package's (one
+    block: router (D, E), w_gate / w_up (E, D, F), w_down (E, F, D), ABN
+    (E, D)), as float32 tensors on `device`, copied, never shared."""
+    missing = [k for k in MOE_KEYS if k not in tree]
+    if missing:
+        raise ValueError(f"moe params lack {missing}")
+    return {k: torch.from_numpy(np.array(tree[k], dtype=np.float32)).to(
+        device) for k in MOE_KEYS}
 
 
 def cache_from_numpy(tree: Mapping, device="cpu") -> Dict:

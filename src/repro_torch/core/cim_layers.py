@@ -225,9 +225,19 @@ def quantize_params_for_serving(params, r_w: int = 4):
     lists) in its deployed form {w_q int8, w_scale f32 (N,), abn_*}: the
     macro's odd-integer weight grid in its natural int8 container.
     Embeddings and norms stay as they are.  Works on stacked (..., K, N)
-    leaves too (scales over the reduction axis).  (The JAX package also
-    converts MoE expert banks; the port has no MoE family.)"""
+    leaves too (scales over the reduction axis).  An MoE block (a dict
+    with "router") gets its expert banks w_gate / w_up / w_down as
+    `{name}_q` int8 and `{name}_scale`, per (expert, channel) over axis
+    -2; its router and ABN stay."""
     def convert(node):
+        if isinstance(node, dict) and "router" in node:
+            out = dict(node)
+            for k in ("w_gate", "w_up", "w_down"):
+                if k in out:
+                    wq = quantize_weight(out.pop(k), r_w, axis=-2)
+                    out[f"{k}_q"] = wq.q.to(torch.int8)
+                    out[f"{k}_scale"] = torch.squeeze(wq.scale, dim=-2)
+            return out
         if isinstance(node, dict) and "w" in node and "abn_log_gamma" in node:
             wq = quantize_weight(node["w"], r_w, axis=-2)
             out = {k: v for k, v in node.items() if k != "w"}

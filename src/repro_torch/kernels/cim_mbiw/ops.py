@@ -152,6 +152,13 @@ def _kernel_variant(shift: int, n_planes: int, r_out: int, bm: int, bn: int,
         return cim_matmul(x_q, w_q, gamma, beta, r_in=r_eff, r_out=r_out,
                           g0=g0, plane_shift=shift, fuse_adc=fuse_adc,
                           tile=tile)
+
+    def on_planes(x_planes, w_q, gamma, beta, g0: float):
+        return cim_matmul_planes(x_planes, w_q, gamma, beta, r_out=r_out,
+                                 g0=g0, plane_shift=shift,
+                                 fuse_adc=fuse_adc, tile=tile)
+    run.split = lambda x_q: split_planes(x_q, r_eff, shift)[0].contiguous()
+    run.on_planes = on_planes
     run.plane_shift = shift
     run.n_planes = n_planes
     run.blocks = (bm, bn, bk)
@@ -171,9 +178,21 @@ def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor, gamma: torch.Tensor,
     tile (None: the shape's own).
     Returns (M, N) int32 codes (raw int32 dp when `fuse_adc=False`).
     """
-    m = x_q.shape[0]
     x_planes, _ = split_planes(x_q, r_in, plane_shift)
     shift = _PLANE_SHIFT if plane_shift is None else plane_shift
+    return cim_matmul_planes(x_planes, w_q, gamma, beta, r_out=r_out, g0=g0,
+                             plane_shift=shift, fuse_adc=fuse_adc, tile=tile)
+
+
+def cim_matmul_planes(x_planes: torch.Tensor, w_q: torch.Tensor,
+                      gamma: torch.Tensor, beta: torch.Tensor, *,
+                      r_out: int, g0: float, plane_shift: int,
+                      fuse_adc: bool = True,
+                      tile: Optional[Tile] = None) -> torch.Tensor:
+    """cim_matmul past the plane split: x_planes (M, P*K) int8 as
+    split_planes lays them out, so that the column tiles of one macro
+    row tile share one split."""
+    m = x_planes.shape[0]
     gamma2 = gamma.reshape(1, -1).to(torch.float32).contiguous()
     if beta.dim() == 2 and beta.shape[0] == m and m != 1:
         beta2 = beta.to(torch.float32).contiguous()
@@ -181,8 +200,8 @@ def cim_matmul(x_q: torch.Tensor, w_q: torch.Tensor, gamma: torch.Tensor,
         beta2 = beta.reshape(1, -1).to(torch.float32).contiguous()
     return cim_mbiw_matmul_planes(
         x_planes.contiguous(), w_q.to(torch.int8).contiguous(), gamma2,
-        beta2, plane_shift=shift, g0=g0, r_out=r_out, fuse_adc=fuse_adc,
-        tile=tile)
+        beta2, plane_shift=plane_shift, g0=g0, r_out=r_out,
+        fuse_adc=fuse_adc, tile=tile)
 
 
 def cim_linear(x_q: torch.Tensor, w_q: torch.Tensor, gamma: torch.Tensor,

@@ -17,9 +17,9 @@ weights are bound once (`program.bound_for`), so on the card every
 dispatch after a key's first replays a captured CUDA graph.  The
 launcher counts plans (`engine.PLAN_COUNT`), captures
 (`engine.CAPTURE_COUNT`, the port's counterpart of the JAX package's
-TRACE_COUNT) and, on the card, eager dispatches across the decode loop
-after its first step; `--assert-no-recompile` turns any growth into a
-failure.
+TRACE_COUNT), weight binds (`program.bound_cache_stats`) and, on the
+card, eager dispatches across the decode loop after its first step;
+`--assert-no-recompile` turns any growth into a failure.
 
 `--inflight` switches the decode loop to continuous (in-flight) batching
 over a slot-mapped KV cache (`transformer.init_slot_cache`): requests
@@ -50,8 +50,17 @@ ShardingConfig instead, so a caller can fold the D partitions onto one
 device (`ShardingConfig(devices=D, fold_onto="cuda")`); the token stream
 equals the unsharded serve's bit for bit either way.
 
-Not ported (NotImplementedError, with the ROADMAP queue that holds them):
-the vlm and audio families' inputs raise in `transformer.forward`.
+The decoder-stack families serve: dense, moe (every expert bank through
+one program per GEMM shape, bound once per expert, `models/moe.py`) and
+vlm, whose static batch carries a seeded (batch, vision_tokens, d_model)
+prefix of patch embeddings drawn as the JAX launcher draws it
+(`make_prefix`; the KV cache holds the prefix too).  `--inflight`
+serves dense and moe, as the JAX launcher does.  In-flight MoE is not
+bit-equal to solo decoding in either package: the expert groups mix the
+requests' tokens, and the expert programs take no segments.
+
+Not ported (NotImplementedError, with the ROADMAP queue that holds
+them): the hybrid, ssm and audio families.
 """
 from __future__ import annotations
 
@@ -64,6 +73,8 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import mapping
+from repro_torch.core import noise_model as nm
+from repro_torch.core import prng
 from repro_torch.core.cim_layers import CIMConfig
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.launch.train import resolve_device
@@ -109,11 +120,13 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build(args, sharding: Optional[rt_engine.ShardingConfig] = None):
+def build(args, sharding: Optional[rt_engine.ShardingConfig] = None,
+          n_layers: Optional[int] = None):
     """(cfg, params, device) for the parsed arguments: the config of
     --arch with the launcher's CIMConfig (max_gamma 2^16, rows isolated
     under --inflight, and the engine's sharding) and seeded random
-    weights on the device.
+    weights on the device.  `n_layers` cuts the config's depth before the
+    weights are drawn (a published config too deep for one card).
 
     `sharding` defaults to --engine-devices D on the first D devices
     (ValueError, naming the devices, when fewer are visible); a given
@@ -132,6 +145,8 @@ def build(args, sharding: Optional[rt_engine.ShardingConfig] = None):
         make_engine_mesh(sharding.resolve_devices(), sharding.axis,
                          device=dev, fold_onto=sharding.fold_onto)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     cfg = cfg.replace(cim=CIMConfig(mode=args.cim_mode, max_gamma=2.0**16,
                                     sharding=sharding,
                                     isolate_rows=args.inflight))
@@ -146,10 +161,12 @@ def _sync(dev: torch.device) -> None:
 
 
 def counters() -> Dict[str, int]:
-    """The counters the no-recompile contract reads: plans, captures and
-    the programs' eager dispatches."""
+    """The counters the no-recompile contract reads: plans, captures,
+    weight binds (`program.bound_for`; an MoE bank binds once an expert)
+    and the programs' eager dispatches."""
     return {"plans": rt_engine.PLAN_COUNT["n"],
             "captures": rt_engine.CAPTURE_COUNT["n"],
+            "binds": rt_program.bound_cache_stats()["binds"],
             "eager_calls": rt_program.dispatch_stats()["eager_calls"]}
 
 
@@ -157,17 +174,23 @@ def _growth(before: Dict[str, int], dev: torch.device) -> Dict[str, int]:
     """Counter growth since `before`; eager dispatches count on the card
     only (on the host every dispatch is eager)."""
     now = counters()
-    out = {k: now[k] - before[k] for k in ("plans", "captures")}
+    out = {k: now[k] - before[k] for k in ("plans", "captures", "binds")}
     if dev.type == "cuda":
         out["eager_calls"] = now["eager_calls"] - before["eager_calls"]
     return out
 
 
+INFLIGHT_FAMILIES = ("dense", "moe")
+
+
 @torch.no_grad()
 def static_serve(cfg, params, prompt: torch.Tensor, gen_len: int, *,
-                 max_len: int, keep_logits: bool = False) -> Dict:
+                 max_len: int, keep_logits: bool = False,
+                 prefix: Optional[torch.Tensor] = None) -> Dict:
     """Static-batch greedy serving: prefill `prompt` (B, P) into a fresh
-    KV cache for the first token, then `gen_len` decode steps.
+    KV cache for the first token, then `gen_len` decode steps.  A vlm
+    model's `prefix` (B, V, D) patch embeddings go before the prompt
+    (`max_len` must hold both).
 
     Returns {"tokens" (B, 1 + gen_len) on the host, "cache", "prefill_s", "warm_s"
     (the first decode step), "decode_s" and "steps" (the rest), "growth"
@@ -177,7 +200,8 @@ def static_serve(cfg, params, prompt: torch.Tensor, gen_len: int, *,
     dev = prompt.device
     cache = tf.init_cache(cfg, prompt.shape[0], max_len=max_len, device=dev)
     t0 = time.perf_counter()
-    logits, cache, _ = tf.forward(cfg, params, prompt, cache=cache)
+    logits, cache, _ = tf.forward(cfg, params, prompt, cache=cache,
+                                  prefix_embeds=prefix)
     tok = torch.argmax(logits[:, -1:], dim=-1)
     _sync(dev)
     out = {"prefill_s": time.perf_counter() - t0, "warm_s": 0.0,
@@ -225,6 +249,24 @@ def make_prompt(vocab: int, batch: int, prompt_len: int, seed: int,
         device=device)
 
 
+def make_prefix(cfg, batch: int, seed: int, device) -> torch.Tensor:
+    """A vlm model's stub vision input, as the JAX launcher draws it:
+    jax.random.normal(PRNGKey(seed), (batch, vision_tokens, d_model)),
+    bit for bit, drawn on `device` (the draw kernel on the card)."""
+    return nm.draw_normal(prng.key(seed),
+                          (batch, cfg.vision_tokens, cfg.d_model),
+                          torch.device(device))
+
+
+def serve_max_len(cfg, prompt_len: int, gen_len: int) -> int:
+    """The KV cache length of a serve: prompt, generation, 8 spare and a
+    vlm model's prefix.  (The JAX launcher leaves the prefix out; at
+    internvl2's 256 prefix tokens its prefill then exceeds the ring, which
+    a multi-token write into the cache must not.)"""
+    return prompt_len + gen_len + 8 + (
+        cfg.vision_tokens if cfg.family == "vlm" else 0)
+
+
 def make_requests(vocab: int, n_req: int, prompt_len: int, gen_len: int,
                   seed: int) -> List[Dict]:
     """The JAX launcher's in-flight workload: fixed-length prompts, ragged
@@ -253,8 +295,12 @@ def inflight_serve(cfg, params, reqs: List[Dict], slots: int, *,
     "latency": {uid: finish - arrival clock}, "decode_steps",
     "decode_s" (host seconds of the fused steps, each ending in the
     tokens' copy to the host), "wall_s", "growth" (counter growth after
-    the first fused step)}."""
+    the first fused step)}.  The dense and moe families only (ValueError
+    otherwise)."""
     from repro_torch.runtime.scheduler import SlotMap
+    if cfg.family not in INFLIGHT_FAMILIES:
+        raise ValueError(f"in-flight serving takes the {INFLIGHT_FAMILIES} "
+                         f"families, not {cfg.family!r}")
     dev = torch.device(device)
     cache = tf.init_slot_cache(cfg, slots, max_len, device=dev)
 
@@ -319,14 +365,15 @@ def inflight_serve(cfg, params, reqs: List[Dict], slots: int, *,
 
 def _check_growth(args, growth: Dict[str, int], what: str) -> None:
     print(f"decode recompiles after warmup: plans={growth.get('plans', 0)} "
-          f"captures={growth.get('captures', 0)}"
+          f"captures={growth.get('captures', 0)} "
+          f"binds={growth.get('binds', 0)}"
           + (f" eager_calls={growth['eager_calls']}"
              if "eager_calls" in growth else ""))
     if args.assert_no_recompile and any(growth.values()):
         raise SystemExit(
-            f"FAIL: {what} re-entered the planner or captured or ran "
-            f"eagerly after warmup ({growth}): the plan-once/serve-many "
-            f"contract is broken")
+            f"FAIL: {what} re-entered the planner, bound weights, captured "
+            f"or ran eagerly after warmup ({growth}): the plan-once/"
+            f"serve-many contract is broken")
 
 
 def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
@@ -340,12 +387,18 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     if args.engine_devices and args.cim_mode != "engine":
         ap.error("--engine-devices requires --cim-mode engine")
     cfg, params, dev = build(args)
-    max_len = args.prompt_len + args.gen_len + 8
+    max_len = serve_max_len(cfg, args.prompt_len, args.gen_len)
     if args.inflight:
+        if cfg.family not in INFLIGHT_FAMILIES:
+            ap.error(f"--inflight supports the {INFLIGHT_FAMILIES} "
+                     f"families, not {cfg.family!r}")
         return _run_inflight(args, cfg, params, dev, max_len)
     prompt = make_prompt(cfg.vocab_size, args.batch, args.prompt_len,
                          args.seed, dev)
-    out = static_serve(cfg, params, prompt, args.gen_len, max_len=max_len)
+    prefix = (make_prefix(cfg, args.batch, args.seed, dev)
+              if cfg.family == "vlm" else None)
+    out = static_serve(cfg, params, prompt, args.gen_len, max_len=max_len,
+                       prefix=prefix)
     print(f"prefill({args.prompt_len} tokens): {out['prefill_s']:.2f}s")
     if out["steps"]:
         dt = out["decode_s"]

@@ -20,6 +20,9 @@ from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.optim.schedules import cosine_schedule
 
+AUX_LOSS_WEIGHT = 0.01
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token CE; logits (B, S, V) in any float dtype."""
     lf = logits.to(torch.float32)
@@ -30,14 +33,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
             key: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
-    """Mean next-token CE of the dense LM (no MoE aux loss: its weight
-    times zero leaves the JAX package's loss equal to the CE).  `key`
-    seeds the CIM noise model when cfg.cim.noise is enabled (the JAX
-    package's loss_fn takes none and so trains clean under --cim-noise;
-    the port threads it, see ROADMAP Queue 3)."""
-    logits, _, _ = tf.forward(cfg, params, batch["tokens"], key=key)
+    """Mean next-token CE plus AUX_LOSS_WEIGHT times the MoE load-balance
+    loss (zero for the dense and vlm families), and its parts {"ce",
+    "aux"}.  batch["prefix_embeds"] (vlm) and batch["encoder_frames"]
+    pass through to forward; for vlm the prefix positions' logits are
+    sliced off before the CE.  `key` seeds the CIM noise model when
+    cfg.cim.noise is enabled (the JAX package's loss_fn takes none and
+    so trains clean under --cim-noise; the port threads it, see ROADMAP
+    Queue 3)."""
+    kwargs = {k: batch[k] for k in ("prefix_embeds", "encoder_frames")
+              if k in batch}
+    logits, _, aux = tf.forward(cfg, params, batch["tokens"], key=key,
+                                **kwargs)
+    if cfg.family == "vlm" and "prefix_embeds" in batch:
+        logits = logits[:, batch["prefix_embeds"].shape[1]:]
     ce = cross_entropy(logits, batch["labels"])
-    return ce, {"ce": ce}
+    return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
@@ -46,8 +57,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     """Returns train_step(state, batch, key=None) -> (state, metrics).
 
     The state is updated in place and returned; metrics are {"loss",
-    "ce", "grad_norm", "lr"} as detached device tensors.  `key` is the
-    step's noise key (the launcher passes fold_in(key(seed), step))."""
+    "ce", "aux", "grad_norm", "lr"} as detached device tensors.  `key` is
+    the step's noise key (the launcher passes fold_in(key(seed),
+    step))."""
     if compress_grads:
         raise NotImplementedError(
             "gradient compression (optim/compression.py) is not ported")
@@ -91,9 +103,9 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
 
 def make_prefill_step(cfg: ModelConfig):
     """Returns prefill_step(params, batch) -> the last position's logits
-    (B, V) of batch["tokens"] (B, S), without a cache.  (The vlm and
-    audio inputs, batch["prefix_embeds"] / ["encoder_frames"], pass
-    through to forward, which does not port them.)"""
+    (B, V) of batch["tokens"] (B, S), without a cache.  The vlm and audio
+    inputs, batch["prefix_embeds"] / ["encoder_frames"], pass through to
+    forward (which does not port the audio family's)."""
     def prefill_step(params, batch):
         kwargs = {k: batch[k] for k in ("prefix_embeds", "encoder_frames")
                   if k in batch}

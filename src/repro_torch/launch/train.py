@@ -11,6 +11,11 @@ kernels), `jnp` on the plain attention.
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --smoke \
       --steps 20 --cim-mode fakequant --attn-impl pallas
 
+The decoder-stack families train: dense, moe (the loss adds
+`steps.AUX_LOSS_WEIGHT` times the load-balance loss, printed as aux
+beside the CE) and vlm (on text tokens alone, as the JAX launcher's
+batches carry no prefix).
+
 `--cim-noise` trains under the post-silicon noise model
 (`NoiseConfig()`), with step s drawing under fold_in(key(--seed), s).
 Checkpointing (`--ckpt-dir`) and gradient compression
@@ -113,6 +118,8 @@ def main(argv=None):
         state, metrics = step_fn(state, batch_fn(step), step_key(args, step))
         if step % 10 == 0 or step == args.steps - 1:
             print(f"step {step:4d} loss={float(metrics['loss']):.4f} "
+                  f"ce={float(metrics['ce']):.4f} "
+                  f"aux={float(metrics['aux']):.4f} "
                   f"gnorm={float(metrics['grad_norm']):.3f} "
                   f"({time.time()-t0:.1f}s)")
 

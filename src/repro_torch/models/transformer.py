@@ -1,31 +1,38 @@
-"""Model assembly for the dense decoder family (OLMo, and any pre-norm
-decoder with GQA attention and a gated MLP).
+"""Model assembly for the decoder-stack families: dense (OLMo, and any
+pre-norm decoder with GQA attention and a gated MLP), moe (the same
+attention with a top-k expert FFN, `models/moe.py`) and vlm (the dense
+decoder behind a prefix of precomputed patch embeddings).
 
-Counterpart of the dense path of `repro/models/transformer.py`: the same
-parameter tree and forward, as functions over a dict of tensors.  Where
-the JAX package stacks the layers along a leading axis and scans over
-them, the port keeps `params["layers"]` as a list of per-layer dicts and
-loops; with `cfg.remat` each layer of a cache-free forward runs under
-`torch.utils.checkpoint` (non-reentrant), which recomputes its forward in
-the backward, as `jax.checkpoint` does.  Every projection runs through
-`core.cim_layers.cim_linear_apply`.
+Counterpart of the decoder-stack path of `repro/models/transformer.py`:
+the same parameter tree and forward, as functions over a dict of
+tensors.  Where the JAX package stacks the layers along a leading axis
+and scans over them, the port keeps `params["layers"]` as a list of
+per-layer dicts and loops; with `cfg.remat` each layer of a cache-free
+forward runs under `torch.utils.checkpoint` (non-reentrant), which
+recomputes its forward in the backward, as `jax.checkpoint` does.  Every
+projection runs through `core.cim_layers.cim_linear_apply`, every expert
+bank through `moe._expert_gemm`.
 
 `forward(..., cache=)` decodes over a KV cache and returns JAX's
-`(logits, new_cache, aux)`.  The caches keep the JAX package's stacked
-layout, {"pos", "layers": {"kv": {"k", "v", "idx"}}} with a leading
-layer axis, so layer i's rings are views of one slab each; the rings are
-written in place, and a returned cache aliases the one passed in
-(`init_cache` for static batches, `init_slot_cache` /
-`write_slot_cache` / `free_slot_cache` for in-flight batching).
+`(logits, new_cache, aux)`: aux is the MoE load-balance loss summed over
+the layers in float32 in layer order (JAX's scan carry; 0 for dense and
+vlm).  The caches keep the JAX package's stacked layout, {"pos",
+"layers": {"kv": {"k", "v", "idx"}}} with a leading layer axis, so layer
+i's rings are views of one slab each; the rings are written in place, and
+a returned cache aliases the one passed in (`init_cache` for static
+batches, `init_slot_cache` / `write_slot_cache` / `free_slot_cache` for
+in-flight batching).  `forward(prefix_embeds=)` (vlm) puts the prefix
+before the token embeddings; positions then run over the longer
+sequence.
 
 `forward(key=)` seeds the CIM noise model of every projection, folded
 as the JAX package folds it (fold_in(key, layer), then 0/1 for the
-attention and MLP banks, then one fold per projection); a checkpointed
-layer's recompute redraws the same noise from the same key.
+attention and FFN banks, then one fold per projection or bank, and per
+expert in engine mode); a checkpointed layer's recompute redraws the
+same noise from the same key.
 
-Not ported: the moe, hybrid, ssm, vlm and audio families (and with them
-forward's `prefix_embeds` and `encoder_frames`), and the "dots" remat
-policy.
+Not ported: the hybrid, ssm and audio families (and with them forward's
+`encoder_frames`), and the "dots" remat policy.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.core.cim_layers import init_cim_linear
 from repro_torch.models import common as cm
+from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.models.sharding import BATCH, TP, shard
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -48,10 +56,15 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+DECODER_FAMILIES = ("dense", "moe", "vlm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in DECODER_FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported (dense only)")
+            f"model family {cfg.family!r} is not ported (the decoder-stack "
+            f"families {DECODER_FAMILIES} are; ROADMAP Queue 1, the other "
+            f"model families)")
 
 
 def _attn_cfg(cfg: ModelConfig) -> cm.AttnConfig:
@@ -65,13 +78,18 @@ def _attn_cfg(cfg: ModelConfig) -> cm.AttnConfig:
 def _init_decoder_layer(cfg: ModelConfig,
                         generator: torch.Generator) -> Dict:
     dev = generator.device
-    return {
+    p = {
         "ln1": cm.init_norm(cfg.d_model, cfg.norm_type, device=dev),
         "ln2": cm.init_norm(cfg.d_model, cfg.norm_type, device=dev),
         "attn": cm.init_attention(generator, _attn_cfg(cfg), cfg.cim),
-        "mlp": cm.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
-                           cfg.cim),
     }
+    if cfg.family == "moe":
+        p["moe"] = init_moe(generator, cfg.d_model, cfg.d_ff,
+                            cfg.moe_experts, cfg.cim)
+    else:
+        p["mlp"] = cm.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                               cfg.gated_mlp, cfg.cim)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Dict:
@@ -112,10 +130,11 @@ def stacked_decay_mask(params: Dict) -> Dict:
 def _decoder_layer(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                    positions: torch.Tensor, cache: Optional[Dict] = None,
                    key: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """One pre-norm decoder layer (attention + MLP) -> (x, new layer
-    cache {"kv": ...} or None); `key` seeds the noise of its projections
-    (fold_in(key, 0) the attention bank, 1 the MLP)."""
+                   ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """One pre-norm decoder layer (attention + MLP or MoE FFN) -> (x, new
+    layer cache {"kv": ...} or None, aux: the MoE load-balance loss, a
+    float32 zero for an MLP); `key` seeds the noise of its projections
+    (fold_in(key, 0) the attention bank, 1 the FFN)."""
     k_attn = k_ffn = None
     if key is not None:
         k_attn, k_ffn = prng.fold_in(key, 0), prng.fold_in(key, 1)
@@ -125,41 +144,52 @@ def _decoder_layer(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         cache=None if cache is None else cache["kv"], key=k_attn)
     x = x + attn_out
     h = cm.apply_norm(p["ln2"], x, cfg.norm_type)
-    x = x + cm.mlp_block(p["mlp"], h, cfg.cim, cfg.mlp_act, key=k_ffn)
-    return x, (None if cache is None else {"kv": new_kv})
+    if cfg.family == "moe":
+        ffn_out, aux = moe_block(
+            p["moe"], h, n_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, cim=cfg.cim,
+            act=cfg.mlp_act, key=k_ffn)
+    else:
+        ffn_out = cm.mlp_block(p["mlp"], h, cfg.cim, cfg.mlp_act, key=k_ffn)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = x + ffn_out
+    return x, (None if cache is None else {"kv": new_kv}), aux
 
 
 def _decoder_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                    positions: torch.Tensor, cache: Optional[Dict] = None,
                    key: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                   ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """The layers in order (JAX's lax.scan over stacked params) -> (x,
-    new stacked layer cache or None).  Layer i reads slice i of each
-    stacked cache leaf (a view, written in place); the new cursors are
-    stacked back.  Without a cache and with cfg.remat each layer is
-    checkpointed and recomputed in the backward.  Layer i's noise key is
-    fold_in(key, i)."""
+    new stacked layer cache or None, aux summed in float32 in layer
+    order, as JAX's scan carry).  Layer i reads slice i of each stacked
+    cache leaf (a view, written in place); the new cursors are stacked
+    back.  Without a cache and with cfg.remat each layer is checkpointed
+    and recomputed in the backward.  Layer i's noise key is fold_in(key,
+    i)."""
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat policy {cfg.remat_policy!r} is not ported (full only)")
     kv = None if cache is None else cache["kv"]
     idxs = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
         lkey = None if key is None else prng.fold_in(key, i)
         lc = None if kv is None else {"kv": {
             "k": kv["k"][i], "v": kv["v"][i], "idx": kv["idx"][i]}}
         if cfg.remat and lc is None:
-            new_x, _ = checkpoint(_decoder_layer, cfg, p, x, positions,
-                                  None, lkey, use_reentrant=False)
+            new_x, _, a = checkpoint(_decoder_layer, cfg, p, x, positions,
+                                     None, lkey, use_reentrant=False)
         else:
-            new_x, nc = _decoder_layer(cfg, p, x, positions, lc, lkey)
+            new_x, nc, a = _decoder_layer(cfg, p, x, positions, lc, lkey)
             if nc is not None:
                 idxs.append(nc["kv"]["idx"])
         x = new_x.to(x.dtype)
+        aux = aux + a
     if kv is None:
-        return x, None
+        return x, None, aux
     return x, {"kv": {"k": kv["k"], "v": kv["v"],
-                      "idx": torch.stack(idxs)}}
+                      "idx": torch.stack(idxs)}}, aux
 
 
 def embed_tokens(cfg: ModelConfig, params: Dict,
@@ -199,28 +229,36 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     (in-flight decode passes its per-slot (B, 1) positions).  new_cache
     is None without a cache; with one it is {"pos": pos + S, "layers":
     ...}, whose K/V rings are the cache's own, written in place.  aux is
-    the MoE load-balance loss, a float32 zero for the dense family.
-    `key` (a host `core/prng` key) seeds the CIM noise model of the
-    projections when cfg.cim.noise is enabled."""
+    the MoE load-balance loss summed over the layers (float32; zero for
+    the dense and vlm families).  `prefix_embeds` (B, P, D), the vlm
+    family's patch embeddings, go before the token embeddings, and S
+    counts them (so do the logits and positions); another family raises
+    ValueError on them, and `encoder_frames` (audio) raise
+    NotImplementedError.  `key` (a host `core/prng` key) seeds the CIM
+    noise model of the projections when cfg.cim.noise is enabled."""
     _check_family(cfg)
-    if prefix_embeds is not None or encoder_frames is not None:
+    if encoder_frames is not None:
         raise NotImplementedError(
-            "prefix_embeds / encoder_frames (the vlm and audio families, "
-            "ROADMAP Queue 1, the other model families) are not ported")
+            "encoder_frames (the audio family, ROADMAP Queue 1, the other "
+            "model families) are not ported")
+    if prefix_embeds is not None and cfg.family != "vlm":
+        raise ValueError(f"prefix_embeds are the vlm family's input, not "
+                         f"the {cfg.family!r} family's")
     x = embed_tokens(cfg, params, tokens)
-    s = tokens.shape[1]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=tokens.device)
         if cache is not None:
             positions = cache["pos"] + positions
-    x, new_inner = _decoder_stack(
+    x, new_inner, aux = _decoder_stack(
         cfg, params, x, positions,
         None if cache is None else cache["layers"], key)
     logits = lm_logits(cfg, params, x)
     new_cache = (None if cache is None
                  else {"pos": cache["pos"] + s, "layers": new_inner})
-    return logits, new_cache, torch.zeros((), dtype=torch.float32,
-                                          device=logits.device)
+    return logits, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -236,8 +274,9 @@ def _kv_cache_len(cfg: ModelConfig, max_len: int, window: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict:
     """Decode cache {"pos": 0-d int32, "layers": {"kv": {"k", "v" (L,
-    batch, len, n_kv, head_dim), "idx" (L,) int32}}} for the dense
-    family, zeroed; len is max_len, or the sliding window if shorter."""
+    batch, len, n_kv, head_dim), "idx" (L,) int32}}} for the decoder-
+    stack families, zeroed; len is max_len, or the sliding window if
+    shorter."""
     _check_family(cfg)
     length = _kv_cache_len(cfg, max_len, cfg.sliding_window)
     shape = (cfg.n_layers, batch, length, cfg.n_kv_heads,

@@ -498,7 +498,7 @@ def _shard_width(lp: LayerPlan) -> int:
 
 def _place(lp: LayerPlan, b: Dict[str, torch.Tensor], mesh,
            device: Optional[torch.device]) -> Dict[str, torch.Tensor]:
-    """Move one layer's host bind products to `device` and, for a sharded
+    """Move one layer's bind products to `device` and, for a sharded
     layer, add "parts": one dict of {"wqq", "gamma_p", "beta_p", "g0"} per
     partition, on the partition's mesh device.  A "col" partition holds
     its contiguous group of tiles_per_device col tiles of the arrays
@@ -543,22 +543,31 @@ def _place(lp: LayerPlan, b: Dict[str, torch.Tensor], mesh,
 def bind_network(plan: NetworkPlan, params: Params,
                  device: Optional[torch.device] = None
                  ) -> Tuple[Dict[str, torch.Tensor], ...]:
-    """bind_layer over a whole plan, run on the host; the products then
-    move to `device` (default: stay on the host), so every device serves
-    with the identical weight codes and gamma bits.  A sharded plan's
-    binds also carry each partition's padded column arrays on its mesh
-    device (`_place`; the mesh is `engine_mesh(plan, device)`, which
-    raises when too few devices are visible).  Validates the per-layer
-    param count."""
+    """bind_layer over a whole plan; the products then move to `device`
+    (default: stay on the host).  A layer whose params all lie on
+    `device` already binds there (no round trip through the host: an
+    MoE bank at full width binds 16 experts of 26 M weights a layer);
+    any other binds on the host.  The products are the same bits either
+    way - bind_layer is an exact max and exactly rounded elementwise ops,
+    `abn.exp2_f32` included - so every device serves with the identical
+    weight codes and gamma bits.  A sharded plan's binds also carry each
+    partition's padded column arrays on its mesh device (`_place`; the
+    mesh is `engine_mesh(plan, device)`, which raises when too few
+    devices are visible).  Validates the per-layer param count."""
     if len(params) != len(plan.layers):
         raise ValueError(f"{len(params)} param dicts for "
                          f"{len(plan.layers)} planned layers")
     mesh = engine_mesh(plan, device)
     binds = []
     for lp, p in zip(plan.layers, params):
-        host = {k: torch.as_tensor(v).detach().to("cpu", torch.float32)
-                for k, v in p.items()}
-        binds.append(_place(lp, bind_layer(lp, host, plan.cfg), mesh,
+        src = torch.device("cpu")
+        if device is not None and all(
+                isinstance(v, torch.Tensor) and v.device == device
+                for v in p.values()):
+            src = device
+        local = {k: torch.as_tensor(v).detach().to(src, torch.float32)
+                 for k, v in p.items()}
+        binds.append(_place(lp, bind_layer(lp, local, plan.cfg), mesh,
                             device))
     return tuple(binds)
 
@@ -736,39 +745,52 @@ def _tile_schedule(lp: LayerPlan, q_rows: torch.Tensor, zp: torch.Tensor,
     `matmul` evaluates one macro tile (kernel variant or plain oracle) and
     returns int32 ADC codes - or the raw int32 dp when a noise context is
     given, whose ADC conversion (with the noise terms and the tile's
-    thermal slice) then runs here.  `zp` is the activation zero-point in
+    thermal slice) then runs here.  With a `matmul.prepare` (the kernel's
+    plane split) each row tile's activations are prepared once and
+    `matmul` takes them prepared.  `zp` is the activation zero-point in
     code units: a scalar, or per row (rows, 1) under segment-wise
     quantization, which makes the folded ADC offset beta_eff per GEMM row
     (rows, n).  `bind` holds the layer's bind products.  Returns dp_hat
-    (rows, n_pad) in dp units."""
+    (rows, n_pad) in dp units.
+
+    The per-column work of a row tile (the zero-point fold, the dequant
+    and the digital recombination) runs once over all its col tiles: the
+    same elementwise operations in the same order for every element as a
+    tile at a time, so the same bits, with a few launches a row tile in
+    place of a few a macro tile."""
     mid = 2.0 ** (lp.spec.r_out - 1)
     g0 = lp.g0
     tsz = lp.tile_n
     wqq, gamma, beta = bind["wqq"], bind["gamma_p"], bind["beta_p"]
     gain = rounding_barrier(gamma * bind["g0"])
-    dp_hat = []
-    for ni in range(wqq.shape[1] // tsz):
-        ns, ne = ni * tsz, (ni + 1) * tsz
-        acc = torch.zeros((q_rows.shape[0], tsz), dtype=torch.float32,
-                          device=q_rows.device)
-        for ki, (ks, ksz) in enumerate(lp.k_slices):
-            ke = ks + ksz
-            # zero-point: x = q*s + z -> z*colsum is per-channel constant,
-            # folded into the ABN offset inside the ADC floor
-            zp_dp = zp * torch.sum(wqq[ks:ke, ns:ne], dim=0)
-            beta_eff = beta[ns:ne] + rounding_barrier(gain[ns:ne] * zp_dp)
-            out = matmul(q_rows[:, ks:ke], wqq[ks:ke, ns:ne],
-                         gamma[ns:ne], beta_eff, g0)
-            codes = out if nctx is None else _noise_adc_code(
-                lp, out, gamma[ns:ne], beta_eff, nctx, (ns, ne),
-                nctx.thermal[ki, ni])
-            # digital partial-sum recombination in dp units; dequantizing
-            # against the *raw* beta keeps the zero-point contribution in
-            # dp_hat (the divisor `gain` is a device tensor)
-            acc = acc + (codes.to(torch.float32) + 0.5 - mid
-                         - beta[None, ns:ne]) / gain[None, ns:ne]
-        dp_hat.append(acc)
-    return torch.cat(dp_hat, dim=-1)
+    prepare = getattr(matmul, "prepare", None)
+    acc = torch.zeros((q_rows.shape[0], wqq.shape[1]), dtype=torch.float32,
+                      device=q_rows.device)
+    for ki, (ks, ksz) in enumerate(lp.k_slices):
+        ke = ks + ksz
+        xq = q_rows[:, ks:ke]
+        if prepare is not None:
+            xq = prepare(xq)
+        # zero-point: x = q*s + z -> z*colsum is per-channel constant,
+        # folded into the ABN offset inside the ADC floor (the column sums
+        # are integers, exact in any order)
+        zp_dp = zp * torch.sum(wqq[ks:ke], dim=0)
+        beta_eff = beta + rounding_barrier(gain * zp_dp)
+        codes = []
+        for ni in range(wqq.shape[1] // tsz):
+            ns, ne = ni * tsz, (ni + 1) * tsz
+            out = matmul(xq, wqq[ks:ke, ns:ne], gamma[ns:ne],
+                         beta_eff[..., ns:ne], g0)
+            codes.append(out if nctx is None else _noise_adc_code(
+                lp, out, gamma[ns:ne], beta_eff[..., ns:ne], nctx, (ns, ne),
+                nctx.thermal[ki, ni]))
+        codes = codes[0] if len(codes) == 1 else torch.cat(codes, dim=-1)
+        # digital partial-sum recombination in dp units; dequantizing
+        # against the *raw* beta keeps the zero-point contribution in
+        # dp_hat (the divisor `gain` is a device tensor)
+        acc = acc + (codes.to(torch.float32) + 0.5 - mid
+                     - beta[None, :]) / gain[None, :]
+    return acc
 
 
 def _schedule_rows(lp: LayerPlan, cfg: EngineConfig, q_rows: torch.Tensor,
@@ -943,11 +965,17 @@ def _kernel_matmul(lp: LayerPlan, cfg: EngineConfig):
     # epilogue in _tile_schedule owns the conversion
     fuse = not cfg.noise.enabled
 
-    def matmul(xq, wqt, gamma_t, beta_t, g0):
-        fn = kops.kernel_variant_for_tile(
-            lp.precision, xq.shape[0], xq.shape[1], wqt.shape[1],
-            bm=cfg.bm, bn=cfg.bn, bk=cfg.bk, fuse_adc=fuse, tile=lp.blocks)
-        return fn(xq, wqt, gamma_t, beta_t, g0)
+    def variant(rows, k, n):
+        return kops.kernel_variant_for_tile(
+            lp.precision, rows, k, n, bm=cfg.bm, bn=cfg.bn, bk=cfg.bk,
+            fuse_adc=fuse, tile=lp.blocks)
+
+    def matmul(x_planes, wqt, gamma_t, beta_t, g0):
+        fn = variant(x_planes.shape[0], wqt.shape[0], wqt.shape[1])
+        return fn.on_planes(x_planes, wqt, gamma_t, beta_t, g0)
+    # the plane split depends on the precision alone: one a row tile
+    matmul.prepare = lambda xq: variant(xq.shape[0], xq.shape[1], 1).split(
+        xq)
     return matmul
 
 

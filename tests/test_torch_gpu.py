@@ -18,7 +18,10 @@ in both modes == untuned, and the analytic cost's ranking of JAX's five
 pinned shapes against CUDA-event times at Spearman >= 0.7), and CIM-aware
 LeNet training (the card's fakequant logits == the host's, clean and
 noisy, gradients within `_close_grad`), engine-mode convs against
-fakequant and the host, and the sim mode against the host.
+fakequant and the host, and the sim mode against the host, and the moe
+and vlm families (an expert bank in fakequant on the card == the host,
+the engine == fakequant or its reference; phi3.5-moe's and internvl2's
+smoke serve on the card against fakequant and the host).
 
 These tests need an NVIDIA GPU (marker `gpu`) and skip without one.  They
 import neither JAX nor the JAX package, so they run where only PyTorch
@@ -835,7 +838,8 @@ def test_serve_no_capture_after_warmup(cuda_device):
     out = serve.static_serve(cfg, _serve_params(cfg, cuda_device),
                              _serve_prompt(cuda_device), 6, max_len=48)
     assert out["steps"] == 5
-    assert out["growth"] == {"plans": 0, "captures": 0, "eager_calls": 0}
+    assert out["growth"] == {"plans": 0, "captures": 0, "binds": 0,
+                   "eager_calls": 0}
 
 
 @pytest.mark.gpu
@@ -875,7 +879,8 @@ def test_serve_inflight_equals_solo_on_card(cuda_device):
     reqs = serve.make_requests(cfg.vocab_size, 6, 8, 5, seed=2)
     fused = serve.inflight_serve(cfg, params, reqs, 4, max_len=24,
                                  device=cuda_device)
-    assert fused["growth"] == {"plans": 0, "captures": 0, "eager_calls": 0}
+    assert fused["growth"] == {"plans": 0, "captures": 0, "binds": 0,
+                   "eager_calls": 0}
     for r in reqs:
         solo = serve.inflight_serve(cfg, params, [dict(r, arrival=0)], 4,
                                     max_len=24, device=cuda_device)
@@ -932,7 +937,8 @@ def test_precision_policy_mixed_inflight_on_card(cuda_device, monkeypatch,
     argv = ["--arch", "olmo-1b", "--cim-mode", "engine", "--inflight",
             "--precision-policy", "mixed", "--assert-no-recompile"]
     out = serve.main(argv)
-    assert out["growth"] == {"plans": 0, "captures": 0, "eager_calls": 0}
+    assert out["growth"] == {"plans": 0, "captures": 0, "binds": 0,
+                   "eager_calls": 0}
     monkeypatch.setenv("REPRO_PRECISION_PROFILES",
                        str(tmp_path / "host.json"))
     host = serve.main(argv + ["--device", "cpu"])
@@ -1390,3 +1396,104 @@ def test_legacy_entries_equal_program_run_on_card(cuda_device, noisy):
         mc = eng.monte_carlo(params, x, prng.key(5), 3)
         for t, k in enumerate(prng.split(prng.key(5), 3)):
             assert torch.equal(mc[t], eng.program.run(params, x, k))
+
+
+# ---------------------------------------------------------------------------
+# the moe and vlm decoder families (models/moe.py)
+# ---------------------------------------------------------------------------
+
+def _expert_bank(e, k, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((e, 8, k), generator=g),
+            torch.randn((e, k, n), generator=g) * k ** -0.5,
+            torch.rand((e, n), generator=g) * 6 - 1,
+            torch.rand((e, n), generator=g) * 8 - 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("point", ((8, 4), (1, 2)))
+@pytest.mark.parametrize("noisy", (False, True))
+def test_expert_bank_on_card_equals_host(cuda_device, point, noisy):
+    """An expert bank (E 4, capacity 8, fan-in 1300: two row tiles) in
+    fakequant on the card == on the host bit for bit, and the engine on
+    the card == that (clean), or its kernel path == reference=True and
+    the same key repeats (noisy)."""
+    from repro_torch.core.noise_model import NO_NOISE
+    from repro_torch.models import moe
+    x, w, lg, bt = _expert_bank(4, 1300, 48, point[0] * 3 + noisy)
+    cim = CIMConfig(mode="fakequant", r_in=point[0], r_w=point[1],
+                    noise=NoiseConfig() if noisy else NO_NOISE)
+    key = prng.key(11) if noisy else None
+    host = moe._expert_gemm(x, w, cim, (lg, bt), key=key)
+    dx, dw, dlg, dbt = (t.to(cuda_device) for t in (x, w, lg, bt))
+    card = moe._expert_gemm(dx, dw, cim, (dlg, dbt), key=key)
+    assert torch.equal(card.cpu(), host)
+    en = cim.replace(mode="engine")
+    eng = moe._expert_gemm(dx, dw, en, (dlg, dbt), key=key)
+    if noisy:
+        assert torch.equal(eng, moe._expert_gemm(dx, dw, en, (dlg, dbt),
+                                                 key=key, reference=True))
+        assert torch.equal(eng, moe._expert_gemm(dx, dw, en, (dlg, dbt),
+                                                 key=key))
+    else:
+        assert torch.equal(eng, card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("phi35_moe", "internvl2_76b"))
+def test_family_smoke_serve_on_card_matches_host(cuda_device, arch):
+    """The smoke config served on the card in engine mode (float32): no
+    plan, capture or eager dispatch after warm-up, engine == fakequant
+    bit for bit, and tokens equal to the host's serve of the same
+    weights, each step's logits within 0.1 (as
+    test_serve_card_matches_host)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cim_layers import CIMConfig as C
+    from repro_torch.launch import serve
+    base = get_smoke_config(arch).replace(dtype="float32")
+    prompt = _serve_prompt(cuda_device) % base.vocab_size
+    out = {}
+    for mode in ("engine", "fakequant"):
+        cfg = base.replace(cim=C(mode=mode, max_gamma=2.0**16))
+        params = _serve_params(cfg, cuda_device)
+        prefix = (serve.make_prefix(cfg, 4, 0, cuda_device)
+                  if cfg.family == "vlm" else None)
+        max_len = serve.serve_max_len(cfg, 32, 4)
+        out[mode] = serve.static_serve(cfg, params, prompt, 4,
+                                       max_len=max_len, keep_logits=True,
+                                       prefix=prefix)
+    card = out["engine"]
+    assert card["growth"] == {"plans": 0, "captures": 0, "binds": 0,
+                   "eager_calls": 0}
+    assert torch.equal(card["tokens"], out["fakequant"]["tokens"])
+    for a, b in zip(card["logits"], out["fakequant"]["logits"]):
+        assert torch.equal(a, b)
+    host = serve.static_serve(
+        cfg.replace(cim=cfg.cim.replace(mode="engine")), _to_host(params),
+        prompt.cpu(), 4, max_len=max_len,
+        keep_logits=True, prefix=None if prefix is None else prefix.cpu())
+    assert torch.equal(card["tokens"], host["tokens"])
+    for a, b in zip(card["logits"], host["logits"]):
+        a, b = a.float().cpu(), b.float()
+        assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) < 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gamma_bits", (-1, 3))
+def test_bind_on_card_equals_host_bind(cuda_device, gamma_bits):
+    """Weights already on the card bind there; the products are the
+    host's bind bit for bit (every weight code, scale and gamma)."""
+    spec = tmap.LayerSpec(m=8, k=1300, n=200, r_in=8, r_w=4)
+    cfg = trt.EngineConfig(gamma_bits=gamma_bits)
+    plan = trt.plan_network([spec], cfg, ["none"])
+    g = torch.Generator().manual_seed(gamma_bits + 5)
+    host = {"w": torch.randn((1300, 200), generator=g),
+            "abn_log_gamma": torch.rand((200,), generator=g) * 6 - 1,
+            "abn_beta": torch.rand((200,), generator=g) * 8 - 4}
+    card = {k: v.to(cuda_device) for k, v in host.items()}
+    want = trt.bind_network(plan, [host], cuda_device)[0]
+    got = trt.bind_network(plan, [card], cuda_device)[0]
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].device == want[k].device and torch.equal(got[k],
+                                                              want[k]), k

@@ -396,7 +396,7 @@ def test_serve_precision_policy_cli(monkeypatch, tmp_path, capsys):
         assert f"precision: point {name!r} -> {list(asg)}" in text
     assert "per-request bit-exactness vs solo decode: PASS" in text
     assert "plans=0 captures=0" in text
-    assert out["growth"] == {"plans": 0, "captures": 0}
+    assert out["growth"] == {"plans": 0, "captures": 0, "binds": 0}
     assert set(out["metrics"]["tokens_by_point"]) == {"quality",
                                                       "throughput"}
     assert out["tops_per_w"]["quality"] < out["tops_per_w"]["throughput"]
