@@ -278,7 +278,38 @@ a result:
                 tokens and every logit == unsharded); then mixtral at
                 depth 1 (batch 4, prompt 32, gen 4) and internvl2 at
                 depth 2 (batch 2, prompt 32 behind the prefix, gen 4).
- 14. shard    - the sharded multi-macro engine, every mesh folded onto
+ 14. recurrent - the hybrid and ssm families at full width.  The flash
+                forward, dq and dk/dv at D 256 (the CUDA-core kernels'
+                second head-dimension bound) against their plain
+                versions within the phase-2 tolerances, float32 and
+                bf16: recurrentgemma-2b's attention (B 1, H 10, G 1, S
+                4096, causal, window 2048), S 1000 at rep 2 with window
+                256 and q_off 100, and a non-causal Sq 777 / Sk 513;
+                their CUDA-event times at recurrentgemma's shape in bf16
+                beside the plain versions, SDPA with the boolean window
+                mask, and the bounds.  Then 3 fakequant (8, 4, 8) bf16
+                train steps at batch 1 x 4096 through launch/steps:
+                recurrentgemma-2b at depth 5 of 26 (one block, the
+                2-layer tail; its local attention on the D 256 flash
+                kernels, two forwards with the recompute, a dq and a
+                dk/dv a step; step 0 against plain attention within
+                TRAIN_JNP_RTOL, in bypass and in fakequant), mamba2-1.3b
+                at depth 4 of 48; finite losses and parameters, peak
+                memory, a profiled step.  Static engine serves through
+                launch/serve.py (build with the depth cut, make_prompt,
+                static_serve; bf16, (8, 4), batch 4, prompt 32, gen 16)
+                of recurrentgemma-2b at depth 8 (two blocks, the tail)
+                and mamba2-1.3b at depth 4 (in_proj's N 8512 ends in a
+                64-column tile on the
+                tensor-core and split-K routes): engine == fakequant bit
+                for bit (prefill and every decode logit), cim_mbiw
+                launched the planned tiles (family_tiles), no plan, bind,
+                capture or eager dispatch after warm-up, one decode step
+                by graph replay == the same step run eagerly (logits and
+                the new cache), the cached prefill's last logits within
+                PREFILL_RTOL of the cache-free forward, a decode step
+                profiled.
+ 15. shard    - the sharded multi-macro engine, every mesh folded onto
                 the card (ShardingConfig(fold_onto="cuda"), the port's
                 counterpart of the host device count the JAX package
                 fakes a bank of macros with; phi3.5-moe's sharded serve
@@ -311,7 +342,7 @@ a result:
                 (the bf16 output one ulp) and 5e-5 (float32 gradients),
                 bit-equality reported.  Placement across cards runs only
                 with 2 cards; otherwise a line says it was not run.
- 15. cimcheck - static verification (repro_torch.analysis) on the card:
+ 16. cimcheck - static verification (repro_torch.analysis) on the card:
                 (a) `python -m repro_torch.analysis --strict` in process
                 at smoke widths (LeNet, OLMo-1B's and phi3.5-moe's
                 projections over r_in {1,2,4,8} x r_w {1,2,4}, the
@@ -334,7 +365,7 @@ a result:
                 rows (the split-K route); monte_carlo's 4 trials == 4
                 runs under the split keys.  The launches of (e), the
                 slice's main path, join the kernels line.
- 16. times    - CUDA-event times of each kernel, its plain version and a
+ 17. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
                 ring_decode and the flash kernels: yardsticks the port
@@ -961,25 +992,42 @@ def noisy_decode_phase(dev, tag, kern) -> dict:
 
 def family_tiles(cfg, layers: int, rows: int, kmod, tprog) -> dict:
     """Planned cim_mbiw launches of one engine forward of `layers` layers
-    of a decoder family at `rows` token rows, per route: the four
-    attention projections at the rows' bucket, and the FFN: an MLP (gate
-    and up, or up alone, and down) at the same bucket, or an MoE block's
-    2E (d -> d_ff) and E (d_ff -> d) expert serves at the bucket of its
-    capacity."""
+    of a model family at `rows` token rows, per route.  A decoder layer:
+    the four attention projections at the rows' bucket, and the FFN: an
+    MLP (gate and up, or up alone, and down) at the same bucket, or an
+    MoE block's 2E (d -> d_ff) and E (d_ff -> d) expert serves at the
+    bucket of its capacity.  An ssm layer: in_proj and out_proj.  The
+    hybrid family: per block of 3, two RG-LRU layers (w_gelu, w_rnn,
+    w_out and the MLP) and a local-attention layer (the four projections
+    and the MLP), then the tail's RG-LRU layers."""
     from repro_torch.core import mapping
     from repro_torch.core.cim_layers import _engine_config
+    from repro_torch.models.mamba2 import ssm_dims
     from repro_torch.models.moe import capacity
     d, c = cfg.d_model, cfg.cim
-    qn = cfg.n_heads * cfg.resolved_head_dim
-    kvn = cfg.n_kv_heads * cfg.resolved_head_dim
     ffn_rows, e, g = rows, 1, 2 if cfg.gated_mlp else 1
     if cfg.family == "moe":
         e, g = cfg.moe_experts, 2
         ffn_rows = capacity(rows, e, cfg.moe_top_k, cfg.moe_capacity_factor)
+    # (projections (k, n), rows, layers that run them)
+    if cfg.family == "ssm":
+        d_inner, _, _, proj_out = ssm_dims(d, cfg.ssm_expand,
+                                           cfg.ssm_headdim, cfg.ssm_state)
+        groups = [([(d, proj_out), (d_inner, d)], rows, layers)]
+    else:
+        qn = cfg.n_heads * cfg.resolved_head_dim
+        kvn = cfg.n_kv_heads * cfg.resolved_head_dim
+        attn = [(d, qn), (d, kvn), (d, kvn), (qn, d)]
+        ffn = [(d, cfg.d_ff)] * g * e + [(cfg.d_ff, d)] * e
+        if cfg.family == "hybrid":
+            nb, tail = divmod(layers, 3)
+            w = cfg.lru_width or d
+            groups = [(attn, rows, nb), (ffn, rows, layers),
+                      ([(d, w), (d, w), (w, d)], rows, 2 * nb + tail)]
+        else:
+            groups = [(attn, rows, layers), (ffn, ffn_rows, layers)]
     total = {"tc": 0, "splitk": 0, "cuda_core": 0}
-    for shapes, m in (([(d, qn), (d, kvn), (d, kvn), (qn, d)], rows),
-                      ([(d, cfg.d_ff)] * g * e + [(cfg.d_ff, d)] * e,
-                       ffn_rows)):
+    for shapes, m, count in groups:
         bucket = tprog.DEFAULT_BUCKETS.bucket_for(m)
         for k, n in shapes:
             prog = tprog.compile_program(
@@ -988,7 +1036,7 @@ def family_tiles(cfg, layers: int, rows: int, kmod, tprog) -> dict:
                 _engine_config(c), device="cuda")
             for r, v in kmod.route_counts(
                     prog.plan.tile_calls(bucket)).items():
-                total[r] += layers * v
+                total[r] += count * v
     return total
 
 
@@ -2445,17 +2493,22 @@ def moe_bank_checks(dev, tag) -> dict:
 
 
 def family_train_step(dev, tag, arch, depth, *, prefix: bool = False,
-                      vs_plain: bool = False) -> dict:
-    """One fakequant (8, 4, 8) bf16 train step of `arch` at full width,
-    depth cut to `depth`, the flash kernels, batch 1 x MOE_TRAIN_SEQ text
-    tokens (plus a vlm model's seeded prefix), through launch/steps.
+                      vs_plain: bool = False, seq: int = MOE_TRAIN_SEQ,
+                      n_steps: int = 1, shapes=None,
+                      label: str = "moe") -> dict:
+    """`n_steps` fakequant (8, 4, 8) bf16 train steps of `arch` at full
+    width, depth cut to `depth`, the flash kernels, batch 1 x `seq` text
+    tokens (plus a vlm model's seeded prefix), through launch/steps; the
+    model's attention shape must be one of `shapes`, which the kernel
+    checks hold against the plain version (default FLASH_MOE).
     With `vs_plain` first step 0's loss and gradient against plain
-    attention: with the CIM layers in bypass within TRAIN_JNP_RTOL, in
-    fakequant reported; and, for an MoE model, nonzero gradients of every
+    attention: with the CIM layers in bypass within TRAIN_JNP_RTOL; in
+    fakequant within it too, but for an MoE model, where it is reported;
+    and, for an MoE model, nonzero gradients of every
     bank, router and per-expert ABN gain in every layer (the offsets'
-    norms are reported).  The step is
-    timed on the host, then profiled.  A step that does not fit the card
-    (CUDA out of memory) is reported with the peak reached."""
+    norms are reported).  The steps are
+    timed on the host, then one is profiled.  A step that does not fit
+    the card (CUDA out of memory) is reported with the peak reached."""
     from repro_torch.core.cim_layers import CIMConfig
     from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
     from repro_torch.launch import serve
@@ -2465,21 +2518,26 @@ def family_train_step(dev, tag, arch, depth, *, prefix: bool = False,
         n_layers=depth, attn_impl="pallas",
         cim=CIMConfig(mode="fakequant", max_gamma=2.0**16))
     rec = {"arch": cfg.name, "depth": depth, "fits": True}
-    toks, labels = SyntheticLM(LMDataConfig(
-        vocab_size=cfg.vocab_size, seq_len=MOE_TRAIN_SEQ,
-        global_batch=1)).batch_at(0)
-    batch = {"tokens": torch.from_numpy(toks).long().to(dev),
-             "labels": torch.from_numpy(labels).long().to(dev)}
-    if prefix:
-        batch["prefix_embeds"] = serve.make_prefix(cfg, 1, 0, dev)
-    shape = (1, cfg.n_heads, cfg.n_kv_heads, MOE_TRAIN_SEQ + (
-        cfg.vision_tokens if prefix else 0), cfg.resolved_head_dim,
-        cfg.sliding_window)
-    check(shape in FLASH_MOE, f"{arch}: its attention {shape} is not one of "
-          f"FLASH_MOE, the shapes flash_checks holds against the plain "
-          f"version")
+    data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=1))
+    batches = []
+    for i in range(n_steps):
+        toks, labels = data.batch_at(i)
+        batches.append({"tokens": torch.from_numpy(toks).long().to(dev),
+                        "labels": torch.from_numpy(labels).long().to(dev)})
+        if prefix:
+            batches[-1]["prefix_embeds"] = serve.make_prefix(cfg, 1, i, dev)
+    shapes = FLASH_MOE if shapes is None else shapes
+    if cfg.family != "ssm":
+        shape = (1, cfg.n_heads, cfg.n_kv_heads, seq + (
+            cfg.vision_tokens if prefix else 0), cfg.resolved_head_dim,
+            cfg.local_window if cfg.family == "hybrid"
+            else cfg.sliding_window)
+        check(shape in shapes, f"{arch}: its attention {shape} is not one "
+              f"of {shapes}, the shapes flash_checks holds against the "
+              f"plain version")
     try:
-        rec.update(_train_body(dev, cfg, batch, vs_plain))
+        rec.update(_train_body(dev, cfg, batches, vs_plain))
     except torch.OutOfMemoryError as exc:
         rec.update(fits=False, peak_gb=_peak_gb(dev),
                    error=str(exc).splitlines()[0][:200],
@@ -2487,9 +2545,9 @@ def family_train_step(dev, tag, arch, depth, *, prefix: bool = False,
                    launches_tc=dict.fromkeys(FLASH_NAMES, 0))
     _free(dev)
     if not rec["fits"]:
-        print(f"moe train {tag}: {cfg.name} at full width, depth cut to "
-              f"{depth}: one fakequant bf16 step at batch 1 x "
-              f"{MOE_TRAIN_SEQ} does not fit the card (peak "
+        print(f"{label} train {tag}: {cfg.name} at full width, depth cut "
+              f"to {depth}: one fakequant bf16 step at batch 1 x "
+              f"{seq} does not fit the card (peak "
               f"{rec['peak_gb']:.1f} GB reached: {rec['error']})",
               flush=True)
         return rec
@@ -2506,24 +2564,28 @@ def family_train_step(dev, tag, arch, depth, *, prefix: bool = False,
                   f"{s0['vs_plain_bypass'][m]:.3g}" for m in TRAIN_JNP_RTOL)
               + f" (limits {TRAIN_JNP_RTOL}), fakequant " + " / ".join(
                   f"{s0['vs_plain'][m]:.3g}" for m in TRAIN_JNP_RTOL)
-              + " (routing flips, reported)" + (
+              + (" (routing flips, reported)" if cfg.family == "moe"
+                 else " (held)") + (
             "; smallest layer gradient norm " + ", ".join(
                 f"{k_} {v:.3g}" for k_, v in s0["grad_norm_min"].items())
             if s0["grad_norm_min"] else "") if s0 else "")
-    print(f"moe train {tag}: {cfg.name} at full width (d {cfg.d_model}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), depth cut to {depth}, "
-          f"{rec['n_params'] / 1e9:.2f} B params: one fakequant (8,4,8) "
-          f"bf16 step, flash, batch 1 x {MOE_TRAIN_SEQ}"
+    print(f"{label} train {tag}: {cfg.name} at full width (d "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), depth "
+          f"cut to {depth}, {rec['n_params'] / 1e9:.2f} B params: "
+          f"{n_steps} fakequant (8,4,8) bf16 step(s), flash, batch 1 x "
+          f"{seq}"
           + (f" + {cfg.vision_tokens} prefix" if prefix else "")
           + f": loss {rec['loss']:.4f} (ce {rec['ce']:.4f}, aux "
-          f"{rec['aux']:.4f}), grad norm {rec['grad_norm']:.4f}, flash "
-          f"{list(rec['launches'].values())}, host {rec['step_ms']:.0f} ms, "
-          f"peak {rec['peak_gb']:.1f} GB; profiled step: {kinds}{vs_txt}",
-          flush=True)
+          f"{rec['aux']:.4f}), grad norm {rec['grad_norm']:.4f} (last "
+          f"step), flash {list(rec['launches'].values())} (tensor cores "
+          f"{list(rec['launches_tc'].values())}), host "
+          + ", ".join(f"{t:.0f}" for t in rec["step_ms_all"])
+          + f" ms a step, peak {rec['peak_gb']:.1f} GB; profiled step: "
+          f"{kinds}{vs_txt}", flush=True)
     return rec
 
 
-def _train_body(dev, cfg, batch, vs_plain: bool) -> dict:
+def _train_body(dev, cfg, batches, vs_plain: bool) -> dict:
     """family_train_step's work, in a frame of its own: where it runs out
     of device memory its tensors go with the frame."""
     from repro_torch.core.cim_layers import CIMConfig
@@ -2540,7 +2602,7 @@ def _train_body(dev, cfg, batch, vs_plain: bool) -> dict:
             p.requires_grad_(True)
 
         def loss_grads(c):
-            loss, parts = steps.loss_fn(c, params, batch)
+            loss, parts = steps.loss_fn(c, params, batches[0])
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             return (float(loss.detach()), float(parts["aux"].detach()),
                     [torch.zeros_like(p) if gg is None else gg
@@ -2569,6 +2631,10 @@ def _train_body(dev, cfg, batch, vs_plain: bool) -> dict:
               f"{cfg.name}: step 0 flash vs plain (bypass) outside "
               f"{TRAIN_JNP_RTOL}: {vs_bypass}")
         loss, aux, grads, vs = against_plain(cfg)
+        check(cfg.family == "moe"
+              or all(vs[m] <= lim for m, lim in TRAIN_JNP_RTOL.items()),
+              f"{cfg.name}: step 0 flash vs plain (fakequant) outside "
+              f"{TRAIN_JNP_RTOL}: {vs}")
         nonzero = {}
         by_id = {id(p): gg for p, gg in zip(leaves, grads)}
         if cfg.family == "moe":
@@ -2590,33 +2656,48 @@ def _train_body(dev, cfg, batch, vs_plain: bool) -> dict:
     del params
     step_fn = steps.make_train_step(cfg, AdamWConfig(lr=3e-4),
                                     total_steps=10, warmup=1)
-    state, srec = train_steps(cfg, state, step_fn, [batch], cfg.name)
-    m = srec["metrics"][0]
+    state, srec = train_steps(cfg, state, step_fn, batches, cfg.name)
+    m = srec["metrics"][-1]
     check(all(bool(torch.isfinite(p).all())
               for p in tree_leaves(state["params"])),
           f"{cfg.name}: non-finite parameters after the step")
     # the main path's step (vs_plain) is profiled, the others are not
     prof = device_profile(
-        lambda: step_fn(state, batch)[1]["loss"].item(), 1, cpu=False,
+        lambda: step_fn(state, batches[0])[1]["loss"].item(), 1, cpu=False,
         groups=("flash", "gemm", "elementwise", "reduce", "index")
     ) if vs_plain else None
     rec.update(loss=m["loss"], ce=m["ce"], aux=m["aux"],
                grad_norm=m["grad_norm"], step_ms=srec["step_ms"][0],
+               step_ms_all=srec["step_ms"], metrics=srec["metrics"],
                launches=srec["launches"],
                launches_tc=srec["launches_tc"], profile=prof,
                peak_gb=_peak_gb(dev))
     return rec
 
 
+def _clone(tree):
+    """A copy of a cache tree (dicts, None and tensors)."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return None if tree is None else tree.clone()
+
+
 def family_serve(dev, tag, arch, depth, batch, prompt_len, gen, kern, kmod,
-                 tprog, trt, clock) -> tuple:
+                 tprog, trt, clock, label: str = "moe",
+                 recurrent: bool = False) -> tuple:
     """A static engine serve of `arch` at full width through
     launch/serve.py (build with the depth cut, make_prompt, make_prefix
     for vlm, static_serve; bf16, (8, 4)): cim_mbiw launched the planned
     tiles of the prefill and of every decode step (family_tiles); no
     plan, bind, capture or eager dispatch after warm-up; one decode step
     profiled; then the same serve in fakequant, whose tokens and every
-    logit equal the engine's.  Returns (record, cfg, params, prompt,
+    logit equal the engine's.  With `recurrent` (the ssm and hybrid
+    families) also: one more decode step from the served cache run by
+    graph replay and run eagerly (EagerServe) from two copies of that
+    cache, logits and new cache bit for bit equal; and the prefill's
+    last logits against the cache-free forward of the prompt (the
+    recurrences from the zero state in one call each) within
+    PREFILL_RTOL relative.  Returns (record, cfg, params, prompt,
     prefix)."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
@@ -2678,6 +2759,35 @@ def family_serve(dev, tag, arch, depth, batch, prompt_len, gen, kern, kmod,
                                   "reduce", "gemm"))
     check(trt.CAPTURE_COUNT["n"] == captures,
           f"{arch}: the profiled decode step captured")
+    extra: dict = {}
+    if recurrent:
+        with torch.no_grad():
+            g_lg, g_cache, _ = tf.forward(cfg, params, tok,
+                                          cache=_clone(cache))
+            with EagerServe(tprog, trt):
+                e_lg, e_cache, _ = tf.forward(cfg, params, tok,
+                                              cache=_clone(cache))
+            free = tf.forward(cfg, params, prompt)[0][:, -1]
+        torch.cuda.synchronize()
+        from repro_torch.optim.adamw import tree_leaves
+        check(torch.equal(g_lg, e_lg) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(g_cache),
+                                              tree_leaves(e_cache))),
+              f"{arch}: a decode step by graph replay != the same step "
+              f"run eagerly (logits or cache)")
+        check(trt.CAPTURE_COUNT["n"] == captures,
+              f"{arch}: the graph / eager step or the cache-free forward "
+              f"captured")
+        pre = eng["logits"][0].float()
+        rel = float(torch.linalg.norm(pre - free.float())
+                    / torch.linalg.norm(free.float()))
+        check(rel <= PREFILL_RTOL,
+              f"{arch}: cached prefill vs cache-free forward {rel:.3g} > "
+              f"{PREFILL_RTOL}")
+        extra = {"graph_eq_eager": True, "prefill_vs_cache_free": rel,
+                 "prefill_bitwise_equal": bool(torch.equal(
+                     eng["logits"][0], free))}
+        del g_cache, e_cache
     del cache, eng["cache"]
 
     # engine == fakequant bit for bit, prefill and every decode step
@@ -2703,15 +2813,22 @@ def family_serve(dev, tag, arch, depth, batch, prompt_len, gen, kern, kmod,
            "planned_prefill": plan_pre, "planned_decode_step": plan_dec,
            "growth": eng["growth"], "peak_gb": peak, "profile": prof,
            "graph_pool_bytes": graph_pool_bytes(tprog, dev),
-           "tokens": toks.tolist()}
+           "tokens": toks.tolist(), **extra}
     dev_txt = (f"device {prof['device_us'] / 1e3:.1f} ms a step (cim_mbiw "
                f"{prof['cim_mbiw_us'] / 1e3:.1f}), busy "
                f"{100 * prof['device_busy']:.1f}% of a profiled "
                f"{prof['wall_us'] / 1e3:.0f} ms step"
                if prof else "device time not measured")
-    print(f"moe serve {tag}: {cfg.name} at full width (d {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
-          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}"
+    shape = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+             f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}"
+             if cfg.family != "ssm" else
+             f"state {cfg.ssm_state}, {cfg.ssm_expand}x expand")
+    rec_txt = ("; one decode step by graph replay == eager, logits and "
+               "cache; cached prefill vs cache-free forward "
+               f"{extra['prefill_vs_cache_free']:.3g} relative (bit-equal "
+               f"{extra['prefill_bitwise_equal']})" if extra else "")
+    print(f"{label} serve {tag}: {cfg.name} at full width (d "
+          f"{cfg.d_model}, {shape}"
           + (f", {cfg.moe_experts} experts top-{cfg.moe_top_k}"
              if cfg.family == "moe" else "")
           + f", vocab {cfg.vocab_size}), depth cut to {depth}, bf16, "
@@ -2728,7 +2845,7 @@ def family_serve(dev, tag, arch, depth, batch, prompt_len, gen, kern, kmod,
           f"{1e3 * per_step_s:.1f} ms a step host, "
           f"{batch / per_step_s:.2f} tokens/s; {dev_txt}; peak "
           f"{peak:.1f} GB, graph pool {rec['graph_pool_bytes'] / 2**30:.1f} "
-          f"GiB", flush=True)
+          f"GiB{rec_txt}", flush=True)
     return rec, cfg, params, prompt, prefix
 
 
@@ -2926,6 +3043,172 @@ def moe_shard_check(dev, tag, cfg, params) -> dict:
     return rec
 
 
+# phase 14: the hybrid and ssm families at full width
+REC_ARCH = "recurrentgemma-2b"
+REC_SERVE_DEPTH = 8               # of 26: two blocks of 3 and the tail of 2
+REC_TRAIN_DEPTH = 5               # one block and the tail
+SSM_ARCH = "mamba2-1.3b"
+SSM_SERVE_DEPTH = 4               # of 48
+SSM_TRAIN_DEPTH = 4
+REC_BATCH = 4
+REC_PROMPT = 32
+REC_GEN = 16
+REC_TRAIN_SEQ = 4096              # so recurrentgemma's 2048 window cuts
+REC_TRAIN_STEPS = 3
+# the cached prefill's last logits against the cache-free forward's
+# (bf16, relative L2): the same recurrences in one call each
+PREFILL_RTOL = 1e-2
+# recurrentgemma's attention: B, H, G, S, D, window (causal, bf16)
+FLASH_REC = ((1, 10, 1, REC_TRAIN_SEQ, 256, 2048),)
+
+
+def flash_d256_cases() -> list:
+    """flash_cases()' form at D 256, the CUDA-core kernels' second bound,
+    in both dtypes: recurrentgemma's attention (MQA at rep 10, S 4096,
+    causal, window 2048), a ragged S with rep 2, a window and a query
+    offset, and a non-causal case."""
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, g, s_, d, window in FLASH_REC:
+            out.append((b, h, g, s_, s_, d, True, window, 0, dtype))
+        out.append((1, 4, 2, 1000, 1000, 256, True, 256, 100, dtype))
+        out.append((2, 4, 2, 777, 513, 256, False, 0, 0, dtype))
+    return out
+
+
+def flash_d256_times(fk, fref, dev, tag) -> dict:
+    """CUDA-event ms of the three flash kernels (their CUDA-core route at
+    D 256), their plain versions and SDPA forward / backward with the
+    boolean causal-window mask at recurrentgemma's attention shape in
+    bf16, with bounds; the launches made here are not main-path ones."""
+    b, h, g, s_, d, window = FLASH_REC[0]
+    q, k, v, do = flash_inputs(b, h, g, s_, s_, d, torch.bfloat16, 9, dev)
+    q_off = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    kw = dict(causal=True, window=window)
+    kerns = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
+    before = [(f.launches, f.launches_tc) for f in kerns]
+    o, lse = fk.flash_fwd(q, k, v, q_off, **kw)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, lse, delta, q_off)
+    pos = torch.arange(s_, device=dev)
+    rel = pos[:, None] - pos[None, :]
+    mask = (rel >= 0) & (rel < window)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qs, ks, vs), do)
+    check(torch.allclose(sdpa().float(), o.float(), rtol=2e-2, atol=2e-2),
+          "the SDPA yardstick computes another function than flash_fwd at "
+          "D 256")
+    fns = {"fwd": (lambda: fk.flash_fwd(q, k, v, q_off, **kw),
+                   lambda: fref.flash_fwd_ref(q, k, v, q_off, **kw)),
+           "dq": (lambda: fk.flash_bwd_dq(*args, **kw),
+                  lambda: fref.flash_bwd_dq_ref(*args, **kw)),
+           "dkv": (lambda: fk.flash_bwd_dkv(*args, **kw),
+                   lambda: fref.flash_bwd_dkv_ref(*args, **kw))}
+    sdpa_fwd = cuda_ms(sdpa, 5)
+    sdpa_bwd = cuda_ms(sdpa_fwd_bwd, 5) - sdpa_fwd
+    out = {"shape": {"b": b, "h": h, "g": g, "s": s_, "d": d,
+                     "causal": True, "window": window, "dtype": "bfloat16"},
+           "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd}
+    for kind, (kern, plain) in fns.items():
+        bnd, by = flash_bound_ms(kind, b, h, g, s_, s_, d, True, window, 2)
+        out[kind] = {"ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 2),
+                     "bound_ms": bnd, "bound_by": by,
+                     "library_ms": sdpa_fwd if kind == "fwd" else sdpa_bwd}
+        r = out[kind]
+        print(f"time {tag} flash_{kind} (CUDA cores) B={b} H={h} G={g} "
+              f"S={s_} D={d} causal window {window} bf16: kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, SDPA "
+              f"{'forward' if kind == 'fwd' else 'backward (dq, dk, dv)'}"
+              f" with the boolean mask {r['library_ms']:.3f} ms, bound "
+              f"{bnd:.4f} ms ({by})", flush=True)
+    check(all(f.launches_tc == n_tc for f, (_, n_tc) in zip(kerns, before)),
+          "a D 256 flash call reached the tensor-core kernels")
+    for f, (n, n_tc) in zip(kerns, before):
+        f.launches, f.launches_tc = n, n_tc
+    return out
+
+
+def recurrent_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
+    """The hybrid and ssm families at full width (module docstring, phase
+    14): the flash kernels at D 256 against their plain versions and their
+    times, then recurrentgemma-2b's and mamba2-1.3b's train steps and
+    static engine serves."""
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.flash_attn import ref as fref
+    t_phase = time.perf_counter()
+    rec: dict = {"cuts": {
+        REC_ARCH: {"serve_depth": REC_SERVE_DEPTH,
+                   "train_depth": REC_TRAIN_DEPTH, "of": 26},
+        SSM_ARCH: {"serve_depth": SSM_SERVE_DEPTH,
+                   "train_depth": SSM_TRAIN_DEPTH, "of": 48}}}
+    print(f"recurrent cuts {tag}: {REC_ARCH} serve depth "
+          f"{REC_SERVE_DEPTH}, train depth {REC_TRAIN_DEPTH} of 26 (blocks "
+          f"of two RG-LRU layers and local attention, then the 2-layer "
+          f"tail); {SSM_ARCH} serve depth {SSM_SERVE_DEPTH}, train depth "
+          f"{SSM_TRAIN_DEPTH} of 48; widths, heads, state, window and "
+          f"vocabularies as published", flush=True)
+    secs: dict = {}
+    t0 = time.perf_counter()
+    checks = flash_checks(fk, fref, dev, cases=flash_d256_cases())
+    rec["flash_vs_plain"] = checks
+    print(f"recurrent kernels {tag}: flash_fwd / flash_bwd_dq / "
+          f"flash_bwd_dkv at D 256 (the CUDA-core kernels' second bound) "
+          f"within tolerance of plain on {checks['cases']} cases "
+          f"(recurrentgemma's B 1 H 10 G 1 S {REC_TRAIN_SEQ} causal window "
+          f"2048; S 1000 rep 2 window 256 q_off 100; non-causal Sq 777 Sk "
+          f"513; float32 and bf16); max_abs_err f32 / bf16 "
+          + ", ".join(f"{k_} {v['float32']:.3g} / {v['bfloat16']:.3g}"
+                      for k_, v in checks["max_abs_err"].items())
+          + "; every backward bit-equal on a second run", flush=True)
+    rec["flash_times"] = flash_d256_times(fk, fref, dev, tag)
+    secs["flash"] = time.perf_counter() - t0
+    launches = dict.fromkeys(("cim_mbiw", "cim_mbiw_tc", "cim_mbiw_splitk"),
+                             0)
+    flash = dict.fromkeys(FLASH_NAMES, 0)
+    rec["train"] = {}
+    for arch, depth, vs in ((REC_ARCH, REC_TRAIN_DEPTH, True),
+                            (SSM_ARCH, SSM_TRAIN_DEPTH, False)):
+        t0 = time.perf_counter()
+        tr = family_train_step(dev, tag, arch, depth, vs_plain=vs,
+                               seq=REC_TRAIN_SEQ, n_steps=REC_TRAIN_STEPS,
+                               shapes=FLASH_REC, label="recurrent")
+        check(tr["fits"], f"{arch}: the train steps did not fit the card")
+        rec["train"][arch] = tr
+        for k_ in FLASH_NAMES:
+            flash[k_] += tr["launches"][k_]
+        _free(dev)
+        secs[f"train {arch}"] = time.perf_counter() - t0
+    check(all(v > 0 for v in flash.values()),
+          f"recurrentgemma's train steps launched no D 256 flash kernel: "
+          f"{flash}")
+    rec["serve"] = {}
+    for arch, depth in ((REC_ARCH, REC_SERVE_DEPTH),
+                        (SSM_ARCH, SSM_SERVE_DEPTH)):
+        t0 = time.perf_counter()
+        srec, *_ = family_serve(dev, tag, arch, depth, REC_BATCH,
+                                REC_PROMPT, REC_GEN, kern, kmod, tprog, trt,
+                                clock, label="recurrent", recurrent=True)
+        rec["serve"][arch] = srec
+        for k_ in launches:
+            launches[k_] += srec["launches"][k_]
+        _free(dev)
+        secs[f"serve {arch}"] = time.perf_counter() - t0
+    rec["launches"] = dict(launches, **flash)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["part_s"] = secs
+    print(f"recurrent launches {tag}: {rec['launches']} (flash: the D 256 "
+          f"CUDA-core kernels) in {rec['seconds']:.1f} s ("
+          + ", ".join(f"{k_} {v:.1f}" for k_, v in secs.items()) + ")",
+          flush=True)
+    return rec
+
+
 FLASH_PAIRS = ((1, 77), (77, 77), (512, 512), (4096, 4096), (77, 4096),
                (4096, 77), (512, 1), (77, 512))
 # the train path's attention: B, H, G, S, D (causal, bf16)
@@ -3053,11 +3336,13 @@ def flash_bound_ms(kind, b, h, g, sq, sk, d, causal, window, elt) -> tuple:
                                        else "bytes")
 
 
-def flash_checks(fk, fref, dev) -> dict:
+def flash_checks(fk, fref, dev, cases=None) -> dict:
     """Each flash kernel against its plain version on every case of
-    flash_cases() and the FLASH_STRESS cases; each backward twice, bit for
-    bit equal; every bf16 case with D in FLASH_TC_HEAD_DIMS on the
-    tensor-core forward, dq and dk/dv kernels (`.launches_tc` rises).
+    flash_cases() and the FLASH_STRESS cases (or on `cases` alone, of
+    flash_cases()' form); each backward twice, bit for bit equal; every
+    bf16 case with D in FLASH_TC_HEAD_DIMS on the tensor-core forward, dq
+    and dk/dv kernels (`.launches_tc` rises), every other case on the
+    CUDA-core kernels.
     Returns
     the largest absolute error of each kernel per input dtype.
 
@@ -3076,8 +3361,11 @@ def flash_checks(fk, fref, dev) -> dict:
     errs = {kind: {"float32": 0.0, "bfloat16": 0.0}
             for kind in ("fwd", "dq", "dkv")}
     tf_, tb = 2e-5, 5e-5
-    cases = [(c, 1.0, 1.0, "") for c in flash_cases()] + [
-        (c, qs, ks, name) for name, c, qs, ks in FLASH_STRESS]
+    if cases is None:
+        cases = [(c, 1.0, 1.0, "") for c in flash_cases()] + [
+            (c, qs, ks, name) for name, c, qs, ks in FLASH_STRESS]
+    else:
+        cases = [(c, 1.0, 1.0, "") for c in cases]
     stress = {}
     for i, ((b, h, g, sq, sk, d, causal, window, off, dtype), qs, ks,
             name) in enumerate(cases):
@@ -3163,7 +3451,7 @@ def flash_checks(fk, fref, dev) -> dict:
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
-# the shard phase (phase 14): the sharded multi-macro engine, its
+# the shard phase (phase 15): the sharded multi-macro engine, its
 # partitions folded onto the one card
 SHARD_DEVICES = (1, 2, 4, 8)
 SHARD_LENET_POINTS = ((4, 2), (8, 4))
@@ -3187,7 +3475,7 @@ CIMCHECK_DENSE = (4, 2048, 2048, 8, 4)     # rows, k, n, r_in, r_w
 
 
 def cimcheck_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
-    """Static verification on the card (module docstring, phase 15)."""
+    """Static verification on the card (module docstring, phase 16)."""
     from repro_torch.analysis import __main__ as cli
     from repro_torch.analysis import sass
     from repro_torch.core import mapping, prng
@@ -3396,7 +3684,7 @@ def cimcheck_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
 
 
 def shard_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
-    """The sharded multi-macro engine (module docstring, phase 14), every
+    """The sharded multi-macro engine (module docstring, phase 15), every
     mesh folded onto `dev` (ShardingConfig(fold_onto=...)), the one card
     standing in for the bank of macros."""
     from repro_torch.core import cim_layers as tcl
@@ -3799,10 +4087,11 @@ def train_steps(cfg, state, step_fn, batches, what) -> tuple:
     0 just before and read just after: (state, record of the host ms a
     step, each step's metrics, the flash launches, all and on the tensor
     cores, and the peak memory).  Checks a finite loss and a finite,
-    nonzero gradient norm a step, and the flash launches: a forward a
-    layer (two with checkpointing: the recompute), a dq and a dk/dv, on
-    the tensor cores unless a float32 QKV bias makes q, k and v float32
-    (as in JAX)."""
+    nonzero gradient norm a step, and the flash launches: a forward an
+    attention layer (two with checkpointing: the recompute; the hybrid
+    family has one a block of 3, the ssm family none), a dq and a dk/dv,
+    on the tensor cores at D 64 or 128 unless a float32 QKV bias makes q,
+    k and v float32 (as in JAX), else on the CUDA-core kernels."""
     from repro_torch.kernels.flash_attn import kernel as fk
     kerns = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
     torch.cuda.reset_peak_memory_stats()
@@ -3819,16 +4108,21 @@ def train_steps(cfg, state, step_fn, batches, what) -> tuple:
         metrics.append(m)
     launches = [f.launches for f in kerns]
     launches_tc = [f.launches_tc for f in kerns]
-    per_step = cfg.n_layers * len(batches)
+    attn = {"hybrid": cfg.n_layers // 3, "ssm": 0}.get(cfg.family,
+                                                       cfg.n_layers)
+    per_step = attn * len(batches)
     want = [(1 + int(cfg.remat)) * per_step, per_step, per_step]
-    want_tc = [0, 0, 0] if cfg.qkv_bias else want
+    tc = attn and not cfg.qkv_bias \
+        and cfg.resolved_head_dim in fk.FLASH_TC_HEAD_DIMS
+    want_tc = want if tc else [0, 0, 0]
     check(launches == want,
           f"{what}: flash launches {launches} over {len(batches)} steps != "
-          f"{want} ({cfg.n_layers} layers: forward and recompute, dq, "
+          f"{want} ({attn} attention layers: forward and recompute, dq, "
           f"dk/dv)")
     check(launches_tc == want_tc,
           f"{what}: tensor-core launches {launches_tc} != {want_tc}: a "
-          f"bf16 step must run the tensor-core kernels")
+          f"bf16 step at D 64 or 128 runs the tensor-core kernels, any "
+          f"other the CUDA-core ones")
     check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
               and m["grad_norm"] > 0 for m in metrics),
           f"{what}: non-finite loss or grad norm: {metrics}")
@@ -4711,7 +5005,17 @@ def main() -> int:
     phase_s["moe"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 14. the sharded multi-macro engine ---------------------------------
+    # -- 14. the hybrid and ssm families at full width ---------------------
+    cap_mark = len(clock.seconds)
+    recur = recurrent_phase(dev, tag, kern, kmod, tprog, trt, clock)
+    report["recurrent"] = recur
+    graphs["recurrent"] = dict(clock.since(cap_mark),
+                               capture_count=trt.CAPTURE_COUNT["n"],
+                               pool_bytes=graph_pool_bytes(tprog, dev))
+    phase_s["recurrent"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 15. the sharded multi-macro engine ---------------------------------
     cap_mark = len(clock.seconds)
     shard = shard_phase(dev, tag, kern, kmod, tprog, trt)
     report["shard"] = shard
@@ -4722,14 +5026,14 @@ def main() -> int:
     phase_s["shard"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 15. cimcheck: static verification and the legacy entries --------
+    # -- 16. cimcheck: static verification and the legacy entries --------
     cim = cimcheck_phase(dev, tag, kern, kmod, tprog, trt)
     report["cimcheck"] = cim
     torch.cuda.empty_cache()
     phase_s["cimcheck"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 16. times -----------------------------------------------------------
+    # -- 17. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -4913,16 +5217,18 @@ def main() -> int:
     nl, nd = noise["launches"], ndec["launches"]
     ls, lp, lt = lserve["launches"], prec["launches"], tune["launches"]
     lc, lsh, lcc = ctrain["launches"], shard["launches"], cim["launches"]
-    lm = moe["launches"]
+    lm, lr = moe["launches"], recur["launches"]
     route_launches = {
         "tc": main_routes["tc"] + nl["cim_mbiw_tc"] + ls["cim_mbiw_tc"]
         + lp["cim_mbiw_tc"] + lt["cim_mbiw_tc"] + lc["cim_mbiw_tc"]
-        + lsh["cim_mbiw_tc"] + lcc["cim_mbiw_tc"] + lm["cim_mbiw_tc"],
+        + lsh["cim_mbiw_tc"] + lcc["cim_mbiw_tc"] + lm["cim_mbiw_tc"]
+        + lr["cim_mbiw_tc"],
         "splitk": main_routes["splitk"] + dec_splitk + nl["cim_mbiw_splitk"]
         + nd["cim_mbiw_splitk"] + ls["cim_mbiw_splitk"]
         + lp["cim_mbiw_splitk"] + lt["cim_mbiw_splitk"]
         + lc["cim_mbiw_splitk"] + lsh["cim_mbiw_splitk"]
-        + lcc["cim_mbiw_splitk"] + lm["cim_mbiw_splitk"],
+        + lcc["cim_mbiw_splitk"] + lm["cim_mbiw_splitk"]
+        + lr["cim_mbiw_splitk"],
         "cuda_core": main_routes["all"] - main_routes["tc"]
         - main_routes["splitk"] + dec_cim - dec_splitk + nl["cim_mbiw"]
         - nl["cim_mbiw_tc"] - nl["cim_mbiw_splitk"] + nd["cim_mbiw"]
@@ -4933,7 +5239,8 @@ def main() -> int:
         - lc["cim_mbiw_splitk"] + lsh["cim_mbiw"] - lsh["cim_mbiw_tc"]
         - lsh["cim_mbiw_splitk"] + lcc["cim_mbiw"] - lcc["cim_mbiw_tc"]
         - lcc["cim_mbiw_splitk"] + lm["cim_mbiw"] - lm["cim_mbiw_tc"]
-        - lm["cim_mbiw_splitk"]}
+        - lm["cim_mbiw_splitk"] + lr["cim_mbiw"] - lr["cim_mbiw_tc"]
+        - lr["cim_mbiw_splitk"]}
 
     def route_entry(name, route, src, rows):
         mult = [2 if r["k"] == 784 and r["shape"] == "lenet" else 1
@@ -4985,6 +5292,24 @@ def main() -> int:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # flash above D 128: the CUDA-core kernels at their second bound,
+    # launched by recurrentgemma's train steps; times at its attention
+    # shape in bf16
+    for kind, line, src in (("fwd", 41, "flash_fwd.cu"),
+                            ("dq", 134, "flash_bwd.cu"),
+                            ("dkv", 168, "flash_bwd.cu")):
+        name = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
+        t = recur["flash_times"][kind]
+        kernels["kernels"].append({
+            "name": f"{name}_d256", "route": "cuda",
+            "source": f"src/repro_torch/kernels/flash_attn/csrc/{src}",
+            "replaces": f"src/repro/kernels/flash_attn/kernel.py:{line}",
+            "launches": lr[name],
+            "max_abs_err": max(
+                recur["flash_vs_plain"]["max_abs_err"][kind].values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     draw_launches = (noise["launches"]["threefry_normal"]
                      + ndec["launches"]["threefry_normal"]
                      + train["noisy"]["launches"] + lp["threefry_normal"]
@@ -5028,6 +5353,7 @@ def main() -> int:
         "cnn_train": lc,
         "dense": dense["launches"],
         "moe": lm,
+        "recurrent": lr,
         "shard": lsh,
         "cimcheck": lcc}
     report["total_s"] = time.perf_counter() - t_start

@@ -3,10 +3,11 @@
 Counterpart of `repro/configs/__init__.py`.  The port registers the archs
 of the families its `models/transformer.py` runs, in the JAX package's
 order: the moe archs `phi35_moe` and `mixtral_8x22b`, the dense archs
-`minitron_4b`, `qwen2_7b`, `olmo_1b` and `granite_8b`, and the vlm arch
-`internvl2_76b` (each module's `CONFIG` and `smoke_config()` equal the
-JAX package's field for field).  An arch of another family (hybrid, ssm,
-audio) is not registered, and `get_config` of it raises ValueError.
+`minitron_4b`, `qwen2_7b`, `olmo_1b` and `granite_8b`, the hybrid arch
+`recurrentgemma_2b`, the vlm arch `internvl2_76b` and the ssm arch
+`mamba2_1_3b` (each module's `CONFIG` and `smoke_config()` equal the
+JAX package's field for field).  The audio arch `whisper_medium` is not
+registered, and `get_config` of it raises ValueError.
 """
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ ARCH_IDS = [
     "qwen2_7b",
     "olmo_1b",
     "granite_8b",
+    "recurrentgemma_2b",
     "internvl2_76b",
+    "mamba2_1_3b",
 ]
 
 _ALIASES = {
@@ -33,7 +36,9 @@ _ALIASES = {
     "qwen2-7b": "qwen2_7b",
     "olmo-1b": "olmo_1b",
     "granite-8b": "granite_8b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "internvl2-76b": "internvl2_76b",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 
 

@@ -13,7 +13,9 @@ into the port's (the same stacked layout, dtypes kept);
 `key_from_numpy` turns JAX key data into the port's PRNG key, so both
 draw the same noise.  The MoE family's stacked (L, E, D, F) expert banks,
 router and per-expert ABN cross over like every other per-layer leaf;
-`moe_params_from_numpy` converts one `init_moe` tree on its own.
+`moe_params_from_numpy` converts one `init_moe` tree on its own.  The
+hybrid family's stacked "blocks" (each of "rec1", "rec2", "attn") and
+"tail" unstack as "layers" does, and its cache's "tail" may be None.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
+
+from repro_torch.models.transformer import STACKED_KEYS
 
 LAYER_KEYS = ("w", "abn_log_gamma", "abn_beta")
 
@@ -103,7 +107,8 @@ def _array_to_tensor(a, device) -> torch.Tensor:
 
 def _lm_tree_from_numpy(tree: Mapping, leaf) -> Dict:
     """The port's LM tree from the JAX package's: per-layer slices of the
-    stacked leaves under "layers", every other leaf through `leaf`."""
+    stacked leaves under "layers" ("blocks" and "tail" for the hybrid
+    family), every other leaf through `leaf`."""
     def convert(node):
         if isinstance(node, Mapping):
             return {k: convert(v) for k, v in node.items()}
@@ -120,10 +125,11 @@ def _lm_tree_from_numpy(tree: Mapping, leaf) -> Dict:
                          if d is not None), None)
         return np.asarray(node).shape[0]
 
-    out = {k: convert(v) for k, v in tree.items() if k != "layers"}
-    if "layers" in tree:
-        n = depth(tree["layers"])
-        out["layers"] = [layer(tree["layers"], i) for i in range(n or 0)]
+    out = {k: convert(v) for k, v in tree.items() if k not in STACKED_KEYS}
+    for k in STACKED_KEYS:
+        if k in tree:
+            n = depth(tree[k])
+            out[k] = [layer(tree[k], i) for i in range(n or 0)]
     return out
 
 
@@ -133,8 +139,10 @@ def train_params_from_numpy(tree: Mapping, device="cpu") -> Dict:
     as numpy arrays).
 
     The JAX tree stacks each per-layer leaf along a leading layer axis
-    under "layers"; the port keeps one dict per layer there, so leaf i of
-    the result's `layers` list is slice i of each stacked leaf.  Every
+    under "layers" (the hybrid family: a block axis under "blocks" and a
+    layer axis under "tail"); the port keeps one dict per layer (block)
+    there, so leaf i of the result's list is slice i of each stacked
+    leaf.  Every
     other leaf keeps its shape.  Leaves become float32 tensors on
     `device`, copied, never shared."""
     return _lm_tree_from_numpy(tree, lambda a: torch.from_numpy(
@@ -166,11 +174,16 @@ def moe_params_from_numpy(tree: Mapping, device="cpu") -> Dict:
 def cache_from_numpy(tree: Mapping, device="cpu") -> Dict:
     """The port's decode cache (`models/transformer.init_cache` /
     `init_slot_cache`) from the JAX package's, leaves as numpy arrays.
-    The layouts match (stacked along a leading layer axis), so each leaf
-    is copied with its dtype (bfloat16 K/V stay bfloat16)."""
+    The layouts match (stacked along a leading layer axis, the hybrid
+    family's blocks nested), so each leaf is copied with its dtype
+    (bfloat16 K/V and RG-LRU conv states stay bfloat16, the recurrent
+    states float32); a None subtree (a hybrid cache without a tail)
+    stays None."""
     def convert(node):
         if isinstance(node, Mapping):
             return {k: convert(v) for k, v in node.items()}
+        if node is None:
+            return None
         return _array_to_tensor(node, device)
     return convert(tree)
 

@@ -11,10 +11,19 @@
 //
 // Threads.  256 threads as a 16 x 16 grid (ty, tx).  A thread owns the
 // rows ty + 16 i (i < 4) of a 64-row tile, and either the columns
-// tx + 16 j (j < 4) of a 64 x 64 score tile or the output dimensions
-// tx + 16 j (j < D / 16).  The 16 threads of a row sit in one half-warp,
-// so a row's max and sum are xor-shuffles over offsets 8, 4, 2, 1; every
-// lane of the row ends with the same value (each step adds the same pair).
+// tx + 16 j (j < 4, or j < 2 for a 32-column tile) of a score tile or the
+// output dimensions tx + 16 j (j < D / 16).  The 16 threads of a row sit
+// in one half-warp, so a row's max and sum are xor-shuffles over offsets
+// 8, 4, 2, 1; every lane of the row ends with the same value (each step
+// adds the same pair).
+//
+// Head-dimension bounds.  Each kernel is a template on the bound MAXD of
+// the head dimension it holds in registers (DJ = MAXD / 16 values a thread
+// per output row), compiled twice: MAXD 128 for D <= 128, with the tiles it
+// has always had, and MAXD 256 for 128 < D <= 256.  At MAXD 256 the float32
+// tiles of the backward outgrow the 227 KB a block can opt in to, so dq
+// walks 32-row key tiles and dk/dv 32-row query tiles there (the forward
+// keeps 64 x 64: 209 KB).
 
 #pragma once
 
@@ -28,8 +37,8 @@ namespace flash {
 constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // key rows per tile
 constexpr int THREADS = 256;  // 16 x 16
-constexpr int MAX_D = 128;    // head dimension the registers hold
-constexpr int DJ = MAX_D / 16;
+constexpr int MAX_D_SMALL = 128;  // the first bound: D <= 128
+constexpr int MAX_D = 256;        // the largest head dimension taken
 constexpr float NEG_INF = -1e30f;  // the masked score, as in the JAX kernel
 
 enum DType { F32 = 0, BF16 = 1 };

@@ -21,7 +21,10 @@
 // Design.  One block of 256 threads per (64-row query tile, head, batch);
 // it walks the key tiles of 64 rows through shared memory (q, k, v tiles
 // of 64 x (D+1) floats and a 64 x 65 probability tile: 113 KB at D = 128,
-// above the 48 KB default, so the launch opts in).  The ragged edges are
+// 209 KB at D = 256, above the 48 KB default, so the launch opts in).  The
+// kernel is compiled for two head-dimension bounds (flash_common.cuh): D
+// <= 128 and D <= 256; the second holds 16 output values a thread per row
+// and fits one block on an SM.  The ragged edges are
 // masked, never padded: rows past Sq are computed and not stored, keys
 // past Sk get probability exactly 0.  Key tiles that the mask drops for
 // every row of the query tile are skipped; that is exact (an early tile's
@@ -43,13 +46,14 @@
 namespace flash {
 namespace {
 
-template <typename T>
+template <typename T, int MAXD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ q_off_p,
                  T* __restrict__ o, float* __restrict__ lse, Strides sq,
                  Strides sk, Strides sv, Strides so, int rep, int Sq, int Sk,
                  int D, int causal, int window, float scale) {
+  constexpr int DJ = MAXD / 16;
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* Qs = smem;
@@ -176,7 +180,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, int MAXD>
 int launch(const void* q, const void* k, const void* v, const void* q_off,
            void* o, void* lse, const long long* st, int B, int H, int rep,
            int Sq, int Sk, int D, int causal, int window, float scale,
@@ -184,16 +188,29 @@ int launch(const void* q, const void* k, const void* v, const void* q_off,
   const size_t smem = sizeof(float) * (size_t)((BQ + 2 * BK) * (D + 1)
                                                + BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, MAXD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, MAXD><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)q_off, (T*)o,
       (float*)lse, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, rep, Sq,
       Sk, D, causal, window, scale);
   return (int)cudaGetLastError();
+}
+
+// the instantiation for D's bound
+template <typename T>
+int launch_d(const void* q, const void* k, const void* v, const void* q_off,
+             void* o, void* lse, const long long* st, int B, int H, int rep,
+             int Sq, int Sk, int D, int causal, int window, float scale,
+             cudaStream_t stream) {
+  if (D <= MAX_D_SMALL)
+    return launch<T, MAX_D_SMALL>(q, k, v, q_off, o, lse, st, B, H, rep, Sq,
+                                  Sk, D, causal, window, scale, stream);
+  return launch<T, MAX_D>(q, k, v, q_off, o, lse, st, B, H, rep, Sq, Sk, D,
+                          causal, window, scale, stream);
 }
 
 }  // namespace
@@ -205,7 +222,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_off,
 // head dimension contiguous); q_off one device int32; o (B, H, Sq, D) of
 // `dtype` through its strides, lse (B, H, Sq) float32 contiguous.  Launches
 // on `stream` and returns the CUDA error code (0 when the launch was
-// accepted).
+// accepted; cudaErrorInvalidValue for D outside 1..256).
 extern "C" int flash_fwd_launch(int dtype, const void* q, const void* k,
                                 const void* v, const void* q_off, void* o,
                                 void* lse, const long long* strides, int B,
@@ -215,12 +232,12 @@ extern "C" int flash_fwd_launch(int dtype, const void* q, const void* k,
   if (D < 1 || D > flash::MAX_D) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   if (dtype == flash::F32)
-    return flash::launch<float>(q, k, v, q_off, o, lse, strides, B, H, rep,
-                                Sq, Sk, D, causal, window, scale, s);
+    return flash::launch_d<float>(q, k, v, q_off, o, lse, strides, B, H,
+                                  rep, Sq, Sk, D, causal, window, scale, s);
   if (dtype == flash::BF16)
-    return flash::launch<__nv_bfloat16>(q, k, v, q_off, o, lse, strides, B,
-                                        H, rep, Sq, Sk, D, causal, window,
-                                        scale, s);
+    return flash::launch_d<__nv_bfloat16>(q, k, v, q_off, o, lse, strides,
+                                          B, H, rep, Sq, Sk, D, causal,
+                                          window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,8 @@ raises.  `<wrapper>.launches` counts the kernels launched (a
 `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` route bfloat16 inputs
 with D in `FLASH_TC_HEAD_DIMS` to the tensor-core kernels (counted again
 in `<wrapper>.launches_tc`) and everything else to the CUDA-core kernels
-of `flash_fwd.cu` and `flash_bwd.cu`.
+of `flash_fwd.cu` and `flash_bwd.cu`, which take any D up to
+`FLASH_MAX_HEAD_DIM` (256; above it a call raises ValueError).
 """
 from __future__ import annotations
 
@@ -146,7 +147,9 @@ ring_decode.launches = 0
 # flash attention forward and backward
 # ---------------------------------------------------------------------------
 
-FLASH_MAX_HEAD_DIM = 128     # the kernels hold D / 16 values per thread
+# the CUDA-core kernels hold D / 16 values a thread per row, compiled for
+# D <= 128 and for D <= 256 (csrc/flash_common.cuh)
+FLASH_MAX_HEAD_DIM = 256
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dimensions the tensor-core kernels are built for (bf16 inputs)
 FLASH_TC_HEAD_DIMS = (64, 128)

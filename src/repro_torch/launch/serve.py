@@ -57,10 +57,15 @@ prefix of patch embeddings drawn as the JAX launcher draws it
 (`make_prefix`; the KV cache holds the prefix too).  `--inflight`
 serves dense and moe, as the JAX launcher does.  In-flight MoE is not
 bit-equal to solo decoding in either package: the expert groups mix the
-requests' tokens, and the expert programs take no segments.
+requests' tokens, and the expert programs take no segments.  The ssm
+(mamba2) and hybrid (recurrentgemma) families serve static batches: the
+cache holds their recurrent states (and the hybrid's local-attention
+rings), the prefill runs the recurrences from the zero state, and each
+decode step is the O(1) update.  `--inflight` refuses them, as the JAX
+launcher does.
 
 Not ported (NotImplementedError, with the ROADMAP queue that holds
-them): the hybrid, ssm and audio families.
+it): the audio family.
 """
 from __future__ import annotations
 

@@ -34,7 +34,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
             key: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
     """Mean next-token CE plus AUX_LOSS_WEIGHT times the MoE load-balance
-    loss (zero for the dense and vlm families), and its parts {"ce",
+    loss (zero for every family but moe), and its parts {"ce",
     "aux"}.  batch["prefix_embeds"] (vlm) and batch["encoder_frames"]
     pass through to forward; for vlm the prefix positions' logits are
     sliced off before the CE.  `key` seeds the CIM noise model when

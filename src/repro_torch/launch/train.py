@@ -14,10 +14,13 @@ kernels), `jnp` on the plain attention.
 The decoder-stack families train: dense, moe (the loss adds
 `steps.AUX_LOSS_WEIGHT` times the load-balance loss, printed as aux
 beside the CE) and vlm (on text tokens alone, as the JAX launcher's
-batches carry no prefix).
+batches carry no prefix); so do the ssm (mamba2) and hybrid
+(recurrentgemma) families.
 
 `--cim-noise` trains under the post-silicon noise model
 (`NoiseConfig()`), with step s drawing under fold_in(key(--seed), s).
+The ssm and hybrid families refuse it: their forward takes no noise key
+(ValueError, JAX's forward's own).
 Checkpointing (`--ckpt-dir`) and gradient compression
 (`--compress-grads`) are not ported and raise NotImplementedError.
 """

@@ -1,15 +1,22 @@
 """Model assembly for the decoder-stack families: dense (OLMo, and any
 pre-norm decoder with GQA attention and a gated MLP), moe (the same
-attention with a top-k expert FFN, `models/moe.py`) and vlm (the dense
-decoder behind a prefix of precomputed patch embeddings).
+attention with a top-k expert FFN, `models/moe.py`), vlm (the dense
+decoder behind a prefix of precomputed patch embeddings) and ssm (a
+stack of Mamba-2 mixers, `models/mamba2.py`); and the hybrid family
+(Griffin blocks of two RG-LRU layers and one local-attention layer,
+`models/rglru.py`, then a tail of RG-LRU layers).
 
 Counterpart of the decoder-stack path of `repro/models/transformer.py`:
 the same parameter tree and forward, as functions over a dict of
 tensors.  Where the JAX package stacks the layers along a leading axis
 and scans over them, the port keeps `params["layers"]` as a list of
-per-layer dicts and loops; with `cfg.remat` each layer of a cache-free
-forward runs under `torch.utils.checkpoint` (non-reentrant), which
-recomputes its forward in the backward, as `jax.checkpoint` does.  Every
+per-layer dicts and loops (the hybrid family: `params["blocks"]`, a list
+of {"rec1", "rec2", "attn"} dicts, and `params["tail"]`, a list of
+RG-LRU layers, present when the depth is not a multiple of 3); with
+`cfg.remat` each layer (hybrid: each block and each tail layer) of a
+cache-free forward runs under `torch.utils.checkpoint` (non-reentrant),
+which recomputes its forward in the backward, as `jax.checkpoint`
+does.  Every
 projection runs through `core.cim_layers.cim_linear_apply`, every expert
 bank through `moe._expert_gemm`.
 
@@ -21,18 +28,25 @@ vlm).  The caches keep the JAX package's stacked layout, {"pos",
 i's rings are views of one slab each; the rings are written in place, and
 a returned cache aliases the one passed in (`init_cache` for static
 batches, `init_slot_cache` / `write_slot_cache` / `free_slot_cache` for
-in-flight batching).  `forward(prefix_embeds=)` (vlm) puts the prefix
-before the token embeddings; positions then run over the longer
-sequence.
+in-flight batching).  The ssm and hybrid caches hold the recurrent
+states beside (hybrid) or instead of (ssm) the rings, in JAX's stacked
+layout too: a cached call of one token is JAX's O(1) state update, and
+a cached call of more tokens runs the same recurrence as the cache-free
+forward from the cached state (JAX's state branch does not: ROADMAP
+Queue 3, reference fault 11).  In-flight (slot-mapped) caches are for
+the attention-cache families only, as in JAX.  `forward(prefix_embeds=)`
+(vlm) puts the prefix before the token embeddings; positions then run
+over the longer sequence.
 
 `forward(key=)` seeds the CIM noise model of every projection, folded
 as the JAX package folds it (fold_in(key, layer), then 0/1 for the
 attention and FFN banks, then one fold per projection or bank, and per
 expert in engine mode); a checkpointed layer's recompute redraws the
-same noise from the same key.
+same noise from the same key.  The hybrid and ssm families take no key
+(ValueError), as JAX's forward refuses one.
 
-Not ported: the hybrid, ssm and audio families (and with them forward's
-`encoder_frames`), and the "dots" remat policy.
+Not ported: the audio family (and with it forward's `encoder_frames`),
+and the "dots" remat policy.
 """
 from __future__ import annotations
 
@@ -45,6 +59,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.core.cim_layers import init_cim_linear
 from repro_torch.models import common as cm
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import rglru as rg
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.models.sharding import BATCH, TP, shard
 
@@ -56,23 +72,22 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-DECODER_FAMILIES = ("dense", "moe", "vlm")
+DECODER_FAMILIES = ("dense", "moe", "vlm")     # the attention-cache ones
+PORTED_FAMILIES = DECODER_FAMILIES + ("ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in DECODER_FAMILIES:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported (the decoder-stack "
-            f"families {DECODER_FAMILIES} are; ROADMAP Queue 1, the other "
-            f"model families)")
+            f"model family {cfg.family!r} is not ported (the families "
+            f"{PORTED_FAMILIES} are; ROADMAP Queue 1, the audio family)")
 
 
-def _attn_cfg(cfg: ModelConfig) -> cm.AttnConfig:
+def _attn_cfg(cfg: ModelConfig, *, window: int = 0) -> cm.AttnConfig:
     return cm.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
-        window=cfg.sliding_window, rope_theta=cfg.rope_theta,
-        impl=cfg.attn_impl)
+        window=window, rope_theta=cfg.rope_theta, impl=cfg.attn_impl)
 
 
 def _init_decoder_layer(cfg: ModelConfig,
@@ -81,7 +96,8 @@ def _init_decoder_layer(cfg: ModelConfig,
     p = {
         "ln1": cm.init_norm(cfg.d_model, cfg.norm_type, device=dev),
         "ln2": cm.init_norm(cfg.d_model, cfg.norm_type, device=dev),
-        "attn": cm.init_attention(generator, _attn_cfg(cfg), cfg.cim),
+        "attn": cm.init_attention(
+            generator, _attn_cfg(cfg, window=cfg.sliding_window), cfg.cim),
     }
     if cfg.family == "moe":
         p["moe"] = init_moe(generator, cfg.d_model, cfg.d_ff,
@@ -92,10 +108,49 @@ def _init_decoder_layer(cfg: ModelConfig,
     return p
 
 
+def _init_ssm_layer(cfg: ModelConfig, generator: torch.Generator) -> Dict:
+    return {
+        "ln1": cm.init_norm(cfg.d_model, cfg.norm_type,
+                            device=generator.device),
+        "mixer": m2.init_mamba2_layer(
+            generator, cfg.d_model, expand=cfg.ssm_expand,
+            headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
+            conv_width=cfg.conv_width, cim=cfg.cim),
+    }
+
+
+def _init_rec_layer(cfg: ModelConfig, generator: torch.Generator) -> Dict:
+    dev = generator.device
+    return {
+        "ln1": cm.init_norm(cfg.d_model, cfg.norm_type, device=dev),
+        "ln2": cm.init_norm(cfg.d_model, cfg.norm_type, device=dev),
+        "rec": rg.init_rglru_block(generator, cfg.d_model,
+                                   cfg.lru_width or cfg.d_model,
+                                   cfg.conv_width, cfg.cim),
+        "mlp": cm.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                           cfg.cim),
+    }
+
+
+def _init_local_attn_layer(cfg: ModelConfig,
+                           generator: torch.Generator) -> Dict:
+    dev = generator.device
+    return {
+        "ln1": cm.init_norm(cfg.d_model, cfg.norm_type, device=dev),
+        "ln2": cm.init_norm(cfg.d_model, cfg.norm_type, device=dev),
+        "attn": cm.init_attention(
+            generator, _attn_cfg(cfg, window=cfg.local_window), cfg.cim),
+        "mlp": cm.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                           cfg.cim),
+    }
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Dict:
     """The parameter tree for `cfg` on the generator's device: the
-    embedding, one dict per layer under "layers", the final norm and, if
-    the head is untied, "lm_head"."""
+    embedding, one dict per layer under "layers" (hybrid: one
+    {"rec1", "rec2", "attn"} dict per block of 3 under "blocks" and,
+    when the depth leaves a remainder, its RG-LRU layers under "tail"),
+    the final norm and, if the head is untied, "lm_head"."""
     _check_family(cfg)
     d = cfg.d_model
     dev = generator.device
@@ -106,20 +161,38 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_cim_linear(generator, d, cfg.vocab_size)
-    params["layers"] = [_init_decoder_layer(cfg, generator)
+    if cfg.family == "hybrid":
+        nb, tail = divmod(cfg.n_layers, 3)
+        params["blocks"] = [{"rec1": _init_rec_layer(cfg, generator),
+                             "rec2": _init_rec_layer(cfg, generator),
+                             "attn": _init_local_attn_layer(cfg, generator)}
+                            for _ in range(nb)]
+        if tail:
+            params["tail"] = [_init_rec_layer(cfg, generator)
+                              for _ in range(tail)]
+        return params
+    init_layer = (_init_ssm_layer if cfg.family == "ssm"
+                  else _init_decoder_layer)
+    params["layers"] = [init_layer(cfg, generator)
                         for _ in range(cfg.n_layers)]
     return params
+
+
+# the subtrees whose leaves JAX stacks along a leading layer (or block) axis
+STACKED_KEYS = ("layers", "blocks", "tail")
 
 
 def stacked_decay_mask(params: Dict) -> Dict:
     """Weight-decay mask of AdamW as the JAX package forms it: a leaf is
     decayed when it has 2 or more dimensions *as JAX stores it*, and JAX
-    stacks each per-layer leaf along a leading layer axis.  So every
-    per-layer leaf (the ABN gains and offsets and the norm scales
-    included) is decayed, as is the embedding; the final norm is not."""
+    stacks each per-layer leaf along a leading layer axis ("layers", and
+    the hybrid family's "blocks" and "tail").  So every per-layer leaf
+    (the ABN gains and offsets, the norm scales, and the recurrent
+    layers' biases, Lambda, A_log and the like included) is decayed, as
+    is the embedding; the final norm is not."""
     def mark(node, stacked: bool):
         if isinstance(node, dict):
-            return {k: mark(v, stacked or k == "layers")
+            return {k: mark(v, stacked or k in STACKED_KEYS)
                     for k, v in node.items()}
         if isinstance(node, list):
             return [mark(v, stacked) for v in node]
@@ -140,8 +213,9 @@ def _decoder_layer(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         k_attn, k_ffn = prng.fold_in(key, 0), prng.fold_in(key, 1)
     h = cm.apply_norm(p["ln1"], x, cfg.norm_type)
     attn_out, new_kv = cm.attention_block(
-        p["attn"], h, _attn_cfg(cfg), cfg.cim, positions=positions,
-        cache=None if cache is None else cache["kv"], key=k_attn)
+        p["attn"], h, _attn_cfg(cfg, window=cfg.sliding_window), cfg.cim,
+        positions=positions, cache=None if cache is None else cache["kv"],
+        key=k_attn)
     x = x + attn_out
     h = cm.apply_norm(p["ln2"], x, cfg.norm_type)
     if cfg.family == "moe":
@@ -192,6 +266,119 @@ def _decoder_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                       "idx": torch.stack(idxs)}}, aux
 
 
+def _ssm_layer(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+               cache: Optional[Dict] = None
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    h = cm.apply_norm(p["ln1"], x, cfg.norm_type)
+    out, new_state = m2.mamba2_layer(
+        p["mixer"], h, cfg, cfg.cim,
+        state=None if cache is None else cache["ssm"])
+    return x + out, (None if cache is None else {"ssm": new_state})
+
+
+def _rec_layer(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+               cache: Optional[Dict] = None
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    h = cm.apply_norm(p["ln1"], x, cfg.norm_type)
+    out, new_state = rg.rglru_block(
+        p["rec"], h, cfg.cim, state=None if cache is None else cache["rec"])
+    x = x + out
+    h = cm.apply_norm(p["ln2"], x, cfg.norm_type)
+    x = x + cm.mlp_block(p["mlp"], h, cfg.cim, cfg.mlp_act)
+    return x, (None if cache is None else {"rec": new_state})
+
+
+def _local_attn_layer(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                      positions: torch.Tensor, cache: Optional[Dict] = None
+                      ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    h = cm.apply_norm(p["ln1"], x, cfg.norm_type)
+    out, new_kv = cm.attention_block(
+        p["attn"], h, _attn_cfg(cfg, window=cfg.local_window), cfg.cim,
+        positions=positions, cache=None if cache is None else cache["kv"])
+    x = x + out
+    h = cm.apply_norm(p["ln2"], x, cfg.norm_type)
+    x = x + cm.mlp_block(p["mlp"], h, cfg.cim, cfg.mlp_act)
+    return x, (None if cache is None else {"kv": new_kv})
+
+
+def _hybrid_block(cfg: ModelConfig, positions: torch.Tensor, p: Dict,
+                  x: torch.Tensor, cache: Optional[Dict] = None
+                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """One Griffin block: RG-LRU, RG-LRU, local attention."""
+    c = cache or {}
+    x, nc1 = _rec_layer(cfg, p["rec1"], x, c.get("rec1"))
+    x, nc2 = _rec_layer(cfg, p["rec2"], x, c.get("rec2"))
+    x, nc3 = _local_attn_layer(cfg, p["attn"], x, positions, c.get("attn"))
+    return x, (None if cache is None
+               else {"rec1": nc1, "rec2": nc2, "attn": nc3})
+
+
+def _layer_slice(tree, i: int):
+    """Slice i of every stacked leaf of a cache subtree (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _restack(old, news: list):
+    """The stacked cache subtree after the layers: every leaf stacked from
+    the layers' new values, but the K/V rings ("k", "v"), which the
+    layers wrote in place and which stay the tensors of `old`."""
+    if isinstance(old, dict):
+        return {k: old[k] if k in ("k", "v")
+                else _restack(old[k], [n[k] for n in news])
+                for k in old}
+    return torch.stack(news)
+
+
+def _layer_stack(cfg: ModelConfig, fn, layers: list, x: torch.Tensor,
+                 cache) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """fn(p, x, layer cache or None) -> (x, new layer cache) over the
+    layers in order (JAX's `_scan_stack`: x cast back to its dtype after
+    each), with layer i's cache sliced from the stacked `cache`; without
+    a cache and with cfg.remat each call is checkpointed (JAX's "full"
+    policy).  Returns (x, the stacked new cache, or None)."""
+    news = []
+    for i, p in enumerate(layers):
+        if cache is None:
+            if cfg.remat:
+                new_x, _ = checkpoint(fn, p, x, None, use_reentrant=False)
+            else:
+                new_x, _ = fn(p, x, None)
+        else:
+            new_x, nc = fn(p, x, _layer_slice(cache, i))
+            news.append(nc)
+        x = new_x.to(x.dtype)
+    if cache is None:
+        return x, None
+    return x, (_restack(cache, news) if news else cache)
+
+
+def _recurrent_stack(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+                     positions: torch.Tensor, cache: Optional[Dict] = None
+                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The ssm stack (`params["layers"]`) or the hybrid one (the blocks,
+    then the tail) -> (x, the new stacked layer cache or None)."""
+    if cfg.family == "ssm":
+        # JAX's hybrid stack ignores the policy; its ssm stack takes it
+        if cfg.remat and cfg.remat_policy != "full":
+            raise NotImplementedError(f"remat policy {cfg.remat_policy!r} "
+                                      f"is not ported (full only)")
+        return _layer_stack(cfg, lambda p, h, c: _ssm_layer(cfg, p, h, c),
+                            params["layers"], x, cache)
+    x, new_blocks = _layer_stack(
+        cfg, lambda p, h, c: _hybrid_block(cfg, positions, p, h, c),
+        params["blocks"], x, None if cache is None else cache["blocks"])
+    new_tail = None if cache is None else cache["tail"]
+    if "tail" in params:
+        x, new_tail = _layer_stack(
+            cfg, lambda p, h, c: _rec_layer(cfg, p, h, c), params["tail"],
+            x, new_tail)
+    if cache is None:
+        return x, None
+    return x, {"blocks": new_blocks, "tail": new_tail}
+
+
 def embed_tokens(cfg: ModelConfig, params: Dict,
                  tokens: torch.Tensor) -> torch.Tensor:
     """Token-id lookup into the embedding table, cast to the model compute
@@ -235,12 +422,17 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     counts them (so do the logits and positions); another family raises
     ValueError on them, and `encoder_frames` (audio) raise
     NotImplementedError.  `key` (a host `core/prng` key) seeds the CIM
-    noise model of the projections when cfg.cim.noise is enabled."""
+    noise model of the projections when cfg.cim.noise is enabled; the
+    ssm and hybrid families refuse one (ValueError), as JAX's forward
+    does."""
     _check_family(cfg)
+    if key is not None and cfg.family not in DECODER_FAMILIES:
+        raise ValueError(
+            f"noise-keyed forward is not wired for family {cfg.family!r}")
     if encoder_frames is not None:
         raise NotImplementedError(
-            "encoder_frames (the audio family, ROADMAP Queue 1, the other "
-            "model families) are not ported")
+            "encoder_frames (the audio family, ROADMAP Queue 1) are not "
+            "ported")
     if prefix_embeds is not None and cfg.family != "vlm":
         raise ValueError(f"prefix_embeds are the vlm family's input, not "
                          f"the {cfg.family!r} family's")
@@ -252,9 +444,13 @@ def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
         positions = torch.arange(s, device=tokens.device)
         if cache is not None:
             positions = cache["pos"] + positions
-    x, new_inner, aux = _decoder_stack(
-        cfg, params, x, positions,
-        None if cache is None else cache["layers"], key)
+    inner = None if cache is None else cache["layers"]
+    if cfg.family in DECODER_FAMILIES:
+        x, new_inner, aux = _decoder_stack(cfg, params, x, positions, inner,
+                                           key)
+    else:
+        x, new_inner = _recurrent_stack(cfg, params, x, positions, inner)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     logits = lm_logits(cfg, params, x)
     new_cache = (None if cache is None
                  else {"pos": cache["pos"] + s, "layers": new_inner})
@@ -271,30 +467,71 @@ def _kv_cache_len(cfg: ModelConfig, max_len: int, window: int) -> int:
     return max_len
 
 
+def _stacked(tree: Dict, n: int) -> Dict:
+    """A zeroed state of n layers: each leaf of the one-layer `tree` with
+    a leading axis of n, its dtype and device kept."""
+    return {k: _stacked(v, n) if isinstance(v, dict)
+            else torch.zeros((n,) + tuple(v.shape), dtype=v.dtype,
+                             device=v.device)
+            for k, v in tree.items()}
+
+
+def _kv_stack(cfg: ModelConfig, n: int, batch: int, length: int, dtype,
+              device) -> Dict:
+    shape = (n, batch, length, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "idx": torch.zeros((n,), dtype=torch.int32, device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Dict:
-    """Decode cache {"pos": 0-d int32, "layers": {"kv": {"k", "v" (L,
-    batch, len, n_kv, head_dim), "idx" (L,) int32}}} for the decoder-
-    stack families, zeroed; len is max_len, or the sliding window if
-    shorter."""
+    """Decode cache {"pos": 0-d int32, "layers": ...}, zeroed, in JAX's
+    stacked layout (a leading layer or block axis on every leaf):
+
+    - dense, moe, vlm: {"kv": {"k", "v" (L, batch, len, n_kv, head_dim)
+      of `dtype`, "idx" (L,) int32}}, len max_len or the sliding window
+      if shorter;
+    - ssm: {"ssm": {"ssm" (L, batch, H, P, N) float32, "conv" (L, batch,
+      conv_width - 1, channels) float32}} (`mamba2.init_mamba2_state`);
+    - hybrid: {"blocks": {"rec1": {"rec": ...}, "rec2": {"rec": ...},
+      "attn": {"kv": ... (len up to the local window)}}, "tail": {"rec":
+      ...} or None}, each "rec" {"h" (n, batch, width) float32, "conv"
+      (n, batch, conv_width - 1, width) bfloat16}
+      (`rglru.init_rglru_state`)."""
     _check_family(cfg)
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.family == "ssm":
+        st = m2.init_mamba2_state(batch, cfg.d_model, cfg, device=device)
+        return {"pos": pos, "layers": {"ssm": _stacked(st, cfg.n_layers)}}
+    if cfg.family == "hybrid":
+        nb, tail = divmod(cfg.n_layers, 3)
+        rec = rg.init_rglru_state(batch, cfg.lru_width or cfg.d_model,
+                                  cfg.conv_width, device=device)
+        length = _kv_cache_len(cfg, max_len, cfg.local_window)
+        blocks = {"rec1": {"rec": _stacked(rec, nb)},
+                  "rec2": {"rec": _stacked(rec, nb)},
+                  "attn": {"kv": _kv_stack(cfg, nb, batch, length, dtype,
+                                           device)}}
+        return {"pos": pos, "layers": {
+            "blocks": blocks,
+            "tail": {"rec": _stacked(rec, tail)} if tail else None}}
     length = _kv_cache_len(cfg, max_len, cfg.sliding_window)
-    shape = (cfg.n_layers, batch, length, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "layers": {"kv": {
-                "k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device),
-                "idx": torch.zeros((cfg.n_layers,), dtype=torch.int32,
-                                   device=device)}}}
+    return {"pos": pos, "layers": {"kv": _kv_stack(
+        cfg, cfg.n_layers, batch, length, dtype, device)}}
 
 
 def init_slot_cache(cfg: ModelConfig, slots: int, max_len: int,
                     dtype=torch.bfloat16, device=None) -> Dict:
     """Slot-mapped decode cache for in-flight (continuous) batching:
     {"pos": (slots,) per-slot positions, "layers": {"kv": stacked
-    common.init_slot_kv_cache}}, every slot on its own ring cursor."""
+    common.init_slot_kv_cache}}, every slot on its own ring cursor.  The
+    attention-cache families only (ValueError otherwise, as in JAX)."""
     _check_family(cfg)
+    if cfg.family not in DECODER_FAMILIES:
+        raise ValueError(
+            f"slot-mapped decode supports attention-cache families "
+            f"(dense/moe/vlm), not {cfg.family!r}")
     length = _kv_cache_len(cfg, max_len, cfg.sliding_window)
     shape = (cfg.n_layers, slots, length, cfg.n_kv_heads,
              cfg.resolved_head_dim)

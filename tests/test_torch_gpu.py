@@ -21,7 +21,10 @@ noisy, gradients within `_close_grad`), engine-mode convs against
 fakequant and the host, and the sim mode against the host, and the moe
 and vlm families (an expert bank in fakequant on the card == the host,
 the engine == fakequant or its reference; phi3.5-moe's and internvl2's
-smoke serve on the card against fakequant and the host).
+smoke serve on the card against fakequant and the host), and the hybrid
+and ssm families (flash at head dims 192-256 and the raise above 256;
+mamba2's and recurrentgemma's smoke serves and a train step on the card
+against the host).
 
 These tests need an NVIDIA GPU (marker `gpu`) and skip without one.  They
 import neither JAX nor the JAX package, so they run where only PyTorch
@@ -366,6 +369,12 @@ FLASH_CASES = [
     (1, 1, 77, 2, 1, 64, True, 0, 100),
     (1, 400, 77, 4, 2, 64, True, 256, 0),    # rows that keep no key
     (1, 1024, 1024, 4, 2, 128, True, 256, 0),
+    # above D 128: the CUDA-core kernels' second head-dimension bound
+    (1, 77, 77, 10, 1, 256, True, 0, 0),
+    (1, 1024, 1024, 10, 1, 256, True, 256, 0),     # MQA at rep 10
+    (1, 100, 513, 2, 2, 200, False, 256, 100),
+    (2, 300, 300, 4, 2, 256, False, 0, 0),
+    (1, 400, 77, 4, 2, 192, True, 256, 0),    # rows that keep no key
 ]
 
 
@@ -429,6 +438,60 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
             rkernel.flash_bwd_dkv.launches_tc] == \
         ([counts_tc[0] + 1, counts_tc[1] + 2, counts_tc[2] + 2] if tc
          else counts_tc)
+
+
+@pytest.mark.gpu
+def test_flash_above_head_dim_256_raises(cuda_device):
+    """D 256 is the CUDA-core kernels' largest bound; above it every
+    kernel refuses the call (no quiet route to the plain version)."""
+    q, k, v, do, q_off = _flash_inputs((1, 8, 8, 2, 1, 288, True, 0, 0),
+                                       torch.float32, cuda_device)
+    lse = torch.zeros(q.shape[:3], device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        rkernel.flash_fwd(q, k, v, q_off, causal=True)
+    for fn in (rkernel.flash_bwd_dq, rkernel.flash_bwd_dkv):
+        with pytest.raises(ValueError, match="head dim"):
+            fn(q, k, v, do, lse, lse, q_off, causal=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ("mamba2_1_3b", "recurrentgemma_2b"))
+def test_recurrent_train_step_on_card_matches_host(cuda_device, arch):
+    """One float32 step of the smoke config with the flash kernels
+    (recurrentgemma's local attention at D 32 on the CUDA-core kernels)
+    on the card against the host's plain versions: in bypass the loss
+    and grad norm within 1e-5 relative; in fakequant within
+    tests/test_torch_train.py's float32 fakequant tolerances (5e-3,
+    2e-2: an ulp of the float glue moves activation codes)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cim_layers import CIMConfig as C
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 512, size=(2, 64))).long()
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    for mode, (t_loss, t_gnorm) in (("bypass", (1e-5, 1e-5)),
+                                    ("fakequant", (5e-3, 2e-2))):
+        cfg = get_smoke_config(arch).replace(
+            dtype="float32", attn_impl="pallas",
+            cim=C(mode=mode, max_gamma=2.0**16))
+        out = {}
+        card = tf.init_params(
+            cfg, torch.Generator(device=cuda_device).manual_seed(0))
+        host = _to_host(card)
+        for dev, params in ((cuda_device, card),
+                            (torch.device("cpu"), host)):
+            state = steps.train_state(params)
+            fl = rkernel.flash_fwd.launches
+            _, m = steps.make_train_step(cfg, AdamWConfig(lr=1e-3))(
+                state, {k: v.to(dev) for k, v in batch.items()})
+            out[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                             rkernel.flash_fwd.launches - fl)
+        (lc, gc, nc), (lh, gh, nh) = out["cuda"], out["cpu"]
+        assert abs(lc - lh) <= t_loss * abs(lh), (mode, lc, lh)
+        assert abs(gc - gh) <= t_gnorm * gh, (mode, gc, gh)
+        assert nh == 0 and nc == (1 if arch == "recurrentgemma_2b" else 0)
 
 
 @pytest.mark.gpu
@@ -1440,25 +1503,35 @@ def test_expert_bank_on_card_equals_host(cuda_device, point, noisy):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ("phi35_moe", "internvl2_76b"))
+@pytest.mark.parametrize("arch", ("phi35_moe", "internvl2_76b",
+                                  "mamba2_1_3b", "recurrentgemma_2b"))
 def test_family_smoke_serve_on_card_matches_host(cuda_device, arch):
     """The smoke config served on the card in engine mode (float32): no
     plan, capture or eager dispatch after warm-up, engine == fakequant
     bit for bit, and tokens equal to the host's serve of the same
     weights, each step's logits within 0.1 (as
-    test_serve_card_matches_host)."""
+    test_serve_card_matches_host).  recurrentgemma's quantized forward
+    moves by about 5% card against host (an ulp of the float glue moves
+    a tensor's activation swing, and the RG-LRU carries every code
+    flip on), so its greedy tokens may part: there the host decodes the
+    card's tokens, and each step's logits are held within 0.1."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.cim_layers import CIMConfig as C
     from repro_torch.launch import serve
     base = get_smoke_config(arch).replace(dtype="float32")
     prompt = _serve_prompt(cuda_device) % base.vocab_size
+    if base.family == "hybrid":
+        # a prefill writes its tokens into the local-attention ring at
+        # once, so it may not outgrow the window (JAX's neither)
+        prompt = prompt[:, :base.local_window]
+    plen = prompt.shape[1]
     out = {}
     for mode in ("engine", "fakequant"):
         cfg = base.replace(cim=C(mode=mode, max_gamma=2.0**16))
         params = _serve_params(cfg, cuda_device)
         prefix = (serve.make_prefix(cfg, 4, 0, cuda_device)
                   if cfg.family == "vlm" else None)
-        max_len = serve.serve_max_len(cfg, 32, 4)
+        max_len = serve.serve_max_len(cfg, plen, 4)
         out[mode] = serve.static_serve(cfg, params, prompt, 4,
                                        max_len=max_len, keep_logits=True,
                                        prefix=prefix)
@@ -1468,11 +1541,22 @@ def test_family_smoke_serve_on_card_matches_host(cuda_device, arch):
     assert torch.equal(card["tokens"], out["fakequant"]["tokens"])
     for a, b in zip(card["logits"], out["fakequant"]["logits"]):
         assert torch.equal(a, b)
-    host = serve.static_serve(
-        cfg.replace(cim=cfg.cim.replace(mode="engine")), _to_host(params),
-        prompt.cpu(), 4, max_len=max_len,
-        keep_logits=True, prefix=None if prefix is None else prefix.cpu())
-    assert torch.equal(card["tokens"], host["tokens"])
+    hcfg = cfg.replace(cim=cfg.cim.replace(mode="engine"))
+    if base.family == "hybrid":
+        from repro_torch.models import transformer as ttf
+        hp, cache = _to_host(params), ttf.init_cache(hcfg, 4, max_len)
+        host = {"logits": []}
+        with torch.no_grad():
+            for toks in [prompt.cpu()] + [card["tokens"][:, t:t + 1]
+                                          for t in range(4)]:
+                lg, cache, _ = ttf.forward(hcfg, hp, toks, cache=cache)
+                host["logits"].append(lg[:, -1])
+    else:
+        host = serve.static_serve(
+            hcfg, _to_host(params), prompt.cpu(), 4, max_len=max_len,
+            keep_logits=True,
+            prefix=None if prefix is None else prefix.cpu())
+        assert torch.equal(card["tokens"], host["tokens"])
     for a, b in zip(card["logits"], host["logits"]):
         a, b = a.float().cpu(), b.float()
         assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) < 0.1
