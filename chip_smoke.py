@@ -8,7 +8,10 @@ a result:
 
   1. build    - compile every CUDA kernel of the port from the sources in
                 this checkout (nvcc, one process per source, in parallel);
-                prints build seconds and ptxas register/shared-memory use.
+                prints build seconds and ptxas register/shared-memory use,
+                and a line for each D 256 instantiation of the
+                tensor-core flash forward and dk/dv (registers, stack,
+                spills, which must be none, and dynamic shared memory).
   2. kernels  - each kernel against its plain PyTorch version on the card.
                 cim_mbiw: torch.equal over the precision grid, both beta
                 shapes, both ADC modes, ragged shapes, the LeNet tiles at
@@ -38,7 +41,8 @@ a result:
                 long flat bf16 rows (q x 0.01,
                 S 4096); each backward run twice, bit for bit equal; every
                 bf16 case at D 64 or 128 through the tensor-core forward,
-                dq and dk/dv kernels (their `.launches_tc` rise).  Peaked
+                dq and dk/dv kernels (their `.launches_tc` rise; the
+                per-kernel table FLASH_TC_HEAD_DIMS).  Peaked
                 bf16 rows (q and k x 8, D 128), where float32 itself
                 misses these limits, are held to float64 within the
                 limits plus the plain version's own float32 distance.
@@ -279,20 +283,23 @@ a result:
                 depth 1 (batch 4, prompt 32, gen 4) and internvl2 at
                 depth 2 (batch 2, prompt 32 behind the prefix, gen 4).
  14. recurrent - the hybrid and ssm families at full width.  The flash
-                forward, dq and dk/dv at D 256 (the CUDA-core kernels'
-                second head-dimension bound) against their plain
-                versions within the phase-2 tolerances, float32 and
-                bf16: recurrentgemma-2b's attention (B 1, H 10, G 1, S
-                4096, causal, window 2048), S 1000 at rep 2 with window
-                256 and q_off 100, and a non-causal Sq 777 / Sk 513;
-                their CUDA-event times at recurrentgemma's shape in bf16
-                beside the plain versions, SDPA with the boolean window
-                mask, and the bounds.  Then 3 fakequant (8, 4, 8) bf16
+                forward, dq and dk/dv at D 256 (bf16 forward and dk/dv on
+                the tensor cores, their `.launches_tc` rising; dq and
+                float32 on the CUDA-core kernels' second head-dimension
+                bound) against their plain versions within the phase-2
+                tolerances, float32 and bf16: recurrentgemma-2b's
+                attention (B 1, H 10, G 1, S 4096, causal, window 2048),
+                S 1000 at rep 2 with window 256 and q_off 100, and a
+                non-causal Sq 777 / Sk 513; their CUDA-event times at
+                recurrentgemma's shape in bf16 beside the plain
+                versions, the CUDA-core forward and dk/dv of the earlier
+                design (which must agree and be slower), SDPA with the
+                boolean window mask, and the bounds.  Then 3 fakequant (8, 4, 8) bf16
                 train steps at batch 1 x 4096 through launch/steps:
                 recurrentgemma-2b at depth 5 of 26 (one block, the
                 2-layer tail; its local attention on the D 256 flash
-                kernels, two forwards with the recompute, a dq and a
-                dk/dv a step; step 0 against plain attention within
+                kernels, two forwards with the recompute and a dk/dv a
+                step on the tensor cores, a dq on the CUDA cores; step 0 against plain attention within
                 TRAIN_JNP_RTOL, in bypass and in fakequant), mamba2-1.3b
                 at depth 4 of 48; finite losses and parameters, peak
                 memory, a profiled step.  Static engine serves through
@@ -399,6 +406,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -492,6 +500,62 @@ PRECISION_LENET_BATCH = 8
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+# the D 256 instantiations of the tensor-core flash kernels: library and a
+# piece of its entry function's mangled name
+PTXAS_D256 = (("flash_fwd_tc", "flash_fwd_tc_kernelILi256E"),
+              ("flash_bwd_dkv_tc", "flash_bwd_dkv_tc_d256_kernel"))
+
+
+def ptxas_entries(log: str) -> dict:
+    """ptxas's report (nvcc -Xptxas -v) per entry function: registers,
+    stack frame and spill store / load bytes."""
+    out: dict = {}
+    cur = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = out.get(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m[1])
+    return out
+
+
+def ptxas_d256(infos, build) -> dict:
+    """ptxas's registers, stack and spills and the dynamic shared memory
+    of each D 256 tensor-core flash kernel (PTXAS_D256), from the logs of
+    `build.build_all`; checks that none spills."""
+    out = {}
+    for lib_name, piece in PTXAS_D256:
+        found = [(fn, r) for fn, r in
+                 ptxas_entries(infos[lib_name].log).items() if piece in fn]
+        check(len(found) == 1, f"ptxas reported {len(found)} entry "
+              f"functions matching {piece} in {lib_name}")
+        fn, rep = found[0]
+        smem_fn = getattr(build.load(lib_name),
+                          f"{lib_name}_smem_bytes")
+        rep = dict(rep, entry=fn, dynamic_smem_bytes=int(smem_fn(256)))
+        out[lib_name] = rep
+        print(f"ptxas {lib_name} D 256 ({fn}): {rep.get('registers')} "
+              f"registers, {rep.get('stack')} bytes stack frame, "
+              f"{rep.get('spill_stores')} / {rep.get('spill_loads')} bytes "
+              f"spill stores / loads, {rep['dynamic_smem_bytes']} bytes "
+              f"dynamic shared memory", flush=True)
+        check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
+              f"the D 256 instantiation of {lib_name} spills: {rep}")
+    return out
 
 
 def card_line() -> str:
@@ -3063,10 +3127,11 @@ FLASH_REC = ((1, 10, 1, REC_TRAIN_SEQ, 256, 2048),)
 
 
 def flash_d256_cases() -> list:
-    """flash_cases()' form at D 256, the CUDA-core kernels' second bound,
-    in both dtypes: recurrentgemma's attention (MQA at rep 10, S 4096,
-    causal, window 2048), a ragged S with rep 2, a window and a query
-    offset, and a non-causal case."""
+    """flash_cases()' form at D 256, in both dtypes: recurrentgemma's
+    attention (MQA at rep 10, S 4096, causal, window 2048), a ragged S
+    with rep 2, a window and a query offset, and a non-causal case.  bf16
+    runs the forward and dk/dv on the tensor cores, dq and float32 on the
+    CUDA-core kernels' second head-dimension bound."""
     out = []
     for dtype in (torch.float32, torch.bfloat16):
         for b, h, g, s_, d, window in FLASH_REC:
@@ -3077,10 +3142,12 @@ def flash_d256_cases() -> list:
 
 
 def flash_d256_times(fk, fref, dev, tag) -> dict:
-    """CUDA-event ms of the three flash kernels (their CUDA-core route at
-    D 256), their plain versions and SDPA forward / backward with the
-    boolean causal-window mask at recurrentgemma's attention shape in
-    bf16, with bounds; the launches made here are not main-path ones."""
+    """CUDA-event ms of the three flash kernels at recurrentgemma's
+    attention shape in bf16 (the forward and dk/dv on the tensor cores, dq
+    on the CUDA cores), the CUDA-core forward and dk/dv kernels of the
+    earlier design on the same inputs, their plain versions and SDPA
+    forward / backward with the boolean causal-window mask, with bounds;
+    the launches made here are not main-path ones."""
     b, h, g, s_, d, window = FLASH_REC[0]
     q, k, v, do = flash_inputs(b, h, g, s_, s_, d, torch.bfloat16, 9, dev)
     q_off = torch.zeros((1, 1), dtype=torch.int32, device=dev)
@@ -3090,6 +3157,14 @@ def flash_d256_times(fk, fref, dev, tag) -> dict:
     o, lse = fk.flash_fwd(q, k, v, q_off, **kw)
     delta = torch.sum(do.float() * o.float(), dim=-1)
     args = (q, k, v, do, lse, delta, q_off)
+    dq = fk.flash_bwd_dq(*args, **kw)
+    dk, dv = fk.flash_bwd_dkv(*args, **kw)
+    tc1 = [f.launches_tc - n_tc for f, (_, n_tc) in zip(kerns, before)]
+    check(tc1 == [1, 0, 1],
+          f"tensor-core launches {tc1} (forward, dq, dk/dv) of a bf16 D "
+          f"256 call; expected [1, 0, 1]: the forward and dk/dv on the "
+          f"tensor cores, dq on the CUDA cores")
+    core = cuda_core_fns(fk, *args, causal=True, window=window)
     pos = torch.arange(s_, device=dev)
     rel = pos[:, None] - pos[None, :]
     mask = (rel >= 0) & (rel < window)
@@ -3104,6 +3179,19 @@ def flash_d256_times(fk, fref, dev, tag) -> dict:
     check(torch.allclose(sdpa().float(), o.float(), rtol=2e-2, atol=2e-2),
           "the SDPA yardstick computes another function than flash_fwd at "
           "D 256")
+    # the earlier design against the kernels on the same inputs (the
+    # phase-2 limits; a bf16 O one ulp apart)
+    core["fwd"]()
+    core["dkv"]()
+    torch.cuda.synchronize()
+    o_core, lse_core, _, dk_core, dv_core = core["outputs"]
+    check(torch.allclose(o.float(), o_core.float(), rtol=2.0**-7, atol=2e-5)
+          and torch.allclose(lse, lse_core, rtol=2e-5, atol=2e-5)
+          and torch.allclose(dk, dk_core, rtol=5e-5, atol=5e-5)
+          and torch.allclose(dv, dv_core, rtol=5e-5, atol=5e-5),
+          "the CUDA-core kernels of the earlier design disagree with the "
+          "tensor-core ones at D 256")
+    del dq
     fns = {"fwd": (lambda: fk.flash_fwd(q, k, v, q_off, **kw),
                    lambda: fref.flash_fwd_ref(q, k, v, q_off, **kw)),
            "dq": (lambda: fk.flash_bwd_dq(*args, **kw),
@@ -3119,16 +3207,25 @@ def flash_d256_times(fk, fref, dev, tag) -> dict:
         bnd, by = flash_bound_ms(kind, b, h, g, s_, s_, d, True, window, 2)
         out[kind] = {"ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 2),
                      "bound_ms": bnd, "bound_by": by,
-                     "library_ms": sdpa_fwd if kind == "fwd" else sdpa_bwd}
+                     "library_ms": sdpa_fwd if kind == "fwd" else sdpa_bwd,
+                     "route": "tensor cores" if kind != "dq"
+                     else "CUDA cores"}
         r = out[kind]
-        print(f"time {tag} flash_{kind} (CUDA cores) B={b} H={h} G={g} "
+        if kind != "dq":
+            r["cuda_core_ms"] = cuda_ms(core[kind], 3)
+        earlier = (f", CUDA-core kernel (earlier design) "
+                   f"{r['cuda_core_ms']:.3f} ms" if kind != "dq" else "")
+        print(f"time {tag} flash_{kind} ({r['route']}) B={b} H={h} G={g} "
               f"S={s_} D={d} causal window {window} bf16: kernel "
-              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, SDPA "
+              f"{r['ms']:.3f} ms{earlier}, plain {r['plain_ms']:.3f} ms, "
+              f"SDPA "
               f"{'forward' if kind == 'fwd' else 'backward (dq, dk, dv)'}"
               f" with the boolean mask {r['library_ms']:.3f} ms, bound "
               f"{bnd:.4f} ms ({by})", flush=True)
-    check(all(f.launches_tc == n_tc for f, (_, n_tc) in zip(kerns, before)),
-          "a D 256 flash call reached the tensor-core kernels")
+    check(all(out[kind]["ms"] < out[kind]["cuda_core_ms"]
+              for kind in ("fwd", "dkv")),
+          "a D 256 tensor-core kernel is slower than the CUDA-core kernel "
+          "it replaces")
     for f, (n, n_tc) in zip(kerns, before):
         f.launches, f.launches_tc = n, n_tc
     return out
@@ -3158,7 +3255,8 @@ def recurrent_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
     checks = flash_checks(fk, fref, dev, cases=flash_d256_cases())
     rec["flash_vs_plain"] = checks
     print(f"recurrent kernels {tag}: flash_fwd / flash_bwd_dq / "
-          f"flash_bwd_dkv at D 256 (the CUDA-core kernels' second bound) "
+          f"flash_bwd_dkv at D 256 (bf16 forward and dk/dv on the tensor "
+          f"cores; dq and float32 on the CUDA-core kernels' second bound) "
           f"within tolerance of plain on {checks['cases']} cases "
           f"(recurrentgemma's B 1 H 10 G 1 S {REC_TRAIN_SEQ} causal window "
           f"2048; S 1000 rep 2 window 256 q_off 100; non-causal Sq 777 Sk "
@@ -3171,6 +3269,7 @@ def recurrent_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
     launches = dict.fromkeys(("cim_mbiw", "cim_mbiw_tc", "cim_mbiw_splitk"),
                              0)
     flash = dict.fromkeys(FLASH_NAMES, 0)
+    flash_tc = dict.fromkeys(FLASH_NAMES, 0)
     rec["train"] = {}
     for arch, depth, vs in ((REC_ARCH, REC_TRAIN_DEPTH, True),
                             (SSM_ARCH, SSM_TRAIN_DEPTH, False)):
@@ -3182,6 +3281,7 @@ def recurrent_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
         rec["train"][arch] = tr
         for k_ in FLASH_NAMES:
             flash[k_] += tr["launches"][k_]
+            flash_tc[k_] += tr["launches_tc"][k_]
         _free(dev)
         secs[f"train {arch}"] = time.perf_counter() - t0
     check(all(v > 0 for v in flash.values()),
@@ -3199,11 +3299,12 @@ def recurrent_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
             launches[k_] += srec["launches"][k_]
         _free(dev)
         secs[f"serve {arch}"] = time.perf_counter() - t0
-    rec["launches"] = dict(launches, **flash)
+    rec["launches"] = dict(launches, **flash,
+                           **{f"{k_}_tc": v for k_, v in flash_tc.items()})
     rec["seconds"] = time.perf_counter() - t_phase
     rec["part_s"] = secs
-    print(f"recurrent launches {tag}: {rec['launches']} (flash: the D 256 "
-          f"CUDA-core kernels) in {rec['seconds']:.1f} s ("
+    print(f"recurrent launches {tag}: {rec['launches']} (flash at D 256: "
+          f"the `_tc` counts on the tensor cores) in {rec['seconds']:.1f} s ("
           + ", ".join(f"{k_} {v:.1f}" for k_, v in secs.items()) + ")",
           flush=True)
     return rec
@@ -3339,9 +3440,9 @@ def flash_bound_ms(kind, b, h, g, sq, sk, d, causal, window, elt) -> tuple:
 def flash_checks(fk, fref, dev, cases=None) -> dict:
     """Each flash kernel against its plain version on every case of
     flash_cases() and the FLASH_STRESS cases (or on `cases` alone, of
-    flash_cases()' form); each backward twice, bit for bit equal; every
-    bf16 case with D in FLASH_TC_HEAD_DIMS on the tensor-core forward, dq
-    and dk/dv kernels (`.launches_tc` rises), every other case on the
+    flash_cases()' form); each backward twice, bit for bit equal; each
+    kernel of a bf16 case with D in its row of FLASH_TC_HEAD_DIMS on its
+    tensor-core kernel (`.launches_tc` rises), every other call on the
     CUDA-core kernels.
     Returns
     the largest absolute error of each kernel per input dtype.
@@ -3374,8 +3475,10 @@ def flash_checks(fk, fref, dev, cases=None) -> dict:
         q_off = torch.full((1, 1), off, dtype=torch.int32, device=dev)
         kw = dict(causal=causal, window=window)
         dt = str(dtype).split(".")[-1]
-        tc = dtype == torch.bfloat16 and d in fk.FLASH_TC_HEAD_DIMS
         tc_fns = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
+        want_tc = [n if dtype == torch.bfloat16
+                   and d in fk.FLASH_TC_HEAD_DIMS[name_] else 0
+                   for name_, n in zip(FLASH_NAMES, (1, 2, 2))]
         tc0 = [f.launches_tc for f in tc_fns]
         o_rtol = tf_ if dtype == torch.float32 else 2.0**-7
         what = (f"b={b} h={h} g={g} sq={sq} sk={sk} d={d} causal={causal} "
@@ -3441,9 +3544,9 @@ def flash_checks(fk, fref, dev, cases=None) -> dict:
               and torch.equal(dk, dk2) and torch.equal(dv, dv2),
               f"flash backward not bit-reproducible at {what}")
         tc1 = [f.launches_tc - n for f, n in zip(tc_fns, tc0)]
-        check(tc1 == ([1, 2, 2] if tc else [0, 0, 0]),
+        check(tc1 == want_tc,
               f"tensor-core launches {tc1} (forward, dq, dk/dv) at {what}; "
-              f"expected {'[1, 2, 2]' if tc else 'none'}")
+              f"expected {want_tc}")
         del q, k, v, do, o, o_ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
     return {"cases": len(cases), "max_abs_err": errs, "stress": stress}
 
@@ -4090,8 +4193,9 @@ def train_steps(cfg, state, step_fn, batches, what) -> tuple:
     nonzero gradient norm a step, and the flash launches: a forward an
     attention layer (two with checkpointing: the recompute; the hybrid
     family has one a block of 3, the ssm family none), a dq and a dk/dv,
-    on the tensor cores at D 64 or 128 unless a float32 QKV bias makes q,
-    k and v float32 (as in JAX), else on the CUDA-core kernels."""
+    each on its tensor-core kernel at a D of its row of FLASH_TC_HEAD_DIMS
+    unless a float32 QKV bias makes q, k and v float32 (as in JAX), else
+    on the CUDA-core kernels."""
     from repro_torch.kernels.flash_attn import kernel as fk
     kerns = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
     torch.cuda.reset_peak_memory_stats()
@@ -4112,17 +4216,18 @@ def train_steps(cfg, state, step_fn, batches, what) -> tuple:
                                                        cfg.n_layers)
     per_step = attn * len(batches)
     want = [(1 + int(cfg.remat)) * per_step, per_step, per_step]
-    tc = attn and not cfg.qkv_bias \
-        and cfg.resolved_head_dim in fk.FLASH_TC_HEAD_DIMS
-    want_tc = want if tc else [0, 0, 0]
+    want_tc = [n if attn and not cfg.qkv_bias
+               and cfg.resolved_head_dim in fk.FLASH_TC_HEAD_DIMS[name]
+               else 0 for name, n in zip(FLASH_NAMES, want)]
     check(launches == want,
           f"{what}: flash launches {launches} over {len(batches)} steps != "
           f"{want} ({attn} attention layers: forward and recompute, dq, "
           f"dk/dv)")
     check(launches_tc == want_tc,
           f"{what}: tensor-core launches {launches_tc} != {want_tc}: a "
-          f"bf16 step at D 64 or 128 runs the tensor-core kernels, any "
-          f"other the CUDA-core ones")
+          f"bf16 step runs each kernel at a D of its row of "
+          f"FLASH_TC_HEAD_DIMS on the tensor cores, any other on the "
+          f"CUDA cores")
     check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
               and m["grad_norm"] > 0 for m in metrics),
           f"{what}: non-finite loss or grad norm: {metrics}")
@@ -4337,11 +4442,13 @@ def noisy_train_step(cfg, state, batches, loss_grads, vs, step_ms,
     return rec
 
 
-def cuda_core_fns(fk, q, k, v, do, lse, delta, q_off, causal) -> dict:
+def cuda_core_fns(fk, q, k, v, do, lse, delta, q_off, causal,
+                  window) -> dict:
     """The CUDA-core forward, dq and dk/dv kernels (flash_fwd.cu,
-    flash_bwd.cu: the earlier design, which bf16 inputs at D 64 and 128 no
-    longer reach) on the same bf16 inputs, called through their C entry
-    points, to time them beside the tensor-core kernels in one run."""
+    flash_bwd.cu: the earlier design, which bf16 calls on a tensor-core
+    route no longer reach) on the same bf16 inputs, called through their
+    C entry points, to time them beside the tensor-core kernels in one
+    run; "outputs" holds the buffers they write (O, lse, dq, dk, dv)."""
     import ctypes
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
@@ -4359,8 +4466,8 @@ def cuda_core_fns(fk, q, k, v, do, lse, delta, q_off, causal) -> dict:
                                         + st(dq) + (0,) * 6))
     dkv_st = (ctypes.c_longlong * 21)(*(st(q) + st(k) + st(v) + st(do)
                                          + (0,) * 3 + st(dk) + st(dv)))
-    rest = (b, h, h // g, sq, sk, d, int(causal), 0, 1.0 / d ** 0.5,
-            torch.cuda.current_stream().cuda_stream)
+    rest = (b, h, h // g, sq, sk, d, int(causal), int(window),
+            1.0 / d ** 0.5, torch.cuda.current_stream().cuda_stream)
     lf, lb = fk._flash_library("flash_fwd"), fk._flash_library("flash_bwd")
 
     def fwd():
@@ -4380,7 +4487,8 @@ def cuda_core_fns(fk, q, k, v, do, lse, delta, q_off, causal) -> dict:
             1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), q_off.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dkv_st, *rest) == 0, "CUDA-core dk/dv launch")
-    return {"fwd": fwd, "dq": dq_, "dkv": dkv}
+    return {"fwd": fwd, "dq": dq_, "dkv": dkv,
+            "outputs": (o, o_lse, dq, dk, dv)}
 
 
 def draw_times(dev, tag) -> dict:
@@ -4433,7 +4541,7 @@ def flash_times(fk, fref, dev, tag) -> dict:
                                      fk.flash_bwd_dkv)]
     launches_tc = [f.launches_tc for f in (fk.flash_fwd, fk.flash_bwd_dq,
                                            fk.flash_bwd_dkv)]
-    core = cuda_core_fns(fk, *args, causal=True)
+    core = cuda_core_fns(fk, *args, causal=True, window=0)
     fns = {"fwd": (lambda: fk.flash_fwd(q, k, v, q_off, **kw),
                    lambda: fref.flash_fwd_ref(q, k, v, q_off, **kw)),
            "dq": (lambda: fk.flash_bwd_dq(*args, **kw),
@@ -4519,6 +4627,7 @@ def main() -> int:
     print(f"build: {len(infos)} kernel(s) in {build_s:.1f} s; "
           + "; ".join(f"{n}: {' | '.join(v)}" for n, v in ptxas.items()),
           flush=True)
+    report["build"]["ptxas_d256"] = ptxas_d256(infos, build)
 
     phase_s["build"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -5292,21 +5401,26 @@ def main() -> int:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    # flash above D 128: the CUDA-core kernels at their second bound,
-    # launched by recurrentgemma's train steps; times at its attention
-    # shape in bf16
-    for kind, line, src in (("fwd", 41, "flash_fwd.cu"),
-                            ("dq", 134, "flash_bwd.cu"),
-                            ("dkv", 168, "flash_bwd.cu")):
+    # flash at D 256, recurrentgemma's head dim,
+    # launched by recurrentgemma's train steps (bf16): the forward and dk/dv
+    # on their tensor-core kernels' D 256 instantiations, dq on the CUDA
+    # cores; times at its attention shape in bf16
+    for kind, line, src, launched in (
+            ("fwd", 41, "flash_fwd_tc.cu", lr["flash_fwd_tc"]),
+            ("dq", 134, "flash_bwd.cu",
+             lr["flash_bwd_dq"] - lr["flash_bwd_dq_tc"]),
+            ("dkv", 168, "flash_bwd_dkv_tc.cu", lr["flash_bwd_dkv_tc"])):
         name = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
         t = recur["flash_times"][kind]
+        errs = recur["flash_vs_plain"]["max_abs_err"][kind]
         kernels["kernels"].append({
             "name": f"{name}_d256", "route": "cuda",
             "source": f"src/repro_torch/kernels/flash_attn/csrc/{src}",
             "replaces": f"src/repro/kernels/flash_attn/kernel.py:{line}",
-            "launches": lr[name],
-            "max_abs_err": max(
-                recur["flash_vs_plain"]["max_abs_err"][kind].values()),
+            "launches": launched,
+            # the tensor-core kernels take bf16 alone
+            "max_abs_err": (max(errs.values()) if kind == "dq"
+                            else errs["bfloat16"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

@@ -1,5 +1,6 @@
 // flash_fwd_tc.cu - flash attention forward on Hopper's tensor cores
-// (sm_90a: wgmma, TMA, mbarriers), for bfloat16 inputs at D = 64 or 128.
+// (sm_90a: wgmma, TMA, mbarriers), for bfloat16 inputs at D = 64, 128 or
+// 256.
 //
 // Replaces the TPU kernel repro/kernels/flash_attn/kernel.py:_flash_kernel
 // (entry flash_attention_bhsd) for the train path's type; flash_fwd.cu
@@ -35,16 +36,26 @@
 // mask drops for every row are skipped when every row of the tile keeps a
 // key (as in flash_fwd.cu).
 //
+// At D 256 the key tile is 64 (fwd_bk): 128-key stages would take 256 KB
+// of shared memory, and a consumer's 128 O accumulators leave no room for
+// a 64 x 128 S and its pieces.  S = Q K^T is then wgmma m64n64k16 over 16
+// k-steps (S 32 registers, P hi/lo 16 + 16), and O += P V one m64n256k16
+// chain a piece.  The sums, the split and the mask rules are those of D
+// 128; under recurrentgemma's 2048 window a block visits at most 34 of
+// the 64 key tiles of S 4096.
+//
 // Registers and shared memory (ptxas, CUDA 12.9): 168 registers a thread
 // at entry, then setmaxnreg gives the consumers 240 and the producer 24;
-// no spills at D 64 or 128.  Dynamic shared memory 164,904 bytes at
-// D = 128 (Q 32 KB, K and V 2 x 64 KB) and 82,984 at D = 64, so one block
-// runs on an SM.
+// no spills at D 64, 128 or 256.  Dynamic shared memory 164,904 bytes at
+// D = 128 (Q 32 KB, K and V 2 x 64 KB), 82,984 at D = 64 and 197,672 at
+// D = 256 (Q 64 KB, 64-key K and V 2 x 64 KB), so one block runs on an
+// SM.
 //
 // Bound on an H100 SXM: operations.  At B 2, H 16, S 4096, D 128, causal,
 // the two products over the kept pairs are 137 GFLOP, 0.139 ms at the
 // bf16 tensor-core rate (the split's third pass is the kernel's own cost,
-// not counted); the 67 MB of q/k/v/O take 0.02 ms.
+// not counted); the 67 MB of q/k/v/O take 0.02 ms.  At recurrentgemma-2b's
+// B 1, H 10, G 1, S 4096, D 256, causal, window 2048: 0.065 ms.
 
 #include "flash_tc.cuh"
 
@@ -53,13 +64,20 @@ namespace tc {
 namespace {
 
 constexpr int FWD_BQ = 128;  // query rows a block (64 a consumer)
-constexpr int FWD_BK = 128;  // keys a tile
+
+// keys a tile: 128, and 64 at D 256, where two stages of 128-key K and V
+// tiles would take 256 KB and a consumer's S and P pieces (64 + 64
+// registers) would not fit beside its 128 O accumulators
+template <int D>
+__host__ __device__ constexpr int fwd_bk() {
+  return D == 256 ? 64 : 128;
+}
 
 template <int D>
 struct FwdSmem {
   __nv_bfloat16 q[D / 64][FWD_BQ][64];
-  __nv_bfloat16 k[STAGES][D / 64][FWD_BK][64];
-  __nv_bfloat16 v[STAGES][D / 64][FWD_BK][64];
+  __nv_bfloat16 k[STAGES][D / 64][fwd_bk<D>()][64];
+  __nv_bfloat16 v[STAGES][D / 64][fwd_bk<D>()][64];
   uint64_t q_full, full[STAGES], empty[STAGES];
 };
 
@@ -82,6 +100,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, FwdArgs a) {
+  constexpr int FWD_BK = fwd_bk<D>();
   extern __shared__ uint8_t smem_raw[];
   FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -268,10 +287,10 @@ int launch(const void* q, const void* k, const void* v, const long long* st,
                      FWD_BQ);
   if (!err)
     err = make_map(&tk, k, B, a.Sk, G, D, Strides{st[3], st[4], st[5]},
-                   FWD_BK);
+                   fwd_bk<D>());
   if (!err)
     err = make_map(&tv, v, B, a.Sk, G, D, Strides{st[6], st[7], st[8]},
-                   FWD_BK);
+                   fwd_bk<D>());
   if (err) return err;
   const size_t smem = fwd_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -288,7 +307,7 @@ int launch(const void* q, const void* k, const void* v, const long long* st,
 }  // namespace flash
 
 // Plain C entry point (loaded with ctypes).  q (B, H, Sq, D) and k/v
-// (B, H / rep, Sk, D) bfloat16, D 64 or 128, read through the strides
+// (B, H / rep, Sk, D) bfloat16, D 64, 128 or 256, read through the strides
 // st = [q b, s, h, k b, s, h, v b, s, h, o b, s, h] (elements, head
 // dimension contiguous; the b, s and h strides multiples of 8 and the
 // pointers 16-byte aligned, as TMA needs); q_off one device int32; o
@@ -316,9 +335,18 @@ extern "C" int flash_fwd_tc_launch(const void* q, const void* k,
   auto s = (cudaStream_t)stream;
   if (D == 64) return flash::tc::launch<64>(q, k, v, st, B, H / rep, a, s);
   if (D == 128) return flash::tc::launch<128>(q, k, v, st, B, H / rep, a, s);
+  if (D == 256) return flash::tc::launch<256>(q, k, v, st, B, H / rep, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* flash_fwd_tc_error_string(int err) {
   return flash::tc::error_string(err);
+}
+
+// Dynamic shared memory a block takes at head dim D (0 for another D).
+extern "C" int flash_fwd_tc_smem_bytes(int D) {
+  if (D == 64) return (int)flash::tc::fwd_smem_bytes<64>();
+  if (D == 128) return (int)flash::tc::fwd_smem_bytes<128>();
+  if (D == 256) return (int)flash::tc::fwd_smem_bytes<256>();
+  return 0;
 }

@@ -15,9 +15,10 @@ tensor never reaches the plain version: a launch either happens or
 raises.  `<wrapper>.launches` counts the kernels launched (a
 `ring_decode` call launches two, a chunk kernel and a merge kernel).
 `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` route bfloat16 inputs
-with D in `FLASH_TC_HEAD_DIMS` to the tensor-core kernels (counted again
-in `<wrapper>.launches_tc`) and everything else to the CUDA-core kernels
-of `flash_fwd.cu` and `flash_bwd.cu`, which take any D up to
+with D in their row of `FLASH_TC_HEAD_DIMS` (64, 128 and 256 for the
+forward and dk/dv, 64 and 128 for dq) to the tensor-core kernels (counted
+again in `<wrapper>.launches_tc`) and everything else to the CUDA-core
+kernels of `flash_fwd.cu` and `flash_bwd.cu`, which take any D up to
 `FLASH_MAX_HEAD_DIM` (256; above it a call raises ValueError).
 """
 from __future__ import annotations
@@ -151,8 +152,11 @@ ring_decode.launches = 0
 # D <= 128 and for D <= 256 (csrc/flash_common.cuh)
 FLASH_MAX_HEAD_DIM = 256
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dimensions the tensor-core kernels are built for (bf16 inputs)
-FLASH_TC_HEAD_DIMS = (64, 128)
+# head dimensions each tensor-core kernel is built for (bf16 inputs), by
+# wrapper; dq at D 256 runs on the CUDA cores
+FLASH_TC_HEAD_DIMS = {"flash_fwd": (64, 128, 256),
+                      "flash_bwd_dq": (64, 128),
+                      "flash_bwd_dkv": (64, 128, 256)}
 
 # entry point -> (leading dtype argument?, tensor pointers)
 _FLASH_ENTRIES = {
@@ -228,12 +232,14 @@ def _check_cuda_flash(q, tensors) -> None:
                              f"got strides {t.stride()}")
 
 
-def _tensor_core_route(q: torch.Tensor, tensors) -> bool:
-    """Whether a CUDA call goes to the tensor-core kernels: bfloat16 with D
-    in FLASH_TC_HEAD_DIMS.  Their TMA loads need each bf16 operand 16-byte
-    aligned with (b, s, h) strides that are multiples of 8 elements; a call
-    on that route that does not meet this raises."""
-    if q.dtype != torch.bfloat16 or q.shape[3] not in FLASH_TC_HEAD_DIMS:
+def _tensor_core_route(kernel: str, q: torch.Tensor, tensors) -> bool:
+    """Whether a CUDA call of wrapper `kernel` goes to its tensor-core
+    kernel: bfloat16 with D in FLASH_TC_HEAD_DIMS[kernel].  Their TMA loads
+    need each bf16 operand 16-byte aligned with (b, s, h) strides that are
+    multiples of 8 elements; a call on that route that does not meet this
+    raises."""
+    if q.dtype != torch.bfloat16 \
+            or q.shape[3] not in FLASH_TC_HEAD_DIMS[kernel]:
         return False
     for name, t in tensors:
         if t.data_ptr() % 16 or any(st % 8 for st in _bshd_strides(t)):
@@ -260,8 +266,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_off one int32, the global position of query row 0.  Returns O
     (B, H, Sq, D) in q's dtype, a view of a contiguous (B, Sq, H, D)
     buffer, and the row logsumexp lse (B, H, Sq) float32.  bfloat16 at D
-    64 or 128 runs on the tensor cores (`flash_fwd_tc.cu`), anything else
-    on the CUDA cores (`flash_fwd.cu`)."""
+    64, 128 or 256 runs on the tensor cores (`flash_fwd_tc.cu`), anything
+    else on the CUDA cores (`flash_fwd.cu`)."""
     _check_flash(q, k, v, q_off)
     if q.device.type == "cpu":
         from repro_torch.kernels.flash_attn.ref import flash_fwd_ref
@@ -280,7 +286,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             o.data_ptr(), lse.data_ptr(), st, b, h, h // g, sq, sk, d,
             int(causal), int(window), 1.0 / (d ** 0.5),
             torch.cuda.current_stream(q.device).cuda_stream)
-    if _tensor_core_route(q, (("q", q), ("k", k), ("v", v))):
+    if _tensor_core_route("flash_fwd", q, (("q", q), ("k", k), ("v", v))):
         lib = _flash_library("flash_fwd_tc")
         _raise_on(lib.flash_fwd_tc_launch(*args), lib, "flash_fwd_tc",
                   "flash forward (tensor cores)")
@@ -317,8 +323,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_off, *, causal: bool,
     and k/v (B, G, Sk, D) as `flash_fwd` takes them, lse and delta =
     rowsum(dO * O) (B, H, Sq) float32.  Returns dq (B, H, Sq, D) float32,
     a view of a contiguous (B, Sq, H, D) buffer.  bfloat16 at D 64 or 128
-    runs on the tensor cores (`flash_bwd_dq_tc.cu`), anything else on the
-    CUDA cores (`flash_bwd.cu`)."""
+    runs on the tensor cores (`flash_bwd_dq_tc.cu`), anything else (D 256
+    too) on the CUDA cores (`flash_bwd.cu`)."""
     _bwd_operands(q, k, v, do, lse, delta, q_off)
     if q.device.type == "cpu":
         from repro_torch.kernels.flash_attn.ref import flash_bwd_dq_ref
@@ -337,7 +343,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_off, *, causal: bool,
             1.0 / (d ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
     strides = (_bshd_strides(q) + _bshd_strides(k) + _bshd_strides(v)
                + _bshd_strides(do) + _bshd_strides(dq))
-    if _tensor_core_route(q, (("q", q), ("k", k), ("v", v), ("do", do))):
+    if _tensor_core_route("flash_bwd_dq", q,
+                          (("q", q), ("k", k), ("v", v), ("do", do))):
         lib = _flash_library("flash_bwd_dq_tc")
         st = (ctypes.c_longlong * 15)(*strides)
         _raise_on(lib.flash_bwd_dq_tc_launch(*ptrs, st, *rest), lib,
@@ -358,9 +365,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_off, *, causal: bool,
     """dk and dv of flash attention per query head
     (`_flash_bwd_dkv_kernel`), operands as `flash_bwd_dq`.  Returns dk, dv
     (B, H, Sk, D) float32, views of contiguous (B, Sk, H, D) buffers; the
-    caller sums each kv group's rep heads.  bfloat16 at D 64 or 128 runs
-    on the tensor cores (`flash_bwd_dkv_tc.cu`), anything else on the CUDA
-    cores (`flash_bwd.cu`)."""
+    caller sums each kv group's rep heads.  bfloat16 at D 64, 128 or 256
+    runs on the tensor cores (`flash_bwd_dkv_tc.cu`), anything else on the
+    CUDA cores (`flash_bwd.cu`)."""
     _bwd_operands(q, k, v, do, lse, delta, q_off)
     if q.device.type == "cpu":
         from repro_torch.kernels.flash_attn.ref import flash_bwd_dkv_ref
@@ -382,7 +389,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_off, *, causal: bool,
             1.0 / (d ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
     strides = (_bshd_strides(q) + _bshd_strides(k) + _bshd_strides(v)
                + _bshd_strides(do))
-    if _tensor_core_route(q, (("q", q), ("k", k), ("v", v), ("do", do))):
+    if _tensor_core_route("flash_bwd_dkv", q,
+                          (("q", q), ("k", k), ("v", v), ("do", do))):
         lib = _flash_library("flash_bwd_dkv_tc")
         st = (ctypes.c_longlong * 18)(*(strides + _bshd_strides(dk)
                                         + _bshd_strides(dv)))

@@ -10,9 +10,11 @@ feed them to the tensor cores as two bf16 pieces, hi = bf16(x) and lo =
 bf16(x - hi), leaving at most 2^-18 of each term.  The emulation does the
 same: float32 products of bf16-exact values, the pieces rounded with
 torch's bf16 rounding (round to nearest even, as the kernels' cvt.rn),
-the forward as the kernels' online softmax over 128-key tiles with the
-scale applied after the product, the backward's scores as two chains over
-the halves of D added in float32.
+the forward as the kernels' online softmax over 128-key tiles (64-key
+tiles at D 256) with the scale applied after the product, the backward's
+scores as two chains over the halves of D added in float32.  At D 256
+the dk/dv kernel forms S and dP for (query, key) tiles and passes the
+pieces of P and dS through shared memory; the sums are the same.
 
 Two pieces hold the float32 limits the card is held to (2e-5 forward,
 5e-5 dq, dk and dv).  One piece, the control, does not: it shows that the
@@ -26,6 +28,7 @@ from repro_torch.kernels.flash_attn import ref as tref
 
 NEG_INF = tref.NEG_INF
 KEY_TILE = 128   # the forward kernel's key tile
+KEY_TILE_D256 = 64   # and at D 256
 F_TOL, B_TOL = 2e-5, 5e-5
 
 # sq, sk, rep, causal, window (B 1, H 2, D 64)
@@ -37,11 +40,11 @@ CASES = [
 ]
 
 
-def _inputs(sq, sk, rep, seed):
-    """q, dO (1, 2, Sq, 64) and k, v (1, 2 / rep, Sk, 64): float32 holding
+def _inputs(sq, sk, rep, seed, d=64):
+    """q, dO (1, 2, Sq, d) and k, v (1, 2 / rep, Sk, d): float32 holding
     bf16-exact values, so both sides multiply the same numbers."""
     rng = np.random.default_rng(seed)
-    h, g, d = 2, 2 // rep, 64
+    h, g = 2, 2 // rep
 
     def bf16(shape):
         x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
@@ -73,10 +76,11 @@ def _kv_heads(t, rep):
     return t.repeat_interleave(rep, dim=1) if rep > 1 else t
 
 
-def _emulated_fwd(q, k, v, q_off, causal, window, n):
-    """The forward kernel's arithmetic: per 128-key tile s = scale *
-    (q . k), masked (-1e30) or absent (-inf past Sk), the online softmax
-    in float32, O += P . V with P in n bf16 pieces; O / max(l, 1e-30)."""
+def _emulated_fwd(q, k, v, q_off, causal, window, n, key_tile=KEY_TILE):
+    """The forward kernel's arithmetic: per key tile (128 keys, 64 at D
+    256) s = scale * (q . k), masked (-1e30) or absent (-inf past Sk), the
+    online softmax in float32, O += P . V with P in n bf16 pieces;
+    O / max(l, 1e-30)."""
     rep = q.shape[1] // k.shape[1]
     kf, vf = _kv_heads(k, rep), _kv_heads(v, rep)
     sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
@@ -85,8 +89,8 @@ def _emulated_fwd(q, k, v, q_off, causal, window, n):
     m = torch.full(q.shape[:3] + (1,), NEG_INF)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(q)
-    for k0 in range(0, sk, KEY_TILE):
-        k1 = min(k0 + KEY_TILE, sk)
+    for k0 in range(0, sk, key_tile):
+        k1 = min(k0 + key_tile, sk)
         s = scale * torch.matmul(q, kf[:, :, k0:k1].transpose(-1, -2))
         s = torch.where(keep[:, k0:k1], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
@@ -115,6 +119,27 @@ def _emulated_dkv(q, k, v, do, lse, delta, q_off, causal, window, n):
     return _split_matmul(dst, q, n), _split_matmul(pt, do, n)
 
 
+def _emulated_dkv_d256(q, k, v, do, lse, delta, q_off, causal, window, n):
+    """The D 256 dk/dv kernel's arithmetic: s = scale * (q . k) with q . k
+    as two float32 chains over the halves of D, added; P = exp(s - lse)
+    where kept, dS = P (dP - delta) scale with dP = dO . v one chain; then
+    dV = P^T . dO and dK = dS^T . Q with P and dS in n bf16 pieces (each
+    warpgroup over its half of D's columns: the same sums)."""
+    rep = q.shape[1] // k.shape[1]
+    kf, vf = _kv_heads(k, rep), _kv_heads(v, rep)
+    half = q.shape[3] // 2
+    scale = 1.0 / q.shape[3] ** 0.5
+    keep = tref.flash_keep_mask(q.shape[2], k.shape[2], q_off,
+                                causal=causal, window=window)
+    dot = (torch.matmul(q[..., :half], kf[..., :half].transpose(-1, -2))
+           + torch.matmul(q[..., half:], kf[..., half:].transpose(-1, -2)))
+    p = torch.where(keep, torch.exp(scale * dot - lse[..., None]), 0.0)
+    dp = torch.matmul(do, vf.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    return (_split_matmul(ds.transpose(-1, -2), q, n),
+            _split_matmul(p.transpose(-1, -2), do, n))
+
+
 def _emulated_dq(q, k, v, do, lse, delta, q_off, causal, window, n):
     """The dq kernel's arithmetic: s = scale * (q . k) with q . k as two
     float32 chains over the halves of D, added; P = exp(s - lse) where
@@ -134,8 +159,8 @@ def _emulated_dq(q, k, v, do, lse, delta, q_off, causal, window, n):
     return _split_matmul(ds, kf, n)
 
 
-def _case(sq, sk, rep, causal, window, seed):
-    q, k, v, do = _inputs(sq, sk, rep, seed)
+def _case(sq, sk, rep, causal, window, seed, d=64):
+    q, k, v, do = _inputs(sq, sk, rep, seed, d)
     q_off = torch.zeros((1, 1), dtype=torch.int32)
     kw = dict(causal=causal, window=window)
     o_ref, lse_ref = tref.flash_fwd_ref(q, k, v, q_off, **kw)
@@ -199,3 +224,49 @@ def test_one_piece_breaks_the_limits(sq, sk, rep, causal, window, kernel):
     assert _outside(o, o_ref, F_TOL)
     assert _outside(dk, dk_ref, B_TOL) and _outside(dv, dv_ref, B_TOL)
     assert float((dv - dv_ref).abs().max()) > 20 * B_TOL
+
+
+# D 256, recurrentgemma-2b's head dim, at the kernels' own tiles: sq, sk,
+# rep, causal, window (B 1, H 2); ragged edges of the 64-key tiles, a
+# window that skips key tiles, rows that keep no key
+D256_CASES = [
+    (77, 77, 1, True, 0),
+    (130, 200, 2, False, 0),
+    (200, 200, 2, True, 64),
+    (160, 40, 1, True, 24),
+]
+
+
+@pytest.mark.parametrize("sq,sk,rep,causal,window", D256_CASES)
+def test_two_piece_forward_d256_within_float32_limits(sq, sk, rep, causal,
+                                                      window):
+    q, k, v, _, q_off, kw, o_ref, lse_ref, _ = _case(
+        sq, sk, rep, causal, window, sq + sk, d=256)
+    o, lse = _emulated_fwd(q, k, v, q_off, causal, window, 2,
+                           key_tile=KEY_TILE_D256)
+    torch.testing.assert_close(o, o_ref, rtol=F_TOL, atol=F_TOL)
+    torch.testing.assert_close(lse, lse_ref, rtol=F_TOL, atol=F_TOL)
+
+
+@pytest.mark.parametrize("sq,sk,rep,causal,window", D256_CASES)
+def test_two_piece_dkv_d256_within_float32_limits(sq, sk, rep, causal,
+                                                  window):
+    *_, kw, _, _, bwd = _case(sq, sk, rep, causal, window, sq + sk, d=256)
+    dk, dv = _emulated_dkv_d256(*bwd, causal, window, 2)
+    dk_ref, dv_ref = tref.flash_bwd_dkv_ref(*bwd, **kw)
+    torch.testing.assert_close(dk, dk_ref, rtol=B_TOL, atol=B_TOL)
+    torch.testing.assert_close(dv, dv_ref, rtol=B_TOL, atol=B_TOL)
+
+
+@pytest.mark.parametrize("sq,sk,rep,causal,window", D256_CASES)
+def test_one_piece_d256_breaks_the_limits(sq, sk, rep, causal, window):
+    """The control at D 256: P and dS rounded to bf16 once put O outside
+    2e-5 and dk and dv outside 5e-5."""
+    q, k, v, _, q_off, kw, o_ref, _, bwd = _case(
+        sq, sk, rep, causal, window, sq + sk, d=256)
+    o, _ = _emulated_fwd(q, k, v, q_off, causal, window, 1,
+                         key_tile=KEY_TILE_D256)
+    dk, dv = _emulated_dkv_d256(*bwd, causal, window, 1)
+    dk_ref, dv_ref = tref.flash_bwd_dkv_ref(*bwd, **kw)
+    assert _outside(o, o_ref, F_TOL)
+    assert _outside(dk, dk_ref, B_TOL) and _outside(dv, dv_ref, B_TOL)

@@ -375,6 +375,7 @@ FLASH_CASES = [
     (1, 100, 513, 2, 2, 200, False, 256, 100),
     (2, 300, 300, 4, 2, 256, False, 0, 0),
     (1, 400, 77, 4, 2, 192, True, 256, 0),    # rows that keep no key
+    (1, 400, 77, 4, 2, 256, True, 256, 0),
 ]
 
 
@@ -401,14 +402,17 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
     JAX tests' tolerances, float32 outputs whatever the input dtype), a
     bf16 O within one bf16 ulp (rtol 2^-7, atol 2e-5: two float32 sums
     that differ in their last bits may round apart); each kernel launched
-    once per call, bf16 at D 64 and 128 on the tensor-core forward, dq and
-    dk/dv kernels, and the backward repeats bit for bit."""
+    once per call, bf16 at a D of its row of FLASH_TC_HEAD_DIMS on its
+    tensor-core kernel (the forward and dk/dv at D 64, 128 and 256, dq at
+    64 and 128), and the backward repeats bit for bit."""
     causal, window = case[6], case[7]
     q, k, v, do, q_off = _flash_inputs(case, dtype, cuda_device)
     kw = dict(causal=causal, window=window)
     f_tol, b_tol = 2e-5, 5e-5
     o_rtol = f_tol if dtype == torch.float32 else 2.0**-7
-    tc = dtype == torch.bfloat16 and case[5] in rkernel.FLASH_TC_HEAD_DIMS
+    tc = [dtype == torch.bfloat16
+          and case[5] in rkernel.FLASH_TC_HEAD_DIMS[name]
+          for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
     counts = [f.launches for f in (rkernel.flash_fwd, rkernel.flash_bwd_dq,
                                    rkernel.flash_bwd_dkv)]
     counts_tc = [rkernel.flash_fwd.launches_tc,
@@ -436,8 +440,42 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
         [counts[0] + 1, counts[1] + 2, counts[2] + 2]
     assert [rkernel.flash_fwd.launches_tc, rkernel.flash_bwd_dq.launches_tc,
             rkernel.flash_bwd_dkv.launches_tc] == \
-        ([counts_tc[0] + 1, counts_tc[1] + 2, counts_tc[2] + 2] if tc
-         else counts_tc)
+        [n + calls * on for n, calls, on in zip(counts_tc, (1, 2, 2), tc)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", (128, 256))
+def test_flash_misaligned_bf16_raises(cuda_device, d):
+    """A bf16 operand that breaks the TMA loads' alignment (a base 2 bytes
+    off 16) on a tensor-core route raises ValueError and launches nothing:
+    no quiet route to the CUDA cores or the plain version.  dq at D 256,
+    which runs on the CUDA cores, takes it and matches the plain
+    version."""
+    q, k, v, do, q_off = _flash_inputs((1, 64, 64, 2, 1, d, True, 0, 0),
+                                       torch.bfloat16, cuda_device)
+    bad = torch.empty(q.numel() + 1, dtype=q.dtype,
+                      device=cuda_device)[1:].view(q.shape).copy_(q)
+    assert bad.data_ptr() % 16
+    kw = dict(causal=True)
+    o_ref, lse = rref.flash_fwd_ref(q, k, v, q_off, **kw)
+    delta = torch.sum(do.float() * o_ref.float(), dim=-1)
+    kerns = (rkernel.flash_fwd, rkernel.flash_bwd_dq, rkernel.flash_bwd_dkv)
+    counts = [f.launches for f in kerns]
+    with pytest.raises(ValueError, match="not aligned"):
+        rkernel.flash_fwd(bad, k, v, q_off, **kw)
+    with pytest.raises(ValueError, match="not aligned"):
+        rkernel.flash_bwd_dkv(bad, k, v, do, lse, delta, q_off, **kw)
+    if d in rkernel.FLASH_TC_HEAD_DIMS["flash_bwd_dq"]:
+        with pytest.raises(ValueError, match="not aligned"):
+            rkernel.flash_bwd_dq(bad, k, v, do, lse, delta, q_off, **kw)
+        assert [f.launches for f in kerns] == counts
+        return
+    dq = rkernel.flash_bwd_dq(bad, k, v, do, lse, delta, q_off, **kw)
+    torch.testing.assert_close(
+        dq, rref.flash_bwd_dq_ref(q, k, v, do, lse, delta, q_off, **kw),
+        rtol=5e-5, atol=5e-5)
+    assert [f.launches for f in kerns] == [counts[0], counts[1] + 1,
+                                           counts[2]]
 
 
 @pytest.mark.gpu
