@@ -10,8 +10,9 @@ a result:
                 this checkout (nvcc, one process per source, in parallel);
                 prints build seconds and ptxas register/shared-memory use,
                 and a line for each D 256 instantiation of the
-                tensor-core flash forward and dk/dv (registers, stack,
-                spills, which must be none, and dynamic shared memory).
+                tensor-core flash forward, dq and dk/dv (registers,
+                stack, spills, which must be none, and dynamic shared
+                memory, at most the 232,448 bytes a block may opt in to).
   2. kernels  - each kernel against its plain PyTorch version on the card.
                 cim_mbiw: torch.equal over the precision grid, both beta
                 shapes, both ADC modes, ragged shapes, the LeNet tiles at
@@ -283,23 +284,24 @@ a result:
                 depth 1 (batch 4, prompt 32, gen 4) and internvl2 at
                 depth 2 (batch 2, prompt 32 behind the prefix, gen 4).
  14. recurrent - the hybrid and ssm families at full width.  The flash
-                forward, dq and dk/dv at D 256 (bf16 forward and dk/dv on
-                the tensor cores, their `.launches_tc` rising; dq and
-                float32 on the CUDA-core kernels' second head-dimension
-                bound) against their plain versions within the phase-2
-                tolerances, float32 and bf16: recurrentgemma-2b's
-                attention (B 1, H 10, G 1, S 4096, causal, window 2048),
-                S 1000 at rep 2 with window 256 and q_off 100, and a
-                non-causal Sq 777 / Sk 513; their CUDA-event times at
-                recurrentgemma's shape in bf16 beside the plain
-                versions, the CUDA-core forward and dk/dv of the earlier
-                design (which must agree and be slower), SDPA with the
-                boolean window mask, and the bounds.  Then 3 fakequant (8, 4, 8) bf16
-                train steps at batch 1 x 4096 through launch/steps:
+                forward, dq and dk/dv at D 256 (bf16 on the tensor cores,
+                their `.launches_tc` rising; float32 on the CUDA-core
+                kernels' second head-dimension bound) against their plain
+                versions within the phase-2 tolerances, float32 and bf16:
+                recurrentgemma-2b's attention (B 1, H 10, G 1, S 4096,
+                causal, window 2048), S 1000 at rep 2 with window 256 and
+                q_off 100, and a non-causal Sq 777 / Sk 513; their
+                CUDA-event times at recurrentgemma's shape in bf16 beside
+                the plain versions, the CUDA-core forward, dq and dk/dv
+                of the earlier design (which must agree within the
+                phase-2 limits and be slower), SDPA with the boolean
+                window mask, and the bounds.  Then 3 fakequant (8, 4, 8)
+                bf16 train steps at batch 1 x 4096 through launch/steps:
                 recurrentgemma-2b at depth 5 of 26 (one block, the
                 2-layer tail; its local attention on the D 256 flash
-                kernels, two forwards with the recompute and a dk/dv a
-                step on the tensor cores, a dq on the CUDA cores; step 0 against plain attention within
+                kernels, two forwards with the recompute, a dq and a
+                dk/dv a step, all on the tensor cores; step 0 against
+                plain attention within
                 TRAIN_JNP_RTOL, in bypass and in fakequant), mamba2-1.3b
                 at depth 4 of 48; finite losses and parameters, peak
                 memory, a profiled step.  Static engine serves through
@@ -502,9 +504,12 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+# the shared memory a block may opt in to on an H100 (bytes)
+SMEM_OPT_IN = 232448
 # the D 256 instantiations of the tensor-core flash kernels: library and a
 # piece of its entry function's mangled name
 PTXAS_D256 = (("flash_fwd_tc", "flash_fwd_tc_kernelILi256E"),
+              ("flash_bwd_dq_tc", "flash_bwd_dq_tc_d256_kernel"),
               ("flash_bwd_dkv_tc", "flash_bwd_dkv_tc_d256_kernel"))
 
 
@@ -555,6 +560,9 @@ def ptxas_d256(infos, build) -> dict:
               f"dynamic shared memory", flush=True)
         check(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
               f"the D 256 instantiation of {lib_name} spills: {rep}")
+        check(0 < rep["dynamic_smem_bytes"] <= SMEM_OPT_IN,
+              f"the D 256 instantiation of {lib_name} takes more shared "
+              f"memory than a block may opt in to: {rep}")
     return out
 
 
@@ -3130,7 +3138,7 @@ def flash_d256_cases() -> list:
     """flash_cases()' form at D 256, in both dtypes: recurrentgemma's
     attention (MQA at rep 10, S 4096, causal, window 2048), a ragged S
     with rep 2, a window and a query offset, and a non-causal case.  bf16
-    runs the forward and dk/dv on the tensor cores, dq and float32 on the
+    runs the forward, dq and dk/dv on the tensor cores, float32 on the
     CUDA-core kernels' second head-dimension bound."""
     out = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -3143,11 +3151,12 @@ def flash_d256_cases() -> list:
 
 def flash_d256_times(fk, fref, dev, tag) -> dict:
     """CUDA-event ms of the three flash kernels at recurrentgemma's
-    attention shape in bf16 (the forward and dk/dv on the tensor cores, dq
-    on the CUDA cores), the CUDA-core forward and dk/dv kernels of the
-    earlier design on the same inputs, their plain versions and SDPA
-    forward / backward with the boolean causal-window mask, with bounds;
-    the launches made here are not main-path ones."""
+    attention shape in bf16 (all three on the tensor cores), the CUDA-core
+    forward, dq and dk/dv kernels of the earlier design on the same inputs
+    (each must agree with its tensor-core kernel and be slower), their
+    plain versions and SDPA forward / backward with the boolean
+    causal-window mask, with bounds; the launches made here are not
+    main-path ones."""
     b, h, g, s_, d, window = FLASH_REC[0]
     q, k, v, do = flash_inputs(b, h, g, s_, s_, d, torch.bfloat16, 9, dev)
     q_off = torch.zeros((1, 1), dtype=torch.int32, device=dev)
@@ -3160,10 +3169,9 @@ def flash_d256_times(fk, fref, dev, tag) -> dict:
     dq = fk.flash_bwd_dq(*args, **kw)
     dk, dv = fk.flash_bwd_dkv(*args, **kw)
     tc1 = [f.launches_tc - n_tc for f, (_, n_tc) in zip(kerns, before)]
-    check(tc1 == [1, 0, 1],
+    check(tc1 == [1, 1, 1],
           f"tensor-core launches {tc1} (forward, dq, dk/dv) of a bf16 D "
-          f"256 call; expected [1, 0, 1]: the forward and dk/dv on the "
-          f"tensor cores, dq on the CUDA cores")
+          f"256 call; expected [1, 1, 1]: all three on the tensor cores")
     core = cuda_core_fns(fk, *args, causal=True, window=window)
     pos = torch.arange(s_, device=dev)
     rel = pos[:, None] - pos[None, :]
@@ -3181,16 +3189,21 @@ def flash_d256_times(fk, fref, dev, tag) -> dict:
           "D 256")
     # the earlier design against the kernels on the same inputs (the
     # phase-2 limits; a bf16 O one ulp apart)
-    core["fwd"]()
-    core["dkv"]()
+    for kind in ("fwd", "dq", "dkv"):
+        core[kind]()
     torch.cuda.synchronize()
-    o_core, lse_core, _, dk_core, dv_core = core["outputs"]
+    o_core, lse_core, dq_core, dk_core, dv_core = core["outputs"]
     check(torch.allclose(o.float(), o_core.float(), rtol=2.0**-7, atol=2e-5)
           and torch.allclose(lse, lse_core, rtol=2e-5, atol=2e-5)
+          and torch.allclose(dq, dq_core, rtol=5e-5, atol=5e-5)
           and torch.allclose(dk, dk_core, rtol=5e-5, atol=5e-5)
           and torch.allclose(dv, dv_core, rtol=5e-5, atol=5e-5),
           "the CUDA-core kernels of the earlier design disagree with the "
           "tensor-core ones at D 256")
+    dq_vs_core = float((dq - dq_core).abs().max())
+    print(f"recurrent dq {tag}: the tensor-core dq against the CUDA-core "
+          f"dq of the earlier design on recurrentgemma's inputs: max |diff| "
+          f"{dq_vs_core:.3g} (limit 5e-5 + 5e-5 |x|)", flush=True)
     del dq
     fns = {"fwd": (lambda: fk.flash_fwd(q, k, v, q_off, **kw),
                    lambda: fref.flash_fwd_ref(q, k, v, q_off, **kw)),
@@ -3202,28 +3215,26 @@ def flash_d256_times(fk, fref, dev, tag) -> dict:
     sdpa_bwd = cuda_ms(sdpa_fwd_bwd, 5) - sdpa_fwd
     out = {"shape": {"b": b, "h": h, "g": g, "s": s_, "d": d,
                      "causal": True, "window": window, "dtype": "bfloat16"},
-           "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd}
+           "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
+           "dq_vs_cuda_core_max_abs": dq_vs_core}
     for kind, (kern, plain) in fns.items():
         bnd, by = flash_bound_ms(kind, b, h, g, s_, s_, d, True, window, 2)
         out[kind] = {"ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 2),
                      "bound_ms": bnd, "bound_by": by,
                      "library_ms": sdpa_fwd if kind == "fwd" else sdpa_bwd,
-                     "route": "tensor cores" if kind != "dq"
-                     else "CUDA cores"}
+                     "route": "tensor cores",
+                     "cuda_core_ms": cuda_ms(core[kind], 3)}
         r = out[kind]
-        if kind != "dq":
-            r["cuda_core_ms"] = cuda_ms(core[kind], 3)
-        earlier = (f", CUDA-core kernel (earlier design) "
-                   f"{r['cuda_core_ms']:.3f} ms" if kind != "dq" else "")
         print(f"time {tag} flash_{kind} ({r['route']}) B={b} H={h} G={g} "
               f"S={s_} D={d} causal window {window} bf16: kernel "
-              f"{r['ms']:.3f} ms{earlier}, plain {r['plain_ms']:.3f} ms, "
+              f"{r['ms']:.3f} ms, CUDA-core kernel (earlier design) "
+              f"{r['cuda_core_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
               f"SDPA "
               f"{'forward' if kind == 'fwd' else 'backward (dq, dk, dv)'}"
               f" with the boolean mask {r['library_ms']:.3f} ms, bound "
               f"{bnd:.4f} ms ({by})", flush=True)
     check(all(out[kind]["ms"] < out[kind]["cuda_core_ms"]
-              for kind in ("fwd", "dkv")),
+              for kind in ("fwd", "dq", "dkv")),
           "a D 256 tensor-core kernel is slower than the CUDA-core kernel "
           "it replaces")
     for f, (n, n_tc) in zip(kerns, before):
@@ -3255,8 +3266,8 @@ def recurrent_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
     checks = flash_checks(fk, fref, dev, cases=flash_d256_cases())
     rec["flash_vs_plain"] = checks
     print(f"recurrent kernels {tag}: flash_fwd / flash_bwd_dq / "
-          f"flash_bwd_dkv at D 256 (bf16 forward and dk/dv on the tensor "
-          f"cores; dq and float32 on the CUDA-core kernels' second bound) "
+          f"flash_bwd_dkv at D 256 (bf16 on the tensor cores; float32 on "
+          f"the CUDA-core kernels' second bound) "
           f"within tolerance of plain on {checks['cases']} cases "
           f"(recurrentgemma's B 1 H 10 G 1 S {REC_TRAIN_SEQ} causal window "
           f"2048; S 1000 rep 2 window 256 q_off 100; non-causal Sq 777 Sk "
@@ -5401,14 +5412,12 @@ def main() -> int:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    # flash at D 256, recurrentgemma's head dim,
-    # launched by recurrentgemma's train steps (bf16): the forward and dk/dv
-    # on their tensor-core kernels' D 256 instantiations, dq on the CUDA
-    # cores; times at its attention shape in bf16
+    # flash at D 256, recurrentgemma's head dim, launched by
+    # recurrentgemma's train steps (bf16) on the tensor-core kernels' D 256
+    # designs; times at its attention shape in bf16
     for kind, line, src, launched in (
             ("fwd", 41, "flash_fwd_tc.cu", lr["flash_fwd_tc"]),
-            ("dq", 134, "flash_bwd.cu",
-             lr["flash_bwd_dq"] - lr["flash_bwd_dq_tc"]),
+            ("dq", 134, "flash_bwd_dq_tc.cu", lr["flash_bwd_dq_tc"]),
             ("dkv", 168, "flash_bwd_dkv_tc.cu", lr["flash_bwd_dkv_tc"])):
         name = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
         t = recur["flash_times"][kind]
@@ -5419,8 +5428,7 @@ def main() -> int:
             "replaces": f"src/repro/kernels/flash_attn/kernel.py:{line}",
             "launches": launched,
             # the tensor-core kernels take bf16 alone
-            "max_abs_err": (max(errs.values()) if kind == "dq"
-                            else errs["bfloat16"]),
+            "max_abs_err": errs["bfloat16"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

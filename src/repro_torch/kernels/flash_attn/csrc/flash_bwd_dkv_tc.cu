@@ -358,23 +358,6 @@ constexpr size_t dkv256_smem_bytes() {
 static_assert(dkv256_smem_bytes() <= 232448,
               "the D 256 tiles outgrow the shared memory a block may use");
 
-// the pieces' named barrier, over the two consumer warpgroups
-constexpr int PIECES_BAR = 1;
-
-// two values of x (keys `col`, `col` + 1 of query `row`) into the pieces
-__device__ __forceinline__ void store_pieces(__nv_bfloat16 (&hi)[64][64],
-                                             __nv_bfloat16 (&lo)[64][64],
-                                             int row, int col, float x0,
-                                             float x1) {
-  uint32_t h, l;
-  split2(x0, x1, h, l);
-  const uint32_t off = sw128(row, 2 * col);
-  *reinterpret_cast<uint32_t*>(reinterpret_cast<uint8_t*>(&hi[0][0]) + off) =
-      h;
-  *reinterpret_cast<uint32_t*>(reinterpret_cast<uint8_t*>(&lo[0][0]) + off) =
-      l;
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_tc_d256_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,

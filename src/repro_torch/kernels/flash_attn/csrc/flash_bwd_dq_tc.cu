@@ -1,5 +1,6 @@
 // flash_bwd_dq_tc.cu - dq of flash attention on Hopper's tensor cores
-// (sm_90a: wgmma, TMA, mbarriers), for bfloat16 inputs at D = 64 or 128.
+// (sm_90a: wgmma, TMA, mbarriers), for bfloat16 inputs at D = 64, 128 or
+// 256 (D 256: its own kernel, flash_bwd_dq_tc_d256_kernel below).
 //
 // Replaces the TPU kernel
 // repro/kernels/flash_attn/kernel.py:_flash_bwd_dq_kernel for the train
@@ -42,12 +43,25 @@
 // keeps and end at the last one the causal mask keeps; the tiles skipped
 // have p = 0 exactly.  Every sum runs in a fixed order and nothing is
 // added atomically, so a call repeats bit for bit.  Rows past Sq are not
-// stored; keys past Sk read as zeros and get p = 0.
+// stored; keys past Sk read as zeros and get p = 0.  At D 256 the
+// accumulator and the tiles do not fit this design; the D 256 kernel
+// (below) takes 64 rows a block and splits D between its warpgroups, with
+// dS through shared memory.
+//
+// Registers and shared memory (ptxas, CUDA 12.9): 168 registers a thread
+// at entry, then setmaxnreg gives the consumers 240 and the producer 24;
+// no spill (0-byte stack frame) at D 64, 128 and 256.  Dynamic shared
+// memory 66,600 bytes at D 64, 132,136 at D 128 and 214,056 at D 256 (Q
+// and dO 2 x 32 KB, K and V 2 stages x 64 KB, the pieces 2 x 8 KB) of the
+// 232,448 a block may opt in to: one block an SM (ptxas and the library's
+// flash_bwd_dq_tc_smem_bytes, in chip_smoke.py's build phase).
 //
 // Bound on an H100 SXM: operations.  At B 2, H 16, S 4096, D 128, causal,
 // the three products over the kept pairs are 206 GFLOP, 0.21 ms at the
 // bf16 tensor-core rate (the split's fourth pass is the kernel's own
-// cost, not counted); the bytes take under 0.05 ms.
+// cost, not counted); the bytes take under 0.05 ms.  At
+// recurrentgemma-2b's B 1, H 10, G 1, S 4096, D 256, causal, window 2048:
+// 0.0977 ms (operations).
 
 #include "flash_tc.cuh"
 
@@ -269,12 +283,238 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// -- D 256 ------------------------------------------------------------------
+//
+// At D 256 a warpgroup that owned 64 query rows would hold 64 x 256 of dQ,
+// 128 float registers a thread beside S, its second half-chain and dP, and
+// 128-row Q and dO tiles with two K/V stages would take 256 KB.  So a block
+// takes 64 query rows, and its two consumer warpgroups split the keys for
+// the scores (keys 32 w .. 32 w + 31 of each 64-key tile) and D for the
+// accumulator (columns 128 w .. 128 w + 127 of dQ: 64 registers): each
+// forms S = Q K^T and dP = dO V^T for the tile's 64 rows and its 32 keys
+// (wgmma m64n32k16 over the whole of D; S as two chains over the halves of
+// D, added in float32, as at D 128), then P and dS in float32.  The hi/lo
+// pieces of dS go to shared memory as (query, key) tiles under the 128-byte
+// swizzle; after a named barrier both warpgroups read all 64 keys of them,
+// K-major, as wgmma's A operand, with the K tile MN-major as B: dQ +=
+// dS_hi K + dS_lo K over their own columns (m64n128k16).  A second barrier
+// keeps a warpgroup from overwriting the pieces while the other still
+// reads them.
+
+constexpr int DQ256_BQ = 64;  // query rows a block
+constexpr int DQ256_BK = 64;  // keys a streamed tile
+
+struct Dq256Smem {
+  __nv_bfloat16 q[4][DQ256_BQ][64];
+  __nv_bfloat16 dout[4][DQ256_BQ][64];
+  __nv_bfloat16 k[STAGES][4][DQ256_BK][64];
+  __nv_bfloat16 v[STAGES][4][DQ256_BK][64];
+  // the current tile's pieces of dS, row = query, column = key
+  __nv_bfloat16 ds_hi[DQ256_BQ][64], ds_lo[DQ256_BQ][64];
+  uint64_t q_full, full[STAGES], empty[STAGES];
+};
+
+constexpr size_t dq256_smem_bytes() {
+  return sizeof(Dq256Smem) + 1024;  // + room to align the base to 1024
+}
+static_assert(dq256_smem_bytes() <= 232448,
+              "the D 256 tiles outgrow the shared memory a block may use");
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_tc_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            DqArgs a) {
+  constexpr int D = 256, BQ = DQ256_BQ, BK = DQ256_BK;
+  extern __shared__ uint8_t smem_raw[];
+  Dq256Smem& sm = *reinterpret_cast<Dq256Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y, b = blockIdx.z, g = h / a.rep;
+  const int q_off = *a.q_off;
+
+  // key tiles to visit, as in the D <= 128 kernel
+  const int n_kt = (a.Sk + BK - 1) / BK;
+  const int last_row = min(q0 + BQ, a.Sq) - 1;
+  int kt0 = 0, kt1 = n_kt;
+  if (a.window > 0) kt0 = max(0, q_off + q0 - a.window + 1) / BK;
+  if (a.causal) kt1 = max(0, min(n_kt, floor_div(q_off + last_row, BK) + 1));
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 2 * WG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == 0) {
+    // -- producer: one thread issues every load --------------------------
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(&sm.q_full, 2 * BQ * D * 2);
+      tma_tile<D>(&sm.q[0][0][0], BQ, &tq, &sm.q_full, q0, h, b);
+      tma_tile<D>(&sm.dout[0][0][0], BQ, &tdo, &sm.q_full, q0, h, b);
+      for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&sm.empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_arrive_tx(&sm.full[s], 2 * BK * D * 2);
+        tma_tile<D>(&sm.k[s][0][0][0], BK, &tk, &sm.full[s], kt * BK, g, b);
+        tma_tile<D>(&sm.v[s][0][0][0], BK, &tv, &sm.full[s], kt * BK, g, b);
+      }
+    }
+  } else {
+    // -- consumers: keys 32 cw .. for S and dP, columns 128 cw .. for dQ --
+    regs_inc<CONSUMER_REGS>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % WG, lane = tid % 32;
+    const int t = lane % 4;
+    const int row = 16 * (tid / 32) + lane / 4;  // and +8: a query row of
+                                                 // S, dP and dQ
+    const int kcol = 32 * cw;                    // S's first key
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int r = q0 + row + 8 * ri;
+      const long long at = ((long long)b * a.H + h) * a.Sq + r;
+      lse_r[ri] = r < a.Sq ? a.lse[at] : 0.0f;
+      delta_r[ri] = r < a.Sq ? a.delta[at] : 0.0f;
+    }
+
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+    mbar_wait(&sm.q_full, 0);
+    for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+      const int s = i % STAGES;
+      const int k0 = kt * BK;
+      mbar_wait(&sm.full[s], (i / STAGES) & 1);
+
+      // S = Q K^T and dP = dO V^T (64 rows x this warpgroup's 32 keys)
+      float sc[16], sc_hi[16], dp[16];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk)
+        wgmma_ss(sc, desc_k(&sm.q[0][0][0], BQ, 0, kk),
+                 desc_k(&sm.k[s][0][0][0], BK, kcol, kk), kk > 0);
+#pragma unroll
+      for (int kk = D / 32; kk < D / 16; ++kk)
+        wgmma_ss(sc_hi, desc_k(&sm.q[0][0][0], BQ, 0, kk),
+                 desc_k(&sm.k[s][0][0][0], BK, kcol, kk), kk > D / 32);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp, desc_k(&sm.dout[0][0][0], BQ, 0, kk),
+                 desc_k(&sm.v[s][0][0][0], BK, kcol, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(sc_hi);
+      fence_regs(dp);
+
+      // dS in place of dP; value 4 j + 2 ri + c is row q0 + row + 8 ri,
+      // key k0 + kcol + 8 j + 2 t + c
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri) {
+        const int r = q0 + row + 8 * ri;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * ri + c;
+            const int kp = k0 + kcol + 8 * j + 2 * t + c;
+            float p = 0.0f;
+            if (r < a.Sq && kp < a.Sk
+                && keep(q_off + r, kp, a.causal, a.window))
+              p = expf(__fmul_rn(a.scale, sc[e] + sc_hi[e]) - lse_r[ri]);
+            dp[e] = p * (dp[e] - delta_r[ri]) * a.scale;
+          }
+      }
+
+      // the other warpgroup has read the last tile's pieces; write these
+      bar_sync(PIECES_BAR, 2 * WG);
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = 4 * j + 2 * ri;
+          store_pieces(sm.ds_hi, sm.ds_lo, row + 8 * ri, kcol + 8 * j + 2 * t,
+                       dp[e], dp[e + 1]);
+        }
+      fence_proxy_async();
+      bar_sync(PIECES_BAR, 2 * WG);
+
+      // dQ += dS_hi K + dS_lo K over columns 128 cw .. 128 cw + 127: dS
+      // K-major, K MN-major
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss_mn<0>(acc, desc_k(&sm.ds_hi[0][0], BQ, 0, kk),
+                       desc_mn(&sm.k[s][2 * cw][0][0], BK, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss_mn<0>(acc, desc_k(&sm.ds_lo[0][0], BQ, 0, kk),
+                       desc_mn(&sm.k[s][2 * cw][0][0], BK, kk), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(&sm.empty[s]);
+    }
+
+    // dq (float32) of rows q0 + row, + 8, columns 128 cw ..; rows past Sq
+    // are not stored
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri) {
+      const int r = q0 + row + 8 * ri;
+      if (r >= a.Sq) continue;
+      float* qrow = a.dq + b * a.sdq.b + (long long)r * a.sdq.s
+                    + h * a.sdq.h + 128 * cw;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(qrow + 8 * j + 2 * t) =
+            make_float2(acc[4 * j + 2 * ri], acc[4 * j + 2 * ri + 1]);
+    }
+  }
+}
+
+int launch_d256(const void* q, const void* k, const void* v, const void* dout,
+                const long long* st, int B, int G, const DqArgs& a,
+                cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_map(&tq, q, B, a.Sq, a.H, 256, Strides{st[0], st[1], st[2]},
+                     DQ256_BQ);
+  if (!err)
+    err = make_map(&tk, k, B, a.Sk, G, 256, Strides{st[3], st[4], st[5]},
+                   DQ256_BK);
+  if (!err)
+    err = make_map(&tv, v, B, a.Sk, G, 256, Strides{st[6], st[7], st[8]},
+                   DQ256_BK);
+  if (!err)
+    err = make_map(&tdo, dout, B, a.Sq, a.H, 256,
+                   Strides{st[9], st[10], st[11]}, DQ256_BQ);
+  if (err) return err;
+  const size_t smem = dq256_smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_tc_d256_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.Sq + DQ256_BQ - 1) / DQ256_BQ, a.H, B);
+  flash_bwd_dq_tc_d256_kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv,
+                                                               tdo, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace tc
 }  // namespace flash
 
 // Plain C entry point (loaded with ctypes).  q, dO (B, H, Sq, D) and k/v
-// (B, H / rep, Sk, D) bfloat16, D 64 or 128, through the strides st =
+// (B, H / rep, Sk, D) bfloat16, D 64, 128 or 256, through the strides st =
 // [q, k, v, dO, dq] x [b, s, h] (elements, head dimension contiguous; the
 // bf16 operands' strides multiples of 8 and their pointers 16-byte
 // aligned, as TMA needs); lse and delta (B, H, Sq) float32 contiguous;
@@ -307,9 +547,19 @@ extern "C" int flash_bwd_dq_tc_launch(const void* q, const void* k,
     return flash::tc::launch<64>(q, k, v, dout, st, B, H / rep, a, s);
   if (D == 128)
     return flash::tc::launch<128>(q, k, v, dout, st, B, H / rep, a, s);
+  if (D == 256)
+    return flash::tc::launch_d256(q, k, v, dout, st, B, H / rep, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* flash_bwd_dq_tc_error_string(int err) {
   return flash::tc::error_string(err);
+}
+
+// Dynamic shared memory a block takes at head dim D (0 for another D).
+extern "C" int flash_bwd_dq_tc_smem_bytes(int D) {
+  if (D == 64) return (int)flash::tc::dq_smem_bytes<64>();
+  if (D == 128) return (int)flash::tc::dq_smem_bytes<128>();
+  if (D == 256) return (int)flash::tc::dq256_smem_bytes();
+  return 0;
 }

@@ -351,9 +351,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
         "r"(1));
 }
 
-// d[64 x 128] (+)= a[64 x 16] . b[16 x 128]: a and b both MN-major in
-// shared memory (a's M and b's N contiguous); d is overwritten when
-// `accumulate` is 0
+// d[64 x 128] (+)= a[64 x 16] . b[16 x 128]: b MN-major in shared memory
+// (N contiguous), a in shared memory MN-major (M contiguous) or, with
+// A_MN 0, K-major; d is overwritten when `accumulate` is 0
+template <int A_MN = 1>
 __device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t da,
                                             uint64_t db, int accumulate) {
   asm volatile(
@@ -364,7 +365,7 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t da,
       "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
       "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
       "%58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 1, 1;\n}\n"
+      ", %64, %65, p, 1, 1, %67, 1;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -379,7 +380,7 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(A_MN));
 }
 
 // -- shared memory written by threads, read by wgmma -----------------------
@@ -414,6 +415,26 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
       x0 - __low2float(h), x1 - __high2float(h));
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// the named barrier over the two consumer warpgroups that guards a tile of
+// pieces in shared memory (flash_bwd_dq_tc.cu and flash_bwd_dkv_tc.cu at
+// D 256)
+constexpr int PIECES_BAR = 1;
+
+// the pieces of two values of x (columns `col`, `col` + 1 of row `row`)
+// into two 64 x 64 bf16 tiles under the 128-byte swizzle
+__device__ __forceinline__ void store_pieces(__nv_bfloat16 (&hi)[64][64],
+                                             __nv_bfloat16 (&lo)[64][64],
+                                             int row, int col, float x0,
+                                             float x1) {
+  uint32_t h, l;
+  split2(x0, x1, h, l);
+  const uint32_t off = sw128(row, 2 * col);
+  *reinterpret_cast<uint32_t*>(reinterpret_cast<uint8_t*>(&hi[0][0]) + off) =
+      h;
+  *reinterpret_cast<uint32_t*>(reinterpret_cast<uint8_t*>(&lo[0][0]) + off) =
+      l;
 }
 
 // -- host: TMA tensor maps -------------------------------------------------

@@ -15,11 +15,11 @@ tensor never reaches the plain version: a launch either happens or
 raises.  `<wrapper>.launches` counts the kernels launched (a
 `ring_decode` call launches two, a chunk kernel and a merge kernel).
 `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv` route bfloat16 inputs
-with D in their row of `FLASH_TC_HEAD_DIMS` (64, 128 and 256 for the
-forward and dk/dv, 64 and 128 for dq) to the tensor-core kernels (counted
-again in `<wrapper>.launches_tc`) and everything else to the CUDA-core
-kernels of `flash_fwd.cu` and `flash_bwd.cu`, which take any D up to
-`FLASH_MAX_HEAD_DIM` (256; above it a call raises ValueError).
+with D in their row of `FLASH_TC_HEAD_DIMS` (64, 128 and 256 for each)
+to the tensor-core kernels (counted again in `<wrapper>.launches_tc`)
+and everything else to the CUDA-core kernels of `flash_fwd.cu` and
+`flash_bwd.cu`, which take any D up to `FLASH_MAX_HEAD_DIM` (256; above
+it a call raises ValueError).
 """
 from __future__ import annotations
 
@@ -153,9 +153,9 @@ ring_decode.launches = 0
 FLASH_MAX_HEAD_DIM = 256
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head dimensions each tensor-core kernel is built for (bf16 inputs), by
-# wrapper; dq at D 256 runs on the CUDA cores
+# wrapper
 FLASH_TC_HEAD_DIMS = {"flash_fwd": (64, 128, 256),
-                      "flash_bwd_dq": (64, 128),
+                      "flash_bwd_dq": (64, 128, 256),
                       "flash_bwd_dkv": (64, 128, 256)}
 
 # entry point -> (leading dtype argument?, tensor pointers)
@@ -322,9 +322,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_off, *, causal: bool,
     """dq of flash attention (`_flash_bwd_dq_kernel`): q, do (B, H, Sq, D)
     and k/v (B, G, Sk, D) as `flash_fwd` takes them, lse and delta =
     rowsum(dO * O) (B, H, Sq) float32.  Returns dq (B, H, Sq, D) float32,
-    a view of a contiguous (B, Sq, H, D) buffer.  bfloat16 at D 64 or 128
-    runs on the tensor cores (`flash_bwd_dq_tc.cu`), anything else (D 256
-    too) on the CUDA cores (`flash_bwd.cu`)."""
+    a view of a contiguous (B, Sq, H, D) buffer.  bfloat16 at D 64, 128 or
+    256 runs on the tensor cores (`flash_bwd_dq_tc.cu`), anything else on
+    the CUDA cores (`flash_bwd.cu`)."""
     _bwd_operands(q, k, v, do, lse, delta, q_off)
     if q.device.type == "cpu":
         from repro_torch.kernels.flash_attn.ref import flash_bwd_dq_ref

@@ -2,8 +2,8 @@
 against the JAX package's Pallas kernels in interpret mode, as
 `tests/test_torch_flash_attn.py` holds D <= 128: the plain versions on
 the CPU (the CUDA-core kernels' second head-dimension bound, D <= 256,
-and the bf16 tensor-core forward and dk/dv at D 256 are held to them on
-the card in `tests/test_torch_gpu.py`; their arithmetic is emulated in
+and the bf16 tensor-core forward, dq and dk/dv at D 256 are held to them
+on the card in `tests/test_torch_gpu.py`; their arithmetic is emulated in
 `tests/test_torch_flash_split.py`).
 
 Tolerances are the JAX tests' own: forward within 2e-5 and gradients
@@ -35,12 +35,11 @@ def _torch(*arrays, grad=False):
 
 
 def test_head_dim_bound_is_256():
-    """The CUDA-core kernels take D up to 256; the tensor-core forward and
-    dk/dv are built for D 64, 128 and 256, the tensor-core dq for 64 and
-    128 (dq at D 256 stays on the CUDA cores)."""
+    """The CUDA-core kernels take D up to 256; the tensor-core forward, dq
+    and dk/dv are each built for D 64, 128 and 256."""
     assert tkernel.FLASH_MAX_HEAD_DIM == 256
     assert tkernel.FLASH_TC_HEAD_DIMS == {"flash_fwd": (64, 128, 256),
-                                          "flash_bwd_dq": (64, 128),
+                                          "flash_bwd_dq": (64, 128, 256),
                                           "flash_bwd_dkv": (64, 128, 256)}
 
 

@@ -13,8 +13,9 @@ torch's bf16 rounding (round to nearest even, as the kernels' cvt.rn),
 the forward as the kernels' online softmax over 128-key tiles (64-key
 tiles at D 256) with the scale applied after the product, the backward's
 scores as two chains over the halves of D added in float32.  At D 256
-the dk/dv kernel forms S and dP for (query, key) tiles and passes the
-pieces of P and dS through shared memory; the sums are the same.
+the dk/dv and dq kernels form S and dP for (query, key) tiles and pass
+the pieces of P and dS through shared memory; dq there sums its 64-key
+tiles in order, each warpgroup over half of D's columns.
 
 Two pieces hold the float32 limits the card is held to (2e-5 forward,
 5e-5 dq, dk and dv).  One piece, the control, does not: it shows that the
@@ -159,6 +160,39 @@ def _emulated_dq(q, k, v, do, lse, delta, q_off, causal, window, n):
     return _split_matmul(ds, kf, n)
 
 
+def _emulated_dq_d256(q, k, v, do, lse, delta, q_off, causal, window, n,
+                      key_tile=KEY_TILE_D256):
+    """The D 256 dq kernel's arithmetic: per 64-key tile s = scale * (q .
+    k) with q . k as two float32 chains over the halves of D, added; P =
+    exp(s - lse) where kept, dS = P (dP - delta) scale with dP = dO . v one
+    chain; then dQ += dS_tile . K_tile with dS in n bf16 pieces, piece by
+    piece and tile by tile in the kernel's order, each warpgroup over its
+    half of D's columns."""
+    rep = q.shape[1] // k.shape[1]
+    kf, vf = _kv_heads(k, rep), _kv_heads(v, rep)
+    sk, d = k.shape[2], q.shape[3]
+    half = d // 2
+    scale = 1.0 / d ** 0.5
+    keep = tref.flash_keep_mask(q.shape[2], sk, q_off, causal=causal,
+                                window=window)
+    cols = []
+    for c0 in (0, half):
+        acc = torch.zeros(q.shape[:3] + (half,), dtype=torch.float32)
+        for k0 in range(0, sk, key_tile):
+            kt = kf[:, :, k0:k0 + key_tile]
+            kt_t = kt.transpose(-1, -2)
+            dot = (torch.matmul(q[..., :half], kt_t[..., :half, :])
+                   + torch.matmul(q[..., half:], kt_t[..., half:, :]))
+            p = torch.where(keep[:, k0:k0 + key_tile],
+                            torch.exp(scale * dot - lse[..., None]), 0.0)
+            dp = torch.matmul(do, vf[:, :, k0:k0 + key_tile].transpose(-1, -2))
+            ds = p * (dp - delta[..., None]) * scale
+            for piece in _pieces(ds, n):
+                acc = acc + torch.matmul(piece, kt[..., c0:c0 + half])
+        cols.append(acc)
+    return torch.cat(cols, dim=-1)
+
+
 def _case(sq, sk, rep, causal, window, seed, d=64):
     q, k, v, do = _inputs(sq, sk, rep, seed, d)
     q_off = torch.zeros((1, 1), dtype=torch.int32)
@@ -256,6 +290,24 @@ def test_two_piece_dkv_d256_within_float32_limits(sq, sk, rep, causal,
     dk_ref, dv_ref = tref.flash_bwd_dkv_ref(*bwd, **kw)
     torch.testing.assert_close(dk, dk_ref, rtol=B_TOL, atol=B_TOL)
     torch.testing.assert_close(dv, dv_ref, rtol=B_TOL, atol=B_TOL)
+
+
+@pytest.mark.parametrize("sq,sk,rep,causal,window", D256_CASES)
+def test_two_piece_dq_d256_within_float32_limits(sq, sk, rep, causal,
+                                                 window):
+    *_, kw, _, _, bwd = _case(sq, sk, rep, causal, window, sq + sk, d=256)
+    dq = _emulated_dq_d256(*bwd, causal, window, 2)
+    torch.testing.assert_close(dq, tref.flash_bwd_dq_ref(*bwd, **kw),
+                               rtol=B_TOL, atol=B_TOL)
+
+
+@pytest.mark.parametrize("sq,sk,rep,causal,window", D256_CASES)
+def test_one_piece_dq_d256_breaks_the_limit(sq, sk, rep, causal, window):
+    """The control for dq at D 256: dS rounded to bf16 once puts dq
+    outside 5e-5."""
+    *_, kw, _, _, bwd = _case(sq, sk, rep, causal, window, sq + sk, d=256)
+    dq = _emulated_dq_d256(*bwd, causal, window, 1)
+    assert _outside(dq, tref.flash_bwd_dq_ref(*bwd, **kw), B_TOL)
 
 
 @pytest.mark.parametrize("sq,sk,rep,causal,window", D256_CASES)
