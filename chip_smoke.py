@@ -318,7 +318,36 @@ a result:
                 the new cache), the cached prefill's last logits within
                 PREFILL_RTOL of the cache-free forward, a decode step
                 profiled.
- 15. shard    - the sharded multi-macro engine, every mesh folded onto
+ 15. audio    - the audio family at full width: whisper-medium
+                (arXiv:2212.04356: 24 encoder + 24 decoder layers, d
+                1024, 16 heads of 64, d_ff 4096, vocab 51865, layernorm,
+                tanh gelu), both stacks at full depth (AUDIO_DEPTH), bf16.
+                The flash forward, dq and dk/dv at its three attention
+                shapes (FLASH_AUDIO: the encoder's 1500 x 1500, the
+                decoder's causal 187 x 187 and the cross-attention's 187
+                queries over 1500 frames, B 1, H 16, D 64; bf16 on the
+                tensor cores, the cross-attention in float32 too) against
+                their plain versions within the phase-2 tolerances, each
+                backward bit-equal on a second run, and their CUDA-event
+                times beside SDPA's on the same inputs.  3 fakequant (8,
+                4, 8) bf16 train steps at batch 1 x 1500 seeded frames
+                (train.audio_frames, the draw kernel) and 187 tokens
+                through launch/steps, every flash launch on the tensor
+                cores, step 0 against plain attention within
+                TRAIN_JNP_RTOL in bypass and in fakequant; a profiled
+                step.  A static engine serve through launch/serve.py
+                (build, make_prompt, make_frames, static_serve; (8, 4),
+                batch 4, --prompt-len 1476 cut to its first token as the
+                launcher cuts it, gen 16, so max_len and the encoder's
+                frames are 1500): engine == fakequant bit for bit
+                (prefill and every decode logit), cim_mbiw launched the
+                planned tiles (the encoder and the cross K/V at 6000 rows
+                on the tensor cores, the decoder at 4 on split-K), no
+                plan, bind, capture or eager dispatch after warm-up, one
+                decode step by graph replay == eager, the cached
+                prefill within PREFILL_RTOL of the cache-free forward
+                over the same frames, a decode step profiled.
+ 16. shard    - the sharded multi-macro engine, every mesh folded onto
                 the card (ShardingConfig(fold_onto="cuda"), the port's
                 counterpart of the host device count the JAX package
                 fakes a bank of macros with; phi3.5-moe's sharded serve
@@ -351,7 +380,7 @@ a result:
                 (the bf16 output one ulp) and 5e-5 (float32 gradients),
                 bit-equality reported.  Placement across cards runs only
                 with 2 cards; otherwise a line says it was not run.
- 16. cimcheck - static verification (repro_torch.analysis) on the card:
+ 17. cimcheck - static verification (repro_torch.analysis) on the card:
                 (a) `python -m repro_torch.analysis --strict` in process
                 at smoke widths (LeNet, OLMo-1B's and phi3.5-moe's
                 projections over r_in {1,2,4,8} x r_w {1,2,4}, the
@@ -374,7 +403,7 @@ a result:
                 rows (the split-K route); monte_carlo's 4 trials == 4
                 runs under the split keys.  The launches of (e), the
                 slice's main path, join the kernels line.
- 17. times    - CUDA-event times of each kernel, its plain version and a
+ 18. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
                 ring_decode and the flash kernels: yardsticks the port
@@ -392,7 +421,15 @@ a result:
                 CUDA graph, and the wrapper's host microseconds per
                 launch.  For threefry_normal: at the noisy LeNet's conv1
                 draw (1569 streams of 2048), with torch.randn of as many
-                normals as a yardstick of another function.
+                normals as a yardstick of another function; its bound
+                from its SASS (`draw_trip_of` on `cuobjdump -sass`): a
+                normal's own instructions on its trip through the
+                grid-stride loop, those its key reaches (the layout's
+                index, divide, address and loop control left out; the
+                erf_inv tail side weighted by the share of warps that
+                run it), over the rate the SMs start instructions at,
+                and its integer and FMA-pipe ones over their pipes'
+                rates; the whole trip's count printed beside it.
 
 Then a capture line (captures, their seconds with each one's eager
 warm-up, and the bytes of the shared graph pool, after the LeNet and
@@ -407,6 +444,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -467,11 +505,10 @@ DRAW_STREAMS = (1, 3, 1568)
 DRAW_LENGTHS = (1, 127, 128, 129, 2048, 1 << 22)
 DRAW_MAX = 1 << 24
 DRAW_HOST_MAX = 1 << 22
-# per normal: about 84 int32 operations (the threefry rounds and key
-# injections, the bit moves) and about 97 float32 operations (an fma
-# counted as two: uniform, both log1p branches, erf_inv)
-DRAW_INT_OPS = 84
-DRAW_F32_OPS = 97
+# one warp instruction a clock on each of an SM's 4 sub-partitions, at
+# the 1.98 GHz boost clock: the lane-instructions a second the card
+# starts, whatever their pipe
+PEAK_INSTRUCTIONS = CARD.sms * 4 * 32 * 1.98e9
 # Monte-Carlo sweep of noisy LeNet: trials per scale; a scale multiplies
 # the random terms (thermal RMS and SA-offset sigma)
 MC_TRIALS = 8
@@ -502,6 +539,17 @@ PRECISION_LENET_BATCH = 8
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def check_drawn(got: torch.Tensor, key: torch.Tensor, what: str) -> None:
+    """`got`, one draw_normal stream (the launchers' frames and prefixes),
+    against the draw's plain version on the same key, bit for bit."""
+    from repro_torch.kernels.prng.ref import threefry_normal_ref
+    want = threefry_normal_ref(key.reshape(1, 2).to(got.device),
+                               got.numel())
+    check(torch.equal(got.flatten(), want.flatten()),
+          f"{what} ({tuple(got.shape)}): threefry_normal != its plain "
+          f"version on the same key")
 
 
 # the shared memory a block may opt in to on an H100 (bytes)
@@ -826,16 +874,191 @@ def ring_checks(rk, rref, dev) -> dict:
     return {"cases": rcases, "max_abs_err": rmax}
 
 
-def draw_bound_ms(streams: int, n: int) -> tuple:
+# the pipes of the draw's bound, as Hopper's SM sub-partitions split them:
+# the integer / logic pipe, which also takes float compares, selects and
+# min / max (16 lanes a sub-partition); the fused multiply-add pipes
+# (float32 add, multiply and FMA, and the integer multiply-add); the
+# special-function unit; anything else (conversions, moves between
+# files, control) is "other"
+DRAW_PIPES = {
+    "alu": ("IADD3", "IADD", "IADD32I", "VIADD", "LOP3", "LOP", "LOP32I",
+            "SHF", "SHL", "SHR", "ISETP", "LEA", "SEL", "PRMT", "IMNMX",
+            "IABS", "FLO", "POPC", "BREV", "BMSK", "MOV", "FSETP", "FSEL",
+            "FSET", "FMNMX", "FCHK"),
+    "fma": ("FADD", "FADD32I", "FMUL", "FMUL32I", "FFMA", "FFMA32I", "IMAD",
+            "IMUL", "HFMA2", "HADD2", "HMUL2", "FRND"),
+    "mufu": ("MUFU",),
+}
+# a register or predicate operand (R7, -R9, |R6|, !P0, R8.64); not RZ, PT
+# or the uniform datapath's UR / UP, which hold no per-normal value
+_DRAW_REG = re.compile(r"(?<![\w.])([RP]\d+)")
+
+
+@dataclasses.dataclass(frozen=True)
+class DrawTrip:
+    """A normal's trip through threefry_normal_kernel's loop, read off
+    its SASS (`draw_trip_of`): every instruction a normal in the bulk of
+    a draw runs (`trip`, a diagnostic: the index, divide, address and
+    loop-control instructions of the kernel's layout included), the
+    stores on it, and the normal's own work by pipe (DRAW_PIPES,
+    "other" and "all"): on that trip (`work`) and on the side of
+    erf_inv's branch the bulk leaves, which a warp also runs when one of
+    its lanes takes it (`tail`)."""
+    trip: int
+    stores: int
+    work: dict
+    tail: dict
+
+
+def _sass_target(ins, index) -> int:
+    """The index of a branch's target in its function (-1: none)."""
+    hexes = re.findall(r"\b0x([0-9a-f]+)\b", " ".join(ins.operands))
+    return index.get(int(hexes[-1], 16), -1) if hexes else -1
+
+
+def _draw_walk(insns, index, i, end):
+    """(path, tails) of a normal in the bulk from index i up to `end`:
+    the instructions in order, and the sides of if / else branches it
+    leaves, each as (its start in the path, its instructions).  An
+    if-then block runs unless it calls out (a slow path for special
+    operands, which no drawn value reaches); of an if / else the side
+    without a call runs, or else the shorter.  None where a call lies on
+    every way through."""
+    path, tails = [], []
+
+    def take(sub):
+        tails.extend((len(path) + at, side) for at, side in sub[1])
+        path.extend(sub[0])
+    while i < end:
+        ins = insns[i]
+        if ins.base in ("CALL", "CAL"):
+            return None
+        path.append(i)
+        if ins.base in ("JMP", "RET", "BRX") or (
+                ins.base == "EXIT" and not ins.guard):
+            raise ValueError(f"{ins.text()} inside the loop's trip")
+        if ins.base != "BRA":
+            i += 1
+            continue
+        t = _sass_target(ins, index)
+        if not i < t <= end:
+            raise ValueError(f"{ins.text()} leaves the loop's trip")
+        last = insns[t - 1]
+        j = (_sass_target(last, index) if last.base == "BRA"
+             and not last.guard else -1)
+        if not ins.guard:
+            i = t
+        elif j <= t:                            # if-then
+            block = _draw_walk(insns, index, i + 1, t)
+            if block is not None:
+                take(block)
+            i = t
+        else:                                   # if / else, joining at j
+            a = _draw_walk(insns, index, i + 1, t - 1)
+            b = _draw_walk(insns, index, t, j)
+            sides = [s for s in ((a[0] + [t - 1], a[1]) if a else None, b)
+                     if s is not None]
+            if not sides:
+                return None
+            sides.sort(key=lambda s: len(s[0]))
+            at = len(path)
+            take(sides[0])
+            if len(sides) == 2:
+                tails.append((at, sides[1][0]))
+            i = j
+    return path, tails
+
+
+def draw_trip_of(insns) -> DrawTrip:
+    """The trip of a normal through threefry_normal_kernel's grid-stride
+    loop (`insns`, the kernel's SASS): the loop runs from the target of
+    its one backward branch to that branch, a normal in the bulk takes
+    `_draw_walk`'s way, and a normal's own work is what its key reaches:
+    every instruction that reads a value computed from the stream's key
+    (the two key loads seed it) or is guarded by such a predicate -
+    the threefry rounds and key schedule, the bits' uniform, log1p, the
+    IEEE divide, the log, erf_inv (its square root on the tail side) and
+    the scale.  The key loads and the store are the bound's bytes; the
+    index, the i / n divide, the addresses, the loop control and the
+    constants the compiler moves into registers read no key, and are
+    the layout's, not the function's.  Raises ValueError where the code
+    has another shape."""
+    index = {ins.addr: k for k, ins in enumerate(insns)}
+    backs = [k for k, ins in enumerate(insns) if ins.base == "BRA"
+             and -1 < _sass_target(ins, index) < k]
+    if len(backs) != 1 or not insns[backs[0]].guard:
+        raise ValueError(f"not one guarded backward branch: "
+                         f"{[insns[k].text() for k in backs]}")
+    b = backs[0]
+    h = _sass_target(insns[b], index)
+    walked = _draw_walk(insns, index, h, b)
+    if walked is None:
+        raise ValueError("a call on every trip of the loop")
+    path, tails = walked[0] + [b], walked[1]
+
+    def own(seq, keyed):
+        counts = dict.fromkeys(list(DRAW_PIPES) + ["other"], 0)
+        for k in seq:
+            ins = insns[k]
+            ops = list(ins.operands)
+            if not ops or ins.base.startswith(("ST", "BRA", "BSSY",
+                                               "BSYNC", "EXIT")):
+                n_dst = 0
+            elif len(ops) > 1 and re.fullmatch(r"P(\d|T)", ops[1]):
+                n_dst = 2         # a result and a predicate: carry, compare
+            else:
+                n_dst = 1
+            dst = set(_DRAW_REG.findall(" ".join(ops[:n_dst])))
+            if dst and re.fullmatch(r"R\d+", ops[0].split(".")[0]) and (
+                    ".WIDE" in ins.opcode or ".64" in ins.opcode):
+                dst.add(f"R{int(ops[0][1:].split('.')[0]) + 1}")
+            src = set(_DRAW_REG.findall(" ".join(ops[n_dst:]) + " "
+                                        + ins.guard))
+            if ins.base == "LDG":
+                keyed |= dst
+            elif src & keyed:
+                keyed |= dst
+                if not ins.base.startswith("ST"):
+                    pipe = next((p for p, names in DRAW_PIPES.items()
+                                 if ins.base in names), "other")
+                    counts[pipe] += 1
+            elif not ins.guard:
+                keyed -= dst
+        counts["all"] = sum(counts.values())
+        return counts
+    if len(tails) != 1 or not any(insns[k].opcode.startswith("MUFU.RSQ")
+                                  for k in tails[0][1]):
+        raise ValueError("the bulk should leave one side, erf_inv's square "
+                         f"root; it leaves {len(tails)}")
+    at, side = tails[0]
+    keyed: set = set()
+    before = own(path[:at], keyed)
+    tail = own(side, set(keyed))
+    work = {p_: v + before[p_] for p_, v in own(path[at:], keyed).items()}
+    return DrawTrip(trip=len(path),
+                    stores=sum(insns[k].base == "STG" for k in path),
+                    work=work, tail=tail)
+
+
+def draw_bound_ms(streams: int, n: int, trip: DrawTrip,
+                  tail_share: float) -> tuple:
     """Least time (ms) of one threefry_normal call and what bounds it: the
-    keys read and the normals written once, against the int32 and float32
-    operations per normal at their peak rates."""
+    keys read and the normals written once, against a normal's own
+    instructions (`trip.work`, and `trip.tail` in the `tail_share` of
+    warps that hold a normal on erf_inv's tail) over PEAK_INSTRUCTIONS,
+    and those on the integer / logic pipe and on the fused multiply-add
+    pipes over their rates (64 and 128 lanes an SM: the int32 rate, and
+    half the 67 TFLOP/s, an FFMA counting two).  Returns (ms, "bytes" or
+    "operations", each term's ms)."""
     total = streams * n
-    t_bytes = (16 * streams + 4 * total) / PEAK_BYTES
-    t_ops = max(DRAW_INT_OPS * total / PEAK_INT32_OPS,
-                DRAW_F32_OPS * total / PEAK_F32_OPS)
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                       else "bytes")
+    per = {k: trip.work[k] + tail_share * trip.tail[k] for k in trip.work}
+    terms = {"bytes": (16 * streams + 4 * total) / PEAK_BYTES,
+             "instructions": per["all"] * total / PEAK_INSTRUCTIONS,
+             "alu": per["alu"] * total / PEAK_INT32_OPS,
+             "fma": 2 * per["fma"] * total / PEAK_F32_OPS}
+    worst = max(terms, key=terms.get)
+    return (1e3 * terms[worst], "bytes" if worst == "bytes"
+            else "operations", {k: 1e3 * v for k, v in terms.items()})
 
 
 def draw_checks(dev) -> dict:
@@ -1062,7 +1285,8 @@ def noisy_decode_phase(dev, tag, kern) -> dict:
     return rec
 
 
-def family_tiles(cfg, layers: int, rows: int, kmod, tprog) -> dict:
+def family_tiles(cfg, layers: int, rows: int, kmod, tprog,
+                 enc_rows: int = 0) -> dict:
     """Planned cim_mbiw launches of one engine forward of `layers` layers
     of a model family at `rows` token rows, per route.  A decoder layer:
     the four attention projections at the rows' bucket, and the FFN: an
@@ -1071,7 +1295,11 @@ def family_tiles(cfg, layers: int, rows: int, kmod, tprog) -> dict:
     bucket of its capacity.  An ssm layer: in_proj and out_proj.  The
     hybrid family: per block of 3, two RG-LRU layers (w_gelu, w_rnn,
     w_out and the MLP) and a local-attention layer (the four projections
-    and the MLP), then the tail's RG-LRU layers."""
+    and the MLP), then the tail's RG-LRU layers.  The audio family: a
+    decoder layer's self-attention, its cross-attention's q and o and
+    its MLP at the rows' bucket; with `enc_rows` (a prefill over that
+    many frame rows) also the encoder's layers (attention and MLP) and
+    each decoder layer's cross-attention k and v at that bucket."""
     from repro_torch.core import mapping
     from repro_torch.core.cim_layers import _engine_config
     from repro_torch.models.mamba2 import ssm_dims
@@ -1096,6 +1324,11 @@ def family_tiles(cfg, layers: int, rows: int, kmod, tprog) -> dict:
             w = cfg.lru_width or d
             groups = [(attn, rows, nb), (ffn, rows, layers),
                       ([(d, w), (d, w), (w, d)], rows, 2 * nb + tail)]
+        elif cfg.family == "audio":
+            groups = [(attn + [(d, qn), (qn, d)] + ffn, rows, layers)]
+            if enc_rows:
+                groups += [(attn + ffn, enc_rows, cfg.encoder_layers),
+                           ([(d, kvn), (d, kvn)], enc_rows, layers)]
         else:
             groups = [(attn, rows, layers), (ffn, ffn_rows, layers)]
     total = {"tc": 0, "splitk": 0, "cuda_core": 0}
@@ -2580,18 +2813,30 @@ def family_train_step(dev, tag, arch, depth, *, prefix: bool = False,
     bank, router and per-expert ABN gain in every layer (the offsets'
     norms are reported).  The steps are
     timed on the host, then one is profiled.  A step that does not fit
-    the card (CUDA out of memory) is reported with the peak reached."""
+    the card (CUDA out of memory) is reported with the peak reached.  An
+    audio model (both stacks cut to `depth`) trains on the launcher's
+    audio batches: `seq` seeded frames (train.audio_frames) and
+    min(max_target_len, seq // 8) tokens.  Each batch's frames and
+    prefix are held bit for bit to the draw's plain version
+    (`check_drawn`).  An audio model's three attention shapes
+    (encoder, decoder, cross) must be in `shapes`, as (B, H, G, Sq, Sk,
+    D, causal)."""
+    from repro_torch.core import prng
     from repro_torch.core.cim_layers import CIMConfig
     from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    cfg = serve.get_config(arch).replace(
-        n_layers=depth, attn_impl="pallas",
-        cim=CIMConfig(mode="fakequant", max_gamma=2.0**16))
+    cfg = serve.get_config(arch)
+    cfg = cfg.replace(n_layers=depth,
+                      encoder_layers=min(cfg.encoder_layers, depth),
+                      attn_impl="pallas",
+                      cim=CIMConfig(mode="fakequant", max_gamma=2.0**16))
+    audio = cfg.family == "audio"
+    tokens = train.audio_tokens(cfg, seq) if audio else seq
     rec = {"arch": cfg.name, "depth": depth, "fits": True}
-    data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                                    global_batch=1))
+    data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=tokens, global_batch=1))
     batches = []
     for i in range(n_steps):
         toks, labels = data.batch_at(i)
@@ -2599,12 +2844,25 @@ def family_train_step(dev, tag, arch, depth, *, prefix: bool = False,
                         "labels": torch.from_numpy(labels).long().to(dev)})
         if prefix:
             batches[-1]["prefix_embeds"] = serve.make_prefix(cfg, 1, i, dev)
+            check_drawn(batches[-1]["prefix_embeds"], prng.key(i),
+                        f"{arch} step {i}'s prefix")
+        if audio:
+            batches[-1]["encoder_frames"] = train.audio_frames(
+                cfg, 1, seq, 0, i, dev)
+            check_drawn(batches[-1]["encoder_frames"],
+                        prng.fold_in(prng.key(0), i),
+                        f"{arch} step {i}'s frames")
     shapes = FLASH_MOE if shapes is None else shapes
+    want = []                     # the ssm family runs no attention
     if cfg.family != "ssm":
-        shape = (1, cfg.n_heads, cfg.n_kv_heads, seq + (
-            cfg.vision_tokens if prefix else 0), cfg.resolved_head_dim,
-            cfg.local_window if cfg.family == "hybrid"
-            else cfg.sliding_window)
+        h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        want = ([(1, h, g, seq, seq, hd, False),
+                 (1, h, g, tokens, tokens, hd, True),
+                 (1, h, g, tokens, seq, hd, False)] if audio else
+                [(1, h, g, seq + (cfg.vision_tokens if prefix else 0), hd,
+                  cfg.local_window if cfg.family == "hybrid"
+                  else cfg.sliding_window)])
+    for shape in want:
         check(shape in shapes, f"{arch}: its attention {shape} is not one "
               f"of {shapes}, the shapes flash_checks holds against the "
               f"plain version")
@@ -2643,9 +2901,11 @@ def family_train_step(dev, tag, arch, depth, *, prefix: bool = False,
             if s0["grad_norm_min"] else "") if s0 else "")
     print(f"{label} train {tag}: {cfg.name} at full width (d "
           f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), depth "
-          f"cut to {depth}, {rec['n_params'] / 1e9:.2f} B params: "
+          + (f"{cfg.encoder_layers} + {depth}" if audio
+             else f"cut to {depth}")
+          + f", {rec['n_params'] / 1e9:.2f} B params: "
           f"{n_steps} fakequant (8,4,8) bf16 step(s), flash, batch 1 x "
-          f"{seq}"
+          + (f"{seq} frames and {tokens} tokens" if audio else f"{seq}")
           + (f" + {cfg.vision_tokens} prefix" if prefix else "")
           + f": loss {rec['loss']:.4f} (ce {rec['ce']:.4f}, aux "
           f"{rec['aux']:.4f}), grad norm {rec['grad_norm']:.4f} (last "
@@ -2756,21 +3016,25 @@ def _clone(tree):
 
 def family_serve(dev, tag, arch, depth, batch, prompt_len, gen, kern, kmod,
                  tprog, trt, clock, label: str = "moe",
-                 recurrent: bool = False) -> tuple:
+                 replay_checks: bool = False) -> tuple:
     """A static engine serve of `arch` at full width through
     launch/serve.py (build with the depth cut, make_prompt, make_prefix
-    for vlm, static_serve; bf16, (8, 4)): cim_mbiw launched the planned
+    for vlm, make_frames for audio, which serves the prompt's first
+    token over max_len frames as the launcher does, both held bit for bit
+    to the draw's plain version (`check_drawn`); static_serve; bf16,
+    (8, 4)): cim_mbiw launched the planned
     tiles of the prefill and of every decode step (family_tiles); no
     plan, bind, capture or eager dispatch after warm-up; one decode step
     profiled; then the same serve in fakequant, whose tokens and every
-    logit equal the engine's.  With `recurrent` (the ssm and hybrid
-    families) also: one more decode step from the served cache run by
-    graph replay and run eagerly (EagerServe) from two copies of that
+    logit equal the engine's.  With `replay_checks` (the ssm, hybrid and
+    audio families) also: one more decode step from the served cache run
+    by graph replay and run eagerly (EagerServe) from two copies of that
     cache, logits and new cache bit for bit equal; and the prefill's
     last logits against the cache-free forward of the prompt (the
-    recurrences from the zero state in one call each) within
-    PREFILL_RTOL relative.  Returns (record, cfg, params, prompt,
-    prefix)."""
+    recurrences from the zero state in one call each; the encoder over
+    the same frames) within PREFILL_RTOL relative.  Returns (record,
+    cfg, params, prompt, prefix)."""
+    from repro_torch.core import prng
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
     if dev.type == "cuda":
@@ -2788,16 +3052,25 @@ def family_serve(dev, tag, arch, depth, batch, prompt_len, gen, kern, kmod,
     prompt = serve.make_prompt(cfg.vocab_size, batch, prompt_len, 0, dev)
     prefix = (serve.make_prefix(cfg, batch, 0, dev)
               if cfg.family == "vlm" else None)
+    frames = None
+    if cfg.family == "audio":
+        frames = serve.make_frames(cfg, batch, max_len, 0, dev)
+        prompt = prompt[:, :1]
+    for drawn, what in ((prefix, "prefix"), (frames, "frames")):
+        if drawn is not None:
+            check_drawn(drawn, prng.key(0), f"{arch}'s served {what}")
     build_s = time.perf_counter() - t0
-    rows = batch * (prompt_len + (0 if prefix is None
-                                  else cfg.vision_tokens))
-    plan_pre = family_tiles(cfg, depth, rows, kmod, tprog)
+    rows = batch * (prompt.shape[1] + (0 if prefix is None
+                                       else cfg.vision_tokens))
+    plan_pre = family_tiles(cfg, depth, rows, kmod, tprog,
+                            enc_rows=0 if frames is None else batch * max_len)
     plan_dec = family_tiles(cfg, depth, batch, kmod, tprog)
     cap_mark, cap_n0 = len(clock.seconds), trt.CAPTURE_COUNT["n"]
     reset_counts(kern)
     with BindClock(trt) as binds:
         eng = serve.static_serve(cfg, params, prompt, gen, max_len=max_len,
-                                 keep_logits=True, prefix=prefix)
+                                 keep_logits=True, prefix=prefix,
+                                 frames=frames)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = kernel_counts(kern)
@@ -2832,14 +3105,15 @@ def family_serve(dev, tag, arch, depth, batch, prompt_len, gen, kern, kmod,
     check(trt.CAPTURE_COUNT["n"] == captures,
           f"{arch}: the profiled decode step captured")
     extra: dict = {}
-    if recurrent:
+    if replay_checks:
         with torch.no_grad():
             g_lg, g_cache, _ = tf.forward(cfg, params, tok,
                                           cache=_clone(cache))
             with EagerServe(tprog, trt):
                 e_lg, e_cache, _ = tf.forward(cfg, params, tok,
                                               cache=_clone(cache))
-            free = tf.forward(cfg, params, prompt)[0][:, -1]
+            free = tf.forward(cfg, params, prompt,
+                              encoder_frames=frames)[0][:, -1]
         torch.cuda.synchronize()
         from repro_torch.optim.adamw import tree_leaves
         check(torch.equal(g_lg, e_lg) and all(
@@ -2865,14 +3139,15 @@ def family_serve(dev, tag, arch, depth, batch, prompt_len, gen, kern, kmod,
     # engine == fakequant bit for bit, prefill and every decode step
     fq_cfg = cfg.replace(cim=cfg.cim.replace(mode="fakequant"))
     fq = serve.static_serve(fq_cfg, params, prompt, gen, max_len=max_len,
-                            keep_logits=True, prefix=prefix)
+                            keep_logits=True, prefix=prefix, frames=frames)
     diff = [i for i, (a, b) in enumerate(zip(eng["logits"], fq["logits"]))
             if not torch.equal(a, b)]
     check(not diff and torch.equal(eng["tokens"], fq["tokens"]),
           f"{arch}: engine != fakequant at steps {diff} (0 = prefill)")
     del fq
     rec = {"arch": cfg.name, "depth": depth, "batch": batch,
-           "prompt": prompt_len, "gen": gen,
+           "prompt": prompt.shape[1], "gen": gen,
+           "frames": 0 if frames is None else max_len,
            "prefix": 0 if prefix is None else cfg.vision_tokens,
            "build_s": build_s, "prefill_first_s": eng["prefill_s"],
            "warm_s": eng["warm_s"], "decode_steps": eng["steps"],
@@ -2903,10 +3178,15 @@ def family_serve(dev, tag, arch, depth, batch, prompt_len, gen, kern, kmod,
           f"{cfg.d_model}, {shape}"
           + (f", {cfg.moe_experts} experts top-{cfg.moe_top_k}"
              if cfg.family == "moe" else "")
-          + f", vocab {cfg.vocab_size}), depth cut to {depth}, bf16, "
-          f"engine (8, 4) via launch/serve.py, batch {batch}, prompt "
-          f"{prompt_len}" + (f" behind {cfg.vision_tokens} prefix tokens"
-                             if prefix is not None else "")
+          + f", vocab {cfg.vocab_size}), depth "
+          + (f"{cfg.encoder_layers} + {depth}" if frames is not None
+             else f"cut to {depth}")
+          + f", bf16, engine (8, 4) via launch/serve.py, batch {batch}, "
+          f"prompt {prompt.shape[1]}"
+          + (f" behind {cfg.vision_tokens} prefix tokens"
+             if prefix is not None else "")
+          + (f" over {max_len} encoder frames" if frames is not None
+             else "")
           + f", gen {gen}: engine == fakequant bit for bit (prefill and "
           f"{gen} decode logits, tokens); after warm-up plans/binds/"
           f"captures/eager +0; cim_mbiw {launches} (all, tc, splitk; the "
@@ -3304,7 +3584,8 @@ def recurrent_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
         t0 = time.perf_counter()
         srec, *_ = family_serve(dev, tag, arch, depth, REC_BATCH,
                                 REC_PROMPT, REC_GEN, kern, kmod, tprog, trt,
-                                clock, label="recurrent", recurrent=True)
+                                clock, label="recurrent",
+                                replay_checks=True)
         rec["serve"][arch] = srec
         for k_ in launches:
             launches[k_] += srec["launches"][k_]
@@ -3318,6 +3599,103 @@ def recurrent_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
           f"the `_tc` counts on the tensor cores) in {rec['seconds']:.1f} s ("
           + ", ".join(f"{k_} {v:.1f}" for k_, v in secs.items()) + ")",
           flush=True)
+    return rec
+
+
+AUDIO_ARCH = "whisper-medium"
+AUDIO_DEPTH = 24                  # of 24: encoder and decoder, uncut
+AUDIO_BATCH = 4
+AUDIO_PROMPT = 1476               # max_len = 1476 + 16 + 8 = 1500 frames
+AUDIO_GEN = 16
+AUDIO_FRAMES = 1500               # Whisper's 30 s window of mel frames
+AUDIO_TRAIN_STEPS = 3
+# whisper-medium's attention in a train step over AUDIO_FRAMES frames and
+# min(448, 1500 // 8) = 187 tokens: B, H, G, Sq, Sk, D, causal - the
+# encoder's, the decoder's and the cross-attention
+FLASH_AUDIO = ((1, 16, 16, AUDIO_FRAMES, AUDIO_FRAMES, 64, False),
+               (1, 16, 16, 187, 187, 64, True),
+               (1, 16, 16, 187, AUDIO_FRAMES, 64, False))
+
+
+def flash_audio_cases() -> list:
+    """flash_cases()' form for FLASH_AUDIO: each shape in bf16 (on the
+    tensor cores), and the cross-attention in float32 too."""
+    out = [(b, h, g, sq, sk, d, causal, 0, 0, torch.bfloat16)
+           for b, h, g, sq, sk, d, causal in FLASH_AUDIO]
+    b, h, g, sq, sk, d, causal = FLASH_AUDIO[2]
+    return out + [(b, h, g, sq, sk, d, causal, 0, 0, torch.float32)]
+
+
+def audio_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
+    """The audio family at full width (module docstring, phase 15):
+    the flash kernels at whisper-medium's attention shapes against their
+    plain versions and their times, then its train steps and its static
+    engine serve."""
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.flash_attn import ref as fref
+    from repro_torch.kernels.prng import kernel as pk
+    t_phase = time.perf_counter()
+    draw = pk.threefry_normal
+    draw.launches = 0
+    rec: dict = {"cuts": {AUDIO_ARCH: {"encoder_depth": AUDIO_DEPTH,
+                                       "decoder_depth": AUDIO_DEPTH,
+                                       "of": 24}}}
+    print(f"audio cuts {tag}: {AUDIO_ARCH} encoder and decoder depth "
+          f"{AUDIO_DEPTH} of 24 each, served and trained; widths, heads, "
+          f"vocabulary, max_target_len 448 and Whisper's {AUDIO_FRAMES} "
+          f"encoder frames as published", flush=True)
+    secs: dict = {}
+    t0 = time.perf_counter()
+    checks = flash_checks(fk, fref, dev, cases=flash_audio_cases())
+    rec["flash_vs_plain"] = checks
+    (_, h, _, se, _, d, _), (_, _, _, st, _, _, _), _ = FLASH_AUDIO
+    print(f"audio kernels {tag}: flash_fwd / flash_bwd_dq / flash_bwd_dkv "
+          f"at whisper-medium's attention (B 1, H {h}, D {d}: the "
+          f"encoder's {se} x {se}, the decoder's causal {st} x {st} and "
+          f"the cross-attention's {st} x {se}, bf16 on the tensor cores; "
+          f"the cross-attention in float32 too) within tolerance of plain "
+          f"on {checks['cases']} cases; max_abs_err f32 "
+          f"/ bf16 " + ", ".join(f"{k_} {v['float32']:.3g} / "
+                                 f"{v['bfloat16']:.3g}"
+                                 for k_, v in checks["max_abs_err"].items())
+          + "; every backward bit-equal on a second run", flush=True)
+    rec["flash_times"] = {
+        f"{sq}x{sk}" + (" causal" if causal else ""): flash_times(
+            fk, fref, dev, tag, (b, h, g, sq, sk, d, causal),
+            what=" at whisper's")
+        for b, h, g, sq, sk, d, causal in FLASH_AUDIO}
+    secs["flash"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr = family_train_step(dev, tag, AUDIO_ARCH, AUDIO_DEPTH, vs_plain=True,
+                           seq=AUDIO_FRAMES, n_steps=AUDIO_TRAIN_STEPS,
+                           shapes=FLASH_AUDIO, label="audio")
+    check(tr["fits"], f"{AUDIO_ARCH}: the train steps did not fit the card")
+    rec["train"] = tr
+    check(all(n > 0 for n in tr["launches_tc"].values())
+          and tr["launches_tc"] == tr["launches"],
+          f"{AUDIO_ARCH}: flash launches {tr['launches']}, on the tensor "
+          f"cores {tr['launches_tc']}: every one must be on the tensor "
+          f"cores")
+    _free(dev)
+    secs["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srec, *_ = family_serve(dev, tag, AUDIO_ARCH, AUDIO_DEPTH, AUDIO_BATCH,
+                            AUDIO_PROMPT, AUDIO_GEN, kern, kmod, tprog, trt,
+                            clock, label="audio", replay_checks=True)
+    check(srec["frames"] == AUDIO_FRAMES,
+          f"{AUDIO_ARCH}: served over {srec['frames']} frames, not "
+          f"{AUDIO_FRAMES}")
+    rec["serve"] = srec
+    _free(dev)
+    secs["serve"] = time.perf_counter() - t0
+    rec["launches"] = dict(srec["launches"], threefry_normal=draw.launches,
+                           **{f"{k_}_tc": v
+                              for k_, v in tr["launches_tc"].items()})
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["part_s"] = secs
+    print(f"audio launches {tag}: {rec['launches']} in {rec['seconds']:.1f} "
+          f"s (" + ", ".join(f"{k_} {v:.1f}" for k_, v in secs.items())
+          + ")", flush=True)
     return rec
 
 
@@ -3565,7 +3943,7 @@ def flash_checks(fk, fref, dev, cases=None) -> dict:
 FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
-# the shard phase (phase 15): the sharded multi-macro engine, its
+# the shard phase (phase 16): the sharded multi-macro engine, its
 # partitions folded onto the one card
 SHARD_DEVICES = (1, 2, 4, 8)
 SHARD_LENET_POINTS = ((4, 2), (8, 4))
@@ -3589,7 +3967,7 @@ CIMCHECK_DENSE = (4, 2048, 2048, 8, 4)     # rows, k, n, r_in, r_w
 
 
 def cimcheck_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
-    """Static verification on the card (module docstring, phase 16)."""
+    """Static verification on the card (module docstring, phase 17)."""
     from repro_torch.analysis import __main__ as cli
     from repro_torch.analysis import sass
     from repro_torch.core import mapping, prng
@@ -3798,7 +4176,7 @@ def cimcheck_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
 
 
 def shard_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
-    """The sharded multi-macro engine (module docstring, phase 15), every
+    """The sharded multi-macro engine (module docstring, phase 16), every
     mesh folded onto `dev` (ShardingConfig(fold_onto=...)), the one card
     standing in for the bank of macros."""
     from repro_torch.core import cim_layers as tcl
@@ -4203,7 +4581,8 @@ def train_steps(cfg, state, step_fn, batches, what) -> tuple:
     cores, and the peak memory).  Checks a finite loss and a finite,
     nonzero gradient norm a step, and the flash launches: a forward an
     attention layer (two with checkpointing: the recompute; the hybrid
-    family has one a block of 3, the ssm family none), a dq and a dk/dv,
+    family has one a block of 3, the ssm family none, the audio family
+    one an encoder layer and two a decoder layer), a dq and a dk/dv,
     each on its tensor-core kernel at a D of its row of FLASH_TC_HEAD_DIMS
     unless a float32 QKV bias makes q, k and v float32 (as in JAX), else
     on the CUDA-core kernels."""
@@ -4223,8 +4602,9 @@ def train_steps(cfg, state, step_fn, batches, what) -> tuple:
         metrics.append(m)
     launches = [f.launches for f in kerns]
     launches_tc = [f.launches_tc for f in kerns]
-    attn = {"hybrid": cfg.n_layers // 3, "ssm": 0}.get(cfg.family,
-                                                       cfg.n_layers)
+    attn = {"hybrid": cfg.n_layers // 3, "ssm": 0,
+            "audio": cfg.encoder_layers + 2 * cfg.n_layers}.get(
+                cfg.family, cfg.n_layers)
     per_step = attn * len(batches)
     want = [(1 + int(cfg.remat)) * per_step, per_step, per_step]
     want_tc = [n if attn and not cfg.qkv_bias
@@ -4502,11 +4882,27 @@ def cuda_core_fns(fk, q, k, v, do, lse, delta, q_off, causal,
             "outputs": (o, o_lse, dq, dk, dv)}
 
 
+def draw_trip() -> DrawTrip:
+    """threefry_normal_kernel's trip (`draw_trip_of`) in the built
+    library's `cuobjdump -sass`."""
+    from repro_torch.analysis import sass
+    from repro_torch.kernels import build
+    funcs = sass.parse_functions(sass.disassemble(
+        build._BUILT["threefry_normal"].path))
+    names = [f for f in funcs if "threefry_normal_kernel" in f]
+    check(len(names) == 1, f"threefry_normal_kernel in the SASS: {names}")
+    trip = draw_trip_of(funcs[names[0]])
+    check(trip.stores == 1, f"threefry_normal's loop stores {trip.stores} "
+          f"normals a trip, not 1: {trip}")
+    return trip
+
+
 def draw_times(dev, tag) -> dict:
     """CUDA-event ms of threefry_normal and its plain version at the noisy
     LeNet's conv1 draw (batch 256: the residue stream and 1568 blocks of
-    128 rows x 16 channels), its bound, and torch.randn of as many normals
-    as a yardstick (not the same function: PyTorch's Philox normals)."""
+    128 rows x 16 channels), its bound from its SASS (`draw_trip`), and
+    torch.randn of as many normals as a yardstick (not the same function:
+    PyTorch's Philox normals)."""
     from repro_torch.core import prng
     from repro_torch.kernels.prng import kernel as pk
     from repro_torch.kernels.prng.ref import threefry_normal_ref
@@ -4517,24 +4913,46 @@ def draw_times(dev, tag) -> dict:
     pk.threefry_normal.launches = before     # timing is not the main path
     plain = cuda_ms(lambda: threefry_normal_ref(keys, n), 3)
     randn = cuda_ms(lambda: torch.randn((streams, n), device=dev), 50)
-    bnd, by = draw_bound_ms(streams, n)
+    # a warp (32 consecutive normals of a stream) runs erf_inv's tail side
+    # when one of its normals lies beyond sqrt(2) erfinv(sqrt(1 - e^-5)),
+    # where log1p(-u^2) <= -5
+    z_tail = math.sqrt(2) * float(torch.special.erfinv(torch.tensor(
+        math.sqrt(-math.expm1(-5.0)), dtype=torch.float64)))
+    drawn = threefry_normal_ref(keys, n)
+    tail_share = float((drawn.abs() >= z_tail).reshape(-1, 32).any(1)
+                       .double().mean())
+    del drawn
+    trip = draw_trip()
+    bnd, by, terms = draw_bound_ms(streams, n, trip, tail_share)
     print(f"time {tag} torch.randn of {streams} x {n} normals (a yardstick "
           f"only: PyTorch's Philox normals, not JAX's threefry ones): "
           f"{randn:.4f} ms", flush=True)
     print(f"time {tag} threefry_normal S={streams} n={n}: kernel {ms:.4f} "
-          f"ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+          f"ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
+          + f"); a normal's own SASS instructions {trip.work}, and "
+          f"{trip.tail} more in the {tail_share:.4f} of warps on erf_inv's "
+          f"tail; the whole trip (the layout's index, divide, address and "
+          f"loop control too) {trip.trip} instructions; the kernel at "
+          f"{100 * bnd / ms:.1f}% of its bound", flush=True)
     return {"streams": streams, "n": n, "ms": ms, "plain_ms": plain,
-            "randn_ms": randn, "bound_ms": bnd, "bound_by": by}
+            "randn_ms": randn, "bound_ms": bnd, "bound_by": by,
+            "bound_terms_ms": terms, "tail_share": tail_share,
+            "sass_trip": dataclasses.asdict(trip)}
 
 
-def flash_times(fk, fref, dev, tag) -> dict:
-    """CUDA-event ms of the three flash kernels, their plain versions and
-    SDPA forward / backward at the train attention shape, with bounds;
-    and the CUDA-core kernels of the earlier design on the same inputs."""
-    b, h, g, s, d = FLASH_TRAIN
-    q, k, v, do = flash_inputs(b, h, g, s, s, d, torch.bfloat16, 7, dev)
+def flash_times(fk, fref, dev, tag, shape, cuda_core: bool = False,
+                what: str = "") -> dict:
+    """CUDA-event ms of the three flash kernels at `shape` (B, H, G, Sq,
+    Sk, D, causal) in bf16, their plain versions and SDPA forward /
+    backward on the same inputs (causal by `is_causal`, else unmasked),
+    with bounds; with `cuda_core` the CUDA-core kernels of the earlier
+    design on the same inputs too.  The launches made here are not
+    main-path ones."""
+    b, h, g, sq, sk, d, causal = shape
+    q, k, v, do = flash_inputs(b, h, g, sq, sk, d, torch.bfloat16, 7, dev)
     q_off = torch.zeros((1, 1), dtype=torch.int32, device=dev)
-    kw = dict(causal=True, window=0)
+    kw = dict(causal=causal, window=0)
     o, lse = fk.flash_fwd(q, k, v, q_off, **kw)
     delta = torch.sum(do.float() * o.float(), dim=-1)
     args = (q, k, v, do, lse, delta, q_off)
@@ -4542,17 +4960,17 @@ def flash_times(fk, fref, dev, tag) -> dict:
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True)
+            qs, ks, vs, is_causal=causal)
 
     def sdpa_fwd_bwd():
         return torch.autograd.grad(sdpa(), (qs, ks, vs), do)
     check(torch.allclose(sdpa().float(), o.float(), rtol=2e-2, atol=2e-2),
-          "the SDPA yardstick computes another function than flash_fwd")
-    launches = [f.launches for f in (fk.flash_fwd, fk.flash_bwd_dq,
-                                     fk.flash_bwd_dkv)]
-    launches_tc = [f.launches_tc for f in (fk.flash_fwd, fk.flash_bwd_dq,
-                                           fk.flash_bwd_dkv)]
-    core = cuda_core_fns(fk, *args, causal=True, window=0)
+          f"the SDPA yardstick computes another function than flash_fwd "
+          f"at {shape}")
+    kerns = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
+    before = [(f.launches, f.launches_tc) for f in kerns]
+    core = (cuda_core_fns(fk, *args, causal=causal, window=0)
+            if cuda_core else {})
     fns = {"fwd": (lambda: fk.flash_fwd(q, k, v, q_off, **kw),
                    lambda: fref.flash_fwd_ref(q, k, v, q_off, **kw)),
            "dq": (lambda: fk.flash_bwd_dq(*args, **kw),
@@ -4561,11 +4979,11 @@ def flash_times(fk, fref, dev, tag) -> dict:
                    lambda: fref.flash_bwd_dkv_ref(*args, **kw))}
     sdpa_fwd = cuda_ms(sdpa, 10)
     sdpa_bwd = cuda_ms(sdpa_fwd_bwd, 10) - sdpa_fwd
-    out = {"shape": {"b": b, "h": h, "g": g, "s": s, "d": d,
-                     "causal": True, "dtype": "bfloat16"},
+    out = {"shape": {"b": b, "h": h, "g": g, "sq": sq, "sk": sk, "d": d,
+                     "causal": causal, "dtype": "bfloat16"},
            "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd}
     for kind, (kern, plain) in fns.items():
-        bnd, by = flash_bound_ms(kind, b, h, g, s, s, d, True, 0, 2)
+        bnd, by = flash_bound_ms(kind, b, h, g, sq, sk, d, causal, 0, 2)
         out[kind] = {"ms": cuda_ms(kern, 10), "plain_ms": cuda_ms(plain, 2),
                      "bound_ms": bnd, "bound_by": by,
                      "library_ms": sdpa_fwd if kind == "fwd" else sdpa_bwd}
@@ -4574,15 +4992,13 @@ def flash_times(fk, fref, dev, tag) -> dict:
             r["cuda_core_ms"] = cuda_ms(core[kind], 2)
         earlier = (f", CUDA-core kernel (earlier design) "
                    f"{r['cuda_core_ms']:.3f} ms" if kind in core else "")
-        print(f"time {tag} flash_{kind} B={b} H={h} S={s} D={d} causal "
-              f"bf16: kernel {r['ms']:.3f} ms{earlier}, plain "
-              f"{r['plain_ms']:.3f} ms, SDPA "
-              f"{'forward' if kind == 'fwd' else 'backward (dq, dk, dv)'}"
-              f" {r['library_ms']:.3f} ms, bound {bnd:.4f} ms ({by})",
+        print(f"time {tag} flash_{kind}{what} B={b} H={h} Sq={sq} Sk={sk} "
+              f"D={d} {'causal' if causal else 'non-causal'} bf16: kernel "
+              f"{r['ms']:.4f} ms{earlier}, plain {r['plain_ms']:.3f} ms, "
+              f"SDPA {'forward' if kind == 'fwd' else 'backward (dq, dk, dv)'}"
+              f" {r['library_ms']:.4f} ms, bound {bnd:.4f} ms ({by})",
               flush=True)
-    # timing launches are not main-path launches
-    for f, n, n_tc in zip((fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv),
-                          launches, launches_tc):
+    for f, (n, n_tc) in zip(kerns, before):
         f.launches, f.launches_tc = n, n_tc
     return out
 
@@ -5135,7 +5551,17 @@ def main() -> int:
     phase_s["recurrent"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 15. the sharded multi-macro engine ---------------------------------
+    # -- 15. the audio family at full width --------------------------------
+    cap_mark = len(clock.seconds)
+    audio = audio_phase(dev, tag, kern, kmod, tprog, trt, clock)
+    report["audio"] = audio
+    graphs["audio"] = dict(clock.since(cap_mark),
+                           capture_count=trt.CAPTURE_COUNT["n"],
+                           pool_bytes=graph_pool_bytes(tprog, dev))
+    phase_s["audio"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 16. the sharded multi-macro engine ---------------------------------
     cap_mark = len(clock.seconds)
     shard = shard_phase(dev, tag, kern, kmod, tprog, trt)
     report["shard"] = shard
@@ -5146,14 +5572,14 @@ def main() -> int:
     phase_s["shard"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 16. cimcheck: static verification and the legacy entries --------
+    # -- 17. cimcheck: static verification and the legacy entries --------
     cim = cimcheck_phase(dev, tag, kern, kmod, tprog, trt)
     report["cimcheck"] = cim
     torch.cuda.empty_cache()
     phase_s["cimcheck"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 17. times -----------------------------------------------------------
+    # -- 18. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -5267,7 +5693,9 @@ def main() -> int:
           f"{r_ms:.4f} ms, plain {r_plain:.4f} ms, SDPA {r_lib:.4f} ms, "
           f"bound {r_bnd:.4f} ms ({r_by}); device us per call (profiler): "
           f"{dev_txt}", flush=True)
-    ftimes = flash_times(rmod, rref, dev, tag)
+    b, h, g, s, d = FLASH_TRAIN
+    ftimes = flash_times(rmod, rref, dev, tag, (b, h, g, s, s, d, True),
+                         cuda_core=True)
     report["flash_times"] = ftimes
     dtimes = draw_times(dev, tag)
     report["draw_times"] = dtimes
@@ -5337,18 +5765,18 @@ def main() -> int:
     nl, nd = noise["launches"], ndec["launches"]
     ls, lp, lt = lserve["launches"], prec["launches"], tune["launches"]
     lc, lsh, lcc = ctrain["launches"], shard["launches"], cim["launches"]
-    lm, lr = moe["launches"], recur["launches"]
+    lm, lr, la = moe["launches"], recur["launches"], audio["launches"]
     route_launches = {
         "tc": main_routes["tc"] + nl["cim_mbiw_tc"] + ls["cim_mbiw_tc"]
         + lp["cim_mbiw_tc"] + lt["cim_mbiw_tc"] + lc["cim_mbiw_tc"]
         + lsh["cim_mbiw_tc"] + lcc["cim_mbiw_tc"] + lm["cim_mbiw_tc"]
-        + lr["cim_mbiw_tc"],
+        + lr["cim_mbiw_tc"] + la["cim_mbiw_tc"],
         "splitk": main_routes["splitk"] + dec_splitk + nl["cim_mbiw_splitk"]
         + nd["cim_mbiw_splitk"] + ls["cim_mbiw_splitk"]
         + lp["cim_mbiw_splitk"] + lt["cim_mbiw_splitk"]
         + lc["cim_mbiw_splitk"] + lsh["cim_mbiw_splitk"]
         + lcc["cim_mbiw_splitk"] + lm["cim_mbiw_splitk"]
-        + lr["cim_mbiw_splitk"],
+        + lr["cim_mbiw_splitk"] + la["cim_mbiw_splitk"],
         "cuda_core": main_routes["all"] - main_routes["tc"]
         - main_routes["splitk"] + dec_cim - dec_splitk + nl["cim_mbiw"]
         - nl["cim_mbiw_tc"] - nl["cim_mbiw_splitk"] + nd["cim_mbiw"]
@@ -5360,7 +5788,8 @@ def main() -> int:
         - lsh["cim_mbiw_splitk"] + lcc["cim_mbiw"] - lcc["cim_mbiw_tc"]
         - lcc["cim_mbiw_splitk"] + lm["cim_mbiw"] - lm["cim_mbiw_tc"]
         - lm["cim_mbiw_splitk"] + lr["cim_mbiw"] - lr["cim_mbiw_tc"]
-        - lr["cim_mbiw_splitk"]}
+        - lr["cim_mbiw_splitk"] + la["cim_mbiw"] - la["cim_mbiw_tc"]
+        - la["cim_mbiw_splitk"]}
 
     def route_entry(name, route, src, rows):
         mult = [2 if r["k"] == 784 and r["shape"] == "lenet" else 1
@@ -5393,9 +5822,10 @@ def main() -> int:
         "ms": r_ms,
         "plain_ms": r_plain, "bound_ms": r_bnd, "bound_by": r_by,
         "library_ms": r_lib}]}
-    # flash: the train paths' launches (OLMo-1B and the dense configs, all
-    # on the tensor-core kernels) and flash_attention_sharded's pieces;
-    # times at OLMo's attention shape in bf16
+    # flash: the train paths' launches (OLMo-1B, the dense configs, the
+    # moe phase's and whisper-medium's at D 64, all on the tensor-core
+    # kernels) and flash_attention_sharded's pieces; times at OLMo's
+    # attention shape in bf16
     for kind, line, src in (("fwd", 41, "flash_fwd_tc.cu"),
                             ("dq", 134, "flash_bwd_dq_tc.cu"),
                             ("dkv", 168, "flash_bwd_dkv_tc.cu")):
@@ -5407,7 +5837,7 @@ def main() -> int:
             "replaces": f"src/repro/kernels/flash_attn/kernel.py:{line}",
             "launches": train["launches_tc"][name]
             + dense["launches_tc"][name] + lsh[f"{name}_tc"]
-            + lm[f"{name}_tc"],
+            + lm[f"{name}_tc"] + la[f"{name}_tc"],
             "max_abs_err": max(flash["max_abs_err"][kind].values()),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -5436,7 +5866,7 @@ def main() -> int:
                      + ndec["launches"]["threefry_normal"]
                      + train["noisy"]["launches"] + lp["threefry_normal"]
                      + lc["threefry_normal"] + lcc["threefry_normal"]
-                     + lm["threefry_normal"])
+                     + lm["threefry_normal"] + la["threefry_normal"])
     kernels["kernels"].append({
         "name": "threefry_normal", "route": "cuda",
         "source": "src/repro_torch/kernels/prng/csrc/threefry_normal.cu",
@@ -5476,6 +5906,7 @@ def main() -> int:
         "dense": dense["launches"],
         "moe": lm,
         "recurrent": lr,
+        "audio": la,
         "shard": lsh,
         "cimcheck": lcc}
     report["total_s"] = time.perf_counter() - t_start

@@ -4,10 +4,10 @@ Counterpart of `repro/configs/__init__.py`.  The port registers the archs
 of the families its `models/transformer.py` runs, in the JAX package's
 order: the moe archs `phi35_moe` and `mixtral_8x22b`, the dense archs
 `minitron_4b`, `qwen2_7b`, `olmo_1b` and `granite_8b`, the hybrid arch
-`recurrentgemma_2b`, the vlm arch `internvl2_76b` and the ssm arch
-`mamba2_1_3b` (each module's `CONFIG` and `smoke_config()` equal the
-JAX package's field for field).  The audio arch `whisper_medium` is not
-registered, and `get_config` of it raises ValueError.
+`recurrentgemma_2b`, the vlm arch `internvl2_76b`, the ssm arch
+`mamba2_1_3b` and the audio arch `whisper_medium` (each module's
+`CONFIG` and `smoke_config()` equal the JAX package's field for field).
+`get_config` of a name outside the registry raises ValueError.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ ARCH_IDS = [
     "recurrentgemma_2b",
     "internvl2_76b",
     "mamba2_1_3b",
+    "whisper_medium",
 ]
 
 _ALIASES = {
@@ -39,13 +40,14 @@ _ALIASES = {
     "recurrentgemma-2b": "recurrentgemma_2b",
     "internvl2-76b": "internvl2_76b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "whisper-medium": "whisper_medium",
 }
 
 
 def _module(arch: str):
     mod_name = _ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
     if mod_name not in ARCH_IDS:
-        raise ValueError(f"arch {arch!r} is not ported; the port runs "
+        raise ValueError(f"unknown arch {arch!r}; the registry holds "
                          f"{ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 

@@ -15,7 +15,9 @@ draw the same noise.  The MoE family's stacked (L, E, D, F) expert banks,
 router and per-expert ABN cross over like every other per-layer leaf;
 `moe_params_from_numpy` converts one `init_moe` tree on its own.  The
 hybrid family's stacked "blocks" (each of "rec1", "rec2", "attn") and
-"tail" unstack as "layers" does, and its cache's "tail" may be None.
+"tail" unstack as "layers" does, and its cache's "tail" may be None; so
+does the audio family's "enc_layers", and its cache's cross-attention
+K/V "xkv" cross over like the rings.
 """
 from __future__ import annotations
 
@@ -140,7 +142,8 @@ def train_params_from_numpy(tree: Mapping, device="cpu") -> Dict:
 
     The JAX tree stacks each per-layer leaf along a leading layer axis
     under "layers" (the hybrid family: a block axis under "blocks" and a
-    layer axis under "tail"); the port keeps one dict per layer (block)
+    layer axis under "tail"; the audio family: the encoder's under
+    "enc_layers" too); the port keeps one dict per layer (block)
     there, so leaf i of the result's list is slice i of each stacked
     leaf.  Every
     other leaf keeps its shape.  Leaves become float32 tensors on

@@ -19,14 +19,20 @@
 // int64 temporaries; here one thread computes a normal in registers from
 // its counter.
 //
-// Bound on an H100 SXM: per element about 84 int32 operations (20 threefry
-// rounds of add, rotate, xor, the key injections, the bit moves) and about
-// 97 float32 operations (an fma counted as two: the uniform, both log1p
-// branches, erf_inv), against 4 bytes written: bound by operations, not
-// bytes.  Design: a grid-stride loop over the S * n outputs, 256 threads a
-// block, consecutive threads on consecutive elements of a stream
-// (coalesced stores), the stream's key read once per element through the
-// read-only cache.
+// Bound on an H100 SXM: a normal's trip through the loop below runs 230
+// instructions as CUDA 12.9 compiles it, of which 168 are the normal's
+// own, those its key reaches (84 on the integer / logic pipe: the threefry
+// rounds, the bit moves, compares and selects; 78 on the fused
+// multiply-add pipes; the reciprocal, a conversion, 4 branches), 10 more
+// on erf_inv's tail side in the warps that take it; the rest are this
+// layout's index, i / n divide, addresses, loop control and constants.
+// chip_smoke.py's draw_trip_of reads them off `cuobjdump -sass`.  Against
+// 4 bytes written, the normal's own instructions bound it: the rate at
+// which the SMs start instructions, and the integer pipe's, not bytes.
+// Design: a grid-stride loop over the S * n outputs, 256 threads a block,
+// consecutive threads on consecutive elements of a stream (coalesced
+// stores), the stream's key read once per element through the read-only
+// cache.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

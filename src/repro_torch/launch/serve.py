@@ -61,11 +61,13 @@ requests' tokens, and the expert programs take no segments.  The ssm
 (mamba2) and hybrid (recurrentgemma) families serve static batches: the
 cache holds their recurrent states (and the hybrid's local-attention
 rings), the prefill runs the recurrences from the zero state, and each
-decode step is the O(1) update.  `--inflight` refuses them, as the JAX
-launcher does.
-
-Not ported (NotImplementedError, with the ROADMAP queue that holds
-it): the audio family.
+decode step is the O(1) update.  The audio family (whisper-medium)
+serves static batches as the JAX launcher does: the encoder runs once,
+at the prefill, over seeded (batch, max_len, d_model) frame embeddings
+drawn as JAX draws them (`make_frames`), the prompt is cut to its first
+token, and each decode step reads the cross-attention K/V the prefill
+wrote into the cache.  `--inflight` refuses the ssm, hybrid and audio
+families, as the JAX launcher does.
 """
 from __future__ import annotations
 
@@ -131,7 +133,8 @@ def build(args, sharding: Optional[rt_engine.ShardingConfig] = None,
     --arch with the launcher's CIMConfig (max_gamma 2^16, rows isolated
     under --inflight, and the engine's sharding) and seeded random
     weights on the device.  `n_layers` cuts the config's depth before the
-    weights are drawn (a published config too deep for one card).
+    weights are drawn (a published config too deep for one card; an
+    audio model's encoder is cut to as many layers).
 
     `sharding` defaults to --engine-devices D on the first D devices
     (ValueError, naming the devices, when fewer are visible); a given
@@ -151,7 +154,8 @@ def build(args, sharding: Optional[rt_engine.ShardingConfig] = None,
                          device=dev, fold_onto=sharding.fold_onto)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if n_layers is not None:
-        cfg = cfg.replace(n_layers=n_layers)
+        cfg = cfg.replace(n_layers=n_layers,
+                          encoder_layers=min(cfg.encoder_layers, n_layers))
     cfg = cfg.replace(cim=CIMConfig(mode=args.cim_mode, max_gamma=2.0**16,
                                     sharding=sharding,
                                     isolate_rows=args.inflight))
@@ -191,11 +195,13 @@ INFLIGHT_FAMILIES = ("dense", "moe")
 @torch.no_grad()
 def static_serve(cfg, params, prompt: torch.Tensor, gen_len: int, *,
                  max_len: int, keep_logits: bool = False,
-                 prefix: Optional[torch.Tensor] = None) -> Dict:
+                 prefix: Optional[torch.Tensor] = None,
+                 frames: Optional[torch.Tensor] = None) -> Dict:
     """Static-batch greedy serving: prefill `prompt` (B, P) into a fresh
     KV cache for the first token, then `gen_len` decode steps.  A vlm
     model's `prefix` (B, V, D) patch embeddings go before the prompt
-    (`max_len` must hold both).
+    (`max_len` must hold both); an audio model's `frames` (B, max_len,
+    D) run through its encoder at the prefill.
 
     Returns {"tokens" (B, 1 + gen_len) on the host, "cache", "prefill_s", "warm_s"
     (the first decode step), "decode_s" and "steps" (the rest), "growth"
@@ -206,7 +212,8 @@ def static_serve(cfg, params, prompt: torch.Tensor, gen_len: int, *,
     cache = tf.init_cache(cfg, prompt.shape[0], max_len=max_len, device=dev)
     t0 = time.perf_counter()
     logits, cache, _ = tf.forward(cfg, params, prompt, cache=cache,
-                                  prefix_embeds=prefix)
+                                  prefix_embeds=prefix,
+                                  encoder_frames=frames)
     tok = torch.argmax(logits[:, -1:], dim=-1)
     _sync(dev)
     out = {"prefill_s": time.perf_counter() - t0, "warm_s": 0.0,
@@ -260,6 +267,15 @@ def make_prefix(cfg, batch: int, seed: int, device) -> torch.Tensor:
     bit for bit, drawn on `device` (the draw kernel on the card)."""
     return nm.draw_normal(prng.key(seed),
                           (batch, cfg.vision_tokens, cfg.d_model),
+                          torch.device(device))
+
+
+def make_frames(cfg, batch: int, max_len: int, seed: int,
+                device) -> torch.Tensor:
+    """An audio model's stub encoder input, as the JAX launcher draws it:
+    jax.random.normal(PRNGKey(seed), (batch, max_len, d_model)), bit for
+    bit, drawn on `device` (the draw kernel on the card)."""
+    return nm.draw_normal(prng.key(seed), (batch, max_len, cfg.d_model),
                           torch.device(device))
 
 
@@ -402,9 +418,13 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
                          args.seed, dev)
     prefix = (make_prefix(cfg, args.batch, args.seed, dev)
               if cfg.family == "vlm" else None)
+    frames = None
+    if cfg.family == "audio":
+        frames = make_frames(cfg, args.batch, max_len, args.seed, dev)
+        prompt = prompt[:, :1]
     out = static_serve(cfg, params, prompt, args.gen_len, max_len=max_len,
-                       prefix=prefix)
-    print(f"prefill({args.prompt_len} tokens): {out['prefill_s']:.2f}s")
+                       prefix=prefix, frames=frames)
+    print(f"prefill({prompt.shape[1]} tokens): {out['prefill_s']:.2f}s")
     if out["steps"]:
         dt = out["decode_s"]
         print(f"decode {out['steps']} steps: {dt:.2f}s "

@@ -105,7 +105,7 @@ def make_prefill_step(cfg: ModelConfig):
     """Returns prefill_step(params, batch) -> the last position's logits
     (B, V) of batch["tokens"] (B, S), without a cache.  The vlm and audio
     inputs, batch["prefix_embeds"] / ["encoder_frames"], pass through to
-    forward (which does not port the audio family's)."""
+    forward."""
     def prefill_step(params, batch):
         kwargs = {k: batch[k] for k in ("prefix_embeds", "encoder_frames")
                   if k in batch}

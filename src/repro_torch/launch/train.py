@@ -15,7 +15,14 @@ The decoder-stack families train: dense, moe (the loss adds
 `steps.AUX_LOSS_WEIGHT` times the load-balance loss, printed as aux
 beside the CE) and vlm (on text tokens alone, as the JAX launcher's
 batches carry no prefix); so do the ssm (mamba2) and hybrid
-(recurrentgemma) families.
+(recurrentgemma) families, and the audio family (whisper-medium) on
+the JAX package's own audio train batch (`repro/launch/specs.py`):
+seeded frame embeddings (batch, seq_len, d_model), drawn at step s as
+`jax.random.normal(fold_in(PRNGKey(seed), s), ...)` (`audio_frames`),
+and tokens and labels of min(max_target_len, seq_len // 8).  (The JAX
+launcher feeds it token-only batches, which turn its cross-attention
+into self-attention over the labels: ROADMAP Queue 3, reference fault
+12.)
 
 `--cim-noise` trains under the post-silicon noise model
 (`NoiseConfig()`), with step s drawing under fold_in(key(--seed), s).
@@ -34,7 +41,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import prng
 from repro_torch.core.cim_layers import CIMConfig
-from repro_torch.core.noise_model import NO_NOISE, NoiseConfig
+from repro_torch.core.noise_model import NO_NOISE, NoiseConfig, draw_normal
 from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.optim import AdamWConfig
@@ -61,14 +68,20 @@ def build(args):
     cfg = cfg.replace(cim=CIMConfig(mode=args.cim_mode, max_gamma=2.0**16,
                                     noise=noise),
                       attn_impl=args.attn_impl)
+    audio = cfg.family == "audio"
     data = SyntheticLM(LMDataConfig(
-        vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+        vocab_size=cfg.vocab_size,
+        seq_len=audio_tokens(cfg, args.seq_len) if audio else args.seq_len,
         global_batch=args.batch))
 
     def batch_fn(step: int):
         toks, labels = data.batch_at(step)
-        return {"tokens": torch.from_numpy(toks).long().to(dev),
-                "labels": torch.from_numpy(labels).long().to(dev)}
+        batch = {"tokens": torch.from_numpy(toks).long().to(dev),
+                 "labels": torch.from_numpy(labels).long().to(dev)}
+        if audio:
+            batch["encoder_frames"] = audio_frames(
+                cfg, args.batch, args.seq_len, args.seed, step, dev)
+        return batch
 
     step_fn = make_train_step(
         cfg, AdamWConfig(lr=args.lr), total_steps=args.steps,
@@ -77,6 +90,21 @@ def build(args):
     state = init_train_state(
         cfg, torch.Generator(device=dev).manual_seed(args.seed))
     return cfg, state, step_fn, batch_fn
+
+
+def audio_tokens(cfg, seq_len: int) -> int:
+    """The decoder length of an audio train batch over `seq_len` frames
+    (`repro/launch/specs.py`): min(max_target_len, seq_len // 8)."""
+    return min(cfg.max_target_len, seq_len // 8)
+
+
+def audio_frames(cfg, batch: int, seq_len: int, seed: int, step: int,
+                 device) -> torch.Tensor:
+    """Step `step`'s frame embeddings (batch, seq_len, d_model) float32:
+    jax.random.normal(fold_in(PRNGKey(seed), step), ...), bit for bit
+    (the draw kernel on the card)."""
+    return draw_normal(prng.fold_in(prng.key(seed), step),
+                       (batch, seq_len, cfg.d_model), device)
 
 
 def step_key(args, step: int):

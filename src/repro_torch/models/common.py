@@ -10,7 +10,8 @@ attention goes through the context-parallel `flash_attention_sharded`.
 Its caches are updated functionally; the port writes the K/V rings in
 place, the PyTorch idiom, so a returned cache aliases the one passed in
 (its "k" and "v" are the same tensors).  Cross-attention (`x_kv`,
-`cross_kv`) belongs to the audio family and is not ported.
+`cross_kv`), the audio family's, follows JAX's: K/V from the encoder
+states, or precomputed at prefill and read at decode.
 """
 from __future__ import annotations
 
@@ -230,7 +231,8 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
                     key: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Causal (or, with cfg.causal False, bidirectional) self-attention,
-    x (B, S, d_model) -> (out (B, S, d_model), new_cache).
+    or cross-attention over `x_kv`; x (B, S, d_model) -> (out (B, S,
+    d_model), new_cache).
 
     Without a cache, with cfg.impl == "pallas" and more than one query
     position the attention runs on the flash kernels (forward and
@@ -252,84 +254,107 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
     cache holds the same "k" and "v" tensors and a new cursor idx + S.
     K/V are stored in the cache's dtype.
 
+    Cross-attention (the audio family), as in JAX: with `x_kv` (B, Sk,
+    d_model), the encoder states, K/V are projected from it at the
+    positions `kv_positions` (default 0..Sk-1), never causal, with no
+    window and no RoPE; a cache of {} then returns {"k", "v"} (B, Sk, G,
+    D), the projected K/V in the compute dtype, for decode.  With
+    `cross_kv` ({"k", "v"}, precomputed) the queries attend over it at
+    positions 0..Sk-1 with no K/V projection, on the plain attention,
+    and it is returned as the new cache.
+
     `kv_repeat_to` (> G) repeats the K/V heads to that many after RoPE,
     before the cache write, so the head axis divides a tensor-parallel
     axis (a cache then holds the repeated heads).
 
     `key` seeds the CIM noise model of the four projections
     (fold_in(key, i) for q, k, v, o); None keeps them clean."""
-    if x_kv is not None or cross_kv is not None or kv_positions is not None:
-        raise NotImplementedError(
-            "cross-attention (x_kv, cross_kv) is not ported (audio "
-            "family)")
     b, s, _ = x.shape
     h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if x_kv is None else x_kv
     kq = kk = kv = ko = None
     if key is not None:
         kq, kk, kv, ko = (prng.fold_in(key, i) for i in range(4))
+    causal = cfg.causal and x_kv is None
+    window = cfg.window if x_kv is None else 0
 
-    use_pallas = cfg.impl == "pallas" and s > 1 and cache is None
+    use_pallas = (cfg.impl == "pallas" and s > 1 and cache is None
+                  and cross_kv is None)
     q = cim_linear_apply(params["wq"], x, cim, key=kq)
-    k = cim_linear_apply(params["wk"], x, cim, key=kk)
-    v = cim_linear_apply(params["wv"], x, cim, key=kv)
     if "bq" in params:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        q = q + params["bq"]
     q = q.reshape(b, s, h, hd)
     if not use_pallas:
         # the pallas path's pieces define the layout themselves
         q = shard(q, BATCH, None, TP, None)
-    k = k.reshape(b, s, g, hd)
-    v = v.reshape(b, s, g, hd)
-    if cfg.use_rope:
-        inv = rope_frequencies(hd, cfg.rope_theta, device=x.device)
-        q = apply_rope(q, positions, inv)
-        k = apply_rope(k, positions, inv)
-    if kv_repeat_to:
-        k = _repeat_kv_to(k, kv_repeat_to)
-        v = _repeat_kv_to(v, kv_repeat_to)
-    k_pos = positions
-    new_cache = None
-    if cache is not None and cache["idx"].dim() == 1:
-        # slot-mapped decode: every batch row writes one token at its own
-        # ring cursor and attends with its own (B, L) slot positions
-        if s != 1:
-            raise ValueError(
-                f"slot-mapped KV decode is single-token (s=1), got s={s}; "
-                "prefill per request and scatter into the slot with "
-                "write_slot_kv")
-        length = cache["k"].shape[1]
-        idx = cache["idx"]
-        write = torch.remainder(idx, length).long()
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, write] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, write] = v[:, 0].to(cache["v"].dtype)
-        k = shard(cache["k"], BATCH, TP, None, None)
-        v = shard(cache["v"], BATCH, TP, None, None)
-        new_cache = {"k": k, "v": v, "idx": idx + s}
-        j = torch.arange(length, device=x.device)[None, :]
-        last = (idx + s - 1)[:, None].long()
-        k_pos = last - torch.remainder(last - j, length)
-        k_pos = torch.where(k_pos >= 0, k_pos, -10**9)
-    elif cache is not None:
-        # ring-buffer append at idx % L (multi-token prefill into the
-        # cache needs idx + s <= L)
-        length = cache["k"].shape[1]
-        idx = cache["idx"]
-        write = torch.remainder(idx, length).long()
-        start = torch.clamp(write, 0, length - s)
-        slots = start + torch.arange(s, device=x.device)
-        cache["k"].index_copy_(1, slots, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, slots, v.to(cache["v"].dtype))
-        k = shard(cache["k"], BATCH, TP, None, None)
-        v = shard(cache["v"], BATCH, TP, None, None)
-        new_cache = {"k": k, "v": v, "idx": idx + s}
-        j = torch.arange(length, device=x.device)
-        last = (idx + s - 1).long()
-        k_pos = last - torch.remainder(last - j, length)
-        k_pos = torch.where(k_pos >= 0, k_pos, -10**9)
-    elif not use_pallas:
-        k = shard(k, BATCH, None, TP, None)
-        v = shard(v, BATCH, None, TP, None)
+    if cross_kv is not None:
+        # cross-attention decode: the encoder's K/V, projected at prefill
+        k, v = cross_kv["k"], cross_kv["v"]
+        k_pos = torch.arange(k.shape[1], device=x.device)
+        new_cache = cross_kv
+    else:
+        sk = src.shape[1]
+        k = cim_linear_apply(params["wk"], src, cim, key=kk)
+        v = cim_linear_apply(params["wv"], src, cim, key=kv)
+        if "bk" in params:
+            k, v = k + params["bk"], v + params["bv"]
+        k = k.reshape(b, sk, g, hd)
+        v = v.reshape(b, sk, g, hd)
+        k_pos = positions if x_kv is None else (
+            kv_positions if kv_positions is not None
+            else torch.arange(sk, device=x.device))
+        if cfg.use_rope and x_kv is None:
+            inv = rope_frequencies(hd, cfg.rope_theta, device=x.device)
+            q = apply_rope(q, positions, inv)
+            k = apply_rope(k, positions, inv)
+        if kv_repeat_to:
+            k = _repeat_kv_to(k, kv_repeat_to)
+            v = _repeat_kv_to(v, kv_repeat_to)
+        new_cache = None
+        if cache is not None and x_kv is not None:
+            # cross-attention prefill: the K/V become the decode's cross_kv
+            new_cache = {"k": k, "v": v}
+        elif cache is not None and cache["idx"].dim() == 1:
+            # slot-mapped decode: every batch row writes one token at its
+            # own ring cursor and attends with its own (B, L) positions
+            if s != 1:
+                raise ValueError(
+                    f"slot-mapped KV decode is single-token (s=1), got "
+                    f"s={s}; prefill per request and scatter into the slot "
+                    "with write_slot_kv")
+            length = cache["k"].shape[1]
+            idx = cache["idx"]
+            write = torch.remainder(idx, length).long()
+            rows = torch.arange(b, device=x.device)
+            cache["k"][rows, write] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, write] = v[:, 0].to(cache["v"].dtype)
+            k = shard(cache["k"], BATCH, TP, None, None)
+            v = shard(cache["v"], BATCH, TP, None, None)
+            new_cache = {"k": k, "v": v, "idx": idx + s}
+            j = torch.arange(length, device=x.device)[None, :]
+            last = (idx + s - 1)[:, None].long()
+            k_pos = last - torch.remainder(last - j, length)
+            k_pos = torch.where(k_pos >= 0, k_pos, -10**9)
+        elif cache is not None:
+            # ring-buffer append at idx % L (multi-token prefill into the
+            # cache needs idx + s <= L)
+            length = cache["k"].shape[1]
+            idx = cache["idx"]
+            write = torch.remainder(idx, length).long()
+            start = torch.clamp(write, 0, length - s)
+            slots = start + torch.arange(s, device=x.device)
+            cache["k"].index_copy_(1, slots, k.to(cache["k"].dtype))
+            cache["v"].index_copy_(1, slots, v.to(cache["v"].dtype))
+            k = shard(cache["k"], BATCH, TP, None, None)
+            v = shard(cache["v"], BATCH, TP, None, None)
+            new_cache = {"k": k, "v": v, "idx": idx + s}
+            j = torch.arange(length, device=x.device)
+            last = (idx + s - 1).long()
+            k_pos = last - torch.remainder(last - j, length)
+            k_pos = torch.where(k_pos >= 0, k_pos, -10**9)
+        if (cache is None or x_kv is not None) and not use_pallas:
+            k = shard(k, BATCH, None, TP, None)
+            v = shard(v, BATCH, None, TP, None)
 
     # per-slot decode keeps (B, S) query positions so the per-row masks
     # line up; otherwise (B, S) positions collapse to row 0 (shared)
@@ -338,17 +363,16 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: AttnConfig,
     if use_pallas:
         from repro_torch.kernels.flash_attn.ops import \
             flash_attention_sharded
-        out = flash_attention_sharded(q, k, v, cfg.causal, cfg.window)
+        out = flash_attention_sharded(q, k, v, causal, window)
     elif k.shape[1] > cfg.flash_threshold and s > 1:
         # the streaming path takes positions shared across the batch
         if per_row:
             q_pos, k_pos = q_pos[0], k_pos[0]
         out = flash_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
-                              causal=cfg.causal, window=cfg.window)
+                              causal=causal, window=window)
     else:
         out = plain_attention(q, k, v, q_pos=q_pos, k_pos=k_pos,
-                              causal=cfg.causal and s > 1,
-                              window=cfg.window)
+                              causal=causal and s > 1, window=window)
     y = cim_linear_apply(params["wo"], out.reshape(b, s, h * hd), cim,
                          key=ko)
     return shard(y, BATCH, None, None), new_cache

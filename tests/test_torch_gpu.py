@@ -378,6 +378,12 @@ FLASH_CASES = [
     (2, 300, 300, 4, 2, 256, False, 0, 0),
     (1, 400, 77, 4, 2, 192, True, 256, 0),    # rows that keep no key
     (1, 400, 77, 4, 2, 256, True, 256, 0),
+    # whisper-medium's train step at D 64: the encoder's self-attention,
+    # the decoder's and the cross-attention of 187 queries over 1500
+    # frames (chip_smoke's FLASH_AUDIO)
+    (1, 1500, 1500, 16, 16, 64, False, 0, 0),
+    (1, 187, 187, 16, 16, 64, True, 0, 0),
+    (1, 187, 1500, 16, 16, 64, False, 0, 0),
 ]
 
 
@@ -524,6 +530,70 @@ def test_recurrent_train_step_on_card_matches_host(cuda_device, arch):
         assert abs(lc - lh) <= t_loss * abs(lh), (mode, lc, lh)
         assert abs(gc - gh) <= t_gnorm * gh, (mode, gc, gh)
         assert nh == 0 and nc == (1 if arch == "recurrentgemma_2b" else 0)
+
+
+@pytest.mark.gpu
+def test_audio_on_card_matches_host(cuda_device):
+    """whisper-medium's smoke config in float32 with the flash kernels
+    (the encoder's, the decoder's and the cross-attention, Sq 8 over Sk
+    24, on the CUDA-core kernels): the bypass forward over frames on the
+    card within 1e-5 of the host's largest logit, a cached prefill and a
+    decode step reading the cross K/V likewise, and one train step in
+    bypass (loss and grad norm within 1e-5) and fakequant (5e-3, 2e-2,
+    tests/test_torch_train.py's float32 fakequant tolerances) against
+    the host's plain versions; the card's step launches a flash forward
+    an encoder layer and two a decoder layer (no recompute: the smoke
+    config does not remat)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.cim_layers import CIMConfig as C
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, 512, size=(2, 8))).long()
+    frames = torch.from_numpy(rng.standard_normal((2, 24, 64),
+                                                  dtype=np.float32))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1),
+             "encoder_frames": frames}
+    for mode, (t_loss, t_gnorm) in (("bypass", (1e-5, 1e-5)),
+                                    ("fakequant", (5e-3, 2e-2))):
+        cfg = get_smoke_config("whisper_medium").replace(
+            dtype="float32", attn_impl="pallas",
+            cim=C(mode=mode, max_gamma=2.0**16))
+        card = tf.init_params(
+            cfg, torch.Generator(device=cuda_device).manual_seed(0))
+        host = _to_host(card)
+        if mode == "bypass":
+            with torch.no_grad():
+                logits = {}
+                for dev, params in ((cuda_device, card),
+                                    (torch.device("cpu"), host)):
+                    free = tf.forward(cfg, params, toks.to(dev),
+                                      encoder_frames=frames.to(dev))[0]
+                    cache = tf.init_cache(cfg, 2, max_len=24,
+                                          dtype=torch.float32, device=dev)
+                    pre, cache, _ = tf.forward(
+                        cfg, params, toks[:, :1].to(dev), cache=cache,
+                        encoder_frames=frames.to(dev))
+                    dec, _, _ = tf.forward(cfg, params, toks[:, 1:2].to(dev),
+                                           cache=cache)
+                    logits[dev.type] = [t.cpu() for t in (free, pre, dec)]
+            for got, want in zip(logits["cuda"], logits["cpu"]):
+                assert float((got - want).abs().max()) <= \
+                    1e-5 * float(want.abs().max())
+        out = {}
+        for dev, params in ((cuda_device, card),
+                            (torch.device("cpu"), host)):
+            state = steps.train_state(params)
+            fl = rkernel.flash_fwd.launches
+            _, m = steps.make_train_step(cfg, AdamWConfig(lr=1e-3))(
+                state, {k: v.to(dev) for k, v in batch.items()})
+            out[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                             rkernel.flash_fwd.launches - fl)
+        (lc, gc, nc), (lh, gh, nh) = out["cuda"], out["cpu"]
+        assert abs(lc - lh) <= t_loss * abs(lh), (mode, lc, lh)
+        assert abs(gc - gh) <= t_gnorm * gh, (mode, gc, gh)
+        assert nh == 0 and nc == cfg.encoder_layers + 2 * cfg.n_layers
 
 
 @pytest.mark.gpu

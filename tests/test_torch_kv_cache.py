@@ -22,6 +22,8 @@ What is held, and to what:
 The port writes the rings in place; each port call here gets its own
 copy of the inputs.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -247,17 +249,29 @@ def test_attention_block_slot_cache():
 
 
 def test_cross_attention_and_kv_repeat_raise():
-    """Cross-attention is not ported and raises NotImplementedError.
+    """Cross-attention is ported (held against JAX in
+    tests/test_torch_audio.py): over `x_kv` with a cache of {} the block
+    returns the projected {"k", "v"}, and the same queries over them as
+    `cross_kv` give the same output and return them as they are.
     kv_repeat_to (ported with the sharding slice; held against JAX in
     tests/test_torch_sharding.py) raises only where JAX's does, past the
     query heads (8 KV heads for 4 queries), and at the KV head count
     leaves the block as it was."""
     _, tp, _, acfg_t = _block_setup(3)
     x = torch.zeros((1, 2, 64))
-    for kw in ({"x_kv": x}, {"cross_kv": {}}):
-        with pytest.raises(NotImplementedError):
-            tcm.attention_block(tp, x, acfg_t, CIMConfig(mode="bypass"),
-                                positions=torch.arange(2), **kw)
+    gen = torch.Generator().manual_seed(1)
+    xq, enc = torch.randn((1, 2, 64), generator=gen), torch.randn(
+        (1, 5, 64), generator=gen)
+    xcfg = dataclasses.replace(acfg_t, causal=False, use_rope=False)
+    out, kv = tcm.attention_block(tp, xq, xcfg, CIMConfig(mode="bypass"),
+                                  positions=torch.arange(2), x_kv=enc,
+                                  cache={})
+    assert set(kv) == {"k", "v"} and kv["k"].shape == (1, 5, 4, 16)
+    out2, kv2 = tcm.attention_block(tp, xq, xcfg, CIMConfig(mode="bypass"),
+                                    positions=torch.arange(2), cross_kv=kv,
+                                    cache={})
+    assert kv2 is kv
+    torch.testing.assert_close(out2, out, rtol=1e-6, atol=1e-6)
     with pytest.raises(RuntimeError):
         tcm.attention_block(tp, x, acfg_t, CIMConfig(mode="bypass"),
                             positions=torch.arange(2), kv_repeat_to=8)

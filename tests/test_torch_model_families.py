@@ -2,9 +2,11 @@
 phi3.5-moe-42b-a6.6b, mixtral-8x22b and internvl2-76b.
 
 - each `CONFIG` and `smoke_config()` equals JAX's field for field, the
-  registry lists the ported archs in JAX's order, and the unported
-  family (audio) still raises (the ssm and hybrid families are held in
-  `tests/test_torch_recurrent.py`);
+  registry lists every JAX arch in JAX's order, an unknown arch or
+  family raises ValueError, and so do encoder frames given to a family
+  other than audio (the ssm and hybrid families are held in
+  `tests/test_torch_recurrent.py`, the audio family in
+  `tests/test_torch_audio.py`);
 - the full configs' parameter counts equal JAX's `eval_shape` counts,
   built under `FakeTensorMode` (meta-backed tensors: nothing allocated);
 - at each smoke config in float32, from the same weights
@@ -72,7 +74,6 @@ def one_intra_op_thread():
 ARCHS = ("phi35_moe", "mixtral_8x22b", "internvl2_76b")
 ALIASES = {"phi35_moe": "phi3.5-moe-42b-a6.6b",
            "mixtral_8x22b": "mixtral-8x22b", "internvl2_76b": "internvl2-76b"}
-UNPORTED = ("whisper_medium",)
 B, S = 2, 16
 LR = 1e-3
 STEPS = 3
@@ -108,16 +109,22 @@ def test_configs_equal_jax(arch):
 
 
 def test_registry_is_jax_order_without_the_unported():
-    assert ARCH_IDS == [a for a in JAX_ARCH_IDS if a not in UNPORTED]
-    for arch in UNPORTED:
-        with pytest.raises(ValueError, match="not ported"):
-            get_config(arch)
-    for family in ("audio",):
-        cfg = ModelConfig(name=family, family=family, n_layers=1,
-                          d_model=8, n_heads=1, n_kv_heads=1, d_ff=8,
-                          vocab_size=8)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.init_params(cfg, torch.Generator())
+    """Every JAX arch is registered, in JAX's order (whisper-medium, the
+    last, with the audio family); a name or a family outside it raises
+    ValueError, and so do encoder frames given to another family than
+    audio, as a prefix given to another than vlm does."""
+    assert ARCH_IDS == list(JAX_ARCH_IDS)
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("whisper-large")
+    cfg = ModelConfig(name="video", family="video", n_layers=1, d_model=8,
+                      n_heads=1, n_kv_heads=1, d_ff=8, vocab_size=8)
+    with pytest.raises(ValueError, match="unknown model family"):
+        tf.init_params(cfg, torch.Generator())
+    _, cfg = _configs("phi35_moe", "bypass")
+    with pytest.raises(ValueError, match="audio"):
+        tf.forward(cfg, tf.init_params(cfg, torch.Generator()),
+                   torch.zeros((1, 2), dtype=torch.long),
+                   encoder_frames=torch.zeros((1, 4, cfg.d_model)))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

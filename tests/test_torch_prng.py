@@ -7,7 +7,9 @@ keys and the shapes (1,), (7,), (128, 16), (3, 5, 7) and (70000,), plus
 2^20 normals in one draw; `log1p`, `erf_inv` and `exp` each over more
 than 2 M float32 points covering both of log1p's branches, erf_inv's
 w >= 5 tail and exp's flush to zero; the exact float32 fma the copies
-rest on, against rational arithmetic.
+rest on, against rational arithmetic.  Also chip_smoke.py's count of the
+draw kernel's own SASS instructions (`draw_trip_of`, its bound), on a
+listing in the form nvcc gives the kernel.
 
 One difference of the reference is shown rather than hidden
 (ROADMAP Queue 3): for a uniform whose span is not a power of two, XLA's
@@ -15,6 +17,8 @@ CPU code fuses `f * span + minval` into one rounding, where the JAX
 source (and the port) round twice.  The JAX package draws no such
 uniform.
 """
+import os
+import sys
 from fractions import Fraction
 
 import jax
@@ -23,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import sass
 from repro_torch.convert import key_from_numpy
 from repro_torch.core import prng, xla_f32
 
@@ -228,3 +233,98 @@ def test_fma_f32_is_one_rounding():
                           torch.from_numpy(c)).numpy()
     want = np.array([_fma_exact(*t) for t in zip(a, b, c)], np.float32)
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+# a grid-stride loop in the form nvcc gives threefry_normal_kernel's
+# (trimmed): the i / n divide (a called 64-bit path, a 32-bit fast one),
+# the key's address and loads, the counter, work on the key, a constant
+# moved into a register, a guarded block (log's), an IEEE divide whose
+# FCHK calls a slow path, erf_inv's if / else, the store and the loop's
+# back edge.  Each line's note: what the count makes of it
+_DRAW_SASS = """Function : draw
+        /*0000*/ S2R R2, SR_TID.X ;
+        /*0010*/ ISETP.GE.U32.AND P0, PT, R2, UR4, PT ;
+        /*0020*/ @P0 EXIT ;
+        /*0030*/ ISETP.NE.U32.AND P0, PT, R5, RZ, PT ;
+        /*0040*/ @!P0 BRA 0x70 ;
+        /*0050*/ CALL.REL.NOINC 0x300 ;
+        /*0060*/ BRA 0x90 ;
+        /*0070*/ I2F.U32.RP R0, UR9 ;
+        /*0080*/ MUFU.RCP R6, R0 ;
+        /*0090*/ LEA R8, P0, R6, UR10, 0x4 ;
+        /*00a0*/ LDG.E.CONSTANT R0, desc[UR6][R8.64] ;
+        /*00b0*/ LDG.E.CONSTANT R3, desc[UR6][R8.64+0x8] ;
+        /*00c0*/ IMAD.WIDE.U32 R6, R2, UR16, R4 ;
+        /*00d0*/ IADD3 R7, R6, R3, R0 ;
+        /*00e0*/ SHF.L.W.U32.HI R6, R7, 0xd, R7 ;
+        /*00f0*/ MOV R9, 0x3f7fffff ;
+        /*0100*/ FFMA R10, R6, 2, -R9 ;
+        /*0110*/ FSETP.NEU.AND P2, PT, R10, RZ, PT ;
+        /*0120*/ @!P2 BRA 0x150 ;
+        /*0130*/ FMUL R11, R10, R10 ;
+        /*0140*/ @!P2 MOV R11, 0xffffffff ;
+        /*0150*/ MUFU.RCP R12, R11 ;
+        /*0160*/ FCHK P0, R10, R11 ;
+        /*0170*/ @!P0 BRA 0x190 ;
+        /*0180*/ CALL.REL.NOINC 0x380 ;
+        /*0190*/ FSETP.GT.AND P0, PT, R12, -5, PT ;
+        /*01a0*/ @P0 BRA 0x1e0 ;
+        /*01b0*/ MUFU.RSQ R13, -R12 ;
+        /*01c0*/ FADD R13, R13, -3 ;
+        /*01d0*/ BRA 0x1f0 ;
+        /*01e0*/ FADD R13, -R12, -2.5 ;
+        /*01f0*/ FMUL R3, R13, R10 ;
+        /*0200*/ LEA R8, P0, R4, UR12, 0x2 ;
+        /*0210*/ IMAD.WIDE.U32 R4, R2, 0x100, R4 ;
+        /*0220*/ STG.E desc[UR6][R8.64], R3 ;
+        /*0230*/ ISETP.GE.U32.AND P0, PT, R4, UR18, PT ;
+        /*0240*/ @!P0 BRA 0x30 ;
+        /*0250*/ EXIT ;
+        /*0260*/ BRA 0x260 ;
+        /*0300*/ IADD3 R6, R5, 0x1, RZ ;
+        /*0310*/ RET.REL.NODEC R20 0x0 ;
+        /*0380*/ FMUL R11, R10, 0.5 ;
+        /*0390*/ RET.REL.NODEC R20 0x0 ;
+"""
+
+
+def _chip_smoke():
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+    return chip_smoke
+
+
+def test_draw_bound_counts_a_normals_own_instructions():
+    """The trip of a normal in the bulk: the divide's fast path, the
+    guarded block run, the FCHK's call skipped, erf_inv's shorter side
+    (28 instructions).  Its own work is what the key reaches: 6 on the
+    integer pipe (the add, the rotate, the compares, the guarded move),
+    4 on the FMA pipes, the reciprocal and the 3 key-guarded branches;
+    not the index, divide, address, loop control, constant or store.
+    The square root's side is the tail (2 more).  Where the code takes
+    another shape, the count raises."""
+    cs = _chip_smoke()
+    trip = cs.draw_trip_of(sass.parse_functions(_DRAW_SASS)["draw"])
+    assert (trip.trip, trip.stores) == (28, 1)
+    assert trip.work == {"alu": 6, "fma": 4, "mufu": 1, "other": 3,
+                         "all": 14}
+    assert trip.tail == {"alu": 0, "fma": 1, "mufu": 1, "other": 0,
+                         "all": 2}
+    # per normal: 14 + 2 x the tail's share of warps at the issue rate,
+    # 6 on the integer pipe, 4 FMA-pipe ones (two operations each); so
+    # few that the bytes bound it
+    n = 1 << 20
+    ms, by, terms = cs.draw_bound_ms(1, n, trip, 0.5)
+    assert terms == {"bytes": 1e3 * (16 + 4 * n) / cs.PEAK_BYTES,
+                     "instructions": 1e3 * 15 * n / cs.PEAK_INSTRUCTIONS,
+                     "alu": 1e3 * 6 * n / cs.PEAK_INT32_OPS,
+                     "fma": 1e3 * 2 * 4.5 * n / cs.PEAK_F32_OPS}
+    assert (ms, by) == (terms["bytes"], "bytes")
+    for edit, match in ((("@!P0 BRA 0x30", "NOP"), "backward branch"),
+                        (("@!P0 BRA 0x70", "NOP"), "a call on every"),
+                        (("MUFU.RSQ R13, -R12", "FMUL R13, R12, R12"),
+                         "square root"),
+                        (("BRA 0x1f0", "BRA 0x400"), "leaves the loop")):
+        with pytest.raises(ValueError, match=match):
+            cs.draw_trip_of(sass.parse_functions(
+                _DRAW_SASS.replace(*edit))["draw"])

@@ -133,7 +133,7 @@ def test_configs_equal_jax(arch):
         assert _fields(port) == _fields(ref)
         if ref.n_heads:
             assert port.resolved_head_dim == ref.resolved_head_dim
-    assert ARCH_IDS == [a for a in JAX_ARCH_IDS if a != "whisper_medium"]
+    assert ARCH_IDS == list(JAX_ARCH_IDS)
     if arch == "recurrentgemma_2b":
         assert get_config(arch).resolved_head_dim == 256
 

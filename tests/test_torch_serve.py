@@ -357,9 +357,9 @@ def test_launcher_refuses_what_is_not_ported():
     with pytest.raises(SystemExit) as exc:
         serve.main(base + ["--device", "cpu", "--precision-policy", "mixed"])
     assert exc.value.code == 2
-    # the audio family's input is not ported; the vlm family's prefix is,
-    # and another family refuses it
-    with pytest.raises(NotImplementedError):
+    # the audio family's frames and the vlm family's prefix are ported,
+    # and another family refuses them
+    with pytest.raises(ValueError, match="audio"):
         ttf.forward(get_smoke_config("olmo_1b"), {}, torch.zeros(
             (1, 1), dtype=torch.long), encoder_frames=torch.zeros(1))
     with pytest.raises(ValueError, match="vlm"):

@@ -375,15 +375,18 @@ def test_bf16_digital_ops_match_jax_bit_for_bit(op):
 
 def test_configs_register_only_what_is_ported():
     from repro_torch.configs import ARCH_IDS, get_config
-    # the dense, moe, vlm, hybrid and ssm families
-    # (tests/test_torch_dense_configs.py, tests/test_torch_model_families.py
-    # and tests/test_torch_recurrent.py hold the others against JAX)
+    # the dense, moe, vlm, hybrid, ssm and audio families, every JAX arch
+    # (tests/test_torch_dense_configs.py, tests/test_torch_model_families.py,
+    # tests/test_torch_recurrent.py and tests/test_torch_audio.py hold the
+    # others against JAX)
     assert sorted(ARCH_IDS) == ["granite_8b", "internvl2_76b",
                                 "mamba2_1_3b", "minitron_4b",
                                 "mixtral_8x22b", "olmo_1b", "phi35_moe",
-                                "qwen2_7b", "recurrentgemma_2b"]
+                                "qwen2_7b", "recurrentgemma_2b",
+                                "whisper_medium"]
     cfg = get_config("olmo-1b")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
             cfg.vocab_size) == (16, 2048, 16, 8192, 50304)
-    with pytest.raises(ValueError, match="not ported"):
-        get_config("whisper-medium")
+    assert get_config("whisper-medium").family == "audio"
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("whisper-large")
