@@ -48,10 +48,12 @@ a result:
                 misses these limits, are held to float64 within the
                 limits plus the plain version's own float32 distance.
                 threefry_normal: torch.equal over streams {1, 3, 1568} x
-                n {1, 127, 128, 129, 2048, 2^22} (at most 2^24 normals a
-                case), keys from key, fold_in (an id above 2^31) and
-                split, and equal to the host's plain draw where that is
-                at most 2^22 normals; one launch a call.
+                n {1, 3, 5, 127, 128, 129, 2048, 2^22, 6,144,000} (at
+                most 2^24 normals a case), keys from key, fold_in (an id
+                above 2^31) and split, and equal to the host's plain draw
+                where that is at most 2^22 normals; one launch a call;
+                normal_of_bits (the draw's float chain) equal to the
+                plain one on all 2^23 bit patterns a normal comes from.
   3. lenet    - the first main path: LeNet (28x28x1 -> conv16 -> pool ->
                 conv32 -> pool -> fc 1568->128 -> fc 128->10) served at full
                 width through compile_program(...).bind(...).serve at
@@ -420,16 +422,21 @@ a result:
                 earlier design and _int_mm from 20 calls replayed in one
                 CUDA graph, and the wrapper's host microseconds per
                 launch.  For threefry_normal: at the noisy LeNet's conv1
-                draw (1569 streams of 2048), with torch.randn of as many
-                normals as a yardstick of another function; its bound
-                from its SASS (`draw_trip_of` on `cuobjdump -sass`): a
-                normal's own instructions on its trip through the
-                grid-stride loop, those its key reaches (the layout's
-                index, divide, address and loop control left out; the
-                erf_inv tail side weighted by the share of warps that
-                run it), over the rate the SMs start instructions at,
-                and its integer and FMA-pipe ones over their pipes'
-                rates; the whole trip's count printed beside it.
+                draw (1569 streams of 2048), whisper's served frames (1
+                stream of 6,144,000) and the noisy decode's engine draw
+                (its shape read in phase 6): the wrapper's event ms, the
+                device time a launch in 5 windows of a CUDA graph of 20,
+                torch.randn of as many normals as a yardstick of another
+                function; its bound from its SASS (`draw_trip_of` on
+                `cuobjdump -sass`): a trip through the grid-stride loop
+                computes 4 normals, and a normal's own instructions are
+                those the keys reach over 4 (the layout's index, divide,
+                addresses, stores and loop control left out; the erf_inv
+                tail side weighted by the share of warps that run it),
+                over the rate the SMs start instructions at, and its
+                integer and FMA-pipe ones over their pipes' rates; beside
+                it the bound from the first design's count (168 own, 10
+                on the tail), the share stated against the smaller.
 
 Then a capture line (captures, their seconds with each one's eager
 warm-up, and the bytes of the shared graph pool, after the LeNet and
@@ -499,10 +506,12 @@ TRAIN_LR = 3e-4
 # one: at random weights only the gradient limit tells it apart
 TRAIN_JNP_RTOL = {"loss": 5e-4, "grad_norm": 5e-3, "grad": 5e-2}
 # the draw kernel's checks: streams x lengths (2048 = 128 x 16, a LeNet
-# conv1 block), each case of at most DRAW_MAX normals (1568 x 2^22 would
-# be 26 GB), those of at most DRAW_HOST_MAX drawn on the host too
+# conv1 block; 6,144,000 whisper's served frames; 1, 3, 5, 127 and 129
+# rows shorter than or ragged against a thread's 4 normals), each case of
+# at most DRAW_MAX normals (1568 x 2^22 would be 26 GB), those of at most
+# DRAW_HOST_MAX drawn on the host too
 DRAW_STREAMS = (1, 3, 1568)
-DRAW_LENGTHS = (1, 127, 128, 129, 2048, 1 << 22)
+DRAW_LENGTHS = (1, 3, 5, 127, 128, 129, 2048, 1 << 22, 6_144_000)
 DRAW_MAX = 1 << 24
 DRAW_HOST_MAX = 1 << 22
 # one warp instruction a clock on each of an SM's 4 sub-partitions, at
@@ -638,10 +647,10 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def graph_us(fn, calls: int = 20) -> float:
-    """Device microseconds per call: `calls` calls captured in one CUDA
-    graph, the graph replayed between CUDA events (after a warm-up call on
-    a side stream, so that allocations and workspaces exist first)."""
+def _captured(fn, calls: int) -> torch.cuda.CUDAGraph:
+    """`calls` calls of `fn` captured in one CUDA graph, after a warm-up
+    call on a side stream (so that allocations and workspaces exist
+    first)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -651,9 +660,35 @@ def graph_us(fn, calls: int = 20) -> float:
     with torch.cuda.graph(g):
         for _ in range(calls):
             fn()
+    return g
+
+
+def graph_us(fn, calls: int = 20) -> float:
+    """Device microseconds per call: `calls` calls captured in one CUDA
+    graph (`_captured`), the graph replayed between CUDA events."""
+    g = _captured(fn, calls)
     ms = cuda_ms(g.replay, 5)
     del g
     return 1e3 * ms / calls
+
+
+def graph_windows(fn, calls: int = 20, windows: int = 5) -> list:
+    """Device microseconds per call in each of `windows` replays of one
+    CUDA graph of `calls` calls (`_captured`, then a warm-up replay), each
+    replay between its own CUDA events."""
+    g = _captured(fn, calls)
+    g.replay()
+    out = []
+    for _ in range(windows):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        g.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        out.append(1e3 * t0.elapsed_time(t1) / calls)
+    del g
+    return out
 
 
 def host_us(fn, calls: int = 50) -> float:
@@ -896,18 +931,37 @@ _DRAW_REG = re.compile(r"(?<![\w.])([RP]\d+)")
 
 @dataclasses.dataclass(frozen=True)
 class DrawTrip:
-    """A normal's trip through threefry_normal_kernel's loop, read off
-    its SASS (`draw_trip_of`): every instruction a normal in the bulk of
-    a draw runs (`trip`, a diagnostic: the index, divide, address and
-    loop-control instructions of the kernel's layout included), the
-    stores on it, and the normal's own work by pipe (DRAW_PIPES,
-    "other" and "all"): on that trip (`work`) and on the side of
-    erf_inv's branch the bulk leaves, which a warp also runs when one of
-    its lanes takes it (`tail`)."""
+    """A trip through threefry_normal_kernel's grid-stride loop, read off
+    its SASS (`draw_trip_of`): every instruction a trip in the bulk of a
+    draw runs (`trip`, a diagnostic: the index, divide, address, store
+    and loop-control instructions of the kernel's layout included), the
+    normals it computes (`normals`, from the bytes it stores, 4 a normal),
+    its store instructions, and a normal's own work by pipe (DRAW_PIPES,
+    "other" and "all"; the trip's own work over `normals`): on the trip
+    (`work`) and on the side of erf_inv's branch the bulk leaves, which a
+    warp also runs when one of its lanes takes it (`tail`)."""
     trip: int
+    normals: int
     stores: int
     work: dict
     tail: dict
+
+    def own(self) -> float:
+        """A normal's own instructions on the trip."""
+        return self.work["all"]
+
+    def layout(self) -> float:
+        """A normal's share of the trip's other instructions."""
+        return self.trip / self.normals - self.work["all"]
+
+
+# the trip of the kernel's first design (one normal a trip, a 64-bit
+# i / n divide a normal), as draw_trip_of reads its CUDA 12.9 listing:
+# the bound the redesign is held to beside its own
+DRAW_TRIP_FIRST = DrawTrip(
+    trip=230, normals=1, stores=1,
+    work={"alu": 84, "fma": 78, "mufu": 1, "other": 5, "all": 168},
+    tail={"alu": 2, "fma": 6, "mufu": 1, "other": 1, "all": 10})
 
 
 def _sass_target(ins, index) -> int:
@@ -916,14 +970,28 @@ def _sass_target(ins, index) -> int:
     return index.get(int(hexes[-1], 16), -1) if hexes else -1
 
 
-def _draw_walk(insns, index, i, end):
-    """(path, tails) of a normal in the bulk from index i up to `end`:
-    the instructions in order, and the sides of if / else branches it
-    leaves, each as (its start in the path, its instructions).  An
-    if-then block runs unless it calls out (a slow path for special
-    operands, which no drawn value reaches); of an if / else the side
-    without a call runs, or else the shorter.  None where a call lies on
-    every way through."""
+def _stores(insns, seq) -> bool:
+    return any(insns[k].base == "STG" for k in seq)
+
+
+def _holds_root(insns, seq) -> bool:
+    """Whether `seq` holds erf_inv's square root (its MUFU.RSQ)."""
+    return any(insns[k].opcode.startswith("MUFU.RSQ") for k in seq)
+
+
+def _draw_walk(insns, index, i, end, join=-1):
+    """(path, tails) of a trip in the bulk from index i up to `end`: the
+    instructions in order, and the sides of branches it leaves that hold
+    erf_inv's square root, each as (its start in the path, its
+    instructions).  An if-then block runs unless it calls out (a slow
+    path for special operands, which no drawn value reaches) or holds the
+    square root (erf_inv's tail side) or stores after a store on the
+    path (a ragged row end's scalar stores after a vector one that ran);
+    of an if / else the side without a call runs, and of two such the one
+    without the square root, or else the shorter (a vector store before
+    the scalar ones).  Inside the first side of an if / else, a branch to
+    its `join` skips to the side's end.  None where a call lies on every
+    way through."""
     path, tails = [], []
 
     def take(sub):
@@ -941,48 +1009,58 @@ def _draw_walk(insns, index, i, end):
             i += 1
             continue
         t = _sass_target(ins, index)
-        if not i < t <= end:
+        if t == join > end:
+            t = end
+        elif not i < t <= end:
             raise ValueError(f"{ins.text()} leaves the loop's trip")
         last = insns[t - 1]
         j = (_sass_target(last, index) if last.base == "BRA"
-             and not last.guard else -1)
+             and not last.guard and t < end else -1)
         if not ins.guard:
             i = t
         elif j <= t:                            # if-then
             block = _draw_walk(insns, index, i + 1, t)
-            if block is not None:
+            if block is not None and _holds_root(insns, block[0]):
+                tails.append((len(path), block[0]))
+            elif block is not None and not (
+                    _stores(insns, path) and _stores(insns, block[0])):
                 take(block)
             i = t
         else:                                   # if / else, joining at j
-            a = _draw_walk(insns, index, i + 1, t - 1)
+            a = _draw_walk(insns, index, i + 1, t - 1, j)
             b = _draw_walk(insns, index, t, j)
             sides = [s for s in ((a[0] + [t - 1], a[1]) if a else None, b)
                      if s is not None]
             if not sides:
                 return None
-            sides.sort(key=lambda s: len(s[0]))
+            sides.sort(key=lambda s: (_holds_root(insns, s[0]), len(s[0])))
             at = len(path)
             take(sides[0])
-            if len(sides) == 2:
+            if len(sides) == 2 and _holds_root(insns, sides[1][0]):
                 tails.append((at, sides[1][0]))
             i = j
     return path, tails
 
 
+def _stored_bytes(ins) -> int:
+    return 16 if ".128" in ins.opcode else 8 if ".64" in ins.opcode else 4
+
+
 def draw_trip_of(insns) -> DrawTrip:
-    """The trip of a normal through threefry_normal_kernel's grid-stride
-    loop (`insns`, the kernel's SASS): the loop runs from the target of
-    its one backward branch to that branch, a normal in the bulk takes
-    `_draw_walk`'s way, and a normal's own work is what its key reaches:
-    every instruction that reads a value computed from the stream's key
-    (the two key loads seed it) or is guarded by such a predicate -
-    the threefry rounds and key schedule, the bits' uniform, log1p, the
-    IEEE divide, the log, erf_inv (its square root on the tail side) and
-    the scale.  The key loads and the store are the bound's bytes; the
-    index, the i / n divide, the addresses, the loop control and the
-    constants the compiler moves into registers read no key, and are
-    the layout's, not the function's.  Raises ValueError where the code
-    has another shape."""
+    """The trip through threefry_normal_kernel's grid-stride loop
+    (`insns`, the kernel's SASS): the loop runs from the target of its one
+    backward branch to that branch, a trip in the bulk takes
+    `_draw_walk`'s way, it computes as many normals as its stores write
+    words, and a normal's own work is what the keys reach, over them:
+    every instruction that reads a value computed from a stream's key (the
+    key loads seed it) or is guarded by such a predicate - the key
+    schedule, the threefry rounds, the bits' uniform, log1p, the IEEE
+    divide, the log, erf_inv (its square root on the tail side) and the
+    scale.  The key loads and the stores are the bound's bytes; the unit's
+    index, the stream's divide, the addresses, the loop control and the
+    constants the compiler moves into registers read no key, and are the
+    layout's, not the function's.  Raises ValueError where the code has
+    another shape: no store, or not one square-root side a normal."""
     index = {ins.addr: k for k, ins in enumerate(insns)}
     backs = [k for k, ins in enumerate(insns) if ins.base == "BRA"
              and -1 < _sass_target(ins, index) < k]
@@ -995,6 +1073,10 @@ def draw_trip_of(insns) -> DrawTrip:
     if walked is None:
         raise ValueError("a call on every trip of the loop")
     path, tails = walked[0] + [b], walked[1]
+    stores = [insns[k] for k in path if insns[k].base == "STG"]
+    normals = sum(_stored_bytes(s) for s in stores) // 4
+    if not normals:
+        raise ValueError("no store on the loop's trip")
 
     def own(seq, keyed):
         counts = dict.fromkeys(list(DRAW_PIPES) + ["other"], 0)
@@ -1009,9 +1091,11 @@ def draw_trip_of(insns) -> DrawTrip:
             else:
                 n_dst = 1
             dst = set(_DRAW_REG.findall(" ".join(ops[:n_dst])))
-            if dst and re.fullmatch(r"R\d+", ops[0].split(".")[0]) and (
-                    ".WIDE" in ins.opcode or ".64" in ins.opcode):
-                dst.add(f"R{int(ops[0][1:].split('.')[0]) + 1}")
+            wide = (4 if ".128" in ins.opcode else 2 if ".WIDE" in ins.opcode
+                    or ".64" in ins.opcode else 1)
+            if dst and re.fullmatch(r"R\d+", ops[0].split(".")[0]):
+                first = int(ops[0][1:].split(".")[0])
+                dst |= {f"R{first + w}" for w in range(1, wide)}
             src = set(_DRAW_REG.findall(" ".join(ops[n_dst:]) + " "
                                         + ins.guard))
             if ins.base == "LDG":
@@ -1024,19 +1108,29 @@ def draw_trip_of(insns) -> DrawTrip:
                     counts[pipe] += 1
             elif not ins.guard:
                 keyed -= dst
-        counts["all"] = sum(counts.values())
         return counts
-    if len(tails) != 1 or not any(insns[k].opcode.startswith("MUFU.RSQ")
-                                  for k in tails[0][1]):
-        raise ValueError("the bulk should leave one side, erf_inv's square "
-                         f"root; it leaves {len(tails)}")
-    at, side = tails[0]
+
+    def add(into, counts):
+        for p_, v in counts.items():
+            into[p_] += v
+    if len(tails) != normals:
+        raise ValueError(f"the bulk should leave one side a normal, "
+                         f"erf_inv's square root; it leaves {len(tails)} "
+                         f"for {normals} normals")
     keyed: set = set()
-    before = own(path[:at], keyed)
-    tail = own(side, set(keyed))
-    work = {p_: v + before[p_] for p_, v in own(path[at:], keyed).items()}
-    return DrawTrip(trip=len(path),
-                    stores=sum(insns[k].base == "STG" for k in path),
+    work = dict.fromkeys(list(DRAW_PIPES) + ["other"], 0)
+    tail = dict(work)
+    pos = 0
+    for at, side in sorted(tails, key=lambda t: t[0]):
+        add(work, own(path[pos:at], keyed))
+        add(tail, own(side, set(keyed)))
+        pos = at
+    add(work, own(path[pos:], keyed))
+    for counts in (work, tail):
+        counts["all"] = sum(counts.values())
+        for p_ in counts:
+            counts[p_] /= normals
+    return DrawTrip(trip=len(path), normals=normals, stores=len(stores),
                     work=work, tail=tail)
 
 
@@ -1065,7 +1159,9 @@ def draw_checks(dev) -> dict:
     """threefry_normal against its plain version on the card (and the
     host's run where it is small enough), bit for bit, one launch a call,
     over DRAW_STREAMS x DRAW_LENGTHS; keys from key, fold_in (an id above
-    2^31) and split."""
+    2^31) and split.  Then normal_of_bits against the plain float chain
+    (`core/prng._normal_from_bits`) on all 2^23 bit patterns, bit for
+    bit, in one launch."""
     from repro_torch.core import prng
     from repro_torch.kernels.prng import kernel as pk
     from repro_torch.kernels.prng.ref import threefry_normal_ref
@@ -1093,7 +1189,21 @@ def draw_checks(dev) -> dict:
                 host += 1
             cases += 1
             del got
-    return {"cases": cases, "host_cases": host, "max_abs_err": 0.0}
+    # every pattern a normal can come from (it reads bits >> 9), through
+    # the draw's own device code: what licenses the cuts of code no
+    # pattern reaches (threefry_normal.cu's header)
+    bits = torch.arange(1 << 23, dtype=torch.int64, device=dev) << 9
+    got = pk.normal_of_bits(bits).view(torch.int32)
+    want = prng._normal_from_bits(bits).view(torch.int32)
+    torch.cuda.synchronize()
+    wrong = int((got != want).sum())
+    check(torch.equal(got, want),
+          f"normal_of_bits != _normal_from_bits on {wrong} of the 2^23 "
+          f"patterns, first at m = "
+          f"{int((got != want).nonzero()[0]) if wrong else -1}")
+    del bits, got, want
+    return {"cases": cases, "host_cases": host, "patterns": 1 << 23,
+            "max_abs_err": 0.0}
 
 
 def lenet_noise_phase(dev, tag, make_dataset, cnn, kern, kmod) -> dict:
@@ -1245,10 +1355,22 @@ def noisy_decode_phase(dev, tag, kern) -> dict:
     reset_counts(kern)
     draw.launches = 0
     sched = InflightScheduler(model, capacity=DECODE_CAPACITY, key=key)
-    t0 = time.perf_counter()
-    streams = sched.run(arrivals)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+    # the engine's draws as it makes them: (streams, n) of each call, for
+    # the times phase's draw at this path's shape
+    shapes: dict = {}
+
+    def recorded(keys, n):
+        shape = (int(keys.shape[0]), int(n))
+        shapes[shape] = shapes.get(shape, 0) + 1
+        return draw(keys, n)
+    rt.threefry_normal = recorded
+    try:
+        t0 = time.perf_counter()
+        streams = sched.run(arrivals)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        rt.threefry_normal = draw
     launches = {"cim_mbiw": kern.launches,
                 "cim_mbiw_splitk": kern.launches_splitk,
                 "threefry_normal": draw.launches}
@@ -1266,7 +1388,13 @@ def noisy_decode_phase(dev, tag, kern) -> dict:
     clean_streams = clean.run(arrivals)
     check(clean_streams != streams, "noisy streams equal the clean ones")
     met = sched.metrics()
-    rec = {"depth": NOISE_DECODE_DEPTH, "requests": [
+    check(sum(shapes.values()) == launches["threefry_normal"],
+          f"noisy decode: the engine made {shapes} draws, the kernel "
+          f"launched {launches['threefry_normal']}")
+    draw_shape = max(shapes, key=shapes.get)
+    rec = {"depth": NOISE_DECODE_DEPTH, "draw_shape": draw_shape,
+           "draw_shapes": {f"{s_}x{n_}": c for (s_, n_), c in shapes.items()},
+           "requests": [
         (r.uid, r.prompt, r.max_new_tokens) for r in reqs],
         "streams": {str(u): t for u, t in streams.items()},
         "clean_streams": {str(u): t for u, t in clean_streams.items()},
@@ -1276,7 +1404,9 @@ def noisy_decode_phase(dev, tag, kern) -> dict:
           f"point {DECODE_POINTS['']}, {len(reqs)} requests at capacity "
           f"{DECODE_CAPACITY} under key(0): every fused stream == "
           f"decode_sequential(..., key), streams differ from the clean "
-          f"model's; launches {launches} (one draw per projection call); "
+          f"model's; launches {launches} (one draw per projection call; "
+          f"the engine's draws (streams, n): count {rec['draw_shapes']}, "
+          f"the most common {draw_shape}); "
           f"fused steps {met['decode_steps']:.0f} in "
           f"{met['decode_wall_s']:.1f} s noisy, "
           f"{rec['clean_metrics']['decode_wall_s']:.1f} s clean "
@@ -4884,61 +5014,136 @@ def cuda_core_fns(fk, q, k, v, do, lse, delta, q_off, causal,
 
 def draw_trip() -> DrawTrip:
     """threefry_normal_kernel's trip (`draw_trip_of`) in the built
-    library's `cuobjdump -sass`."""
+    library's `cuobjdump -sass` (the listing goes to
+    chiprun_out/threefry_sass.txt): NORMALS_A_TRIP normals a trip, left in
+    one 16-byte store."""
     from repro_torch.analysis import sass
     from repro_torch.kernels import build
-    funcs = sass.parse_functions(sass.disassemble(
-        build._BUILT["threefry_normal"].path))
+    from repro_torch.kernels.prng import kernel as pk
+    text = sass.disassemble(build._BUILT["threefry_normal"].path)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "threefry_sass.txt"),
+              "w") as f:
+        f.write(text)
+    funcs = sass.parse_functions(text)
     names = [f for f in funcs if "threefry_normal_kernel" in f]
     check(len(names) == 1, f"threefry_normal_kernel in the SASS: {names}")
     trip = draw_trip_of(funcs[names[0]])
-    check(trip.stores == 1, f"threefry_normal's loop stores {trip.stores} "
-          f"normals a trip, not 1: {trip}")
+    check((trip.normals, trip.stores) == (pk.NORMALS_A_TRIP, 1),
+          f"threefry_normal's trip stores {trip.normals} normals in "
+          f"{trip.stores} stores, not {pk.NORMALS_A_TRIP} in one (a store "
+          f"a normal: {trip.stores / trip.normals}): {trip}")
     return trip
 
 
-def draw_times(dev, tag) -> dict:
-    """CUDA-event ms of threefry_normal and its plain version at the noisy
-    LeNet's conv1 draw (batch 256: the residue stream and 1568 blocks of
-    128 rows x 16 channels), its bound from its SASS (`draw_trip`), and
-    torch.randn of as many normals as a yardstick (not the same function:
-    PyTorch's Philox normals)."""
+# |z| from which log1p(-u^2) <= -5: a normal on erf_inv's tail side
+Z_TAIL = math.sqrt(2) * float(torch.special.erfinv(torch.tensor(
+    math.sqrt(-math.expm1(-5.0)), dtype=torch.float64)))
+
+
+def draw_tail_share(drawn: torch.Tensor, per_lane: int) -> float:
+    """The share of (warp, slot) pairs that run erf_inv's tail side, for
+    a draw `drawn` (S, n) laid out as the kernel lays it out: a lane
+    computes `per_lane` consecutive normals of a stream (unit s * ceil(n /
+    per_lane) + q), 32 consecutive units make a warp, and the warp runs
+    slot e's square root when one lane's e-th normal has |z| >= Z_TAIL.
+    The kernel's first design is `per_lane` 1."""
+    s, n = drawn.shape
+    q = -(-n // per_lane)
+    hit = torch.zeros((s, q * per_lane), dtype=torch.bool,
+                      device=drawn.device)
+    hit[:, :n] = drawn.abs() >= Z_TAIL
+    units = hit.reshape(s * q, per_lane)
+    pad = torch.zeros((-(s * q) % 32, per_lane), dtype=torch.bool,
+                      device=drawn.device)
+    return float(torch.cat([units, pad]).reshape(-1, 32, per_lane).any(1)
+                 .double().mean())
+
+
+def draw_times(dev, tag, decode_shape) -> dict:
+    """threefry_normal at three draws: the noisy LeNet's conv1 draw (batch
+    256: the residue stream and 1568 blocks of 128 rows x 16 channels),
+    whisper's served frames (one stream of 4 x 1500 x 1024) and the noisy
+    decode's engine draw (`decode_shape`, read in that phase).  At each:
+    the CUDA-event ms a wrapper call over 50 calls, the device us a call
+    in each of 5 replays of a CUDA graph of 20 launches, the wrapper's
+    host us a call (where it exceeds the device's, the events time the
+    host), the plain
+    version's ms, torch.randn of as many normals (a yardstick only: not
+    the same function, PyTorch's Philox normals), and the bound from the
+    new SASS (`draw_trip`) and from the first design's
+    (`DRAW_TRIP_FIRST`), each with its layout's share of warps on
+    erf_inv's tail; the share of the bound against the smaller.  The
+    launches made here are not main-path ones."""
     from repro_torch.core import prng
     from repro_torch.kernels.prng import kernel as pk
     from repro_torch.kernels.prng.ref import threefry_normal_ref
-    streams, n = 1 + LENET_BATCH * 784 // 128, 128 * 16
-    keys = prng.fold_in(prng.key(1)[None], torch.arange(streams)).to(dev)
-    before = pk.threefry_normal.launches
-    ms = cuda_ms(lambda: pk.threefry_normal(keys, n), 50)
-    pk.threefry_normal.launches = before     # timing is not the main path
-    plain = cuda_ms(lambda: threefry_normal_ref(keys, n), 3)
-    randn = cuda_ms(lambda: torch.randn((streams, n), device=dev), 50)
-    # a warp (32 consecutive normals of a stream) runs erf_inv's tail side
-    # when one of its normals lies beyond sqrt(2) erfinv(sqrt(1 - e^-5)),
-    # where log1p(-u^2) <= -5
-    z_tail = math.sqrt(2) * float(torch.special.erfinv(torch.tensor(
-        math.sqrt(-math.expm1(-5.0)), dtype=torch.float64)))
-    drawn = threefry_normal_ref(keys, n)
-    tail_share = float((drawn.abs() >= z_tail).reshape(-1, 32).any(1)
-                       .double().mean())
-    del drawn
     trip = draw_trip()
-    bnd, by, terms = draw_bound_ms(streams, n, trip, tail_share)
-    print(f"time {tag} torch.randn of {streams} x {n} normals (a yardstick "
-          f"only: PyTorch's Philox normals, not JAX's threefry ones): "
-          f"{randn:.4f} ms", flush=True)
-    print(f"time {tag} threefry_normal S={streams} n={n}: kernel {ms:.4f} "
-          f"ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
-          + ", ".join(f"{k} {v:.4f}" for k, v in terms.items())
-          + f"); a normal's own SASS instructions {trip.work}, and "
-          f"{trip.tail} more in the {tail_share:.4f} of warps on erf_inv's "
-          f"tail; the whole trip (the layout's index, divide, address and "
-          f"loop control too) {trip.trip} instructions; the kernel at "
-          f"{100 * bnd / ms:.1f}% of its bound", flush=True)
-    return {"streams": streams, "n": n, "ms": ms, "plain_ms": plain,
-            "randn_ms": randn, "bound_ms": bnd, "bound_by": by,
-            "bound_terms_ms": terms, "tail_share": tail_share,
-            "sass_trip": dataclasses.asdict(trip)}
+    print(f"time {tag} threefry_normal's trip in the SASS: {trip.trip} "
+          f"instructions for {trip.normals} normals in {trip.stores} "
+          f"store(s); a normal's own {trip.own():.2f} ({trip.work}) and "
+          f"{trip.layout():.2f} not its own (the layout's index, divide, "
+          f"addresses, stores, loop control and constants); "
+          f"{trip.tail['all']:.2f} more on erf_inv's tail side; the first "
+          f"design's trip: own {DRAW_TRIP_FIRST.own():.0f}, not own "
+          f"{DRAW_TRIP_FIRST.layout():.0f}, tail "
+          f"{DRAW_TRIP_FIRST.tail['all']:.0f}", flush=True)
+    shapes = {"lenet_conv1": (1 + LENET_BATCH * 784 // 128, 128 * 16),
+              "whisper_frames": (1, AUDIO_BATCH * AUDIO_FRAMES * 1024),
+              "noisy_decode": tuple(decode_shape)}
+    out = {"sass_trip": dataclasses.asdict(trip),
+           "sass_trip_first": dataclasses.asdict(DRAW_TRIP_FIRST)}
+    for what, (streams, n) in shapes.items():
+        keys = prng.fold_in(prng.key(1)[None],
+                            torch.arange(streams)).to(dev)
+        before = pk.threefry_normal.launches
+        ms = cuda_ms(lambda: pk.threefry_normal(keys, n), 50)
+        windows = graph_windows(lambda: pk.threefry_normal(keys, n))
+        host = host_us(lambda: pk.threefry_normal(keys, n))
+        drawn = pk.threefry_normal(keys, n)
+        pk.threefry_normal.launches = before     # not the main path
+        plain = cuda_ms(lambda: threefry_normal_ref(keys, n), 3)
+        randn = cuda_ms(lambda: torch.randn((streams, n), device=dev), 50)
+        shares = {"new": draw_tail_share(drawn, pk.NORMALS_A_TRIP),
+                  "first": draw_tail_share(drawn, 1)}
+        del drawn
+        bounds = {"new": draw_bound_ms(streams, n, trip, shares["new"]),
+                  "first": draw_bound_ms(streams, n, DRAW_TRIP_FIRST,
+                                        shares["first"])}
+        least = min(bounds, key=lambda k_: bounds[k_][0])
+        bnd, by, _ = bounds[least]
+        g_med = statistics.median(windows)
+        rec = {"streams": streams, "n": n, "ms": ms, "host_us": host,
+               "graph_us": g_med, "graph_windows_us": windows,
+               "plain_ms": plain, "randn_ms": randn,
+               "tail_share": shares, "bound_ms": bnd, "bound_by": by,
+               "bound_from": least,
+               "bounds": {k_: {"ms": v[0], "by": v[1], "terms_ms": v[2]}
+                          for k_, v in bounds.items()},
+               "share_of_bound": bnd / ms,
+               "share_of_bound_graph": 1e3 * bnd / g_med}
+        out[what] = rec
+        print(f"time {tag} threefry_normal {what} S={streams} n={n}: "
+              f"wrapper {ms:.4f} ms a call (events, 50 calls), graph "
+              f"{g_med / 1e3:.4f} ms a launch (median of 5 windows of 20: "
+              + ", ".join(f"{w / 1e3:.4f}" for w in windows)
+              + f"), wrapper host {host:.1f} us a call, plain "
+              f"{plain:.4f} ms, torch.randn {randn:.4f} ms "
+              "(another function); bound from the new SASS "
+              f"{bounds['new'][0]:.4f} ms ({bounds['new'][1]}; "
+              + ", ".join(f"{k_} {v:.4f}" for k_, v in
+                          bounds["new"][2].items())
+              + f"; tail share {shares['new']:.4f}), from the first "
+              f"design's count {bounds['first'][0]:.4f} ms "
+              f"({bounds['first'][1]}; tail share {shares['first']:.4f}); "
+              f"the wrapper at "
+              f"{100 * bnd / ms:.1f}% and the graph at "
+              f"{100 * 1e3 * bnd / g_med:.1f}% of the smaller ({least})",
+              flush=True)
+    main = out["lenet_conv1"]
+    out.update({k_: main[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")})
+    return out
 
 
 def flash_times(fk, fref, dev, tag, shape, cuda_core: bool = False,
@@ -5189,7 +5394,8 @@ def main() -> int:
           f"{DRAW_LENGTHS}, at most {DRAW_MAX} normals a case; keys from "
           f"key, fold_in (an id above 2^31) and split), == the host's draw "
           f"on the {draws['host_cases']} cases of at most {DRAW_HOST_MAX}; "
-          f"one launch a call", flush=True)
+          f"one launch a call; normal_of_bits == _normal_from_bits on all "
+          f"{draws['patterns']} patterns m << 9, bit for bit", flush=True)
 
     phase_s["kernels"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -5697,7 +5903,7 @@ def main() -> int:
     ftimes = flash_times(rmod, rref, dev, tag, (b, h, g, s, s, d, True),
                          cuda_core=True)
     report["flash_times"] = ftimes
-    dtimes = draw_times(dev, tag)
+    dtimes = draw_times(dev, tag, ndec["draw_shape"])
     report["draw_times"] = dtimes
     phase_s["times"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()

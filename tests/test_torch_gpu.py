@@ -199,8 +199,11 @@ def test_lenet_on_card_routes(cuda_device, r_in, r_w, batch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("streams,n", [(1, 1), (3, 127), (3, 129),
-                                       (1568, 2048), (1, 1 << 22)])
+@pytest.mark.parametrize("streams,n", [
+    (1, 1), (3, 127), (3, 129), (1568, 2048), (1, 1 << 22),
+    # many short streams packed into a block, rows ragged against a
+    # thread's 4 normals, and whisper's served frames
+    (1568, 1), (1568, 3), (1568, 5), (7, 1023), (1, 6_144_000)])
 def test_threefry_normal_kernel_matches_plain(cuda_device, streams, n):
     """One launch draws every stream bit for bit as the plain version does
     on the card and on the host; keys from key, fold_in (an id above
@@ -215,6 +218,68 @@ def test_threefry_normal_kernel_matches_plain(cuda_device, streams, n):
     assert torch.equal(got, threefry_normal_ref(keys.to(cuda_device), n))
     if streams * n <= 1 << 22:
         assert torch.equal(got.cpu(), threefry_normal_ref(keys, n))
+
+
+@pytest.mark.gpu
+def test_threefry_normal_past_2_32_counters(cuda_device):
+    """Counters past 2^32 (their high word 1) on the 32-bit loop (one
+    stream of 2^32 + 2003: 2^30 + 501 units), and the 64-bit loop (two
+    such streams: past 2^31 units) with scalar stores (n odd): windows
+    of the draw, across 2^32 and at each row's ends, against the plain
+    threefry of their counters.  Up to 32 GiB of normals."""
+    keys = prng.split(prng.key(3), 2).to(cuda_device)
+    w = 1000
+    n = (1 << 32) + 2 * w + 3
+    for streams in (1, 2):
+        got = pkernel.threefry_normal(keys[:streams], n)
+        for s in range(streams):
+            for j0 in (0, (1 << 32) - w // 2, n - w):
+                j = torch.arange(j0, j0 + w, dtype=torch.int64,
+                                 device=cuda_device)
+                y1, y2 = prng.threefry2x32(keys[s, 0], keys[s, 1], j >> 32,
+                                           j & prng.M32)
+                assert torch.equal(got[s, j0:j0 + w],
+                                   prng._normal_from_bits(y1 ^ y2))
+        del got
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_normal_of_bits_matches_plain_on_every_pattern(cuda_device):
+    """The draw's float chain on the card (`normal_of_bits`, the same
+    device code) equals the plain one on all 2^23 patterns m << 9 a
+    normal can come from, bit for bit: what licenses the kernel's cuts
+    of code no pattern reaches."""
+    bits = torch.arange(1 << 23, dtype=torch.int64, device=cuda_device) << 9
+    got = pkernel.normal_of_bits(bits)
+    want = prng._normal_from_bits(bits)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_threefry_normal_is_one_launch_and_takes_unaligned_keys(
+        cuda_device):
+    """A call on contiguous int64 keys runs the draw kernel and nothing
+    else (no masking or copy of the keys), one launch counted; keys at an
+    address that is not 16-byte aligned draw the same normals."""
+    keys = prng.split(prng.key(2), 1569).to(cuda_device)
+    pkernel.threefry_normal(keys, 2048)
+    torch.cuda.synchronize()
+    before = pkernel.threefry_normal.launches
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = pkernel.threefry_normal(keys, 2048)
+        torch.cuda.synchronize()
+    assert pkernel.threefry_normal.launches == before + 1
+    ran = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(ran) == 1 and "threefry_normal_kernel" in ran[0], ran
+    buf = torch.empty(2 * 1569 + 1, dtype=torch.int64, device=cuda_device)
+    buf[1:] = keys.reshape(-1)
+    odd = buf[1:].view(1569, 2)
+    assert odd.data_ptr() % 16
+    assert torch.equal(pkernel.threefry_normal(odd, 2048), got)
+    assert torch.equal(got, threefry_normal_ref(keys, 2048))
 
 
 @pytest.mark.gpu

@@ -8,8 +8,10 @@ keys and the shapes (1,), (7,), (128, 16), (3, 5, 7) and (70000,), plus
 than 2 M float32 points covering both of log1p's branches, erf_inv's
 w >= 5 tail and exp's flush to zero; the exact float32 fma the copies
 rest on, against rational arithmetic.  Also chip_smoke.py's count of the
-draw kernel's own SASS instructions (`draw_trip_of`, its bound), on a
-listing in the form nvcc gives the kernel.
+draw kernel's own SASS instructions (`draw_trip_of`, its bound), on
+listings in the two forms nvcc gave the kernel (one normal a trip, and
+four with a vector store), the integer divide the kernel finds a stream
+with, and the draw wrappers' CPU paths and refusals.
 
 One difference of the reference is shown rather than hidden
 (ROADMAP Queue 3): for a uniform whose span is not a power of two, XLA's
@@ -235,12 +237,13 @@ def test_fma_f32_is_one_rounding():
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
-# a grid-stride loop in the form nvcc gives threefry_normal_kernel's
-# (trimmed): the i / n divide (a called 64-bit path, a 32-bit fast one),
-# the key's address and loads, the counter, work on the key, a constant
-# moved into a register, a guarded block (log's), an IEEE divide whose
-# FCHK calls a slow path, erf_inv's if / else, the store and the loop's
-# back edge.  Each line's note: what the count makes of it
+# a grid-stride loop in the form nvcc gave the first design of
+# threefry_normal_kernel (trimmed; one normal a trip): the i / n divide
+# (a called 64-bit path, a 32-bit fast one), the key's address and
+# loads, the counter, work on the key, a constant moved into a register,
+# a guarded block (log's), an IEEE divide whose FCHK calls a slow path,
+# erf_inv's if / else, the store and the loop's back edge.  Each line's
+# note: what the count makes of it
 _DRAW_SASS = """Function : draw
         /*0000*/ S2R R2, SR_TID.X ;
         /*0010*/ ISETP.GE.U32.AND P0, PT, R2, UR4, PT ;
@@ -288,43 +291,206 @@ _DRAW_SASS = """Function : draw
 """
 
 
+# the redesigned kernel's form (trimmed from its sm_90a listing): a loop
+# rotated so that its head is the unit's divide by a multiply-high, one
+# 16-byte key load, the key schedule and four counters, a uniform, an
+# IEEE divide whose FCHK calls a slow path, a constant moved into a
+# register, erf_inv's tail side as four if-then blocks (one a normal),
+# the vector store under the kernel's flag and the ragged row end's
+# scalar stores it skips, and the back edge
+_DRAW4_SASS = """Function : draw4
+        /*0000*/ S2R R9, SR_TID.X ;
+        /*0010*/ ISETP.GE.U32.AND P0, PT, R9, UR11, PT ;
+        /*0020*/ @P0 EXIT ;
+        /*0030*/ IMAD.HI.U32 R0, R9, UR6, RZ ;
+        /*0040*/ IMAD.IADD R4, R9, 0x1, -R0 ;
+        /*0050*/ SHF.R.U32.HI R11, RZ, UR8, R4 ;
+        /*0060*/ IMAD.WIDE.U32 R4, R11, 0x10, R2 ;
+        /*0070*/ LDG.E.128.CONSTANT R4, desc[UR4][R4.64] ;
+        /*0080*/ IMAD R8, R11, UR9, R9 ;
+        /*0090*/ LOP3.LUT R0, R4, 0x1bd11bda, R6, 0x96, !PT ;
+        /*00a0*/ LEA R13, R8, R6, 0x2 ;
+        /*00b0*/ IADD3 R14, R13, 0x1, RZ ;
+        /*00c0*/ SHF.L.W.U32.HI R7, R13, 0xd, R13 ;
+        /*00d0*/ LOP3.LUT R7, R7, R0, RZ, 0x3c, !PT ;
+        /*00e0*/ SHF.L.W.U32.HI R15, R14, 0xd, R14 ;
+        /*00f0*/ IMAD.IADD R16, R15, 0x1, R7 ;
+        /*0100*/ LEA.HI R17, R16, 0x40000000, RZ, 0x17 ;
+        /*0110*/ FADD R17, R17, -2 ;
+        /*0120*/ IMAD.MOV.U32 R20, RZ, RZ, 0x383de04b ;
+        /*0130*/ FFMA R18, R17, R20, 0.5 ;
+        /*0140*/ BSSY B0, 0x1a0 ;
+        /*0150*/ MUFU.RCP R19, R18 ;
+        /*0160*/ FCHK P0, R17, R18 ;
+        /*0170*/ FFMA R21, R19, R17, RZ ;
+        /*0180*/ @!P0 BRA 0x1a0 ;
+        /*0190*/ CALL.REL.NOINC 0x400 ;
+        /*01a0*/ BSYNC B0 ;
+        /*01b0*/ FSETP.GT.AND P1, PT, R21, -5, PT ;
+        /*01c0*/ @P1 BRA 0x1f0 ;
+        /*01d0*/ MUFU.RSQ R22, -R21 ;
+        /*01e0*/ FADD R21, R22, -3 ;
+        /*01f0*/ FSETP.GT.AND P2, PT, R16, -5, PT ;
+        /*0200*/ @P2 BRA 0x230 ;
+        /*0210*/ MUFU.RSQ R23, -R16 ;
+        /*0220*/ FADD R16, R23, -3 ;
+        /*0230*/ FSETP.GT.AND P3, PT, R17, -5, PT ;
+        /*0240*/ @P3 BRA 0x270 ;
+        /*0250*/ MUFU.RSQ R24, -R17 ;
+        /*0260*/ FADD R17, R24, -3 ;
+        /*0270*/ FSETP.GT.AND P4, PT, R7, -5, PT ;
+        /*0280*/ @P4 BRA 0x2c0 ;
+        /*0290*/ MUFU.RSQ R25, -R7 ;
+        /*02a0*/ ISETP.NE.AND P5, PT, R7, RZ, PT ;
+        /*02b0*/ FADD R7, R25, -3 ;
+        /*02c0*/ ISETP.NE.AND P0, PT, RZ, UR10, PT ;
+        /*02d0*/ @P0 IMAD.WIDE.U32 R12, R9, 0x10, R12 ;
+        /*02e0*/ @P0 STG.E.128 desc[UR4][R12.64], R4 ;
+        /*02f0*/ @P0 BRA 0x340 ;
+        /*0300*/ ISETP.GE.U32.AND P1, PT, R8, UR12, PT ;
+        /*0310*/ @!P1 STG.E desc[UR4][R10.64], R21 ;
+        /*0320*/ STG.E desc[UR4][R10.64+0x4], R16 ;
+        /*0330*/ STG.E desc[UR4][R10.64+0x8], R17 ;
+        /*0340*/ IADD3 R9, R9, UR5, RZ ;
+        /*0350*/ ISETP.GE.U32.AND P0, PT, R9, UR11, PT ;
+        /*0360*/ @!P0 BRA 0x30 ;
+        /*0370*/ EXIT ;
+        /*0380*/ BRA 0x380 ;
+        /*0400*/ FMUL R21, R17, 0.5 ;
+        /*0410*/ RET.REL.NODEC R20 0x0 ;
+"""
+
+
 def _chip_smoke():
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     import chip_smoke
     return chip_smoke
 
 
-def test_draw_bound_counts_a_normals_own_instructions():
-    """The trip of a normal in the bulk: the divide's fast path, the
-    guarded block run, the FCHK's call skipped, erf_inv's shorter side
-    (28 instructions).  Its own work is what the key reaches: 6 on the
-    integer pipe (the add, the rotate, the compares, the guarded move),
-    4 on the FMA pipes, the reciprocal and the 3 key-guarded branches;
-    not the index, divide, address, loop control, constant or store.
-    The square root's side is the tail (2 more).  Where the code takes
-    another shape, the count raises."""
+def _trip_of(listing, edit=None):
     cs = _chip_smoke()
-    trip = cs.draw_trip_of(sass.parse_functions(_DRAW_SASS)["draw"])
-    assert (trip.trip, trip.stores) == (28, 1)
-    assert trip.work == {"alu": 6, "fma": 4, "mufu": 1, "other": 3,
-                         "all": 14}
-    assert trip.tail == {"alu": 0, "fma": 1, "mufu": 1, "other": 0,
-                         "all": 2}
-    # per normal: 14 + 2 x the tail's share of warps at the issue rate,
-    # 6 on the integer pipe, 4 FMA-pipe ones (two operations each); so
-    # few that the bytes bound it
+    text = listing if edit is None else listing.replace(*edit)
+    name = listing.split()[2]
+    return cs.draw_trip_of(sass.parse_functions(text)[name])
+
+
+@pytest.mark.parametrize("form", ("one_normal_a_trip", "four_normals_a_trip"))
+def test_draw_bound_counts_a_normals_own_instructions(form):
+    """A trip in the bulk, and a normal's own work on it: what the keys
+    reach, over the normals the trip stores; not the index, divide,
+    address, loop control, constant or store.  Where the code takes
+    another shape, the count raises.
+
+    One normal a trip (the first design's form): the divide's fast path,
+    the guarded block run, the FCHK's call skipped, erf_inv's shorter
+    side (28 instructions).  6 on the integer pipe (the add, the rotate, the
+    compares, the guarded move), 4 on the FMA pipes, the reciprocal and
+    the 3 key-guarded branches; the square root's side is the tail (2).
+
+    Four normals a trip (the redesign's form): one vector store of 16
+    bytes, so 4 normals; the FCHK's call and the scalar stores skipped,
+    each normal's square-root block the tail (38 instructions, 22 of
+    them own: 12 on the integer pipe, 4 FMA, the reciprocal, 5 key-
+    guarded branches; 9 on the four tails), each count over 4."""
+    cs = _chip_smoke()
     n = 1 << 20
-    ms, by, terms = cs.draw_bound_ms(1, n, trip, 0.5)
-    assert terms == {"bytes": 1e3 * (16 + 4 * n) / cs.PEAK_BYTES,
-                     "instructions": 1e3 * 15 * n / cs.PEAK_INSTRUCTIONS,
-                     "alu": 1e3 * 6 * n / cs.PEAK_INT32_OPS,
-                     "fma": 1e3 * 2 * 4.5 * n / cs.PEAK_F32_OPS}
+    if form == "one_normal_a_trip":
+        trip = _trip_of(_DRAW_SASS)
+        assert (trip.trip, trip.normals, trip.stores) == (28, 1, 1)
+        assert trip.work == {"alu": 6, "fma": 4, "mufu": 1, "other": 3,
+                             "all": 14}
+        assert trip.tail == {"alu": 0, "fma": 1, "mufu": 1, "other": 0,
+                             "all": 2}
+        assert (trip.own(), trip.layout()) == (14, 14)
+        # per normal: 14 + 2 x the tail's share of warps at the issue
+        # rate, 6 on the integer pipe, 4 FMA-pipe ones (two operations
+        # each); so few that the bytes bound it
+        ms, by, terms = cs.draw_bound_ms(1, n, trip, 0.5)
+        assert terms == {"bytes": 1e3 * (16 + 4 * n) / cs.PEAK_BYTES,
+                         "instructions": 1e3 * 15 * n / cs.PEAK_INSTRUCTIONS,
+                         "alu": 1e3 * 6 * n / cs.PEAK_INT32_OPS,
+                         "fma": 1e3 * 2 * 4.5 * n / cs.PEAK_F32_OPS}
+        listing, edits = _DRAW_SASS, (
+            (("@!P0 BRA 0x30", "NOP"), "backward branch"),
+            (("@!P0 BRA 0x70", "NOP"), "a call on every"),
+            (("MUFU.RSQ R13, -R12", "FMUL R13, R12, R12"), "square root"),
+            (("BRA 0x1f0", "BRA 0x400"), "leaves the loop"))
+    else:
+        trip = _trip_of(_DRAW4_SASS)
+        assert (trip.trip, trip.normals, trip.stores) == (38, 4, 1)
+        assert trip.work == {"alu": 3, "fma": 1, "mufu": 0.25,
+                             "other": 1.25, "all": 5.5}
+        assert trip.tail == {"alu": 0.25, "fma": 1, "mufu": 1, "other": 0,
+                             "all": 2.25}
+        assert (trip.own(), trip.layout()) == (5.5, 4)
+        # per normal: 5.5 + 2.25 x the share at the issue rate, 3.125 on
+        # the integer pipe, 1.5 FMA-pipe ones; the bytes bound it
+        ms, by, terms = cs.draw_bound_ms(1, n, trip, 0.5)
+        assert terms == {"bytes": 1e3 * ((16 + 4 * n) / cs.PEAK_BYTES),
+                         "instructions":
+                             1e3 * (6.625 * n / cs.PEAK_INSTRUCTIONS),
+                         "alu": 1e3 * (3.125 * n / cs.PEAK_INT32_OPS),
+                         "fma": 1e3 * (2 * 1.5 * n / cs.PEAK_F32_OPS)}
+        listing, edits = _DRAW4_SASS, (
+            (("@!P0 BRA 0x30", "NOP"), "backward branch"),
+            (("@!P0 BRA 0x1a0", "NOP"), "a call on every"),
+            (("MUFU.RSQ R24, -R17", "FMUL R24, R17, R17"), "square root"),
+            (("@P1 BRA 0x1f0", "@P1 BRA 0x500"), "leaves the loop"),
+            # run the scalar stores too: 7 normals stored, 4 tails
+            (("@P0 BRA 0x340", "NOP"), "4 for 7 normals"))
     assert (ms, by) == (terms["bytes"], "bytes")
-    for edit, match in ((("@!P0 BRA 0x30", "NOP"), "backward branch"),
-                        (("@!P0 BRA 0x70", "NOP"), "a call on every"),
-                        (("MUFU.RSQ R13, -R12", "FMUL R13, R12, R12"),
-                         "square root"),
-                        (("BRA 0x1f0", "BRA 0x400"), "leaves the loop")):
+    for edit, match in edits:
         with pytest.raises(ValueError, match=match):
-            cs.draw_trip_of(sass.parse_functions(
-                _DRAW_SASS.replace(*edit))["draw"])
+            _trip_of(listing, edit)
+
+
+@pytest.mark.parametrize("d", (1, 2, 3, 5, 7, 512, 513, 1_536_000,
+                               2**31 - 1, 2**31, 2**31 + 1, 2**32 - 1))
+def test_divider_is_an_exact_integer_divide(d):
+    """The draw kernel finds a unit's stream as (t + ((u - t) >> sh1)) >>
+    sh2 with t = (u * mul) >> 32 on 32-bit words, from the divisor the
+    wrapper precomputes (`kernel._divider`): u // d for every u < 2^32,
+    checked at the edges of each quotient and on random u."""
+    from repro_torch.kernels.prng.kernel import _divider
+    mul, sh1, sh2 = _divider(d)
+    assert 0 < mul < 1 << 32 and sh1 in (0, 1) and 0 <= sh2 < 32
+    g = np.random.default_rng(d)
+    qs = np.unique(np.concatenate([[0, 1, 2, (2**32 - 1) // d],
+                                   g.integers(0, (2**32 - 1) // d + 1,
+                                              2000)]))
+    us = np.concatenate([qs * d, qs * d + d - 1, qs * d - 1,
+                         g.integers(0, 2**32, 4000), [2**32 - 1]])
+    us = np.unique(us[(us >= 0) & (us < 2**32)]).astype(object)
+    for u in us:
+        t = (u * mul) >> 32
+        assert (t + ((u - t) >> sh1)) >> sh2 == u // d, u
+    with pytest.raises(ValueError):
+        _divider(0)
+    with pytest.raises(ValueError):
+        _divider(1 << 32)
+
+
+def test_draw_wrappers_on_the_cpu_and_refusals():
+    """On a CPU tensor the draw and normal_of_bits are their plain
+    versions; a tensor on another device, keys of another shape or type
+    and bits of another type raise (a CUDA tensor launches the kernel or
+    raises: tests/test_torch_gpu.py)."""
+    from repro_torch.kernels.prng import kernel as pk
+    keys = prng.split(prng.key(3), 5)
+    before = pk.threefry_normal.launches
+    assert torch.equal(pk.threefry_normal(keys, 37),
+                       prng.normal_rows(keys, 37))
+    assert pk.threefry_normal.launches == before
+    bits = prng.random_bits(prng.key(4), (1000,))
+    assert torch.equal(pk.normal_of_bits(bits),
+                       prng.normal(prng.key(4), (1000,)))
+    with pytest.raises(ValueError, match="normal_of_bits kernel"):
+        pk.normal_of_bits(bits.to("meta"))
+    with pytest.raises(ValueError, match="int64"):
+        pk.normal_of_bits(bits.to(torch.int32))
+    with pytest.raises(ValueError, match="threefry_normal kernel"):
+        pk.threefry_normal(keys.to("meta"), 4)
+    with pytest.raises(ValueError, match=r"\(S, 2\)"):
+        pk.threefry_normal(keys.reshape(-1), 4)
+    with pytest.raises(ValueError, match=">= 0"):
+        pk.threefry_normal(keys, -1)
