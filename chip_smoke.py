@@ -405,7 +405,36 @@ a result:
                 rows (the split-K route); monte_carlo's 4 trials == 4
                 runs under the split keys.  The launches of (e), the
                 slice's main path, join the kernels line.
- 18. times    - CUDA-event times of each kernel, its plain version and a
+ 18. ft_train - the training infrastructure on the card: launch/train.py
+                at OLMo-1B's full width (d 2048, 16 heads, d_ff 8192,
+                vocab 50304), depth cut to FT_DEPTH 2 of 16 (the float32
+                state, params, m, v and err, is 16 B a parameter: 3.8 GB
+                a checkpoint), fakequant (8, 4, 8), flash, bf16,
+                --compress-grads, sequence 4096 x batch 2 (phase 7's
+                batches).  FT_STEPS 6 uninterrupted steps through
+                train.build and make_train_step (train_steps: flash
+                launches a step, all on the tensor cores); then the same
+                6 steps through the fault-tolerant driver (make_driver:
+                --ckpt-dir in a temporary directory under chiprun_out/,
+                --ckpt-every 2, keep 2) with faults injected before steps
+                3 and 5: restarts 2, steps 2 and 4 run again, their
+                losses and the final state (every param, m, v, err and
+                opt/step) bit-equal to the uninterrupted run's, the
+                driver's flash launches 8 steps' worth, on the tensor
+                cores.  The newest checkpoint loads equal to the final
+                state, is resharded (param_specs, tree_shardings,
+                reshard_tree) onto a ("data", "model") = (4, 1) mesh
+                folded onto the card, and one more step under use_mesh
+                is bit-equal to the same step of the uninterrupted state.
+                compress_leaf on the card == on the CPU, codes, scale and
+                residual, on every leaf of step 1's gradients and error
+                buffer and on a leaf of zeros.  Prints the bytes of a
+                checkpoint, the seconds the loop blocks a save (its
+                device-to-host copy) and the writer's, the restores', the
+                newest's load and reshard, the free disk before the
+                phase, the median step, and the card's name and power
+                limit.
+ 19. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
                 ring_decode and the flash kernels: yardsticks the port
@@ -4963,6 +4992,279 @@ def noisy_train_step(cfg, state, batches, loss_grads, vs, step_ms,
     return rec
 
 
+FT_DEPTH = 2                      # of 16: the float32 state (params, m, v,
+                                  # err) is 16 B a parameter, 3.8 GB here
+FT_STEPS = 6
+FT_EVERY = 2
+FT_FAULTS = {3: 1, 5: 1}          # a fault before steps 3 and 5
+FT_KEEP = 2
+FT_MESH_D = 4                     # the elastic restore's D, on "data"
+
+
+def ft_args(ckpt_dir=None):
+    """launch/train.py's arguments of the ft_train phase: OLMo-1B,
+    fakequant, flash, compressed gradients; with a directory, the
+    fault-tolerant driver's."""
+    from repro_torch.launch import train
+    argv = ["--arch", "olmo-1b", "--steps", str(FT_STEPS), "--seq-len",
+            str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--lr",
+            str(TRAIN_LR), "--cim-mode", "fakequant", "--attn-impl",
+            "pallas", "--compress-grads"]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", ckpt_dir, "--ckpt-every", str(FT_EVERY)]
+    return train.parser().parse_args(argv)
+
+
+def _state_diff(a, b) -> list:
+    """Names of the train-state leaves (params, m, v, err, opt/step) that
+    are not bit-equal."""
+    from repro_torch.checkpoint.ckpt import _flatten_with_paths
+    fa, fb = _flatten_with_paths(a), _flatten_with_paths(b)
+    if [n for n, _ in fa] != [n for n, _ in fb]:
+        return ["<the trees differ>"]
+    return [n for (n, x), (_, y) in zip(fa, fb)
+            if x.dtype != y.dtype or not torch.equal(x.detach(),
+                                                     y.detach())]
+
+
+def ft_train_phase(dev, tag) -> dict:
+    """The training infrastructure (module docstring, phase 18): an
+    uninterrupted run, the fault-tolerant driver's run of the same steps
+    with two injected faults, an elastic restore onto a folded mesh, and
+    compression on the card against the CPU."""
+    import shutil
+    import tempfile
+    from repro_torch import convert
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.launch import specs, train
+    from repro_torch.models.sharding import use_mesh
+    from repro_torch.optim import compression as gc
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime import fault_tolerance as ft
+
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    free_gb = shutil.disk_usage(out_dir).free / 1e9
+    # two kept checkpoints and one being written, 16 B a parameter each
+    need_gb = 3 * 16 * 237e6 / 1e9
+    check(free_gb > need_gb, f"ft_train: {free_gb:.1f} GB free beside "
+          f"chiprun_out/, {need_gb:.1f} GB needed")
+    tmp = tempfile.TemporaryDirectory(dir=out_dir)
+    kerns = (fk.flash_fwd, fk.flash_bwd_dq, fk.flash_bwd_dkv)
+    try:
+        # -- 1. the uninterrupted run, step 1's gradients kept ----------------
+        cfg, state, step_fn, batch_fn = train.build(ft_args(),
+                                                    n_layers=FT_DEPTH)
+        check(cfg.n_layers == FT_DEPTH and cfg.d_model == 2048
+              and cfg.n_heads == 16 and cfg.d_ff == 8192
+              and cfg.vocab_size == 50304 and cfg.attn_impl == "pallas"
+              and cfg.cim.mode == "fakequant"
+              and (cfg.cim.r_in, cfg.cim.r_w, cfg.cim.r_out) == (8, 4, 8),
+              f"ft_train: launch/train.py built another config: {cfg}")
+        check("err" in state and state["params"]["embed"].is_cuda,
+              "ft_train: no error buffer, or the state is not on the card")
+        n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+        batches = [batch_fn(s) for s in range(FT_STEPS + 1)]
+        kept = {}
+        compressed_grads = gc.compressed_grads
+
+        def keep_step1(grads, err):
+            kept.setdefault("calls", []).append(len(grads))
+            if len(kept["calls"]) == 2:       # step 1: a live error buffer
+                kept["grads"], kept["err"] = list(grads), list(err)
+            return compressed_grads(grads, err)
+        gc.compressed_grads = keep_step1
+        try:
+            clean, rec1 = train_steps(cfg, state, step_fn,
+                                      batches[:FT_STEPS], "ft_train clean")
+        finally:
+            gc.compressed_grads = compressed_grads
+        del state
+        losses = [m["loss"] for m in rec1["metrics"]]
+
+        # -- 2. compression on the card == on the CPU ------------------------
+        t0 = time.perf_counter()
+        zeros = torch.zeros((4096, 2048), device=dev)
+        pairs = list(zip(kept.pop("grads"), kept.pop("err")))
+        pairs.append((zeros, zeros))
+        bad = []
+        for i, (g, e) in enumerate(pairs):
+            card = gc.compress_leaf(g, e)
+            host = gc.compress_leaf(g.cpu(), e.cpu())
+            if not all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                       for a, b in zip(card, host)):
+                bad.append(i)
+        check(kept["calls"] == [len(pairs) - 1] * FT_STEPS
+              and any(bool(e.any()) for e in tree_leaves(clean["err"])),
+              f"ft_train: compressed_grads calls {kept['calls']}, or the "
+              f"error buffer stayed zero")
+        check(not bad, f"ft_train: compress_leaf on the card != the CPU at "
+              f"leaves {bad[:8]} of {len(pairs)}")
+        compress_s = time.perf_counter() - t0
+        n_compared = sum(g.numel() for g, _ in pairs)
+        del pairs, zeros
+
+        # -- 3. the driver's run with two faults -----------------------------
+        args = ft_args(tmp.name)
+        _, state, step_fn2, batch_fn2 = train.build(args, n_layers=FT_DEPTH)
+        driver, run = train.make_driver(
+            args, state, step_fn2, batch_fn2,
+            ft.make_fault_injector(FT_FAULTS), keep=FT_KEEP)
+        copies, saves, writes, loads = [], [], [], []
+        save, restore = driver.manager.save, driver.restore_or_init
+        to_host = driver.to_host
+        write = ckpt.save_checkpoint
+
+        def timed_to_host(st):
+            # the first is the driver's snapshot of the initial state
+            t = time.perf_counter()
+            host = to_host(st)
+            copies.append(time.perf_counter() - t)
+            return host
+
+        def timed_save(step, tree, extra=None):
+            # blocks on the previous write, then starts the writer
+            t = time.perf_counter()
+            save(step, tree, extra)
+            saves.append({"step": step, "to_host_s": copies[-1],
+                          "save_call_s": time.perf_counter() - t})
+
+        def timed_write(*a, **k):
+            t = time.perf_counter()
+            out = write(*a, **k)
+            writes.append(time.perf_counter() - t)
+            return out
+
+        def timed_restore(init):
+            t = time.perf_counter()
+            out = restore(init)
+            torch.cuda.synchronize()
+            loads.append(time.perf_counter() - t)
+            return out
+        driver.to_host, driver.manager.save = timed_to_host, timed_save
+        driver.restore_or_init = timed_restore
+        ckpt.save_checkpoint = timed_write
+        for f in kerns:
+            f.launches = f.launches_tc = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            final, hist = run()
+        finally:
+            ckpt.save_checkpoint = write
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        drv_launches = [f.launches for f in kerns]
+        drv_tc = [f.launches_tc for f in kerns]
+        del state
+        ran = [h.step for h in hist]
+        check(driver.restarts == 2 and ran == [0, 1, 2, 2, 3, 4, 4, 5],
+              f"ft_train: restarts {driver.restarts}, steps run {ran}")
+        check([h.loss for h in hist] == [losses[s] for s in ran],
+              f"ft_train: the driver's losses {[h.loss for h in hist]} != "
+              f"the uninterrupted run's {losses} at steps {ran}")
+        diff = _state_diff(final, clean)
+        check(not diff, f"ft_train: after 2 restarts the state differs "
+              f"from the uninterrupted run's at {len(diff)} leaves: "
+              f"{diff[:8]}")
+        attn = cfg.n_layers * len(hist)
+        want = [(1 + int(cfg.remat)) * attn, attn, attn]
+        check(drv_launches == want and drv_tc == want,
+              f"ft_train: the driver's flash launches {drv_launches} (on "
+              f"the tensor cores {drv_tc}) != {want}")
+        step_dir = os.path.join(tmp.name, f"step_{FT_STEPS:08d}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+        kept_dirs = sorted(os.listdir(tmp.name))
+        check(kept_dirs == [f"step_{s:08d}" for s in
+                            (FT_STEPS - FT_EVERY, FT_STEPS)],
+              f"ft_train: the directory keeps {kept_dirs}")
+
+        # -- 4. elastic restore onto a folded mesh of D 4 --------------------
+        logical = convert.train_state_to_numpy(final)
+        del final
+        t0 = time.perf_counter()
+        host, manifest = ckpt.load_checkpoint(tmp.name, logical)
+        load_s = time.perf_counter() - t0
+        check(int(manifest["step"]) == FT_STEPS and all(
+            a.tobytes() == b.tobytes() for a, b in
+            zip(tree_leaves(host), tree_leaves(logical))),
+              "ft_train: the newest checkpoint is not the final state")
+        del logical
+        mesh = elastic.make_mesh(*elastic.choose_mesh_shape(FT_MESH_D, tp=1),
+                                 fold_onto=dev)
+        pspec = specs.tree_shardings(specs.param_specs(host["params"], mesh),
+                                     mesh)
+        placements = {"params": pspec, "err": pspec,
+                      "opt": {"m": pspec, "v": pspec,
+                              "step": elastic.replicated(mesh)}}
+        t0 = time.perf_counter()
+        sharded = convert.train_state_from_numpy(
+            elastic.reshard_tree(host, placements), dev)
+        torch.cuda.synchronize()
+        reshard_s = time.perf_counter() - t0
+        del host
+        with use_mesh(mesh):
+            sharded, ms = step_fn2(sharded, batches[FT_STEPS])
+        clean, mu = step_fn(clean, batches[FT_STEPS])
+        diff = _state_diff(sharded, clean)
+        check(float(ms["loss"]) == float(mu["loss"]) and not diff,
+              f"ft_train: the step after the restore onto {mesh.shape} "
+              f"{mesh.axis_names} differs from the unsharded one (loss "
+              f"{float(ms['loss'])} / {float(mu['loss'])}, leaves "
+              f"{diff[:8]})")
+        del sharded, clean
+    finally:
+        tmp.cleanup()
+        torch.cuda.empty_cache()
+
+    med = statistics.median(rec1["step_ms"])
+    rec = {"depth": FT_DEPTH, "n_params": n_params, "steps": FT_STEPS,
+           "losses": losses, "step_ms": rec1["step_ms"],
+           "median_step_ms": med, "peak_memory_gb": rec1["peak_gb"],
+           "launches": rec1["launches"], "launches_tc": rec1["launches_tc"],
+           "driver": {"steps_run": ran, "restarts": driver.restarts,
+                      "run_s": run_s, "launches": drv_launches,
+                      "launches_tc": drv_tc, "saves": saves,
+                      "writes_s": writes, "restores_s": loads},
+           "checkpoint_bytes": ckpt_bytes, "free_disk_gb_before": free_gb,
+           "elastic": {"mesh": [list(mesh.shape), list(mesh.axis_names)],
+                       "load_s": load_s, "reshard_s": reshard_s},
+           "snapshot_s": copies[0],
+           "compress_check": {"elements": n_compared, "seconds": compress_s}}
+    block = [s["to_host_s"] + s["save_call_s"] for s in saves]
+    print(f"ft_train {tag}: OLMo-1B at full width, depth {FT_DEPTH} of 16 "
+          f"({n_params / 1e6:.1f} M params), fakequant (8,4,8), flash, "
+          f"--compress-grads, seq {TRAIN_SEQ} x batch {TRAIN_BATCH}; "
+          f"{FT_STEPS} uninterrupted steps: median {med:.1f} ms a step, "
+          f"losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; flash launches {list(rec1['launches'].values())} (tensor "
+          f"cores {list(rec1['launches_tc'].values())})", flush=True)
+    print(f"ft_train {tag}: driver --ckpt-every {FT_EVERY}, keep "
+          f"{FT_KEEP}, faults before steps {sorted(FT_FAULTS)}: restarts "
+          f"{driver.restarts}, steps run {ran}, final state (params, m, v, "
+          f"err, opt/step) and re-run losses bit-equal to the "
+          f"uninterrupted run; {run_s:.1f} s; flash launches "
+          f"{drv_launches} all on the tensor cores", flush=True)
+    print(f"ft_train {tag}: checkpoint {ckpt_bytes} bytes "
+          f"({ckpt_bytes / 1e9:.3f} GB) a save; the loop blocks "
+          + ", ".join(f"{b:.3f}" for b in block)
+          + " s a save (device-to-host " + ", ".join(
+              f"{s['to_host_s']:.3f}" for s in saves)
+          + "), the writer takes " + ", ".join(f"{w:.3f}" for w in writes)
+          + " s; restores " + ", ".join(f"{x:.3f}" for x in loads)
+          + f" s; the initial snapshot {copies[0]:.3f} s; the newest "
+          f"loaded in {load_s:.3f} s and resharded onto "
+          f"{mesh.shape} {mesh.axis_names} (folded) in {reshard_s:.3f} s, "
+          f"its step bit-equal to the unsharded one; compress_leaf card == "
+          f"CPU on {n_compared} gradient elements and a zero leaf "
+          f"({compress_s:.1f} s); free disk before {free_gb:.1f} GB; "
+          f"{card_line()}", flush=True)
+    return rec
+
+
 def cuda_core_fns(fk, q, k, v, do, lse, delta, q_off, causal,
                   window) -> dict:
     """The CUDA-core forward, dq and dk/dv kernels (flash_fwd.cu,
@@ -5785,7 +6087,13 @@ def main() -> int:
     phase_s["cimcheck"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 18. times -----------------------------------------------------------
+    # -- 18. the training infrastructure: checkpoints, faults, elastic ------
+    fttrain = ft_train_phase(dev, tag)
+    report["ft_train"] = fttrain
+    phase_s["ft_train"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 19. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -6043,7 +6351,8 @@ def main() -> int:
             "replaces": f"src/repro/kernels/flash_attn/kernel.py:{line}",
             "launches": train["launches_tc"][name]
             + dense["launches_tc"][name] + lsh[f"{name}_tc"]
-            + lm[f"{name}_tc"] + la[f"{name}_tc"],
+            + lm[f"{name}_tc"] + la[f"{name}_tc"]
+            + fttrain["launches_tc"][name],
             "max_abs_err": max(flash["max_abs_err"][kind].values()),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -6114,7 +6423,8 @@ def main() -> int:
         "recurrent": lr,
         "audio": la,
         "shard": lsh,
-        "cimcheck": lcc}
+        "cimcheck": lcc,
+        "ft_train": fttrain["launches_tc"]}
     report["total_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -6,7 +6,9 @@ The layouts match, so nothing is transposed: each CIM layer is
 `decode_lm_from_numpy` builds a whole in-flight decode model from the fp32
 masters of its projections, so both packages can serve the same weights;
 `train_params_from_numpy` turns the JAX LM parameter tree into the
-port's, so both packages can train the same weights, and
+port's, so both packages can train the same weights
+(`train_state_from_numpy` the whole train state, and
+`train_state_to_numpy` back again: the layout a checkpoint holds), and
 `deploy_params_from_numpy` does the same for the deploy-quantized tree
 (int8 codes kept as int8); `cache_from_numpy` turns a JAX decode cache
 into the port's (the same stacked layout, dtypes kept);
@@ -26,7 +28,9 @@ from typing import Dict, List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import host_tree
 from repro_torch.models.transformer import STACKED_KEYS
+from repro_torch.optim.adamw import tree_leaves
 
 LAYER_KEYS = ("w", "abn_log_gamma", "abn_beta")
 
@@ -110,7 +114,8 @@ def _array_to_tensor(a, device) -> torch.Tensor:
 def _lm_tree_from_numpy(tree: Mapping, leaf) -> Dict:
     """The port's LM tree from the JAX package's: per-layer slices of the
     stacked leaves under "layers" ("blocks" and "tail" for the hybrid
-    family), every other leaf through `leaf`."""
+    family), every other leaf through `leaf`.  A stacked leaf may be a
+    numpy array or a tensor (sliced where it lies)."""
     def convert(node):
         if isinstance(node, Mapping):
             return {k: convert(v) for k, v in node.items()}
@@ -119,13 +124,16 @@ def _lm_tree_from_numpy(tree: Mapping, leaf) -> Dict:
     def layer(node, i):
         if isinstance(node, Mapping):
             return {k: layer(v, i) for k, v in node.items()}
-        return leaf(np.asarray(node)[i])
+        if not isinstance(node, torch.Tensor):
+            node = np.asarray(node)
+        return leaf(node[i])
 
     def depth(node):
         if isinstance(node, Mapping):
             return next((d for d in map(depth, node.values())
                          if d is not None), None)
-        return np.asarray(node).shape[0]
+        return node.shape[0] if isinstance(node, torch.Tensor) \
+            else np.asarray(node).shape[0]
 
     out = {k: convert(v) for k, v in tree.items() if k not in STACKED_KEYS}
     for k in STACKED_KEYS:
@@ -146,10 +154,88 @@ def train_params_from_numpy(tree: Mapping, device="cpu") -> Dict:
     "enc_layers" too); the port keeps one dict per layer (block)
     there, so leaf i of the result's list is slice i of each stacked
     leaf.  Every
-    other leaf keeps its shape.  Leaves become float32 tensors on
-    `device`, copied, never shared."""
-    return _lm_tree_from_numpy(tree, lambda a: torch.from_numpy(
-        np.array(a, dtype=np.float32)).to(device))
+    other leaf keeps its shape.  Leaves (numpy arrays or tensors)
+    become float32 tensors on `device`, copied, never shared.  The whole
+    train state converts with `train_state_from_numpy`."""
+    return _lm_tree_from_numpy(tree, _float32_leaf(device))
+
+
+def _float32_leaf(device):
+    """A float32 copy of a numpy array or a tensor, on `device`."""
+    def leaf(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().to(device=device, dtype=torch.float32,
+                                 copy=True)
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+    return leaf
+
+
+def train_state_from_numpy(tree: Mapping, device="cpu") -> Dict:
+    """The port's train state (`launch/steps.train_state`) from JAX's
+    logical one: {"params", "opt": {"m", "v", "step"}} and, under
+    gradient compression, "err", each tree stacked as JAX stores it
+    (leaves numpy arrays, as a checkpoint holds them, or tensors).  The
+    params, moments and error become float32 tensors on `device`, copied,
+    the params leaf tensors that require grad; "opt/step" an int32 0-d
+    tensor.  The inverse of `train_state_to_numpy`."""
+    leaf = _float32_leaf(device)
+    state = {"params": _lm_tree_from_numpy(tree["params"], leaf),
+             "opt": {"m": _lm_tree_from_numpy(tree["opt"]["m"], leaf),
+                     "v": _lm_tree_from_numpy(tree["opt"]["v"], leaf),
+                     "step": torch.tensor(int(tree["opt"]["step"]),
+                                          dtype=torch.int32,
+                                          device=device)}}
+    if "err" in tree:
+        state["err"] = _lm_tree_from_numpy(tree["err"], leaf)
+    for p in tree_leaves(state["params"]):
+        p.requires_grad_(True)
+    return state
+
+
+def _stacked_to_numpy(layers: Sequence) -> Mapping:
+    """One per-layer tree a layer -> the tree of leaves stacked along a
+    new leading axis, each written once into a host array (the
+    device-to-host copies finish before this returns)."""
+    def stack(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        first = nodes[0]
+        out = torch.empty((len(nodes),) + tuple(first.shape),
+                          dtype=first.dtype)
+        for i, t in enumerate(nodes):
+            out[i].copy_(t.detach())
+        return out.numpy()
+    return stack(list(layers))
+
+
+def _lm_tree_to_numpy(tree: Mapping) -> Dict:
+    """JAX's LM tree (numpy leaves) from the port's: the per-layer lists
+    under "layers", "blocks", "tail" and "enc_layers" stacked along a
+    leading layer axis, every other leaf copied.  The inverse of
+    `train_params_from_numpy` (dtypes kept)."""
+    out = {k: host_tree(v) for k, v in tree.items()
+           if k not in STACKED_KEYS}
+    for k in STACKED_KEYS:
+        if k in tree and len(tree[k]):
+            out[k] = _stacked_to_numpy(tree[k])
+    return out
+
+
+def train_state_to_numpy(state: Mapping) -> Dict:
+    """JAX's logical train state from the port's, as numpy arrays: the
+    params, moments and error buffer stacked (`_lm_tree_to_numpy`),
+    "opt/step" an int32 0-d array.  The checkpoint's layout: a state the
+    port's launcher saves restores with the JAX package's
+    `load_checkpoint` and JAX's template, and the reverse through
+    `train_state_from_numpy`."""
+    out = {"params": _lm_tree_to_numpy(state["params"]),
+           "opt": {"m": _lm_tree_to_numpy(state["opt"]["m"]),
+                   "v": _lm_tree_to_numpy(state["opt"]["v"]),
+                   "step": host_tree(state["opt"]["step"]).astype(
+                       np.int32)}}
+    if "err" in state:
+        out["err"] = _lm_tree_to_numpy(state["err"])
+    return out
 
 
 def deploy_params_from_numpy(tree: Mapping, device="cpu") -> Dict:

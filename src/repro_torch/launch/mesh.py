@@ -78,6 +78,16 @@ class DeviceMesh:
         return self.shape[self.axis_names.index(name)]
 
 
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a logical array goes: a mesh and a spec, one entry per
+    dimension (None, an axis name or a tuple of them; JAX's
+    `NamedSharding(mesh, PartitionSpec(...))`).  A spec shorter than the
+    array leaves the trailing dimensions unpartitioned."""
+    mesh: DeviceMesh
+    spec: Tuple = ()
+
+
 def _device(dev: DeviceLike) -> torch.device:
     """A concrete device: "cuda" names the current card."""
     d = torch.device("cuda" if dev is None else dev)

@@ -1,10 +1,12 @@
 """Step builders: train, prefill and serve.
 
 Counterpart of `repro/launch/steps.py`.  The training state is
-{"params": tree, "opt": {"m", "v", "step"}}; a train step computes the
-loss and its gradients with autograd, then AdamW updates the state in
-place (`optim/adamw.py`) and returns it with the step's metrics, as
-device tensors (reading one waits for the card).  The prefill and serve
+{"params": tree, "opt": {"m", "v", "step"}}, plus "err" (a float32 tree
+like the params) under gradient compression; a train step computes the
+loss and its gradients with autograd, passes them through the
+error-feedback int8 round trip when asked (`optim/compression.py`), then
+AdamW updates the state in place (`optim/adamw.py`) and returns it with
+the step's metrics, as device tensors (reading one waits for the card).  The prefill and serve
 steps run the LM forward for serving; the serve step's KV cache is
 written in place and returned.
 """
@@ -17,7 +19,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
-from repro_torch.optim.adamw import tree_leaves
+from repro_torch.optim import compression as gc
+from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 from repro_torch.optim.schedules import cosine_schedule
 
 AUX_LOSS_WEIGHT = 0.01
@@ -59,10 +62,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     The state is updated in place and returned; metrics are {"loss",
     "ce", "aux", "grad_norm", "lr"} as detached device tensors.  `key` is
     the step's noise key (the launcher passes fold_in(key(seed),
-    step))."""
-    if compress_grads:
-        raise NotImplementedError(
-            "gradient compression (optim/compression.py) is not ported")
+    step)).  With `compress_grads` the gradients go through
+    `compression.compressed_grads` with state["err"], which takes the new
+    error, before AdamW."""
 
     def train_step(state, batch, key=None):
         params = state["params"]
@@ -72,6 +74,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
         # gets a zero gradient, as under jax.grad
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
             leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        if compress_grads:
+            grads, new_err = gc.compressed_grads(
+                grads, tree_leaves(state["err"]))
+            state["err"] = tree_unflatten(state["err"], new_err)
         lr_scale = cosine_schedule(state["opt"]["step"], warmup, total_steps)
         _, new_opt, om = adamw_update(
             params, grads, state["opt"], opt_cfg, lr_scale,
@@ -84,21 +90,23 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     return train_step
 
 
-def train_state(params: Dict) -> Dict:
+def train_state(params: Dict, compress_grads: bool = False) -> Dict:
     """A fresh training state over `params`, whose leaves become leaf
-    tensors that require grad."""
+    tensors that require grad; with `compress_grads`, a zeroed error
+    buffer under "err"."""
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    return {"params": params, "opt": adamw_init(params)}
+    state = {"params": params, "opt": adamw_init(params)}
+    if compress_grads:
+        state["err"] = gc.init_error_buffer(params)
+    return state
 
 
 def init_train_state(cfg: ModelConfig, generator: torch.Generator,
                      compress_grads: bool = False) -> Dict:
-    """Params from `generator` (on its device) and zeroed AdamW moments."""
-    if compress_grads:
-        raise NotImplementedError(
-            "gradient compression (optim/compression.py) is not ported")
-    return train_state(tf.init_params(cfg, generator))
+    """Params from `generator` (on its device), zeroed AdamW moments and,
+    with `compress_grads`, a zeroed error buffer."""
+    return train_state(tf.init_params(cfg, generator), compress_grads)
 
 
 def make_prefill_step(cfg: ModelConfig):

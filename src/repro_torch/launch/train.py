@@ -28,16 +28,26 @@ into self-attention over the labels: ROADMAP Queue 3, reference fault
 (`NoiseConfig()`), with step s drawing under fold_in(key(--seed), s).
 The ssm and hybrid families refuse it: their forward takes no noise key
 (ValueError, JAX's forward's own).
-Checkpointing (`--ckpt-dir`) and gradient compression
-(`--compress-grads`) are not ported and raise NotImplementedError.
+
+`--compress-grads` passes each step's gradients through the
+error-feedback int8 round trip (`optim/compression.py`; the state gains
+"err").  `--ckpt-dir D` runs the steps under the fault-tolerant driver
+(`runtime/fault_tolerance.TrainDriver`): a checkpoint every
+`--ckpt-every` steps (default 25) and at the end, in JAX's stacked
+logical layout (`convert.train_state_to_numpy`), so the JAX package's
+`load_checkpoint` restores it and the reverse; a run finds the newest
+checkpoint in D and resumes from it.  Each step's noise key is still
+fold_in(key(--seed), step), a step run again after a restart included.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import torch
 
+from repro_torch import convert
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import prng
 from repro_torch.core.cim_layers import CIMConfig
@@ -46,6 +56,7 @@ from repro_torch.data.lm_data import LMDataConfig, SyntheticLM
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim.adamw import tree_leaves
+from repro_torch.runtime.fault_tolerance import FTConfig, TrainDriver
 
 
 def resolve_device(name: str) -> torch.device:
@@ -58,12 +69,14 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def build(args):
-    """(cfg, state, step_fn, batch_fn) for the parsed arguments."""
-    if args.ckpt_dir:
-        raise NotImplementedError("checkpointing is not ported")
+def build(args, n_layers: Optional[int] = None):
+    """(cfg, state, step_fn, batch_fn) for the parsed arguments.
+    `n_layers` cuts the config's depth before the weights are drawn (a
+    state too large to checkpoint at full depth), as serve.build's."""
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     noise = NoiseConfig() if args.cim_noise else NO_NOISE
     cfg = cfg.replace(cim=CIMConfig(mode=args.cim_mode, max_gamma=2.0**16,
                                     noise=noise),
@@ -88,8 +101,29 @@ def build(args):
         warmup=min(20, args.steps // 10 + 1),
         compress_grads=args.compress_grads)
     state = init_train_state(
-        cfg, torch.Generator(device=dev).manual_seed(args.seed))
+        cfg, torch.Generator(device=dev).manual_seed(args.seed),
+        compress_grads=args.compress_grads)
     return cfg, state, step_fn, batch_fn
+
+
+def make_driver(args, state, step_fn, batch_fn, fault_injector=None,
+                keep: int = 3):
+    """(driver, run) for `--ckpt-dir`: a TrainDriver keeping the newest
+    `keep` checkpoints, which hold JAX's stacked layout, and whose
+    restarts build new tensors on the state's device; run() -> (state,
+    history) drives the --steps steps.  The driver calls its step with
+    (state, (step, batch)), so each step's noise key comes from the step
+    it runs."""
+    dev = tree_leaves(state["params"])[0].device
+    driver = TrainDriver(
+        FTConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                 keep=keep),
+        lambda st, sb: step_fn(st, sb[1], step_key(args, sb[0])),
+        lambda step: (step, batch_fn(step)), state_template=state,
+        to_host=convert.train_state_to_numpy,
+        from_host=lambda host: convert.train_state_from_numpy(host, dev))
+    return driver, lambda: driver.run(state, args.steps,
+                                      fault_injector=fault_injector)
 
 
 def audio_tokens(cfg, seq_len: int) -> int:
@@ -129,7 +163,10 @@ def parser() -> argparse.ArgumentParser:
                     choices=["bypass", "fakequant"])
     ap.add_argument("--cim-noise", action="store_true")
     ap.add_argument("--compress-grads", action="store_true")
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint/restart through the fault-tolerant "
+                    "driver, in this directory")
+    ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--attn-impl", default="jnp", choices=["jnp", "pallas"],
@@ -144,6 +181,12 @@ def main(argv=None):
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M cim={cfg.cim.mode} "
           f"noise={cfg.cim.noise.enabled} attn={cfg.attn_impl} "
           f"device={args.device}")
+    if args.ckpt_dir:
+        driver, run = make_driver(args, state, step_fn, batch_fn)
+        state, history = run()
+        print(f"final loss={history[-1].loss:.4f} "
+              f"(restarts={driver.restarts})")
+        return
     t0 = time.time()
     for step in range(args.steps):
         state, metrics = step_fn(state, batch_fn(step), step_key(args, step))

@@ -47,6 +47,24 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_unflatten(template, leaves: Sequence[Any]):
+    """A tree shaped like `template` holding `leaves` in `tree_leaves`'
+    order (JAX's `treedef.unflatten`)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            out = {k: build(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return [build(t) for t in node]
+        return next(it)
+    out = build(template)
+    if next(it, it) is not it:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
 def adamw_init(params) -> dict:
     zeros = lambda p: torch.zeros_like(p, requires_grad=False)  # noqa: E731
     device = tree_leaves(params)[0].device

@@ -1748,3 +1748,89 @@ def test_bind_on_card_equals_host_bind(cuda_device, gamma_bits):
     for k in want:
         assert got[k].device == want[k].device and torch.equal(got[k],
                                                               want[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ("random", "ties", "zeros", "fault13"))
+def test_compression_on_card_matches_host(cuda_device, kind):
+    """compress_leaf on the card == on the host bit for bit (codes, scale,
+    residual): no reciprocal for the divides, no FMA in the residual."""
+    from repro_torch.optim import compression as gc
+    rng = np.random.default_rng(7)
+    for n in (1, 777, 1 << 20):
+        if kind == "random":
+            g = rng.standard_normal(n) * 10.0 ** rng.uniform(-6, 6)
+            e = rng.standard_normal(n) * np.abs(g).max() * 1e-2
+        elif kind == "ties":
+            g = (rng.integers(-126, 126, n) + 0.5) * 2.0 ** -7
+            g[0] = 127 * 2.0 ** -7
+            e = np.zeros(n)
+        elif kind == "zeros":
+            g = e = np.zeros(n)
+        else:
+            g, e = np.full(n, 0.13803421), np.zeros(n)
+        g, e = (torch.from_numpy(a.astype(np.float32)) for a in (g, e))
+        host = gc.compress_leaf(g, e)
+        card = gc.compress_leaf(g.to(cuda_device), e.to(cuda_device))
+        for a, b in zip(card, host):
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(
+                a.cpu(), b), (kind, n)
+
+
+@pytest.mark.gpu
+def test_checkpoint_of_card_tensors_restores_onto_the_card(cuda_device,
+                                                           tmp_path):
+    """An async save of card tensors copies them before it returns (the
+    train step writes in place); a restore puts each leaf back on its
+    template leaf's device and dtype."""
+    from repro_torch.checkpoint import CheckpointManager
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    tree = {"w": torch.randn((1024, 1024), generator=g, device=cuda_device,
+                             requires_grad=True),
+            "step": torch.full((), 7, dtype=torch.int32, device=cuda_device)}
+    want = {k: v.detach().clone() for k, v in tree.items()}
+    mgr = CheckpointManager(str(tmp_path), keep=1)
+    mgr.save(7, tree)
+    with torch.no_grad():
+        tree["w"].add_(1.0)
+    restored, manifest = mgr.restore(tree)
+    assert manifest["step"] == 7
+    for k in tree:
+        assert restored[k].is_cuda and restored[k].dtype == tree[k].dtype
+        assert torch.equal(restored[k].detach(), want[k]), k
+    assert restored["w"].requires_grad and restored["w"].is_leaf
+    host, _ = mgr.restore({k: v.cpu() for k, v in tree.items()})
+    assert not host["w"].is_cuda and torch.equal(host["w"],
+                                                 want["w"].cpu())
+
+
+@pytest.mark.gpu
+def test_launcher_fault_run_on_card_equals_clean_run(cuda_device,
+                                                     tmp_path):
+    """OLMo-1B's smoke config on the card, --compress-grads, noisy: the
+    driver with faults before steps 3 and 5 ends bit-equal to the run
+    without them."""
+    from repro_torch import convert
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.fault_tolerance import make_fault_injector
+    argv = ["--arch", "olmo-1b", "--smoke", "--steps", "6", "--seq-len",
+            "64", "--batch", "2", "--cim-mode", "fakequant", "--attn-impl",
+            "pallas", "--compress-grads", "--cim-noise", "--ckpt-dir",
+            str(tmp_path), "--ckpt-every", "2"]
+    args = train.parser().parse_args(argv)
+    _, state, step_fn, batch_fn = train.build(args)
+    losses = []
+    for s in range(args.steps):
+        state, m = step_fn(state, batch_fn(s), train.step_key(args, s))
+        losses.append(float(m["loss"]))
+    _, init, step_fn, batch_fn = train.build(args)
+    driver, run = train.make_driver(args, init, step_fn, batch_fn,
+                                    make_fault_injector({3: 1, 5: 1}))
+    final, hist = run()
+    assert driver.restarts == 2
+    assert [h.loss for h in hist] == [losses[h.step] for h in hist]
+    a = tree_leaves(convert.train_state_to_numpy(final))
+    b = tree_leaves(convert.train_state_to_numpy(state))
+    assert all(x.tobytes() == y.tobytes() for x, y in zip(a, b))
+    assert tree_leaves(final["params"])[0].is_cuda

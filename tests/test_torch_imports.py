@@ -96,9 +96,19 @@ ANALYSIS_SLICE = [
 ]
 
 
+# the training-infrastructure slice: gradient compression, checkpoints,
+# the fault-tolerant driver, elastic restore and the sharding specs
+INFRA_SLICE = [
+    "optim/compression.py", "checkpoint/__init__.py", "checkpoint/ckpt.py",
+    "runtime/fault_tolerance.py", "runtime/elastic.py", "launch/specs.py",
+    "runtime/__init__.py", "optim/__init__.py", "launch/train.py",
+    "launch/steps.py", "launch/mesh.py", "convert.py",
+]
+
+
 @pytest.mark.parametrize("rel", TRAIN_SLICE + NOISE_SLICE + SERVE_SLICE
                          + PRECISION_SLICE + TUNER_SLICE + CNN_SLICE
-                         + SHARDING_SLICE + ANALYSIS_SLICE)
+                         + SHARDING_SLICE + ANALYSIS_SLICE + INFRA_SLICE)
 def test_train_slice_module_is_checked(rel):
     assert PORT / rel in FILES
 

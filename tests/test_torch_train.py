@@ -35,6 +35,7 @@ bfloat16 ABN gradients of a layer whose codes agree with JAX are held
 tightly by `tests/test_torch_fakequant.py`.
 """
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -322,13 +323,30 @@ def test_launcher_builds_and_trains_on_the_cpu():
     assert fkernel.flash_fwd.launches == before     # plain versions only
 
 
-@pytest.mark.parametrize("flag", ("--ckpt-dir=/nonexistent",
-                                  "--compress-grads"))
-def test_launcher_refuses_what_is_not_ported(flag):
-    args = train.parser().parse_args([
-        "--arch", "olmo-1b", "--smoke", "--device", "cpu", flag])
-    with pytest.raises(NotImplementedError):
-        train.build(args)
+@pytest.mark.parametrize("flag", ("--ckpt-dir", "--compress-grads"))
+def test_launcher_runs_checkpoints_and_compression(flag, tmp_path, capsys):
+    """--ckpt-dir runs the fault-tolerant driver from main() (a
+    checkpoint every --ckpt-every steps and at the end); --compress-grads
+    gives the state a live error buffer."""
+    argv = ["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--steps",
+            "3", "--seq-len", "16", "--batch", "2", "--cim-mode",
+            "fakequant", "--attn-impl", "pallas"]
+    if flag == "--ckpt-dir":
+        ck = tmp_path / "ck"
+        train.main(argv + ["--ckpt-dir", str(ck), "--ckpt-every", "2"])
+        assert "final loss=" in capsys.readouterr().out
+        assert sorted(os.listdir(ck)) == ["step_00000002", "step_00000003"]
+        assert train.parser().parse_args(argv).ckpt_every == 25
+        return
+    args = train.parser().parse_args(argv + [flag])
+    _, state, step_fn, batch_fn = train.build(args)
+    assert "err" in state and not any(e.any() for e in tree_leaves(
+        state["err"]))
+    for s in range(3):
+        state, m = step_fn(state, batch_fn(s))
+        assert np.isfinite(float(m["loss"]))
+    assert int(state["opt"]["step"]) == 3
+    assert any(e.any() for e in tree_leaves(state["err"]))
 
 
 def test_launcher_defaults_to_the_card():
