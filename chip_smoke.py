@@ -282,9 +282,20 @@ a result:
                 planned, no growth after warm-up), and over its first 2
                 layers and their binds the sharded serve (batch 4, prompt
                 8, gen 4, --engine-devices 4 folded onto the card:
-                tokens and every logit == unsharded); then mixtral at
-                depth 1 (batch 4, prompt 32, gen 4) and internvl2 at
-                depth 2 (batch 2, prompt 32 behind the prefix, gen 4).
+                tokens and every logit == unsharded); over the same 2
+                layers in bypass a forward at batch 2 x 256 under a
+                ("data", "model") = (2, 2) mesh folded onto the card
+                (moe_block's split of JAX's shard_map path), with the
+                flash kernels (a launch a piece of the context-parallel
+                split, 4 a layer, tensor cores) against
+                the same forward through plain attention, the CE within
+                TRAIN_JNP_RTOL's loss limit and the first layer's
+                attention block within MOE_FOLD_ATTN_RTOL, the split
+                against the unsplit forward reported with each run's
+                dropped (token, choice) pairs (moe_fold_check); then
+                mixtral at depth 1 (batch 4, prompt 32, gen 4) and
+                internvl2 at depth 2 (batch 2, prompt 32 behind the
+                prefix, gen 4).
  14. recurrent - the hybrid and ssm families at full width.  The flash
                 forward, dq and dk/dv at D 256 (bf16 on the tensor cores,
                 their `.launches_tc` rising; float32 on the CUDA-core
@@ -434,7 +445,35 @@ a result:
                 newest's load and reshard, the free disk before the
                 phase, the median step, and the card's name and power
                 limit.
- 19. times    - CUDA-event times of each kernel, its plain version and a
+ 19. dryrun   - the dry run (launch/dryrun.py): `--arch A --mesh card`
+                in bypass, a process an arch, all ten at once on the
+                host's cores with the card idle (the meta device only),
+                walks every arch x shape at full size; each of the 40
+                cells ok or skipped
+                (JAX's reason), none making a tensor off meta; a line an
+                arch with status, flops and fits_card a cell.  Then
+                DRYRUN_REAL, OLMo-1B's prefill_32k cut to batch 2 x 4096
+                positions (the cut named on its line), with the flash
+                kernels: walked on meta in this process and built and run
+                on the card, the analysed argument_size_in_bytes equal to
+                the summed nbytes of the params and tokens there,
+                exactly; the flash launches of a step equal to the
+                walk's recorded kernel ops; analysed arguments + temp
+                beside torch.cuda.max_memory_allocated over the phase's
+                base, and flops over the median of 3 steps as TFLOP/s.
+ 20. examples - the five examples/torch_*.py on the card, each held to
+                its outcome: quickstart (the ABN error below unity
+                gain's, engine == reference), serve (granite-8b's smoke
+                widths in float32, batch 4, gen 16: engine tokens ==
+                fakequant tokens), the noise sweep at its own size (the
+                clean accuracy above chance, 0.1), LeNet training one
+                epoch (the noisy loss falls), and fault-tolerant
+                pretraining (EXAMPLE_FT: 150 steps, d 256, 4 layers,
+                faults before steps 50 and 100) whose resumed state
+                equals the uninterrupted run's, every leaf.  Their
+                cim_mbiw and threefry_normal launches join the kernels
+                line.
+ 21. times    - CUDA-event times of each kernel, its plain version and a
                 library call computing the same function (torch._int_mm
                 for cim_mbiw, scaled_dot_product_attention for
                 ring_decode and the flash kernels: yardsticks the port
@@ -495,11 +534,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 # the card's published peaks: the one table the port's tuner reads too
 from repro_torch.core.hw import H100_SXM as CARD  # noqa: E402
+# the kernels' cost formulas: the one table the dry run's meta routes and
+# PERF.md's bounds read too
+from repro_torch.kernels import costs  # noqa: E402
 
-PEAK_INT8_OPS = CARD.int8_ops   # dense int8 tensor-core rate
 PEAK_F32_OPS = CARD.f32_flops   # float32 rate outside the tensor cores
 PEAK_BYTES = CARD.hbm_bw        # HBM3 bandwidth
-PEAK_BF16_OPS = CARD.bf16_flops  # dense bf16 tensor-core rate
 PEAK_INT32_OPS = CARD.int32_ops  # 64 INT32 lanes x 132 SMs x 1.98 GHz
 LENET_BATCH = 256
 # the edges of cim_mbiw's routes (kernel.route_for): M around the split-K
@@ -856,24 +896,16 @@ def device_profile(fn, reps: int, cpu: bool = True,
 
 def bound_ms(m: int, k: int, n: int, planes: int, beta_rows: bool) -> tuple:
     """Least time (ms) for one cim_mbiw call and what bounds it: each
-    input byte read once, each output byte written once."""
-    ops = 2.0 * m * n * k * planes
-    nbytes = m * planes * k + k * n + 4 * n + 4 * n * (m if beta_rows else 1) \
-        + 4 * m * n
-    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                       else "bytes")
+    input byte read once, each output byte written once (the cost table's
+    `costs.cim_mbiw`)."""
+    return costs.bound_ms(costs.cim_mbiw(m, k, n, planes, beta_rows), CARD)
 
 
 def ring_bound_ms(r: int, l: int, h: int, hd: int) -> tuple:
     """Least time (ms) for one ring_decode call and what bounds it: q, k,
     v, bias read once and the output written once, against the float32
-    work of the two products (2 operations per multiply-add)."""
-    nbytes = 4 * (2 * r * l * h * hd + 2 * r * h * hd + r * l)
-    ops = 4.0 * r * h * l * hd
-    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                       else "bytes")
+    work of the two products (`costs.ring_decode`)."""
+    return costs.bound_ms(costs.ring_decode(r, l, h, hd), CARD)
 
 
 def ring_inputs(r: int, l: int, h: int, hd: int, seed: int, dev,
@@ -1175,7 +1207,7 @@ def draw_bound_ms(streams: int, n: int, trip: DrawTrip,
     "operations", each term's ms)."""
     total = streams * n
     per = {k: trip.work[k] + tail_share * trip.tail[k] for k in trip.work}
-    terms = {"bytes": (16 * streams + 4 * total) / PEAK_BYTES,
+    terms = {"bytes": costs.threefry_normal(streams, n).bytes / PEAK_BYTES,
              "instructions": per["all"] * total / PEAK_INSTRUCTIONS,
              "alu": per["alu"] * total / PEAK_INT32_OPS,
              "fma": 2 * per["fma"] * total / PEAK_F32_OPS}
@@ -2369,26 +2401,6 @@ DENSE_SEQ = 512
 DENSE_DECODE = 8
 
 
-def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """The examples' loss: mean negative log-likelihood of the labels
-    under the log-softmax of the logits."""
-    lp = torch.log_softmax(logits, dim=-1)
-    return -torch.mean(torch.gather(lp, 1, labels[:, None].long()))
-
-
-def model_step(fwd, params, opt, xb, yb, key, cim, ocfg) -> torch.Tensor:
-    """examples/train_lenet_cim.py's (and the Fig. 3(b) benchmark's) train
-    step in the port: the loss, autograd, AdamW in place."""
-    from repro_torch.optim import adamw_update
-    from repro_torch.optim.adamw import tree_leaves
-    loss = nll(fwd(params, xb, cim, key=key), yb)
-    leaves = tree_leaves(params)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
-    adamw_update(params, grads, opt, ocfg)
-    return loss.detach()
-
-
 def least_atol(got: torch.Tensor, want: torch.Tensor) -> float:
     """The least atol, as a share of the largest |want|, at which
     `_close_grad` (rtol 1e-4) holds `got` against `want`."""
@@ -2458,8 +2470,9 @@ def cnn_train_phase(dev, tag, kern, kmod) -> dict:
           "LeNet step 0: noisy logits on the card != CPU run (same key)")
     check(not torch.equal(noisy_d.detach(), clean_d),
           "LeNet step 0: the noisy logits equal the clean ones")
-    g_d = torch.autograd.grad(nll(noisy_d, ytr_d[:CNN_BATCH]), leaves_d)
-    g_h = torch.autograd.grad(nll(noisy_h, yb_h), leaves_h)
+    g_d = torch.autograd.grad(cnn.nll(noisy_d, ytr_d[:CNN_BATCH]),
+                              leaves_d)
+    g_h = torch.autograd.grad(cnn.nll(noisy_h, yb_h), leaves_h)
     names = [f"{n}/{k}" for n in sorted(host) for k in sorted(host[n])]
     ratios = {}
     for name, a, b in zip(names, g_d, g_h):
@@ -2474,8 +2487,8 @@ def cnn_train_phase(dev, tag, kern, kmod) -> dict:
     for nb in (8, 32):
         nd = cnn.lenet_forward(params, xtr_d[:nb], cim_train, key=sub0)
         nh = cnn.lenet_forward(host, xb_h[:nb], cim_train, key=sub0)
-        gd = torch.autograd.grad(nll(nd, ytr_d[:nb]), leaves_d)
-        gh = torch.autograd.grad(nll(nh, yb_h[:nb]), leaves_h)
+        gd = torch.autograd.grad(cnn.nll(nd, ytr_d[:nb]), leaves_d)
+        gh = torch.autograd.grad(cnn.nll(nh, yb_h[:nb]), leaves_h)
         gap[nb] = {n: least_atol(a, b) for n, a, b in zip(names, gd, gh)
                    if n in CONV_GAINS}
     bad = {k: v for k, v in ratios.items() if not v <= 1.0}
@@ -2510,9 +2523,10 @@ def cnn_train_phase(dev, tag, kern, kmod) -> dict:
                     key, sub = prng.split(key)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                loss = model_step(cnn.lenet_forward, p, opt,
-                                  xtr_d[i:i + CNN_BATCH],
-                                  ytr_d[i:i + CNN_BATCH], sub, cim, ocfg)
+                loss = cnn.train_step(cnn.lenet_forward, p, opt,
+                                      xtr_d[i:i + CNN_BATCH],
+                                      ytr_d[i:i + CNN_BATCH], sub, cim,
+                                      ocfg)
                 losses.append(float(loss))           # waits for the card
                 step_ms.append(1e3 * (time.perf_counter() - t0))
         check(all(np.isfinite(losses)), f"non-finite LeNet loss: {losses}")
@@ -2579,7 +2593,7 @@ def cnn_train_phase(dev, tag, kern, kmod) -> dict:
               "clean": evaluate(tree_map(lambda t: t.detach(), cp))}
     # one noisy step under the profiler, on the clean run's copy
     xb, yb = xtr_d[:CNN_BATCH], ytr_d[:CNN_BATCH]
-    prof = device_profile(lambda: model_step(
+    prof = device_profile(lambda: cnn.train_step(
         cnn.lenet_forward, cp, cp_opt, xb, yb, prng.key(7), cim_train,
         ocfg), 1, groups=("cim_mbiw", "threefry", "gemm", "elementwise"))
     del cp, cp_opt, init
@@ -2685,8 +2699,9 @@ def cnn_train_phase(dev, tag, kern, kmod) -> dict:
         o = adamw_init(p)
         for _ in range(MLP_EPOCHS):
             for i in range(0, MLP_TRAIN, CNN_BATCH):
-                model_step(cnn.mlp_forward, p, o, xs[i:i + CNN_BATCH],
-                           ys[i:i + CNN_BATCH], None, cim, mcfg)
+                cnn.train_step(cnn.mlp_forward, p, o,
+                               xs[i:i + CNN_BATCH], ys[i:i + CNN_BATCH],
+                               None, cim, mcfg)
         with torch.no_grad():
             logits = cnn.mlp_forward(p, xt, cim)
         accs[name] = float((logits.argmax(-1) == yt).float().mean())
@@ -2841,6 +2856,13 @@ MOE_SHARD_DEPTH = 2
 MOE_SHARD_PROMPT = 8              # 32 rows: expert capacity 8
 MOE_SHARD_DEVICES = 4
 MOE_SHARD_GEN = 4
+MOE_FOLD_MESH = (2, 2)            # ("data", "model") folded onto the card
+MOE_FOLD_TOKENS = (2, 256)        # 512 tokens: 256 a data shard
+# the first layer's attention block under the folded mesh, flash against
+# plain (relative L2 of the bf16 outputs): one bf16 ulp, the flash
+# checks' rtol on a bf16 O; a piece at the wrong q offset moves a quarter
+# of the rows by their own size
+MOE_FOLD_ATTN_RTOL = 2.0**-7
 MIXTRAL_ARCH = "mixtral-8x22b"
 MIXTRAL_DEPTH = 1                 # of 56
 MIXTRAL_PROMPT = 32
@@ -3480,6 +3502,9 @@ def moe_phase(dev, tag, kern, kmod, tprog, trt, clock) -> dict:
     add(dict(zip(launches, kernel_counts(kern))))
     del params
     _free(dev)
+    rec["fold"] = moe_fold_check(dev, tag)
+    flash["flash_fwd"] += rec["fold"]["launches_tc"]["flash_fwd"]
+    _free(dev)
     secs[f"serve {MOE_ARCH}"] = time.perf_counter() - t0
     for arch, depth, batch, plen, gen in (
             (MIXTRAL_ARCH, MIXTRAL_DEPTH, MOE_BATCH, MIXTRAL_PROMPT,
@@ -3551,6 +3576,160 @@ def moe_shard_check(dev, tag, cfg, params) -> dict:
           f"tokens and every logit == unsharded; no growth after warm-up; "
           + ", ".join(f"{k_} wall {v['wall_s']:.1f} s" for k_, v in
                       rec.items()), flush=True)
+    return rec
+
+
+@contextlib.contextmanager
+def dropped_pairs(moe):
+    """While open, (tokens, slots, dropped (token, choice) pairs) of every
+    capacity grid moe_block builds, in call order (`moe.capacity_grid`
+    wrapped; put back on exit)."""
+    calls: list = []
+    inner = moe.capacity_grid
+
+    def counted(probs, top_idx, **kw):
+        tok_grid, gate_grid, keep = inner(probs, top_idx, **kw)
+        calls.append((top_idx.shape[0], tok_grid.shape[1],
+                      int((~keep).sum())))
+        return tok_grid, gate_grid, keep
+    moe.capacity_grid = counted
+    try:
+        yield calls
+    finally:
+        moe.capacity_grid = inner
+
+
+def moe_fold_check(dev, tag) -> dict:
+    """phi3.5-moe at full width, its first MOE_SHARD_DEPTH layers, bf16,
+    bypass, batch MOE_FOLD_TOKENS, forward under a ("data", "model")
+    mesh of MOE_FOLD_MESH folded onto the card (moe_block's split of
+    JAX's shard_map path: the tokens over data, the experts' d_ff over
+    model, the parts summed in order): with the flash kernels (counted:
+    a launch for each of flash_attention_sharded's pieces a layer, each
+    on the tensor cores) against the same forward through plain
+    attention, the CE loss within TRAIN_JNP_RTOL["loss"].  Routing flips
+    between the two move the CE as much as attention's rounding does, so
+    what attention alone decides is held too: the first layer's attention
+    block on the same input under the same mesh, flash (its pieces at
+    their q offsets) against plain, within MOE_FOLD_ATTN_RTOL.  The split
+    against the unsplit forward is reported beside the (token, choice)
+    pairs each run's capacity grids drop (each shard's capacity is its
+    own, so they differ)."""
+    from repro_torch.core.cim_layers import CIMConfig
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.flash_attn.ops import sharded_pieces
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import sharding as tsh
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    cfg = serve.get_config(MOE_ARCH).replace(
+        n_layers=MOE_SHARD_DEPTH, attn_impl="pallas",
+        cim=CIMConfig(mode="bypass"))
+    plain_cfg = cfg.replace(attn_impl="jnp")
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (MOE_FOLD_TOKENS[0],
+                                             MOE_FOLD_TOKENS[1] + 1),
+                         generator=gen, device=dev)
+    mesh = tmesh.make_mesh(MOE_FOLD_MESH, ("data", "model"), fold_onto=dev)
+    n_model = MOE_FOLD_MESH[1]
+    runs = {}
+    for label, c, m in (("flash", cfg, mesh), ("plain", plain_cfg, mesh),
+                        ("unsplit", plain_cfg, None)):
+        fk.flash_fwd.launches = fk.flash_fwd.launches_tc = 0
+        with torch.no_grad(), (tsh.use_mesh(m) if m is not None
+                               else contextlib.nullcontext()), \
+                dropped_pairs(tmoe) as grids:
+            logits = tf.forward(c, params, toks[:, :-1])[0]
+            ce = float(steps.cross_entropy(logits, toks[:, 1:]))
+        torch.cuda.synchronize()
+        # a model part routes its token part as the others do: one grid
+        # of each group of n_model is the token part's
+        step = n_model if m is not None else 1
+        groups = [grids[i:i + step] for i in range(0, len(grids), step)]
+        check(all(len(set(g_)) == 1 for g_ in groups),
+              f"moe fold {label}: the model parts' capacity grids differ: "
+              f"{grids}")
+        runs[label] = {"ce": ce, "logits": logits.float(),
+                       "launches": fk.flash_fwd.launches,
+                       "launches_tc": fk.flash_fwd.launches_tc,
+                       "grids": [g_[0] for g_ in groups]}
+    fl, pl, un = runs["flash"], runs["plain"], runs["unsplit"]
+    # under the mesh flash_attention_sharded splits each layer's query
+    # into its pieces too (batch over data, sequence over model)
+    pieces = len(sharded_pieces(mesh, *MOE_FOLD_TOKENS) or [None])
+    check(fl["launches"] == fl["launches_tc"] == cfg.n_layers * pieces
+          and pl["launches"] == 0,
+          f"moe fold: flash launches {fl['launches']} (tensor cores "
+          f"{fl['launches_tc']}), want {pieces} pieces a layer "
+          f"({cfg.n_layers}); plain {pl['launches']}")
+    check(all(bool(torch.isfinite(r["logits"]).all()) for r in runs.values())
+          and tuple(fl["logits"].shape) == (MOE_FOLD_TOKENS[0],
+                                            MOE_FOLD_TOKENS[1],
+                                            cfg.vocab_size),
+          "moe fold: non-finite logits or the wrong shape")
+    vs = abs(fl["ce"] - pl["ce"]) / abs(pl["ce"])
+    check(vs <= TRAIN_JNP_RTOL["loss"],
+          f"moe fold: flash vs plain CE {vs:.3g} outside "
+          f"{TRAIN_JNP_RTOL['loss']}")
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    # the first layer's attention block, flash against plain, on the
+    # embedded tokens under the folded mesh (these launches compare, they
+    # are not counted)
+    p0 = params["layers"][0]
+    with torch.no_grad(), tsh.use_mesh(mesh):
+        h0 = cm.apply_norm(p0["ln1"], tf.embed_tokens(
+            cfg, params, toks[:, :-1]), cfg.norm_type)
+        pos = torch.arange(h0.shape[1], device=dev)
+        attn = {label: cm.attention_block(
+            p0["attn"], h0, tf._attn_cfg(c, window=c.sliding_window),
+            c.cim, positions=pos)[0].float()
+            for label, c in (("flash", cfg), ("plain", plain_cfg))}
+    attn_vs = rel(attn["flash"], attn["plain"])
+    check(attn_vs <= MOE_FOLD_ATTN_RTOL
+          and bool(torch.isfinite(attn["flash"]).all()),
+          f"moe fold: the first layer's attention block, flash vs plain "
+          f"under the folded mesh, {attn_vs:.3g} relative > "
+          f"{MOE_FOLD_ATTN_RTOL}")
+
+    def dropped(r):
+        return sum(g_[2] for g_ in r["grids"])
+    pairs = MOE_FOLD_TOKENS[0] * MOE_FOLD_TOKENS[1] * cfg.moe_top_k \
+        * cfg.n_layers
+    rec = {"mesh": MOE_FOLD_MESH, "tokens": MOE_FOLD_TOKENS,
+           "depth": MOE_SHARD_DEPTH, "ce": {k: v["ce"] for k, v in
+                                            runs.items()},
+           "ce_flash_vs_plain": vs,
+           "attn_flash_vs_plain": attn_vs,
+           "logits_flash_vs_plain": rel(fl["logits"], pl["logits"]),
+           "logits_split_vs_unsplit": rel(pl["logits"], un["logits"]),
+           "grids": {k: v["grids"] for k, v in runs.items()},
+           "dropped_pairs": {k: dropped(v) for k, v in runs.items()},
+           "routed_pairs": pairs,
+           "launches_tc": {"flash_fwd": fl["launches_tc"]},
+           "seconds": time.perf_counter() - t0}
+    print(f"moe fold {tag}: {cfg.name} at full width, depth "
+          f"{MOE_SHARD_DEPTH} (cut from 32), bf16, bypass, batch "
+          f"{MOE_FOLD_TOKENS[0]} x {MOE_FOLD_TOKENS[1]}, (data, model) "
+          f"{MOE_FOLD_MESH} folded onto the card: flash (launches "
+          f"{fl['launches_tc']}: {pieces} pieces a layer, tensor cores) "
+          f"vs plain attention CE "
+          f"{fl['ce']:.5f} / {pl['ce']:.5f} ({vs:.3g}, limit "
+          f"{TRAIN_JNP_RTOL['loss']}), the first layer's attention block "
+          f"{attn_vs:.3g} relative (limit {MOE_FOLD_ATTN_RTOL:.3g}), logits "
+          f"{rec['logits_flash_vs_plain']:.3g} relative; split vs unsplit "
+          f"logits {rec['logits_split_vs_unsplit']:.3g} (per-shard "
+          f"capacity, reported); dropped (token, choice) pairs of {pairs} "
+          + ", ".join(f"{k} {v}" for k, v in rec["dropped_pairs"].items())
+          + " (grids: tokens, slots, dropped: " + "; ".join(
+              f"{k} {v['grids']}" for k, v in runs.items())
+          + f") in {rec['seconds']:.1f} s", flush=True)
+    del params, runs, attn
     return rec
 
 
@@ -3956,33 +4135,14 @@ def flash_exact(q, k, v, do, lse, delta, q_off, causal, window) -> dict:
     return out
 
 
-def flash_kept_pairs(sq, sk, causal, window, q_off=0) -> int:
-    """(query, key) pairs the mask keeps, per (batch, head)."""
-    qp = q_off + np.arange(sq)
-    hi = np.minimum(sk - 1, qp) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(0, qp - window + 1) if window > 0 else np.zeros(sq)
-    return int(np.maximum(0, hi - lo + 1).sum())
-
-
 def flash_bound_ms(kind, b, h, g, sq, sk, d, causal, window, elt) -> tuple:
     """Least time (ms) of one flash kernel call and what bounds it: the
     products over the kept pairs (forward 2, dq 3, dk/dv 4 products of
     2*D operations a pair) at the bf16 tensor-core rate, against each
     input read once and each output written once (`elt` bytes an element
-    of q/k/v/dO; lse, delta and the gradients float32)."""
-    pairs = b * h * flash_kept_pairs(sq, sk, causal, window)
-    ops = {"fwd": 2, "dq": 3, "dkv": 4}[kind] * 2.0 * d * pairs
-    qb, kb = b * h * sq * d, b * g * sk * d
-    if kind == "fwd":
-        nbytes = elt * (2 * qb + 2 * kb) + 4 * b * h * sq
-    elif kind == "dq":
-        nbytes = elt * (2 * qb + 2 * kb) + 8 * b * h * sq + 4 * qb
-    else:
-        nbytes = elt * (2 * qb + 2 * kb) + 8 * b * h * sq \
-            + 8 * b * h * sk * d
-    t_ops, t_bytes = ops / PEAK_BF16_OPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                       else "bytes")
+    of q/k/v/dO; lse, delta and the gradients float32): `costs.flash`."""
+    return costs.bound_ms(costs.flash(kind, b, h, g, sq, sk, d, causal,
+                                      window, elt), CARD)
 
 
 def flash_checks(fk, fref, dev, cases=None) -> dict:
@@ -5265,6 +5425,273 @@ def ft_train_phase(dev, tag) -> dict:
     return rec
 
 
+# phase 19: the dry run of every (arch x shape) cell on the meta device
+DRYRUN_OUT = os.path.join(ROOT, "chiprun_out", "dryrun_torch")
+DRYRUN_CELLS = 40                 # ten archs x four shapes
+DRYRUN_WAIT_S = 300                # the whole sweep, all archs at once
+# the one cell run for real: OLMo-1B's prefill_32k cut from batch 32 x
+# 32768 positions to 2 x 4096 (the plain attention's float32 scores of
+# 32 x 16 heads x 32768^2 would not fit a card), the flash kernels
+DRYRUN_REAL = ("olmo-1b", "prefill_32k", 2, 4096)
+
+
+def dryrun_sweep() -> tuple:
+    """`python -m repro_torch.launch.dryrun --arch A --mesh card` (bypass)
+    for every arch, one process an arch, all started together on the
+    host's cores and waited for here, while nothing runs on the card (so
+    no host time of another phase is taken beside it); each touches no
+    card (CUDA_VISIBLE_DEVICES empty) and writes its cells' JSON records
+    to DRYRUN_OUT.  Every process is stopped before this returns.
+    Returns (the processes' exit codes, the sweep's wall seconds)."""
+    import shutil
+    from repro_torch.configs import ARCH_IDS
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    os.makedirs(DRYRUN_OUT, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for arch in ARCH_IDS:
+            log = open(os.path.join(DRYRUN_OUT, f"sweep_{arch}.log"), "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--mesh", "card", "--out", DRYRUN_OUT], env=env,
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+            log.close()
+        deadline = time.perf_counter() + DRYRUN_WAIT_S
+        rcs = [p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rcs, time.perf_counter() - t0
+
+
+def dryrun_phase(dev, tag) -> dict:
+    """The dry run (module docstring, phase 19): the card sweep
+    (`dryrun_sweep`) and its records (every cell ok or skipped, status,
+    flops and fits_card a cell), then DRYRUN_REAL walked on meta and run
+    on the card: the analysed
+    argument_size_in_bytes == the summed nbytes of the params and inputs
+    built there, exactly; the flash launches == the kernel ops the walk
+    recorded; analysed arguments + temp beside the measured peak, and
+    flops over the measured step time."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.launch import dryrun, trace_analysis
+    t_phase = time.perf_counter()
+    rcs, sweep_s = dryrun_sweep()
+    check(all(rc == 0 for rc in rcs),
+          f"dryrun sweep exit codes {rcs} (see {DRYRUN_OUT}/sweep_*.log)")
+    cells = []
+    for name in sorted(os.listdir(DRYRUN_OUT)):
+        if name.endswith(".json"):
+            with open(os.path.join(DRYRUN_OUT, name)) as f:
+                cells.append(json.load(f))
+    check(len(cells) == DRYRUN_CELLS
+          and all(c["status"] in ("ok", "skipped") for c in cells)
+          and all(c.get("off_meta", 0) == 0 for c in cells),
+          "dryrun sweep: " + str([(c["arch"], c["shape"], c["status"],
+                                   c.get("error")) for c in cells
+                                  if c["status"] not in ("ok", "skipped")]))
+    by_arch: dict = {}
+    for c in cells:
+        by_arch.setdefault(c["arch"], []).append(c)
+    for arch, cs in by_arch.items():
+        print(f"dryrun {arch} (card, bypass, meta): " + "; ".join(
+            f"{c['shape']} {c['status']}" + (
+                f" flops {c['flops']:.3e} fits_card {c['fits_card']}"
+                if c["status"] == "ok" else "") for c in cs), flush=True)
+    walk_s = sum(c.get("walk_s", 0.0) for c in cells)
+
+    # the one cell run for real
+    arch, shape_name, b, s_len = DRYRUN_REAL
+    cfg = dryrun.cell_config(arch, attn_impl="pallas")
+    shape = dataclasses.replace(SHAPES[shape_name], global_batch=b,
+                                seq_len=s_len)
+    walk = dryrun.analyze_cell(cfg, shape)
+    base = torch.cuda.memory_allocated(dev)
+    fn, args = dryrun.build_cell(cfg, shape, dev)
+    held = trace_analysis.tree_tensors(args)
+    on_card = sum(t.numel() * t.element_size() for t in held)
+    arg_b = walk["memory"]["argument_size_in_bytes"]
+    check(all(t.device.type == "cuda" for t in held) and on_card == arg_b,
+          f"dryrun {arch}: analysed arguments {arg_b} B != {on_card} B of "
+          f"state and inputs on the card")
+    fn()                                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fk.flash_fwd.launches = fk.flash_fwd.launches_tc = 0
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    calls = walk["kernels"].get("flash_fwd", {}).get("calls", 0)
+    check(fk.flash_fwd.launches == fk.flash_fwd.launches_tc == 3 * calls
+          == 3 * cfg.n_layers,
+          f"dryrun {arch}: {fk.flash_fwd.launches} flash launches "
+          f"(tensor cores {fk.flash_fwd.launches_tc}) for 3 steps of the "
+          f"walk's {calls}")
+    check(tuple(out.shape) == (b, cfg.vocab_size)
+          and bool(torch.isfinite(out.float()).all()),
+          f"dryrun {arch}: the step's logits are not finite")
+    step_s = statistics.median(times)
+    temp_b = walk["memory"]["temp_size_in_bytes"]
+    rec = {"sweep": {f"{c['arch']}/{c['shape']}": {
+               k: c.get(k) for k in ("status", "flops", "fits_card",
+                                     "memory", "walk_s", "reason")}
+               for c in cells},
+           "sweep_walk_s": walk_s, "sweep_s": sweep_s,
+           "real": {"arch": arch, "shape": shape_name,
+                    "cut": {"global_batch": [32, b], "seq_len": [32768,
+                                                                 s_len]},
+                    "attn_impl": "pallas",
+                    "argument_bytes": arg_b, "temp_bytes": temp_b,
+                    "measured_peak_bytes": peak, "flops": walk["flops"],
+                    "step_ms": [1e3 * t for t in times],
+                    "tflops": walk["flops"] / step_s / 1e12,
+                    "flash_calls": calls},
+           "launches_tc": {"flash_fwd": fk.flash_fwd.launches_tc}}
+    print(f"dryrun real {tag}: {arch} {shape_name} cut to batch {b} of 32 "
+          f"x {s_len} of 32768 positions, bypass, flash: analysed "
+          f"arguments {arg_b} B == the card's state and inputs {on_card} "
+          f"B; analysed arguments + temp {(arg_b + temp_b) / 1e9:.3f} GB, "
+          f"measured peak {peak / 1e9:.3f} GB "
+          f"(torch.cuda.max_memory_allocated over the phase's base); "
+          f"{walk['flops']:.4e} flops in {1e3 * step_s:.2f} ms = "
+          f"{rec['real']['tflops']:.1f} TFLOP/s; flash launches "
+          f"{calls} a step == the walk's kernel ops; the sweep's "
+          f"{len(cells)} cells "
+          f"walked in {walk_s:.1f} s of host time, {sweep_s:.1f} s wall "
+          f"over {len(rcs)} processes with the card idle", flush=True)
+    del fn, args, held, out
+    _free(dev)
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+# phase 20: the examples on the card
+EXAMPLE_FT = ["--steps", "150", "--d-model", "256", "--layers", "4",
+              "--seq-len", "128", "--batch", "8"]
+EXAMPLE_SERVE = ("granite-8b", 4, 16)      # arch, batch, gen (smoke widths)
+
+
+def example_module(name):
+    """examples/<name>.py loaded as a module (its main not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(dev, tag, kern) -> dict:
+    """The five examples/torch_*.py on the card (module docstring, phase
+    20), each held to its own outcome, with the kernel counts set to 0
+    before and read after."""
+    import shutil
+    import tempfile
+    from repro_torch.core import prng
+    from repro_torch.kernels.prng import kernel as pk
+    from repro_torch.models import transformer as tf
+    t_phase = time.perf_counter()
+    reset_counts(kern)
+    pk.threefry_normal.launches = 0
+    secs, rec = {}, {}
+    print(f"examples {tag}: the lines of examples/torch_*.py follow, their "
+          f"rates and seconds taken on this card", flush=True)
+
+    t0 = time.perf_counter()
+    qs = example_module("torch_quickstart").main(["--device", dev.type])
+    check(qs["rel_abn"] < qs["rel_unity"],
+          f"quickstart: ABN error {qs['rel_abn']:.4f} not below unity "
+          f"gain's {qs['rel_unity']:.4f}")
+    check(all(r["exact"] for r in qs["engine"].values())
+          and qs["lenet_exact"],
+          "quickstart: the engine != its reference on the card")
+    rec["quickstart"] = {k: v for k, v in qs.items() if k != "engine"}
+    secs["quickstart"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sv = example_module("torch_serve_llm_cim")
+    arch, batch, gen = EXAMPLE_SERVE
+    base = sv.get_smoke_config(arch).replace(dtype="float32")
+    key = prng.key(0, dev)
+    params = tf.init_params(base, key)
+    prompt = prng.randint(key, (batch, 16), 0, base.vocab_size).long()
+    out = sv.serve_modes(base, params, prompt, gen)
+    check(torch.equal(out["engine"][0], out["fakequant"][0]),
+          "serve example: engine tokens != fakequant tokens (float32)")
+    rec["serve"] = {m: {"tokens": g[0].tolist(), "s": dt}
+                    for m, (g, dt) in out.items()}
+    secs["serve"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ns = example_module("torch_noise_sweep").main(["--device", dev.type])
+    clean = ns["rows"][0]
+    check(clean["scale"] == 0.0 and clean["acc_mean"] > 0.1,
+          f"noise sweep: clean accuracy {clean['acc_mean']:.3f} not above "
+          f"chance (0.1)")
+    rec["noise_sweep"] = ns
+    secs["noise_sweep"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ln = example_module("torch_train_lenet_cim").main(
+        ["--epochs", "1", "--device", dev.type])
+    losses = ln["losses"]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"LeNet example: the loss did not fall ({losses[0]:.3f} -> "
+          f"{losses[-1]:.3f})")
+    rec["lenet"] = ln
+    secs["lenet"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ftm = example_module("torch_fault_tolerant_pretrain")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "chiprun_out"))
+    try:
+        got = ftm.main(EXAMPLE_FT + ["--device", dev.type, "--ckpt-dir",
+                                     os.path.join(tmp, "faults")])
+        ref = ftm.run(ftm.parser().parse_args(
+            EXAMPLE_FT + ["--device", dev.type, "--ckpt-dir",
+                          os.path.join(tmp, "clean")]), faults=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    diff = _state_diff(got["state"], ref[0])
+    check(got["restarts"] == 2 and not diff,
+          f"fault-tolerant example: restarts {got['restarts']}, leaves "
+          f"that differ from the uninterrupted run: {diff[:5]}")
+    rec["fault_tolerant"] = {"restarts": got["restarts"],
+                             "first": got["first"], "last": got["last"],
+                             "steps_run": len(got["history"])}
+    secs["fault_tolerant"] = time.perf_counter() - t0
+
+    rec["launches"] = dict(zip(("cim_mbiw", "cim_mbiw_tc",
+                                "cim_mbiw_splitk"), kernel_counts(kern)),
+                           threefry_normal=pk.threefry_normal.launches)
+    rec["seconds"] = secs
+    print(f"examples {tag}: quickstart ABN error {qs['rel_abn']:.4f} < "
+          f"unity gain {qs['rel_unity']:.4f}, engine == reference; serve "
+          f"{arch} (smoke widths, float32, batch {batch}, gen {gen}) engine "
+          f"tokens == fakequant; noise sweep clean accuracy "
+          f"{clean['acc_mean']:.3f} (chance 0.1); LeNet loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f} in {len(losses)} noisy "
+          f"steps; fault-tolerant pretraining ({' '.join(EXAMPLE_FT)}) "
+          f"restarts 2, state == the uninterrupted run; launches "
+          f"{rec['launches']}; " + ", ".join(
+              f"{k} {v:.1f} s" for k, v in secs.items()), flush=True)
+    _free(dev)
+    return rec
+
+
 def cuda_core_fns(fk, q, k, v, do, lse, delta, q_off, causal,
                   window) -> dict:
     """The CUDA-core forward, dq and dk/dv kernels (flash_fwd.cu,
@@ -6093,7 +6520,19 @@ def main() -> int:
     phase_s["ft_train"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # -- 19. times -----------------------------------------------------------
+    # -- 19. the dry run: the card sweep on meta, one cell for real --------
+    dry = dryrun_phase(dev, tag)
+    report["dryrun"] = dry
+    phase_s["dryrun"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 20. the examples on the card ---------------------------------------
+    ex = examples_phase(dev, tag, kern)
+    report["examples"] = ex
+    phase_s["examples"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # -- 21. times -----------------------------------------------------------
     def int_mm_inputs(planes, w, p):
         # the matmul work alone: (M, P*K) x (P*K, N) int8, padded to
         # _int_mm's needs (M > 16, K and N multiples of 8)
@@ -6280,17 +6719,19 @@ def main() -> int:
     ls, lp, lt = lserve["launches"], prec["launches"], tune["launches"]
     lc, lsh, lcc = ctrain["launches"], shard["launches"], cim["launches"]
     lm, lr, la = moe["launches"], recur["launches"], audio["launches"]
+    lx = ex["launches"]
     route_launches = {
         "tc": main_routes["tc"] + nl["cim_mbiw_tc"] + ls["cim_mbiw_tc"]
         + lp["cim_mbiw_tc"] + lt["cim_mbiw_tc"] + lc["cim_mbiw_tc"]
         + lsh["cim_mbiw_tc"] + lcc["cim_mbiw_tc"] + lm["cim_mbiw_tc"]
-        + lr["cim_mbiw_tc"] + la["cim_mbiw_tc"],
+        + lr["cim_mbiw_tc"] + la["cim_mbiw_tc"] + lx["cim_mbiw_tc"],
         "splitk": main_routes["splitk"] + dec_splitk + nl["cim_mbiw_splitk"]
         + nd["cim_mbiw_splitk"] + ls["cim_mbiw_splitk"]
         + lp["cim_mbiw_splitk"] + lt["cim_mbiw_splitk"]
         + lc["cim_mbiw_splitk"] + lsh["cim_mbiw_splitk"]
         + lcc["cim_mbiw_splitk"] + lm["cim_mbiw_splitk"]
-        + lr["cim_mbiw_splitk"] + la["cim_mbiw_splitk"],
+        + lr["cim_mbiw_splitk"] + la["cim_mbiw_splitk"]
+        + lx["cim_mbiw_splitk"],
         "cuda_core": main_routes["all"] - main_routes["tc"]
         - main_routes["splitk"] + dec_cim - dec_splitk + nl["cim_mbiw"]
         - nl["cim_mbiw_tc"] - nl["cim_mbiw_splitk"] + nd["cim_mbiw"]
@@ -6303,7 +6744,8 @@ def main() -> int:
         - lcc["cim_mbiw_splitk"] + lm["cim_mbiw"] - lm["cim_mbiw_tc"]
         - lm["cim_mbiw_splitk"] + lr["cim_mbiw"] - lr["cim_mbiw_tc"]
         - lr["cim_mbiw_splitk"] + la["cim_mbiw"] - la["cim_mbiw_tc"]
-        - la["cim_mbiw_splitk"]}
+        - la["cim_mbiw_splitk"] + lx["cim_mbiw"] - lx["cim_mbiw_tc"]
+        - lx["cim_mbiw_splitk"]}
 
     def route_entry(name, route, src, rows):
         mult = [2 if r["k"] == 784 and r["shape"] == "lenet" else 1
@@ -6352,7 +6794,8 @@ def main() -> int:
             "launches": train["launches_tc"][name]
             + dense["launches_tc"][name] + lsh[f"{name}_tc"]
             + lm[f"{name}_tc"] + la[f"{name}_tc"]
-            + fttrain["launches_tc"][name],
+            + fttrain["launches_tc"][name]
+            + dry["launches_tc"].get(name, 0),
             "max_abs_err": max(flash["max_abs_err"][kind].values()),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -6381,7 +6824,8 @@ def main() -> int:
                      + ndec["launches"]["threefry_normal"]
                      + train["noisy"]["launches"] + lp["threefry_normal"]
                      + lc["threefry_normal"] + lcc["threefry_normal"]
-                     + lm["threefry_normal"] + la["threefry_normal"])
+                     + lm["threefry_normal"] + la["threefry_normal"]
+                     + lx["threefry_normal"])
     kernels["kernels"].append({
         "name": "threefry_normal", "route": "cuda",
         "source": "src/repro_torch/kernels/prng/csrc/threefry_normal.cu",
@@ -6424,7 +6868,9 @@ def main() -> int:
         "audio": la,
         "shard": lsh,
         "cimcheck": lcc,
-        "ft_train": fttrain["launches_tc"]}
+        "ft_train": fttrain["launches_tc"],
+        "dryrun": dry["launches_tc"],
+        "examples": lx}
     report["total_s"] = time.perf_counter() - t_start
     report["phase_s"] = phase_s
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -12,10 +12,11 @@ order: the moe archs `phi35_moe` and `mixtral_8x22b`, the dense archs
 from __future__ import annotations
 
 import importlib
-from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      shape_applicable)
 
 __all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeConfig",
-           "get_config", "get_smoke_config"]
+           "get_config", "get_smoke_config", "shape_applicable"]
 
 ARCH_IDS = [
     "phi35_moe",

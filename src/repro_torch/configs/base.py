@@ -5,6 +5,8 @@ Counterpart of `repro/configs/base.py`, with the port's own `CIMConfig`.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
+
 from repro_torch.core.cim_layers import CIMConfig
 
 
@@ -77,3 +79,15 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+# archs with at least one sub-quadratic decode path run long_500k
+SUBQUADRATIC = {"mixtral-8x22b", "recurrentgemma-2b", "mamba2-1.3b"}
+
+
+def shape_applicable(arch: str, shape: str, family: str) -> Tuple[bool, str]:
+    """(whether `arch` runs `shape`, the reason where it does not): the
+    dry run skips the 500k decode of a pure full-attention arch."""
+    if shape == "long_500k" and arch not in SUBQUADRATIC:
+        return False, ("pure full-attention arch: 500k decode skipped "
+                       "(DESIGN.md §4)")
+    return True, ""

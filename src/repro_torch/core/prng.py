@@ -1,5 +1,5 @@
 """JAX's threefry PRNG, bit for bit: keys, `fold_in`, `split`, random bits,
-uniforms and normals.
+uniforms, normals and 32-bit random integers.
 
 Counterpart of the part of `jax.random` the JAX package calls, under JAX's
 default `jax_threefry_partitionable` counter layout: element i of a draw
@@ -13,6 +13,7 @@ masks back to 32 bits, so the words stay in [0, 2^32).
     k1 = prng.fold_in(k, 7)              # = jax.random.fold_in(k, 7)
     a, b = prng.split(k)                 # = jax.random.split(k)
     z = prng.normal(k1, (128, 16))       # = jax.random.normal(k1, ...)
+    t = prng.randint(k1, (4, 16), 0, 100)  # = jax.random.randint(k1, ...)
 
 `fold_in` broadcasts: a `(S, 2)` stack of keys folded with an `(S,)`
 tensor of ids derives S stream keys in one pass, and `normal_rows(keys,
@@ -175,6 +176,25 @@ def uniform(k, shape: Sequence[int] = (), minval: float = 0.0,
     return torch.maximum(f * span + float(lo),
                          torch.tensor(float(lo), dtype=torch.float32,
                                       device=f.device))
+
+
+def randint(k, shape: Sequence[int], minval: int, maxval: int,
+            dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """`jax.random.randint(k, shape, minval, maxval)` for a 32-bit `dtype`
+    and bounds inside its range: 64 random bits an element (the high word
+    under split(k)[0], the low under split(k)[1]) reduced modulo the span
+    in uint32 arithmetic, as JAX's `_randint` computes it."""
+    if not minval < maxval:
+        return torch.full(tuple(shape), int(minval), dtype=dtype,
+                          device=_as_key(k).device)
+    k1, k2 = split(k)
+    span = (int(maxval) - int(minval)) & M32
+    mult = (2 ** 16) % span
+    mult = (mult * mult) % span
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    off = (((hi % span) * mult) & M32) + (lo % span)
+    off = (off & M32) % span
+    return (off + int(minval)).to(dtype)
 
 
 def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,9 @@ route either happens or raises.  `cim_mbiw_matmul_planes.launches` counts
 every launch, `.launches_tc` and `.launches_splitk` those of routes A and
 B, `.launches_tuned` those that ran a tuned tile.  A CUDA graph replay
 runs no Python, so a captured dispatch adds what its capture launched
-(`launch_counts`, `add_launches`).
+(`launch_counts`, `add_launches`).  On the `meta` device (a dry run) the
+wrapper launches and counts nothing: it returns an empty meta tensor and
+records one op of the function's work (`kernels/costs.py`).
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, costs
 
 
 def plane_layout(r_in: int) -> tuple[int, int]:
@@ -368,6 +370,10 @@ def cim_mbiw_matmul_planes(x_planes: torch.Tensor, w_q: torch.Tensor,
         return cim_mbiw_matmul_planes_ref(
             x_planes, w_q, gamma, beta, plane_shift=plane_shift, g0=g0,
             r_out=r_out, fuse_adc=fuse_adc)
+    if x_planes.device.type == "meta":
+        costs.record("cim_mbiw", costs.cim_mbiw(
+            m, k_dim, n, pk // k_dim, beta.shape[0] == m and m != 1))
+        return torch.empty((m, n), dtype=torch.int32, device="meta")
     if x_planes.device.type != "cuda":
         raise ValueError(f"no cim_mbiw kernel for device {x_planes.device}")
     dev = x_planes.device

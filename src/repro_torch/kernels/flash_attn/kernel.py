@@ -20,6 +20,13 @@ to the tensor-core kernels (counted again in `<wrapper>.launches_tc`)
 and everything else to the CUDA-core kernels of `flash_fwd.cu` and
 `flash_bwd.cu`, which take any D up to `FLASH_MAX_HEAD_DIM` (256; above
 it a call raises ValueError).
+
+On the `meta` device (a dry run, `launch/dryrun.py`) a wrapper launches
+nothing and counts nothing: it returns empty meta tensors of its result's
+shapes and records one op with the work of the function it computes
+(`kernels/costs.py`).  The flash kernels' work depends on the q offset,
+which a meta tensor does not hold: an offset made by `offset_tensor`
+keeps its host value for the meta route; any other raises there.
 """
 from __future__ import annotations
 
@@ -27,8 +34,9 @@ import ctypes
 import math
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, costs
 
 # ring_decode splits a row's slots into chunks of RING_CHUNK (the CHUNK of
 # csrc/ring_decode.cu, which checks the partials' size it is given); its
@@ -91,6 +99,10 @@ def ring_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         from repro_torch.kernels.flash_attn.ref import \
             ring_decode_attention_ref
         return ring_decode_attention_ref(q, k, v, bias)
+    if q.device.type == "meta":
+        costs.record("ring_decode", costs.ring_decode(
+            q.shape[0], k.shape[1], q.shape[1], q.shape[2]))
+        return torch.empty(q.shape, dtype=torch.float32, device="meta")
     if q.device.type != "cuda":
         raise ValueError(f"no ring_decode kernel for device {q.device}")
     r, h, hd = q.shape
@@ -190,6 +202,35 @@ def _bshd_strides(t: torch.Tensor) -> tuple:
     return t.stride(0), t.stride(2), t.stride(1)
 
 
+# the host value of each q offset made on the meta device by offset_tensor
+_META_OFFSETS = WeakIdKeyDictionary()
+
+
+def offset_tensor(value: int, device) -> torch.Tensor:
+    """The (1, 1) int32 q offset `value` on `device`, as the flash
+    kernels take it; on the meta device its value is kept for the meta
+    routes' count."""
+    t = torch.full((1, 1), int(value), dtype=torch.int32, device=device)
+    if t.device.type == "meta":
+        _META_OFFSETS[t] = int(value)
+    return t
+
+
+def _meta_flash(kind: str, q, k, q_off, causal: bool, window: int) -> None:
+    """Record one flash kernel op of `kind` on meta tensors
+    (`costs.flash` over the pairs the mask keeps at the offset's host
+    value)."""
+    off = _META_OFFSETS.get(q_off)
+    if off is None:
+        raise ValueError(
+            "flash on the meta device reads its q offset on the host, and "
+            "this offset is a device value (make it with offset_tensor)")
+    b, h, sq, d = q.shape
+    costs.record(f"flash_{kind}" if kind == "fwd" else f"flash_bwd_{kind}",
+                 costs.flash(kind, b, h, k.shape[1], sq, k.shape[2], d,
+                             causal, window, q.element_size(), off))
+
+
 def _check_flash(q, k, v, q_off, extra=()) -> None:
     """Shapes, dtypes and devices the flash kernels take: q (B, H, Sq, D),
     k/v (B, G, Sk, D) with G dividing H, q/k/v/extra of one float dtype
@@ -272,6 +313,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         from repro_torch.kernels.flash_attn.ref import flash_fwd_ref
         return flash_fwd_ref(q, k, v, q_off, causal=causal, window=window)
+    if q.device.type == "meta":
+        _meta_flash("fwd", q, k, q_off, causal, window)
+        b, h, sq, d = q.shape
+        return (torch.empty((b, sq, h, d), dtype=q.dtype,
+                            device="meta").transpose(1, 2),
+                torch.empty((b, h, sq), dtype=torch.float32, device="meta"))
     _check_cuda_flash(q, (("q", q), ("k", k), ("v", v)))
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
@@ -308,7 +355,7 @@ def _bwd_operands(q, k, v, do, lse, delta, q_off):
                          f"lse/delta (B, H, Sq); got do {tuple(do.shape)}, "
                          f"lse {tuple(lse.shape)}, delta "
                          f"{tuple(delta.shape)}")
-    if q.device.type != "cpu":
+    if q.device.type not in ("cpu", "meta"):
         _check_cuda_flash(q, (("q", q), ("k", k), ("v", v), ("do", do)))
         for name, t in (("lse", lse), ("delta", delta)):
             if t.dtype != torch.float32 or not t.is_contiguous() \
@@ -331,6 +378,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, q_off, *, causal: bool,
         return flash_bwd_dq_ref(q, k, v, do, lse, delta, q_off,
                                 causal=causal, window=window)
     b, h, sq, d = q.shape
+    if q.device.type == "meta":
+        _meta_flash("dq", q, k, q_off, causal, window)
+        return torch.empty((b, sq, h, d), dtype=torch.float32,
+                           device="meta").transpose(1, 2)
     g, sk = k.shape[1], k.shape[2]
     dq = torch.empty((b, sq, h, d), dtype=torch.float32,
                      device=q.device).transpose(1, 2)
@@ -375,6 +426,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, q_off, *, causal: bool,
                                  causal=causal, window=window)
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
+    if q.device.type == "meta":
+        _meta_flash("dkv", q, k, q_off, causal, window)
+        dk = torch.empty((b, sk, h, d), dtype=torch.float32,
+                         device="meta").transpose(1, 2)
+        return dk, torch.empty_like(dk)
     dk = torch.empty((b, sk, h, d), dtype=torch.float32,
                      device=q.device).transpose(1, 2)
     dv = torch.empty_like(dk)

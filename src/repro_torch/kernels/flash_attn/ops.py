@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels.flash_attn.kernel import (flash_bwd_dkv,
                                                    flash_bwd_dq, flash_fwd,
+                                                   offset_tensor,
                                                    ring_decode)
 from repro_torch.kernels.flash_attn.ref import ring_decode_attention_ref
 
@@ -81,7 +82,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q's device (default 0).  The CUDA kernels choose their own tiles, so
     the TPU kernel's block sizes `bq`/`bk` have no counterpart here."""
     if q_offset is None:
-        q_offset = torch.zeros((1, 1), dtype=torch.int32, device=q.device)
+        q_offset = offset_tensor(0, q.device)
     return _FlashAttention.apply(q, k, v, q_offset, bool(causal),
                                  int(window))
 
@@ -143,7 +144,7 @@ def sharded_forward(q, k, v, causal: bool, window: int, pieces):
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     for bs, ss, off, dev in pieces:
-        q_off = torch.full((1, 1), off, dtype=torch.int32, device=dev)
+        q_off = offset_tensor(off, dev)
         op, lp = flash_fwd(_piece(q[bs, ss], dev), _piece(k[bs], dev),
                            _piece(v[bs], dev), q_off, causal=causal,
                            window=window)
@@ -167,7 +168,7 @@ def sharded_backward(q, k, v, o, lse, g_out, causal: bool, window: int,
     dk = torch.zeros((b, h, sk, d), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
     for bs, ss, off, dev in pieces:
-        q_off = torch.full((1, 1), off, dtype=torch.int32, device=dev)
+        q_off = offset_tensor(off, dev)
         args = (_piece(q[bs, ss], dev), _piece(k[bs], dev),
                 _piece(v[bs], dev), _piece(g_out[bs, ss], dev),
                 lse[bs, :, ss].to(dev).contiguous(),

@@ -16,7 +16,9 @@ patterns a normal can come from (chip_smoke.py), not a main-path entry.
 A CUDA tensor launches the kernel or raises; only a tensor on the CPU
 takes the plain version (`ref.threefry_normal_ref`,
 `core/prng._normal_from_bits`).  `threefry_normal.launches` counts the
-draw's launches.
+draw's launches.  On the `meta` device (a dry run) `threefry_normal`
+launches nothing: it returns an empty meta tensor and records one op of
+the draw's work (`kernels/costs.py`).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, costs
 
 # consecutive normals of a stream a thread computes a trip (csrc's K)
 NORMALS_A_TRIP = 4
@@ -87,6 +89,11 @@ def threefry_normal(keys: torch.Tensor, n: int) -> torch.Tensor:
     if dev.type == "cpu":
         from repro_torch.kernels.prng.ref import threefry_normal_ref
         return threefry_normal_ref(keys, n)
+    if dev.type == "meta":
+        costs.record("threefry_normal",
+                     costs.threefry_normal(keys.shape[0], n))
+        return torch.empty((keys.shape[0], n), dtype=torch.float32,
+                           device="meta")
     if dev.type != "cuda":
         raise ValueError(f"no threefry_normal kernel for device {dev}")
     if keys.dtype != torch.int64:

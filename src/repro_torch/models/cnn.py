@@ -113,6 +113,46 @@ def lenet_program(batch: int, h: int = 28, w: int = 28, in_ch: int = 1,
                            pools=pools, device=device)
 
 
+def lenet_engine(batch: int, h: int = 28, w: int = 28, in_ch: int = 1,
+                 n_classes: int = 10, cim: Optional[CIMConfig] = None,
+                 device: Device = None):
+    """One `CIMInferenceEngine` running the whole LeNet (conv1 -> pool ->
+    conv2 -> pool -> fc1 -> fc2) through the cim_mbiw kernel (the engine
+    wraps the same cached program `lenet_program` returns); on CUDA
+    unless `device` names another."""
+    from repro_torch.runtime import CIMInferenceEngine
+    cim = cim if cim is not None else CIMConfig()
+    specs, acts, pools = lenet_engine_specs(batch, h, w, in_ch, n_classes,
+                                            cim)
+    return CIMInferenceEngine(specs, _engine_config(cim), activations=acts,
+                              pools=pools, device=device)
+
+
+def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of `labels` under the log-softmax of
+    `logits`: the loss of the examples' CNN training."""
+    lp = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.gather(lp, 1, labels[:, None].long()))
+
+
+def train_step(fwd, params: Dict, opt: Dict, xb: torch.Tensor,
+               yb: torch.Tensor, key: Optional[torch.Tensor], cim: CIMConfig,
+               ocfg) -> torch.Tensor:
+    """One step of the examples' CNN training (`examples/
+    train_lenet_cim.py`'s jitted step): `nll` of fwd(params, xb, cim,
+    key=key), its gradients by autograd (zero for a leaf the loss does not
+    reach, as under jax.grad), AdamW (`ocfg`) applied to `params` and
+    `opt` in place.  Returns the loss, detached."""
+    from repro_torch.optim import adamw_update
+    from repro_torch.optim.adamw import tree_leaves
+    loss = nll(fwd(params, xb, cim, key=key), yb)
+    leaves = tree_leaves(params)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+    adamw_update(params, grads, opt, ocfg)
+    return loss.detach()
+
+
 def lenet_params_list(params: Dict) -> List[Dict]:
     """init_lenet's name-keyed params in the engine's positional order."""
     return [params[name] for name in LENET_LAYER_ORDER]

@@ -192,16 +192,26 @@ class AttnConfig:
     impl: str = "jnp"                  # jnp | pallas (the flash kernels)
 
 
-def init_attention(generator: torch.Generator, cfg: AttnConfig,
+def _sources(source, n: int) -> list:
+    """n draws' sources: the generator n times, or a `core/prng` key's
+    split(key, n), as the JAX package splits its init keys."""
+    if isinstance(source, torch.Generator):
+        return [source] * n
+    return list(prng.split(source, n))
+
+
+def init_attention(generator, cfg: AttnConfig,
                    cim: Optional[CIMConfig] = None) -> Dict:
     """Q/K/V/O projection params (CIM-linear layout) + optional biases, on
-    the generator's device."""
+    the generator's device; a `core/prng` key draws the JAX package's
+    weights (split(key, 4), one projection each)."""
     d, h, g, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ks = _sources(generator, 4)
     p = {
-        "wq": init_cim_linear(generator, d, h * hd, cfg=cim),
-        "wk": init_cim_linear(generator, d, g * hd, cfg=cim),
-        "wv": init_cim_linear(generator, d, g * hd, cfg=cim),
-        "wo": init_cim_linear(generator, h * hd, d, cfg=cim),
+        "wq": init_cim_linear(ks[0], d, h * hd, cfg=cim),
+        "wk": init_cim_linear(ks[1], d, g * hd, cfg=cim),
+        "wv": init_cim_linear(ks[2], d, g * hd, cfg=cim),
+        "wo": init_cim_linear(ks[3], h * hd, d, cfg=cim),
     }
     if cfg.qkv_bias:
         dev = generator.device
@@ -467,13 +477,15 @@ def activation_fn(name: str):
             f"{sorted(_ACTIVATIONS)}") from None
 
 
-def init_mlp(generator: torch.Generator, d: int, f: int, gated: bool,
+def init_mlp(generator, d: int, f: int, gated: bool,
              cim: Optional[CIMConfig] = None) -> Dict:
-    """Up/down (+ optional gate) projection params for a d->f->d MLP."""
-    p = {"w_up": init_cim_linear(generator, d, f, cfg=cim),
-         "w_down": init_cim_linear(generator, f, d, cfg=cim)}
+    """Up/down (+ optional gate) projection params for a d->f->d MLP; a
+    `core/prng` key draws the JAX package's (split(key, 3))."""
+    ks = _sources(generator, 3)
+    p = {"w_up": init_cim_linear(ks[0], d, f, cfg=cim),
+         "w_down": init_cim_linear(ks[1], f, d, cfg=cim)}
     if gated:
-        p["w_gate"] = init_cim_linear(generator, d, f, cfg=cim)
+        p["w_gate"] = init_cim_linear(ks[2], d, f, cfg=cim)
     return p
 
 

@@ -25,12 +25,22 @@ without noise.  "bypass" / "deploy" run a plain product; any other mode
 raises ValueError, so an engine-mode serving config never falls back to
 an unquantized float product.
 
-Under a model-level mesh (`models.sharding.use_mesh`) with a data or
-model axis that would split the tokens or the experts' d_ff, the JAX
-package runs a shard_map with a psum over "model"; the port raises
-NotImplementedError there (ROADMAP Queue 1 left-overs, the shard_map path
-of moe_block).  Engine mode, and a mesh whose axes split nothing, run the
-local path, as JAX does.
+Under a model-level mesh (`models.sharding.use_mesh`) the JAX package
+runs `_moe_local` in a shard_map: the tokens split along the batch axes
+("pod", "data") where b*s divides by their product (not, say, in
+single-token decode), the experts' d_ff along "model" (w_gate / w_up on
+axis 2, w_down on axis 1), the ABN tensors and the key replicated, and
+the model parts' outputs psum'd.  The port runs that body on a mesh
+folded onto one device (`launch.mesh.make_mesh(fold_onto=)`): `_moe_local`
+once for each (token part, model part), the model parts summed in
+partition order (the psum), the token parts concatenated.  It computes
+what JAX's sharded path computes, which is not the unsharded result: each
+shard's capacity comes from its own token count, its activation swing
+from its own capacity groups, every shard draws under the same key, and
+each model part of w_down runs its own ADC before the sum.  A mesh that
+spans several devices raises NotImplementedError (the port places no
+model tensor across cards, `models.sharding.shard`).  Engine mode always
+runs the local path, as JAX does: its programs own their sharding.
 """
 from __future__ import annotations
 
@@ -373,26 +383,58 @@ def route(xf: torch.Tensor, router: torch.Tensor, n_experts: int,
     return probs_full, top_p / torch.sum(top_p, -1, keepdim=True), top_idx
 
 
-def _check_mesh(tokens: int, cim: CIMConfig) -> None:
-    """Raise where the JAX package would split the tokens or the experts
-    over the ambient mesh (its shard_map path)."""
+def mesh_split(tokens: int, cim: CIMConfig) -> Optional[Tuple[int, int]]:
+    """(token parts, model parts) the ambient mesh splits `tokens` tokens
+    and the experts' d_ff into, as JAX's moe_block shard_map does; None
+    where it runs the local path (no mesh, an empty one, or engine mode).
+    The token split is dropped where `tokens` does not divide by the
+    batch axes' product.  Raises NotImplementedError for a mesh that
+    spans several devices."""
     mesh = get_mesh()
     if mesh is None or mesh.empty or cim.mode == "engine":
-        return
+        return None
     names = set(mesh.axis_names)
     n_batch = 1
     for a in BATCH:
         if a in names:
             n_batch *= mesh.axis_size(a)
-    split_batch = n_batch > 1 and tokens % n_batch == 0
-    split_model = TP in names and mesh.axis_size(TP) > 1
-    if split_batch or split_model:
+    if tokens % n_batch:                  # e.g. single-token decode
+        n_batch = 1
+    n_model = mesh.axis_size(TP) if TP in names else 1
+    if not mesh.folded:
         raise NotImplementedError(
-            f"moe_block under a mesh that splits its tokens or experts "
-            f"({dict(zip(mesh.axis_names, mesh.shape))}) runs JAX's "
-            f"shard_map path, which is not ported (ROADMAP Queue 1 "
-            f"left-overs, the shard_map path of moe_block); run it in "
-            f"engine mode or without the mesh")
+            f"moe_block over a mesh across the devices {mesh.devices} is "
+            f"not ported: the port places no model tensor across cards; "
+            f"fold the mesh onto one device")
+    return n_batch, n_model
+
+
+def _moe_folded(xf: torch.Tensor, top_p: torch.Tensor, top_idx: torch.Tensor,
+                w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
+                w_down: torch.Tensor, abn_lg: torch.Tensor,
+                abn_b: torch.Tensor, key: Optional[torch.Tensor],
+                n_batch: int, n_model: int, **kw) -> torch.Tensor:
+    """JAX's shard_map body on a folded mesh: `_moe_local` on each token
+    part (rows split in n_batch contiguous parts) and model part (d_ff
+    split in n_model), the model parts summed in order, as the psum."""
+    f = w_up.shape[2]
+    if f % n_model:
+        raise ValueError(f"the experts' d_ff {f} does not split over "
+                         f"{n_model} model parts")
+    fl = f // n_model
+    outs = []
+    for xs, ps, ti in zip(xf.chunk(n_batch), top_p.chunk(n_batch),
+                          top_idx.chunk(n_batch)):
+        out = None
+        for j in range(n_model):
+            cols = slice(j * fl, (j + 1) * fl)
+            part = _moe_local(
+                xs, ps, ti, None if w_gate is None else w_gate[:, :, cols],
+                w_up[:, :, cols], w_down[:, cols, :], abn_lg, abn_b, key,
+                **kw)
+            out = part if out is None else out + part
+        outs.append(out)
+    return torch.cat(outs)
 
 
 def moe_block(params: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
@@ -404,8 +446,10 @@ def moe_block(params: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
 
     `key` (a host `core/prng` key) seeds the experts' CIM noise model (a
     fold per projection bank and per expert); `reference` runs the engine
-    path's plain digital oracle in place of the kernels.  Engine mode
-    always runs the local path (its programs own their sharding)."""
+    path's plain digital oracle in place of the kernels.  Under a folded
+    mesh the tokens and experts split as JAX's shard_map splits them
+    (`mesh_split`, `_moe_folded`); engine mode always runs the local path
+    (its programs own their sharding)."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     probs_full, top_p, top_idx = route(xf, params["router"], n_experts,
@@ -416,12 +460,14 @@ def moe_block(params: Dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     ce = torch.mean(F.one_hot(top_idx[:, 0], n_experts).to(torch.float32),
                     dim=0)
     aux = n_experts * torch.sum(me * ce)
-    _check_mesh(b * s, cim)
-    out = _moe_local(
-        xf, top_p, top_idx, _get_expert_w(params, "w_gate", x.dtype),
-        _get_expert_w(params, "w_up", x.dtype),
-        _get_expert_w(params, "w_down", x.dtype), params["abn_log_gamma"],
-        params["abn_beta"], key, n_experts=n_experts, top_k=top_k,
-        capacity_factor=capacity_factor, cim=cim, act=act,
-        reference=reference)
+    split = mesh_split(b * s, cim)
+    banks = (xf, top_p, top_idx, _get_expert_w(params, "w_gate", x.dtype),
+             _get_expert_w(params, "w_up", x.dtype),
+             _get_expert_w(params, "w_down", x.dtype),
+             params["abn_log_gamma"], params["abn_beta"], key)
+    kw = dict(n_experts=n_experts, top_k=top_k,
+              capacity_factor=capacity_factor, cim=cim, act=act,
+              reference=reference)
+    out = (_moe_local(*banks, **kw) if split is None
+           else _moe_folded(*banks, *split, **kw))
     return out.reshape(b, s, d), aux

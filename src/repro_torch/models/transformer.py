@@ -102,20 +102,20 @@ def _attn_cfg(cfg: ModelConfig, *, window: int = 0, causal: bool = True,
         use_rope=use_rope, impl=cfg.attn_impl)
 
 
-def _init_decoder_layer(cfg: ModelConfig,
-                        generator: torch.Generator) -> Dict:
+def _init_decoder_layer(cfg: ModelConfig, generator) -> Dict:
     dev = generator.device
+    ks = cm._sources(generator, 4)
     p = {
         "ln1": cm.init_norm(cfg.d_model, cfg.norm_type, device=dev),
         "ln2": cm.init_norm(cfg.d_model, cfg.norm_type, device=dev),
         "attn": cm.init_attention(
-            generator, _attn_cfg(cfg, window=cfg.sliding_window), cfg.cim),
+            ks[0], _attn_cfg(cfg, window=cfg.sliding_window), cfg.cim),
     }
     if cfg.family == "moe":
-        p["moe"] = init_moe(generator, cfg.d_model, cfg.d_ff,
+        p["moe"] = init_moe(ks[1], cfg.d_model, cfg.d_ff,
                             cfg.moe_experts, cfg.cim)
     else:
-        p["mlp"] = cm.init_mlp(generator, cfg.d_model, cfg.d_ff,
+        p["mlp"] = cm.init_mlp(ks[1], cfg.d_model, cfg.d_ff,
                                cfg.gated_mlp, cfg.cim)
     return p
 
@@ -186,7 +186,7 @@ def _init_xdec_layer(cfg: ModelConfig, generator: torch.Generator) -> Dict:
     }
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> Dict:
+def init_params(cfg: ModelConfig, generator) -> Dict:
     """The parameter tree for `cfg` on the generator's device: the
     embedding, one dict per layer under "layers" (hybrid: one
     {"rec1", "rec2", "attn"} dict per block of 3 under "blocks" and,
@@ -195,8 +195,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Dict:
     cross-attention "xattn" and its norm "ln_x", under "layers", the
     encoder's final norm "enc_norm" and the learned decoder positions
     "pos_dec" (max_target_len, d_model), 0.01 x normal), the final norm
-    and, if the head is untied, "lm_head"."""
+    and, if the head is untied, "lm_head".
+
+    `generator` is a `torch.Generator`, or for the dense, moe and vlm
+    families a `core/prng` key, which draws the JAX package's
+    `init_params(cfg, key)` bit for bit on the key's device."""
     _check_family(cfg)
+    if not isinstance(generator, torch.Generator):
+        return _init_params_from_key(cfg, generator)
     d = cfg.d_model
     dev = generator.device
     params: Dict = {
@@ -229,6 +235,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Dict:
                   else _init_decoder_layer)
     params["layers"] = [init_layer(cfg, generator)
                         for _ in range(cfg.n_layers)]
+    return params
+
+
+def _init_params_from_key(cfg: ModelConfig, key: torch.Tensor) -> Dict:
+    """JAX's init_params draws for the decoder families: split(key, 8), the
+    embedding under key 0, the head under 1, layer i under split(key 2,
+    n_layers)[i]."""
+    if cfg.family not in DECODER_FAMILIES:
+        raise ValueError(
+            f"a prng key draws JAX's weights for the {DECODER_FAMILIES} "
+            f"families, not {cfg.family!r}; pass a torch.Generator")
+    d = cfg.d_model
+    keys = prng.split(key, 8)
+    dev = key.device
+    params: Dict = {
+        "embed": (d ** -0.5) * prng.normal(keys[0], (cfg.vocab_size, d)),
+        "final_norm": cm.init_norm(d, cfg.norm_type, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_cim_linear(keys[1], d, cfg.vocab_size)
+    params["layers"] = [_init_decoder_layer(cfg, k)
+                        for k in prng.split(keys[2], cfg.n_layers)]
     return params
 
 

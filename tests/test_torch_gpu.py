@@ -24,7 +24,9 @@ the engine == fakequant or its reference; phi3.5-moe's and internvl2's
 smoke serve on the card against fakequant and the host), and the hybrid
 and ssm families (flash at head dims 192-256 and the raise above 256;
 mamba2's and recurrentgemma's smoke serves and a train step on the card
-against the host).
+against the host), and the last slice (each kernel's meta route beside
+its card route, the dry run's argument bytes equal to the card's, the
+folded moe split on the card against the host).
 
 These tests need an NVIDIA GPU (marker `gpu`) and skip without one.  They
 import neither JAX nor the JAX package, so they run where only PyTorch
@@ -1834,3 +1836,90 @@ def test_launcher_fault_run_on_card_equals_clean_run(cuda_device,
     b = tree_leaves(convert.train_state_to_numpy(state))
     assert all(x.tobytes() == y.tobytes() for x, y in zip(a, b))
     assert tree_leaves(final["params"])[0].is_cuda
+
+
+@pytest.mark.gpu
+def test_meta_routes_beside_the_card_routes(cuda_device):
+    """Each kernel on CUDA tensors launches and counts; the same call on
+    meta tensors launches nothing, counts nothing and records one op of
+    its cost formula (kernels/costs.py)."""
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.flash_attn import kernel as fk
+    q = torch.randn((1, 4, 64, 64), device=cuda_device).to(torch.bfloat16)
+    off = fk.offset_tensor(0, cuda_device)
+    n = fk.flash_fwd.launches
+    o, _ = fk.flash_fwd(q, q, q, off, causal=True)
+    assert fk.flash_fwd.launches == n + 1 and o.is_cuda
+    seen = []
+    costs.add_listener(lambda name, c: seen.append((name, c)))
+    try:
+        mq = q.to("meta")
+        mo, _ = fk.flash_fwd(mq, mq, mq, fk.offset_tensor(0, "meta"),
+                             causal=True)
+        z = pkernel.threefry_normal(
+            torch.empty((3, 2), dtype=torch.int64, device="meta"), 100)
+        y = tkernel.cim_mbiw_matmul_planes(
+            torch.empty((64, 144), dtype=torch.int8, device="meta"),
+            torch.empty((144, 32), dtype=torch.int8, device="meta"),
+            torch.empty((1, 32), device="meta"),
+            torch.empty((1, 32), device="meta"), plane_shift=4, g0=1.0,
+            r_out=8)
+    finally:
+        costs._LISTENERS.clear()
+    assert fk.flash_fwd.launches == n + 1
+    assert mo.device.type == z.device.type == y.device.type == "meta"
+    assert [s[0] for s in seen] == ["flash_fwd", "threefry_normal",
+                                    "cim_mbiw"]
+    assert seen[0][1] == costs.flash("fwd", 1, 4, 4, 64, 64, 64, True, 0, 2)
+
+
+@pytest.mark.gpu
+def test_dryrun_argument_bytes_are_the_cards(cuda_device):
+    """OLMo-1B's smoke config at a prefill of 2 x 64: the meta walk's
+    argument_size_in_bytes == the summed nbytes of the params and inputs
+    built on the card, and the step runs there."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_smoke_config
+    from repro_torch.launch import dryrun, trace_analysis
+    cfg = get_smoke_config("olmo_1b")
+    shape = dataclasses.replace(SHAPES["prefill_32k"], seq_len=64,
+                                global_batch=2)
+    walk = dryrun.analyze_cell(cfg, shape)
+    fn, args = dryrun.build_cell(cfg, shape, cuda_device)
+    held = trace_analysis.tree_tensors(args)
+    assert all(t.is_cuda for t in held)
+    assert walk["memory"]["argument_size_in_bytes"] == sum(
+        t.numel() * t.element_size() for t in held)
+    out = fn()
+    assert out.is_cuda and tuple(out.shape) == (2, cfg.vocab_size)
+    assert bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 2), (2, 1)])
+def test_folded_moe_split_on_card_matches_host(cuda_device, mesh_shape):
+    """moe_block under a (data, model) mesh folded onto the card against
+    the same split folded onto the host, fakequant float32: within 2e-5
+    of the largest output, top_idx equal."""
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import moe as tm
+    from repro_torch.models import sharding as tsh
+    cim = CIMConfig(mode="fakequant", r_in=8, r_w=4)
+    params = tm.init_moe(prng.key(5), 64, 96, 8)
+    x = prng.normal(prng.key(6), (2, 16, 64))
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        p = {k: v.to(dev) for k, v in params.items()}
+        with tsh.use_mesh(tmesh.make_mesh(mesh_shape, ("data", "model"),
+                                          fold_onto=dev)):
+            outs[str(dev)] = tm.moe_block(p, x.to(dev), n_experts=8,
+                                          top_k=2, capacity_factor=1.25,
+                                          cim=cim)[0].cpu()
+    host, card = outs.values()
+    assert torch.allclose(card, host, rtol=0,
+                          atol=2e-5 * float(host.abs().max()))
+    xf = x.reshape(-1, 64)
+    assert torch.equal(tm.route(xf, params["router"], 8, 2)[2],
+                       tm.route(xf.to(cuda_device),
+                                params["router"].to(cuda_device), 8,
+                                2)[2].cpu())

@@ -1,6 +1,7 @@
-"""The port stands alone: nothing in `repro_torch` or `chip_smoke.py`
-imports JAX or the JAX package (`repro`), and importing the whole slice
-leaves `jax` out of `sys.modules`.  The modules of each slice are named
+"""The port stands alone: nothing in `repro_torch`, `chip_smoke.py` or the
+port's examples (`examples/torch_*.py`) imports JAX or the JAX package
+(`repro`), and importing the whole slice (and each example) leaves `jax`
+out of `sys.modules`.  The modules of each slice are named
 below, so that a module that moves cannot drop out of these checks."""
 import ast
 import os
@@ -12,7 +13,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port's examples: new files beside the JAX package's, never a file
+# or folder named `torch` (on sys.path it would shadow the package)
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 
 
 # the training slice: configs, the CIM layer, the LM, optimizer, data,
@@ -106,11 +110,50 @@ INFRA_SLICE = [
 ]
 
 
+# the last slice: the moe block's folded split, the dry run with its
+# op-stream analysis and the kernels' cost table
+DRYRUN_SLICE = [
+    "models/moe.py", "launch/dryrun.py", "launch/trace_analysis.py",
+    "kernels/costs.py", "configs/base.py",
+]
+
+EXAMPLE_NAMES = [
+    "torch_quickstart.py", "torch_noise_sweep.py", "torch_serve_llm_cim.py",
+    "torch_train_lenet_cim.py", "torch_fault_tolerant_pretrain.py",
+]
+
+
 @pytest.mark.parametrize("rel", TRAIN_SLICE + NOISE_SLICE + SERVE_SLICE
                          + PRECISION_SLICE + TUNER_SLICE + CNN_SLICE
-                         + SHARDING_SLICE + ANALYSIS_SLICE + INFRA_SLICE)
+                         + SHARDING_SLICE + ANALYSIS_SLICE + INFRA_SLICE
+                         + DRYRUN_SLICE)
 def test_train_slice_module_is_checked(rel):
     assert PORT / rel in FILES
+
+
+@pytest.mark.parametrize("name", EXAMPLE_NAMES)
+def test_example_is_checked(name):
+    assert ROOT / "examples" / name in FILES
+    assert not (ROOT / "examples" / "torch").exists()
+    assert not (ROOT / "examples" / "torch.py").exists()
+
+
+def test_examples_import_without_jax():
+    """Each example module loads (its main does not run) with JAX and the
+    JAX package left out of sys.modules."""
+    code = ("import importlib.util, sys\n"
+            f"for p in {[str(p) for p in EXAMPLES]!r}:\n"
+            "    spec = importlib.util.spec_from_file_location('ex', p)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
+            "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro was imported'\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(EXAMPLES) == len(EXAMPLE_NAMES)
 
 
 def _forbidden(name: str) -> bool:

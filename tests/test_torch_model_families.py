@@ -24,9 +24,10 @@ phi3.5-moe-42b-a6.6b, mixtral-8x22b and internvl2-76b.
   and (1, 2) (`tests/test_llm_engine.py:141`);
 - `quantize_params_for_serving` bit for bit on MoE trees, the deploy
   forward within 1e-5 of JAX's;
-- under a mesh whose model axis is 2 fakequant raises NotImplementedError
-  (JAX's shard_map path); a mesh of 1s and engine mode run the local
-  path.
+- under a mesh across devices whose model axis is 2 fakequant raises
+  NotImplementedError; folded onto one device it runs JAX's shard_map
+  body (held in tests/test_torch_moe_mesh.py); a mesh of 1s and engine
+  mode run the local path.
 
 The serve loops against JAX are in `tests/test_torch_family_serve.py`.
 """
@@ -303,21 +304,31 @@ def test_quantize_params_for_serving_matches_jax(arch):
 
 
 def test_mesh_splitting_the_experts_raises_in_fakequant():
+    """A mesh across devices that splits the experts raises; folded onto
+    one device the split runs (JAX's shard_map body, held in
+    tests/test_torch_moe_mesh.py), and engine mode and a mesh of 1s run
+    the local path."""
     _, cfg = _configs("phi35_moe", "fakequant")
     params = tf.init_params(cfg, torch.Generator().manual_seed(5))
     toks = torch.zeros((2, 4), dtype=torch.long)
     with torch.no_grad():
         want = tf.forward(cfg, params, toks)[0]
+        across = tmesh.DeviceMesh(
+            devices=(torch.device("cuda", 0), torch.device("cuda", 1)),
+            shape=(1, 2), axis_names=("data", "model"))
+        with tsh.use_mesh(across):
+            with pytest.raises(NotImplementedError, match="across"):
+                tf.forward(cfg, params, toks)
         with tsh.use_mesh(tmesh.make_mesh((1, 2), ("data", "model"),
                                           fold_onto="cpu")):
-            with pytest.raises(NotImplementedError, match="shard_map"):
-                tf.forward(cfg, params, toks)
+            got = tf.forward(cfg, params, toks)[0]
+            assert got.shape == want.shape and bool(torch.isfinite(got).all())
             en = cfg.replace(cim=cfg.cim.replace(mode="engine"))
             assert torch.equal(tf.forward(en, params, toks)[0], want)
         with tsh.use_mesh(tmesh.make_mesh((2, 1), ("data", "model"),
                                           fold_onto="cpu")):
-            with pytest.raises(NotImplementedError, match="shard_map"):
-                tf.forward(cfg, params, toks)
+            got = tf.forward(cfg, params, toks)[0]
+            assert got.shape == want.shape and bool(torch.isfinite(got).all())
         with tsh.use_mesh(tmesh.make_mesh((1, 1), ("data", "model"),
                                           fold_onto="cpu")):
             assert torch.equal(tf.forward(cfg, params, toks)[0], want)

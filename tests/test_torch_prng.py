@@ -472,9 +472,11 @@ def test_divider_is_an_exact_integer_divide(d):
 
 def test_draw_wrappers_on_the_cpu_and_refusals():
     """On a CPU tensor the draw and normal_of_bits are their plain
-    versions; a tensor on another device, keys of another shape or type
-    and bits of another type raise (a CUDA tensor launches the kernel or
-    raises: tests/test_torch_gpu.py)."""
+    versions; on the meta device the draw returns its shape and records
+    one op of its cost (`kernels/costs.py`), launching and counting
+    nothing, while normal_of_bits (no main-path entry) raises; keys of
+    another shape or type and bits of another type raise (a CUDA tensor
+    launches the kernel or raises: tests/test_torch_gpu.py)."""
     from repro_torch.kernels.prng import kernel as pk
     keys = prng.split(prng.key(3), 5)
     before = pk.threefry_normal.launches
@@ -488,8 +490,16 @@ def test_draw_wrappers_on_the_cpu_and_refusals():
         pk.normal_of_bits(bits.to("meta"))
     with pytest.raises(ValueError, match="int64"):
         pk.normal_of_bits(bits.to(torch.int32))
-    with pytest.raises(ValueError, match="threefry_normal kernel"):
-        pk.threefry_normal(keys.to("meta"), 4)
+    from repro_torch.kernels import costs
+    seen = []
+    costs.add_listener(lambda n, c: seen.append((n, c)))
+    try:
+        z = pk.threefry_normal(keys.to("meta"), 4)
+    finally:
+        costs._LISTENERS.clear()
+    assert z.device.type == "meta" and tuple(z.shape) == (5, 4)
+    assert seen == [("threefry_normal", costs.threefry_normal(5, 4))]
+    assert pk.threefry_normal.launches == before
     with pytest.raises(ValueError, match=r"\(S, 2\)"):
         pk.threefry_normal(keys.reshape(-1), 4)
     with pytest.raises(ValueError, match=">= 0"):

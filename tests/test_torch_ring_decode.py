@@ -93,10 +93,21 @@ def test_wrapper_rejects_bad_shapes_and_devices():
         tkernel.ring_decode(q, k, v, bias[:, :4])
     with pytest.raises(ValueError, match="need q"):
         tkernel.ring_decode(q[0], k, v, bias)
-    with pytest.raises(ValueError, match="no ring_decode kernel"):
-        tkernel.ring_decode(q.to("meta"), k.to("meta"), v.to("meta"),
-                            bias.to("meta"))
+    # the meta device: no launch, one recorded op of its cost
+    # (kernels/costs.py), the result's shape
+    from repro_torch.kernels import costs
+    seen = []
     before = tkernel.ring_decode.launches
+    costs.add_listener(lambda n, c: seen.append((n, c)))
+    try:
+        out = tkernel.ring_decode(q.to("meta"), k.to("meta"),
+                                  v.to("meta"), bias.to("meta"))
+    finally:
+        costs._LISTENERS.clear()
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert seen == [("ring_decode", costs.ring_decode(
+        q.shape[0], k.shape[1], q.shape[1], q.shape[2]))]
+    assert tkernel.ring_decode.launches == before
     tkernel.ring_decode(q, k, v, bias)      # CPU: the plain version
     assert tkernel.ring_decode.launches == before
 

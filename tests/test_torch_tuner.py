@@ -186,15 +186,20 @@ def test_tuned_cost_never_above_heuristic(m, k, n, prec):
 
 
 def test_cost_and_chip_smoke_share_the_card_table():
-    """The tuner's cost model and chip_smoke.py's bounds read the same
-    objects of core/hw - one table of the card, not copied constants."""
+    """The tuner's cost model and chip_smoke.py's bounds (through the
+    kernels' cost table, `kernels/costs.py`) read the same objects of
+    core/hw - one table of the card, not copied constants."""
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
     import chip_smoke as cs
     card = thw.H100_SXM
     assert tcost.H100_SXM is card
     assert cs.CARD is card
-    for got, want in ((cs.PEAK_INT8_OPS, card.int8_ops),
-                      (cs.PEAK_BF16_OPS, card.bf16_flops),
+    # the kernels' bounds read the rates through the cost table
+    # (kernels/costs.py), the same objects of core/hw
+    rates = cs.costs.rates(cs.CARD)
+    for got, want in ((rates["int8"], card.int8_ops),
+                      (rates["bf16"], card.bf16_flops),
+                      (rates["f32"], card.f32_flops),
                       (cs.PEAK_F32_OPS, card.f32_flops),
                       (cs.PEAK_INT32_OPS, card.int32_ops),
                       (cs.PEAK_BYTES, card.hbm_bw)):
