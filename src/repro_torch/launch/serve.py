@@ -88,6 +88,7 @@ from repro_torch.launch.train import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.runtime import engine as rt_engine
 from repro_torch.runtime import program as rt_program
+from repro_torch.runtime import tracing
 
 
 def parser() -> argparse.ArgumentParser:
@@ -313,24 +314,42 @@ def inflight_serve(cfg, params, reqs: List[Dict], slots: int, *,
     a request retires when its budget is spent.
 
     Returns {"tokens": {uid: [token, ...]}, "slot": {uid: slot},
-    "latency": {uid: finish - arrival clock}, "decode_steps",
+    "latency": {uid: finish - arrival, in clock ticks}, "decode_steps",
     "decode_s" (host seconds of the fused steps, each ending in the
     tokens' copy to the host), "wall_s", "growth" (counter growth after
     the first fused step)}.  The dense and moe families only (ValueError
-    otherwise)."""
-    from repro_torch.runtime.scheduler import SlotMap
+    otherwise).
+
+    Under a profiler each phase is a span (`runtime/tracing.py`): the
+    call "serve.inflight"; per request "serve.admit" (its children
+    "serve.prefill", ending in the first token on the host, and
+    "serve.slot_write") and "serve.retire", all with the request's
+    `uid`, so its host times are those spans'; per fused step
+    "serve.decode_step" (`live` and `slots`) over "serve.enqueue" (the
+    forward's launches), "serve.readback" (the wait for the tokens) and
+    "serve.tokens_out" (tokens back to the slots, retirements)."""
     if cfg.family not in INFLIGHT_FAMILIES:
         raise ValueError(f"in-flight serving takes the {INFLIGHT_FAMILIES} "
                          f"families, not {cfg.family!r}")
-    dev = torch.device(device)
+    with tracing.span("serve.inflight", slots=slots):
+        return _inflight(cfg, params, reqs, slots, max_len,
+                         torch.device(device))
+
+
+def _inflight(cfg, params, reqs, slots, max_len, dev) -> Dict:
+    """The loop of `inflight_serve`, inside its root span."""
+    from repro_torch.runtime.scheduler import SlotMap
+    span = tracing.span
     cache = tf.init_slot_cache(cfg, slots, max_len, device=dev)
 
-    def prefill(prompt):
-        c1 = tf.init_cache(cfg, 1, max_len=max_len, device=dev)
-        toks = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
-                               device=dev)[None]
-        logits, c1, _ = tf.forward(cfg, params, toks, cache=c1)
-        return c1, int(torch.argmax(logits[0, -1]))
+    def prefill(r):
+        with span("serve.prefill", uid=r["uid"],
+                  prompt_len=len(r["prompt"])):
+            c1 = tf.init_cache(cfg, 1, max_len=max_len, device=dev)
+            toks = torch.as_tensor(np.asarray(r["prompt"]),
+                                   dtype=torch.long, device=dev)[None]
+            logits, c1, _ = tf.forward(cfg, params, toks, cache=c1)
+            return c1, int(torch.argmax(logits[0, -1]))
 
     smap = SlotMap(slots)
     live, done, queue = {}, [], list(reqs)
@@ -341,42 +360,51 @@ def inflight_serve(cfg, params, reqs: List[Dict], slots: int, *,
 
     def retire(s, r):
         nonlocal cache
-        smap.free(s)
-        cache = tf.free_slot_cache(cache, s)
-        latency[r["uid"]] = clock - r["arrival"]
-        done.append(r)
+        with span("serve.retire", uid=r["uid"]):
+            smap.free(s)
+            cache = tf.free_slot_cache(cache, s)
+            latency[r["uid"]] = clock - r["arrival"]
+            done.append(r)
 
     while queue or live:
         while queue and smap.n_free and queue[0]["arrival"] <= clock:
             r = queue.pop(0)
             s = smap.alloc()
-            c1, tok = prefill(r["prompt"])
-            cache = tf.write_slot_cache(cache, s, c1)
-            cur[s] = tok
-            tokens[r["uid"]], slot_of[r["uid"]] = [tok], s
-            if len(tokens[r["uid"]]) >= r["gen"]:
-                retire(s, r)
-            else:
-                live[s] = r
+            with span("serve.admit", uid=r["uid"], slot=s,
+                      prompt_len=len(r["prompt"]), arrival=r["arrival"],
+                      clock=clock):
+                c1, tok = prefill(r)
+                with span("serve.slot_write", uid=r["uid"], slot=s):
+                    cache = tf.write_slot_cache(cache, s, c1)
+                    cur[s] = tok
+                tokens[r["uid"]], slot_of[r["uid"]] = [tok], s
+                if len(tokens[r["uid"]]) >= r["gen"]:
+                    retire(s, r)
+                else:
+                    live[s] = r
         if live:
             t0 = time.perf_counter()
-            # explicit (B, 1) positions: every slot decodes at its own
-            # offset
-            pos = cache["pos"][:, None]
-            logits, cache, _ = tf.forward(cfg, params, cur[:, None],
-                                          positions=pos, cache=cache)
-            nxt = torch.argmax(logits[:, -1], dim=-1).cpu()
-            t_decode += time.perf_counter() - t0
-            steps += 1
-            if before is None:          # post-warm-up baseline
-                before = counters()
-            for s in sorted(live):
-                r = live[s]
-                tokens[r["uid"]].append(int(nxt[s]))
-                cur[s] = int(nxt[s])
-                if len(tokens[r["uid"]]) >= r["gen"]:
-                    del live[s]
-                    retire(s, r)
+            with span("serve.decode_step", live=len(live), slots=slots):
+                with span("serve.enqueue"):
+                    # explicit (B, 1) positions: every slot decodes at its
+                    # own offset
+                    pos = cache["pos"][:, None]
+                    logits, cache, _ = tf.forward(cfg, params, cur[:, None],
+                                                  positions=pos, cache=cache)
+                with span("serve.readback"):
+                    nxt = torch.argmax(logits[:, -1], dim=-1).cpu()
+                t_decode += time.perf_counter() - t0
+                steps += 1
+                if before is None:          # post-warm-up baseline
+                    before = counters()
+                with span("serve.tokens_out"):
+                    for s in sorted(live):
+                        r = live[s]
+                        tokens[r["uid"]].append(int(nxt[s]))
+                        cur[s] = int(nxt[s])
+                        if len(tokens[r["uid"]]) >= r["gen"]:
+                            del live[s]
+                            retire(s, r)
         clock += 1
     return {"tokens": tokens, "slot": slot_of, "latency": latency,
             "decode_steps": steps, "decode_s": t_decode,

@@ -59,6 +59,7 @@ and out are real-valued float32.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -84,8 +85,15 @@ PLAN_COUNT = {"n": 0}
 
 # incremented once per CUDA-graph capture of a bound program's dispatch
 # (runtime/program.py), never on a replay: the counterpart of the JAX
-# package's TRACE_COUNT, flat after warm-up
-CAPTURE_COUNT = {"n": 0}
+# package's TRACE_COUNT, flat after warm-up; "s" sums the host seconds of
+# the captures (the side-stream warm-up run and the capture itself)
+CAPTURE_COUNT = {"n": 0, "s": 0.0}
+
+# incremented once per bind_network() call, "s" its host seconds (no sync:
+# a bind of weights already on the card enqueues its device work, which
+# later work waits on): CIMProgram.bind, program.bound_for and the
+# per-call eager routes all bind through it
+BIND_COUNT = {"n": 0, "s": 0.0}
 
 # thermal kT/C draws are generated per fixed-size global GEMM-row block
 # (keys fold the block index), then sliced to the live extent: the values a
@@ -553,10 +561,12 @@ def bind_network(plan: NetworkPlan, params: Params,
     weight codes and gamma bits.  A sharded plan's binds also carry each
     partition's padded column arrays on its mesh device (`_place`; the
     mesh is `engine_mesh(plan, device)`, which raises when too few
-    devices are visible).  Validates the per-layer param count."""
+    devices are visible).  Validates the per-layer param count.  Each
+    call counts in BIND_COUNT, with its host seconds."""
     if len(params) != len(plan.layers):
         raise ValueError(f"{len(params)} param dicts for "
                          f"{len(plan.layers)} planned layers")
+    t0 = time.perf_counter()
     mesh = engine_mesh(plan, device)
     binds = []
     for lp, p in zip(plan.layers, params):
@@ -569,6 +579,8 @@ def bind_network(plan: NetworkPlan, params: Params,
                  for k, v in p.items()}
         binds.append(_place(lp, bind_layer(lp, local, plan.cfg), mesh,
                             device))
+    BIND_COUNT["n"] += 1
+    BIND_COUNT["s"] += time.perf_counter() - t0
     return tuple(binds)
 
 

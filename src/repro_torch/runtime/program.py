@@ -34,8 +34,8 @@ Counterpart of `repro/runtime/program.py`:
   dispatches (their stream keys and noise terms derive on the host),
   `reference=True` (the plain oracle reads numpy), per-call params
   (`CIMProgram.run`/`serve` bind on every call) and a sharded dispatch
-  whose partitions span cards.  engine.CAPTURE_COUNT
-  counts captures (flat after warm-up); `stats()` counts
+  whose partitions span cards.  engine.CAPTURE_COUNT counts captures
+  and their host seconds (flat after warm-up); `stats()` counts
   graphs_captured, graph_replays and eager_calls.  Graphs of one device
   share one memory pool: safe because their inputs sit outside it, their
   outputs stay referenced by their executables and are cloned on return,
@@ -43,7 +43,8 @@ Counterpart of `repro/runtime/program.py`:
   back: a capture or replay that raises, raises.
 * **Weight binding** - `bind(params)` runs engine.bind_network once on the
   host (weight quantization to the odd-integer grid, ABN gamma, col-tile
-  padding) and moves the products to the program's device.
+  padding) and moves the products to the program's device
+  (engine.BIND_COUNT counts binds and their host seconds).
 * **Bound programs of per-call params** - `bound_for(program, params)`
   is the one BoundProgram of a single-layer program over one layer's
   weights, the engine-mode layer's (`core/cim_layers`): bound on first
@@ -86,6 +87,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+import time
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -94,6 +96,7 @@ import torch
 from repro_torch.core import mapping
 from repro_torch.kernels.cim_mbiw import kernel as kmod
 from repro_torch.runtime import engine as rt
+from repro_torch.runtime import tracing
 
 Device = Union[str, torch.device, None]
 
@@ -401,51 +404,61 @@ class CIMProgram:
         captured executables (None with per-call params): a clean
         dispatch on the card replays (or captures) the graph of its key,
         every other (a sharded dispatch across cards included) runs
-        engine._forward eagerly."""
-        nz = rt._dispatch_noise(self._plan, noise)
-        xc, lead = self._canon(x)
-        m = xc.shape[0]
-        if m < 1:
-            raise ValueError("cannot serve an empty batch")
-        seg = self._canon_rows(segments, m, "segments")
-        nid = self._canon_ids(noise_ids, m)
-        bucket = self._buckets.bucket_for(m)
-        if bucket > m:
-            # pad ids mirror the pad rows (copies of row 0): the pad rows
-            # stay duplicates inside row 0's segment, so no segment's
-            # min/max can move and live rows stay bit-exact
-            if seg is not None:
-                seg = torch.cat([seg, seg[:1].expand(bucket - m)])
-            if nid is not None:
-                nid = torch.cat([nid, nid[:1].expand(bucket - m)])
-        ekey = executable_key("bucket", bucket, noise=nz is not None,
-                              keyed=key is not None,
-                              devices=self._devices(),
-                              bound=execs is not None, reference=reference,
-                              segmented=seg is not None,
-                              identity=nid is not None, point=str(point))
-        self._note_dispatch(ekey, bucketed=True)
-        st = self._stats
-        if (execs is not None and self._device.type == "cuda"
-                and key is None and nz is None and not reference
-                and self._on_one_device()):
-            ex = execs.get(ekey)
-            if ex is None:
-                ex, y = _Executable.capture(self._plan, binds, xc, bucket,
-                                            seg)
-                execs[ekey] = ex
-                st["graphs_captured"] += 1
-            else:
-                y = ex.replay(xc, seg)
-                st["graph_replays"] += 1
-        else:
-            st["eager_calls"] += 1
+        engine._forward eagerly.  Under a profiler the call is the span
+        "program.dispatch" (`runtime/tracing.py`) with its route
+        ("replay", "capture" or "eager"), bucket and rows."""
+        with tracing.span("program.dispatch") as sp:
+            nz = rt._dispatch_noise(self._plan, noise)
+            xc, lead = self._canon(x)
+            m = xc.shape[0]
+            if m < 1:
+                raise ValueError("cannot serve an empty batch")
+            seg = self._canon_rows(segments, m, "segments")
+            nid = self._canon_ids(noise_ids, m)
+            bucket = self._buckets.bucket_for(m)
             if bucket > m:
-                pad = xc[:1].expand((bucket - m,) + tuple(xc.shape[1:]))
-                xc = torch.cat([xc, pad], dim=0)
-            y = rt._forward(self._plan, binds, xc, reference=reference,
-                            key=key, noise=nz, m_valid=m, seg=seg, nids=nid)
-        return y[:m].reshape(lead + tuple(y.shape[1:]))
+                # pad ids mirror the pad rows (copies of row 0): the pad
+                # rows stay duplicates inside row 0's segment, so no
+                # segment's min/max can move and live rows stay bit-exact
+                if seg is not None:
+                    seg = torch.cat([seg, seg[:1].expand(bucket - m)])
+                if nid is not None:
+                    nid = torch.cat([nid, nid[:1].expand(bucket - m)])
+            ekey = executable_key("bucket", bucket, noise=nz is not None,
+                                  keyed=key is not None,
+                                  devices=self._devices(),
+                                  bound=execs is not None,
+                                  reference=reference,
+                                  segmented=seg is not None,
+                                  identity=nid is not None,
+                                  point=str(point))
+            self._note_dispatch(ekey, bucketed=True)
+            st = self._stats
+            if (execs is not None and self._device.type == "cuda"
+                    and key is None and nz is None and not reference
+                    and self._on_one_device()):
+                ex = execs.get(ekey)
+                sp.annotate(route="capture" if ex is None else "replay",
+                            bucket=bucket, rows=m)
+                if ex is None:
+                    ex, y = _Executable.capture(self._plan, binds, xc,
+                                                bucket, seg)
+                    execs[ekey] = ex
+                    st["graphs_captured"] += 1
+                else:
+                    y = ex.replay(xc, seg)
+                    st["graph_replays"] += 1
+            else:
+                sp.annotate(route="eager", bucket=bucket, rows=m)
+                st["eager_calls"] += 1
+                if bucket > m:
+                    pad = xc[:1].expand((bucket - m,)
+                                        + tuple(xc.shape[1:]))
+                    xc = torch.cat([xc, pad], dim=0)
+                y = rt._forward(self._plan, binds, xc, reference=reference,
+                                key=key, noise=nz, m_valid=m, seg=seg,
+                                nids=nid)
+            return y[:m].reshape(lead + tuple(y.shape[1:]))
 
     # -- observability -----------------------------------------------------
 
@@ -504,7 +517,9 @@ class _Executable:
         the kernels and sizes route B's workspace, and its result is
         returned as this call's), then the capture under no_grad into
         the device's shared graph pool.  Returns (the executable, the
-        warm-up's bucket-extent result)."""
+        warm-up's bucket-extent result).  Counts in engine.CAPTURE_COUNT,
+        with its host seconds."""
+        t0 = time.perf_counter()
         dev = xc.device
         ex = cls()
         ex.x = torch.zeros((bucket,) + tuple(xc.shape[1:]),
@@ -533,6 +548,7 @@ class _Executable:
         # the capture counted launches that only a replay makes
         kmod.add_launches({c: -n for c, n in ex.launches.items()})
         rt.CAPTURE_COUNT["n"] += 1
+        rt.CAPTURE_COUNT["s"] += time.perf_counter() - t0
         return ex, y
 
     def replay(self, xc: torch.Tensor,

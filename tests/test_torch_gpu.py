@@ -822,6 +822,19 @@ def test_graph_replay_equals_eager_every_rung(cuda_device, kind):
 
 
 @pytest.mark.gpu
+def test_capture_seconds_grow_on_a_capture_only(cuda_device):
+    """CAPTURE_COUNT["s"] adds a capture's host seconds, and a replay
+    adds none."""
+    bound, x = _graph_case("dense", cuda_device)
+    n, s = trt.CAPTURE_COUNT["n"], trt.CAPTURE_COUNT["s"]
+    bound.serve(x[:8])
+    assert trt.CAPTURE_COUNT["n"] == n + 1 and trt.CAPTURE_COUNT["s"] > s
+    s = trt.CAPTURE_COUNT["s"]
+    bound.serve(x[:7])
+    assert trt.CAPTURE_COUNT == {"n": n + 1, "s": s}
+
+
+@pytest.mark.gpu
 def test_zero_captures_after_warmup(cuda_device):
     """Batch sizes that share a rung reuse one graph: CAPTURE_COUNT stays
     flat and every call is a replay (tests/test_program.py's zero

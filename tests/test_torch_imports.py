@@ -46,6 +46,7 @@ NOISE_SLICE = [
 # the engine-mode layer binds, the engine, and the launcher
 SERVE_SLICE = [
     "runtime/program.py", "runtime/engine.py", "launch/serve.py",
+    "runtime/tracing.py",
 ]
 
 
