@@ -1300,7 +1300,7 @@ def lenet_noise_phase(dev, tag, make_dataset, cnn, kern, kmod) -> dict:
         torch.cuda.synchronize()
         got = kernel_counts(kern) + (draw.launches,)
         want = kmod.route_counts(plan.tile_calls(LENET_BATCH))
-        check(got == (plan.total_macro_evals, want["tc"], want["splitk"],
+        check(got == (sum(want.values()), want["tc"], want["splitk"],
                       len(plan.layers)),
               f"noisy LeNet ({r_in},{r_w}): launches (cim_mbiw, tc, splitk, "
               f"threefry_normal) {got} != planned tiles {want} and one draw "
@@ -2089,7 +2089,8 @@ def spearman(a, b) -> float:
 def tuned_calls(plan, batch: int, kmod) -> int:
     """cim_mbiw launches of one forward over `batch` samples that run a
     tuned tile: each tile call of a layer with `blocks` whose own route is
-    the tile's (stream_rows 0: one dispatch a macro tile)."""
+    the tile's (stream_rows 0: one dispatch a row tile, over the layer's
+    whole padded width)."""
     n = 0
     for lp in plan.layers:
         if lp.blocks is None:
@@ -2097,9 +2098,9 @@ def tuned_calls(plan, batch: int, kmod) -> int:
         g = lp.spec.conv
         rows = batch * (g.out_h * g.out_w if g is not None else 1)
         for _, ksz in lp.k_slices:
-            if kmod.route_for(rows, lp.tile_n, ksz,
+            if kmod.route_for(rows, lp.n_pad, ksz,
                               lp.precision.n_planes).name == lp.blocks[0]:
-                n += len(lp.n_slices)
+                n += 1
     return n
 
 
@@ -2277,7 +2278,7 @@ def tuner_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
                           "!= tune=off")
                 del bounds
                 heur = ttuner.heuristic_choice(spec, trt.EngineConfig())
-                evals = map_layer(spec).macro_evals
+                evals = map_layer(spec).row_tiles
                 row = {"name": name, "point": [r_in, r_w], "rows": rows,
                        "k": k, "n": n, "dispatches": evals,
                        "heuristic": heur.blocks,
@@ -2357,7 +2358,7 @@ def tuner_phase(dev, tag, kern, kmod, tprog, trt) -> dict:
         spec = LayerSpec(m=m, k=k, n=n, r_in=4, r_w=2)
         heur = ttuner.heuristic_choice(spec, trt.EngineConfig())
         predicted.append(ttuner.layer_cost(spec, heur).total_s)
-        measured.append(map_layer(spec).macro_evals * event_ms(spec, heur))
+        measured.append(map_layer(spec).row_tiles * event_ms(spec, heur))
     rho = spearman(predicted, measured)
     rec["ranking"] = {"shapes": TUNE_RANK_SHAPES, "predicted_s": predicted,
                       "event_ms": measured, "spearman": rho}
@@ -6148,7 +6149,7 @@ def main() -> int:
         prog = cnn.lenet_program(LENET_BATCH, cim=cim)
         check(prog.device.type == "cuda", "program is not on the card")
         bound = prog.bind(params)
-        per_fwd = prog.plan.total_macro_evals
+        per_fwd = len(prog.plan.tile_calls(LENET_BATCH))
         reset_counts(kern)
         y = bound.serve(x)
         torch.cuda.synchronize()
@@ -6163,7 +6164,7 @@ def main() -> int:
                 main_routes[r] += n_
         check(launches_serve == per_fwd and launches_batch == per_fwd,
               f"kernel launches per forward {launches_serve}/"
-              f"{launches_batch} != planned tiles {per_fwd}")
+              f"{launches_batch} != planned calls {per_fwd}")
         # each tile on the route route_for names for it (serve_batch
         # dispatches the concatenated requests at their bucket)
         for got_c, rows in ((counts_serve, LENET_BATCH),
@@ -6289,10 +6290,11 @@ def main() -> int:
     torch.cuda.synchronize()
     bind_s = time.perf_counter() - t0
     check(model.device.type == "cuda", "decode model is not on the card")
-    tiles = {p: sum(b.qkv.program.plan.total_macro_evals
-                    + b.o.plan.total_macro_evals
-                    + b.gate_up.program.plan.total_macro_evals
-                    + b.down.plan.total_macro_evals
+    # one launch a row tile of each projection, whatever M
+    tiles = {p: sum(len(b.qkv.program.plan.tile_calls(1))
+                    + len(b.o.plan.tile_calls(1))
+                    + len(b.gate_up.program.plan.tile_calls(1))
+                    + len(b.down.plan.tile_calls(1))
                     for b in model.blocks_for(p)) for p in model.points}
     sched_in = decode_requests(model.vocab)
     reqs = {u: Request(u, p, n, pt) for _, u, p, n, pt in sched_in}

@@ -230,19 +230,22 @@ class NetworkPlan:
 
     @property
     def total_macro_evals(self) -> int:
-        """Schedule-wide macro invocations per M-row batch of work (with
-        stream_rows=0 this is the kernel launch count of one forward)."""
+        """Schedule-wide macro invocations per M-row batch of work: the
+        chip's, not the kernel's launches (`tile_calls`: one a row
+        tile)."""
         return sum(lp.macro_evals for lp in self.layers)
 
     def tile_calls(self, batch: int) -> List[Tuple[int, int, int, int]]:
         """(m, n, k, planes) of every kernel call of one kernel-path
         forward over `batch` samples (the bucketed extent), in launch
-        order; m counts GEMM rows (a conv layer's batch x out_h x out_w,
-        chunked by cfg.stream_rows).  A sharded layer lists each
-        partition's calls in partition order: "col" partitions run their
-        tiles_per_device col tiles (dummy tiles included) over every row,
-        "rows" partitions every col tile over their ceil(rows / D) rows
-        (zero rows included)."""
+        order: one a row tile, n its partition's whole padded width (the
+        macro invocations of `total_macro_evals` are its col tiles); m
+        counts GEMM rows (a conv layer's batch x out_h x out_w, chunked by
+        cfg.stream_rows).  A sharded layer lists each partition's calls in
+        partition order: "col" partitions span their tiles_per_device col
+        tiles (dummy tiles included) over every row, "rows" partitions
+        every col tile over their ceil(rows / D) rows (zero rows
+        included)."""
         calls = []
         for lp in self.layers:
             g = lp.spec.conv
@@ -258,8 +261,8 @@ class NetworkPlan:
             for _ in range(parts):
                 for s in range(0, max(rows, 1), chunk):
                     m = min(chunk, rows - s)
-                    calls += [(m, lp.tile_n, ksz, lp.precision.n_planes)
-                              for _ in range(n_tiles)
+                    calls += [(m, n_tiles * lp.tile_n, ksz,
+                               lp.precision.n_planes)
                               for _, ksz in lp.k_slices]
         return calls
 
@@ -754,22 +757,23 @@ def _tile_schedule(lp: LayerPlan, q_rows: torch.Tensor, zp: torch.Tensor,
                    nctx: Optional[_LayerNoise] = None) -> torch.Tensor:
     """One block of GEMM rows through the (k, n) tile schedule.
 
-    `matmul` evaluates one macro tile (kernel variant or plain oracle) and
-    returns int32 ADC codes - or the raw int32 dp when a noise context is
-    given, whose ADC conversion (with the noise terms and the tile's
-    thermal slice) then runs here.  With a `matmul.prepare` (the kernel's
-    plane split) each row tile's activations are prepared once and
-    `matmul` takes them prepared.  `zp` is the activation zero-point in
-    code units: a scalar, or per row (rows, 1) under segment-wise
-    quantization, which makes the folded ADC offset beta_eff per GEMM row
-    (rows, n).  `bind` holds the layer's bind products.  Returns dp_hat
-    (rows, n_pad) in dp units.
+    `matmul` evaluates one row tile over every col tile at once (kernel
+    variant or plain oracle) and returns int32 ADC codes - or the raw
+    int32 dp when a noise context is given, whose ADC conversion (with
+    the noise terms and each col tile's thermal slice) then runs here.
+    With a `matmul.prepare` (the kernel's plane split) each row tile's
+    activations are prepared once and `matmul` takes them prepared.  `zp`
+    is the activation zero-point in code units: a scalar, or per row
+    (rows, 1) under segment-wise quantization, which makes the folded ADC
+    offset beta_eff per GEMM row (rows, n).  `bind` holds the layer's bind
+    products.  Returns dp_hat (rows, n_pad) in dp units.
 
-    The per-column work of a row tile (the zero-point fold, the dequant
-    and the digital recombination) runs once over all its col tiles: the
-    same elementwise operations in the same order for every element as a
-    tile at a time, so the same bits, with a few launches a row tile in
-    place of a few a macro tile."""
+    A row tile's work (the launch, the zero-point fold, the dequant and
+    the digital recombination) runs once over all its col tiles: col
+    tiles share no sum and each column has its own ADC, so the same
+    operations in the same order for every element as a macro tile at a
+    time, the same bits, with a few launches a row tile in place of a few
+    a macro tile."""
     mid = 2.0 ** (lp.spec.r_out - 1)
     g0 = lp.g0
     tsz = lp.tile_n
@@ -788,15 +792,14 @@ def _tile_schedule(lp: LayerPlan, q_rows: torch.Tensor, zp: torch.Tensor,
         # are integers, exact in any order)
         zp_dp = zp * torch.sum(wqq[ks:ke], dim=0)
         beta_eff = beta + rounding_barrier(gain * zp_dp)
-        codes = []
-        for ni in range(wqq.shape[1] // tsz):
-            ns, ne = ni * tsz, (ni + 1) * tsz
-            out = matmul(xq, wqq[ks:ke, ns:ne], gamma[ns:ne],
-                         beta_eff[..., ns:ne], g0)
-            codes.append(out if nctx is None else _noise_adc_code(
-                lp, out, gamma[ns:ne], beta_eff[..., ns:ne], nctx, (ns, ne),
-                nctx.thermal[ki, ni]))
-        codes = codes[0] if len(codes) == 1 else torch.cat(codes, dim=-1)
+        codes = matmul(xq, wqq[ks:ke], gamma, beta_eff, g0)
+        if nctx is not None:
+            tiles = [_noise_adc_code(lp, codes[:, ns:ns + tsz],
+                                     gamma[ns:ns + tsz],
+                                     beta_eff[..., ns:ns + tsz], nctx,
+                                     (ns, ns + tsz), nctx.thermal[ki, ni])
+                     for ni, ns in enumerate(range(0, wqq.shape[1], tsz))]
+            codes = tiles[0] if len(tiles) == 1 else torch.cat(tiles, -1)
         # digital partial-sum recombination in dp units; dequantizing
         # against the *raw* beta keeps the zero-point contribution in
         # dp_hat (the divisor `gain` is a device tensor)

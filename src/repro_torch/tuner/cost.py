@@ -16,9 +16,9 @@ port reads:
     through `LayerCost.score()`, as the JAX package's falls to its DMA
     term.
   * card time (`t_dma_s`, in JAX's field): the Hopper route's work at
-    its tile, per dispatch of one partition (one per (row tile, local
-    col tile) of the macro mapping over the partition's rows, each
-    `mp.rows_per_tile` deep, as the JAX model charges it), the larger
+    its tile, per launch of one partition (one per row tile of the
+    macro mapping over the partition's rows and its whole padded width,
+    each `mp.rows_per_tile` deep, as the engine launches it), the larger
     of
       - the route's HBM bytes over `hw.H100_SXM.hbm_bw`: routes A and C
         re-read x once per column block and w once per row block;
@@ -159,7 +159,8 @@ def layer_cost(spec: mapping.LayerSpec, choice: ScheduleChoice, *,
     """Score one layer under one schedule choice on `devices` macros.
 
     The macro term uses the per-device critical-path eval count; the card
-    term sums the route's cost over one partition's dispatches (times the
+    term sums the route's cost over one partition's launches, one a row
+    tile over its whole padded width (times the
     device count when `folded`: the partitions share one card); the
     collective term charges the output all-gather of the chosen shard
     kind over NVLink, or over the card's memory when `folded`.
@@ -196,13 +197,14 @@ def layer_cost(spec: mapping.LayerSpec, choice: ScheduleChoice, *,
             coll_bytes = (m_tot - rows_local) * nt * tile_n * 4
     t_eval_ns = cim_eval_time_ns(spec.r_in, spec.r_w, spec.r_out, macro)
     t_macro = evals_dev * t_eval_ns * 1e-9
-    # every row tile charged at mp.rows_per_tile rows (the last may be
-    # smaller): monotone and upper-bounding, as the JAX model
-    dispatch = (rows_local, mp.rows_per_tile, tile_n, choice.blocks,
-                n_planes)
+    # one launch a row tile over the partition's padded width, every row
+    # tile charged at mp.rows_per_tile rows (the last may be smaller):
+    # monotone and upper-bounding, as the JAX model
+    dispatch = (rows_local, mp.rows_per_tile, nt_local * tile_n,
+                choice.blocks, n_planes)
     share = devices if folded else 1
-    dma = share * nt_local * kt * kernel_dma_bytes(*dispatch)
-    t_dma = share * nt_local * kt * _card_s(*dispatch, gpu)
+    dma = share * kt * kernel_dma_bytes(*dispatch)
+    t_dma = share * kt * _card_s(*dispatch, gpu)
     t_coll = coll_bytes / (gpu.hbm_bw if folded else gpu.nvlink_bw)
     return LayerCost(
         macro_evals=evals_total, macro_evals_per_device=evals_dev,

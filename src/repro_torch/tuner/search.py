@@ -4,9 +4,10 @@ Counterpart of `repro/tuner/search.py`.  `tune_network` is the tuner's
 entry point (what `runtime.program.compile_program(tune=...)` calls): for
 each layer it enumerates the tiles the layer's dispatch may run
 (`kernels.cim_mbiw.ops.block_candidates`: every legal tile of the route
-`route_for` takes at the dispatch's rows, one row tile deep and one col
-tile wide) crossed, on a multi-device plan, with the two shard kinds (a
-"rows" partition dispatches ceil(M / D) rows, so its tiles are those of
+`route_for` takes at the launch the engine makes, one row tile deep over
+the whole padded width) crossed, on a multi-device plan, with the two
+shard kinds (a "rows" partition launches ceil(M / D) rows, a "col"
+partition its tiles_per_device col tiles, so its tiles are those of
 that shape), scores each with `cost.layer_cost`, and keeps the
 strict-best - the heuristic candidate (`route_for`'s own tile) is scored FIRST, so the tuned
 schedule's analytic cost is <= the heuristic's by construction.  In
@@ -55,21 +56,36 @@ _MEASURE_LAUNCHES = 20
 MODES = ("analytic", "measure")
 
 
-def _dispatch(spec: mapping.LayerSpec,
-              macro: CIMMacroConfig) -> Tuple[int, int, int, int]:
-    """(rows, k, n, planes) of the layer's dispatch the search tunes:
-    `spec.m` rows, one row tile deep, one col tile wide."""
+def _dispatch(spec: mapping.LayerSpec, macro: CIMMacroConfig,
+              devices: int = 1,
+              kind: Optional[str] = None) -> Tuple[int, int, int, int]:
+    """(rows, k, n, planes) of one kernel launch the engine makes for the
+    layer (one a row tile, `engine.NetworkPlan.tile_calls`): `spec.m`
+    rows, one row tile deep, over every col tile of the padded width; on
+    `devices` > 1 one partition's launch under `kind` (None: the
+    automatic kind), a "rows" partition's ceil(M / D) rows or a "col"
+    partition's tiles_per_device col tiles."""
     mp = mapping.map_layer(spec, macro)
-    return (spec.m, mp.rows_per_tile, math.ceil(spec.n / mp.col_tiles),
+    rows, tiles = spec.m, mp.col_tiles
+    if devices > 1:
+        sh = mapping.shard_layer(spec, mp, devices, kind=kind)
+        if sh.kind == "rows":
+            rows = sh.rows_per_device
+        else:
+            tiles = sh.tiles_per_device
+    return (rows, mp.rows_per_tile, tiles * math.ceil(spec.n / mp.col_tiles),
             kmod.plane_layout(spec.r_in)[1])
 
 
 def heuristic_choice(spec: mapping.LayerSpec, cfg,
                      macro: CIMMacroConfig = DEFAULT_MACRO) -> ScheduleChoice:
     """The schedule the engine runs untuned: `route_for`'s own tile at the
-    rows the engine dispatches for `spec.m` (`cfg` is read for nothing
-    else on the card: its Pallas block sizes change no launch)."""
-    rows, k, n, planes = _dispatch(spec, macro)
+    launch the engine makes for `spec.m` rows, on the devices of `cfg`'s
+    sharding under the automatic kind (`cfg` is read for nothing else on
+    the card: its Pallas block sizes change no launch)."""
+    sharding = getattr(cfg, "sharding", None)
+    devices = sharding.resolve_devices() if sharding is not None else 1
+    rows, k, n, planes = _dispatch(spec, macro, devices)
     return ScheduleChoice(*kmod.route_for(rows, n, k, planes).tile)
 
 
@@ -82,7 +98,6 @@ def layer_candidates(spec: mapping.LayerSpec, cfg, devices: int,
     partition dispatches; shard kinds are {None} on one device and the
     automatic kind first, then the other "col"/"rows", on a multi-device
     plan.  Deduplicated, order-stable."""
-    rows, k, n, planes = _dispatch(spec, macro)
     mp = mapping.map_layer(spec, macro)
     if devices <= 1:
         kinds: Tuple[Optional[str], ...] = (None,)
@@ -92,11 +107,8 @@ def layer_candidates(spec: mapping.LayerSpec, cfg, devices: int,
     out = [heuristic_choice(spec, cfg, macro)]
     seen = {out[0]}
     for kind in kinds:
-        rows_local = rows
-        if kind == "rows":
-            rows_local = mapping.shard_layer(spec, mp, devices,
-                                             kind=kind).rows_per_device
-        for tile in kops.block_candidates(rows_local, k, n, planes):
+        rows, k, n, planes = _dispatch(spec, macro, devices, kind)
+        for tile in kops.block_candidates(rows, k, n, planes):
             c = ScheduleChoice(*tile, shard_kind=kind)
             if c not in seen:
                 seen.add(c)
@@ -108,18 +120,13 @@ def _measure_choice_s(spec: mapping.LayerSpec, choice: ScheduleChoice,
                       macro: CIMMacroConfig, device: torch.device,
                       devices: int = 1) -> float:
     """Seconds one launch of the candidate's tile takes on the card, on
-    seeded synthetic data for one dispatch (of a "rows" partition's
-    ceil(M / D) rows where the choice shards rows): `_MEASURE_LAUNCHES`
+    seeded synthetic data for one launch the engine makes (a partition's
+    where the choice shards, `_dispatch`): `_MEASURE_LAUNCHES`
     launches captured in a CUDA graph (after an eager warm-up, which also grows
     route B's workspace outside the capture), replayed between CUDA
     events, min of `_MEASURE_ITERS`.  Forced through `kernel.launch`,
     which counts nothing.  Used only for ranking - never for numerics."""
-    rows, k, n, planes = _dispatch(spec, macro)
-    if devices > 1:
-        mp = mapping.map_layer(spec, macro)
-        sh = mapping.shard_layer(spec, mp, devices, kind=choice.shard_kind)
-        if sh.kind == "rows":
-            rows = sh.rows_per_device
+    rows, k, n, planes = _dispatch(spec, macro, devices, choice.shard_kind)
     shift, _ = kmod.plane_layout(spec.r_in)
     rng = np.random.default_rng(0)
     x = rng.integers(0, 2 ** min(shift, spec.r_in), (rows, planes * k),

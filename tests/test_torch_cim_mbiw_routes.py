@@ -132,13 +132,16 @@ def test_route_table(label, m, n, k, planes, want):
 @pytest.mark.parametrize("r_in,r_w", [(4, 2), (8, 4)])
 @pytest.mark.parametrize("batch", (256, 1))
 def test_lenet_tiles_route_as_planned(r_in, r_w, batch):
-    """Every tile of a LeNet forward, from its plan: conv1 (K 9) on route
-    C, every tile with K >= 32 on route A (batch 256) or, for the fc
-    layers at batch 1, route B."""
+    """Every call of a LeNet forward, from its plan: conv1 (K 9) on route
+    C, every call with K >= 32 on route A (batch 256) or, for the fc
+    layers at batch 1, route B; one call a row tile, over every col
+    tile (fc1 at r_w 4: two row tiles of four macro tiles)."""
     prog = cnn.lenet_program(batch, cim=CIMConfig(r_in=r_in, r_w=r_w),
                              device="cpu")
     calls = prog.plan.tile_calls(batch)
-    assert len(calls) == prog.plan.total_macro_evals
+    assert len(calls) == sum(len(lp.k_slices) for lp in prog.plan.layers)
+    assert [n for _, n, _, _ in calls] == [
+        lp.n_pad for lp in prog.plan.layers for _ in lp.k_slices]
     for m, n, k, p in calls:
         route = tk.route_for(m, n, k, p).name
         if k < 32:

@@ -8,19 +8,27 @@ own invariants (bucket padding, stream_rows chunking, serve_batch) hold
 bit for bit too.
 """
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core import mapping as jmap
+from repro.core import noise_model as jnm
 from repro.runtime import engine as jrt
 from repro.runtime import program as jprog
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import mapping as tmap
+from repro_torch.core import prng
+from repro_torch.core.noise_model import LEAF_FIELDS, NoiseConfig
+from repro_torch.kernels.cim_mbiw import ops as tops
 from repro_torch.runtime import engine as trt
 from repro_torch.runtime import program as tprog
+
+import torch_threads
 
 
 def seeded_params(specs, seed):
@@ -262,3 +270,95 @@ def test_bucket_ladder_matches_jax():
         assert jb.ladder(70) == tb.ladder(70)
     with pytest.raises(ValueError):
         tprog.BatchBuckets(0)
+
+
+# ---- one kernel call a row tile over every col tile ------------------------
+
+# a layer's col tiles: one, three full ones, or three whose uniform width
+# covers more than n (n_pad > n), in units of a tile's channels `c`
+COL_TILES = {"one": lambda c: c // 2, "three": lambda c: 3 * c,
+             "ragged": lambda c: 2 * c + 3}
+COALESCE_K, COALESCE_ROWS = 1200, 6     # two row tiles; bucket 8
+
+
+one_intra_op_thread = pytest.fixture(torch_threads.one_intra_op_thread)
+
+
+@functools.lru_cache(maxsize=None)
+def _coalesce_case(r_in, r_w, tiles, per_row, noise):
+    """(spec, params, x, segments, JAX's output) of one case: JAX's
+    unsharded engine, clean through the bound program's serve (Pallas
+    interpret mode), noisy through its reference oracle run eagerly with
+    float32 noise leaves under PRNGKey(7) (tests/test_torch_noise.py)."""
+    n = COL_TILES[tiles](4096 // tmap.map_layer(tmap.LayerSpec(
+        m=8, k=COALESCE_K, n=4096, r_in=r_in, r_w=r_w)).col_tiles)
+    spec = dict(m=8, k=COALESCE_K, n=n, r_in=r_in, r_w=r_w)
+    rng = np.random.default_rng(r_in * 100 + n)
+    params = seeded_params([(COALESCE_K, n)], r_in + n)
+    x = (rng.normal(size=(COALESCE_ROWS, COALESCE_K))
+         * rng.uniform(0.1, 10, size=(COALESCE_ROWS, 1))).astype(np.float32)
+    seg = np.array([0, 0, 1, 2, 2, 2], np.int32) if per_row else None
+    jn = jnm.NoiseConfig() if noise else None
+    jb = jprog.compile_program(
+        [jmap.LayerSpec(**spec)], jrt.EngineConfig(
+            **({"noise": jn} if noise else {})),
+        activations=["none"]).bind([{k: jnp.asarray(v)
+                                     for k, v in params[0].items()}])
+    jseg = None if seg is None else jnp.asarray(seg)
+    if not noise:
+        want = jb.serve(jnp.asarray(x), segments=jseg)
+    else:
+        f32 = jn.replace(**{f: jnp.float32(getattr(jn, f))
+                            for f in LEAF_FIELDS})
+        with jax.disable_jit():
+            want = jb.reference(jnp.asarray(x), jax.random.PRNGKey(7), f32,
+                                segments=jseg)
+    return spec, params, x, seg, np.asarray(want)
+
+
+@pytest.mark.parametrize("placement", ("serial", "col"))
+@pytest.mark.parametrize("noise", (False, True), ids=("clean", "noisy"))
+@pytest.mark.parametrize("beta", ("column", "row"))
+@pytest.mark.parametrize("tiles", tuple(COL_TILES))
+@pytest.mark.parametrize("r_in,r_w", [(4, 2), (8, 4)])
+def test_row_tile_launch_over_every_col_tile_matches_jax(
+        r_in, r_w, tiles, beta, noise, placement, monkeypatch,
+        one_intra_op_thread):
+    """The engine calls the kernel once a row tile over the layer's whole
+    padded width (a "col" partition's width on a folded mesh of 2), the
+    calls `tile_calls` lists, and serves JAX's bits: per-column beta, or
+    per-row beta under segments; clean, or noisy with its thermal draws
+    per col tile."""
+    spec, params, x, seg, want = _coalesce_case(r_in, r_w, tiles,
+                                                beta == "row", noise)
+    cfg = trt.EngineConfig(**({"noise": NoiseConfig()} if noise else {}))
+    if placement == "col":
+        cfg = cfg.replace(sharding=trt.ShardingConfig(devices=2,
+                                                      fold_onto="cpu"))
+        plan = trt.plan_network([tmap.LayerSpec(**spec)], cfg, ["none"],
+                                schedule=[(None, "col")])
+        prog = tprog.program_for_plan(plan, device="cpu")
+    else:
+        prog = tprog.compile_program([tmap.LayerSpec(**spec)], cfg,
+                                     activations=["none"], device="cpu")
+    lp = prog.plan.layers[0]
+    assert (len(lp.k_slices), len(lp.n_slices), lp.n_pad > spec["n"]) == \
+        (2, 1 if tiles == "one" else 3, tiles == "ragged")
+    bound = prog.bind(params_from_numpy(params))
+    calls = []
+    real = tops.cim_mbiw_matmul_planes
+
+    def counting(x_planes, w_q, *args, **kw):
+        calls.append((x_planes.shape[0], w_q.shape[1], w_q.shape[0],
+                      x_planes.shape[1] // w_q.shape[0]))
+        return real(x_planes, w_q, *args, **kw)
+    monkeypatch.setattr(tops, "cim_mbiw_matmul_planes", counting)
+    xt = torch.from_numpy(x)
+    key = prng.key(7) if noise else None
+    segments = None if seg is None else torch.from_numpy(seg)
+    got = bound.serve(xt, key, segments=segments)
+    assert calls == prog.plan.tile_calls(prog.buckets.bucket_for(len(x)))
+    assert len(calls) == len(lp.k_slices) * (2 if placement == "col" else 1)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    assert torch.equal(bound.reference(xt, key, segments=segments), got)

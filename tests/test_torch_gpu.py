@@ -171,7 +171,7 @@ def test_lenet_on_card_matches_host(cuda_device, r_in, r_w):
     y = gpu.serve(x)
     torch.cuda.synchronize()
     assert tkernel.cim_mbiw_matmul_planes.launches - before == \
-        gpu.plan.total_macro_evals
+        len(gpu.plan.tile_calls(5))
     assert torch.equal(y, gpu.reference(x))
     assert torch.equal(y.cpu(), cpu.serve(x))
 
@@ -288,8 +288,8 @@ def test_threefry_normal_is_one_launch_and_takes_unaligned_keys(
 @pytest.mark.parametrize("r_in,r_w", [(4, 2), (8, 4)])
 def test_noisy_lenet_on_card_matches_host(cuda_device, r_in, r_w):
     """Noisy LeNet serving: the card's logits equal its reference and the
-    host run bit for bit, cim_mbiw runs every planned tile in raw-dp mode
-    and the draw kernel launches once per layer."""
+    host run bit for bit, cim_mbiw runs every planned call (one a row
+    tile) in raw-dp mode and the draw kernel launches once per layer."""
     cim = CIMConfig(r_in=r_in, r_w=r_w, noise=NoiseConfig())
     params = cnn.lenet_params_list(
         cnn.init_lenet(torch.Generator().manual_seed(3), cim=cim))
@@ -302,7 +302,7 @@ def test_noisy_lenet_on_card_matches_host(cuda_device, r_in, r_w):
     y = gpu.serve(x, key)
     torch.cuda.synchronize()
     assert (kern.launches - before[0], draw.launches - before[1]) == \
-        (gpu.plan.total_macro_evals, len(gpu.plan.layers))
+        (len(gpu.plan.tile_calls(8)), len(gpu.plan.layers))
     assert torch.equal(y, gpu.reference(x, key))
     assert torch.equal(y.cpu(), cpu.serve(x, key))
     assert not torch.equal(y, gpu.serve(x, prng.key(2)))
@@ -393,6 +393,36 @@ def test_segmented_serve_on_card_matches_host(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,route", [(16, "splitk"), (256, "tc")])
+@pytest.mark.parametrize("k,n", [(2048, 8192), (8192, 2048)])
+def test_olmo_projection_one_launch_a_row_tile(cuda_device, k, n, m, route):
+    """OLMo-1B's up and down projections at (8, 4): one dispatch launches
+    one kernel a row tile over the whole width (`tile_calls`; 2 and 8
+    where the macro has 256 and 64 tiles), on route B at M 16 and A at M
+    256, and serves the host's bits."""
+    specs = [tmap.LayerSpec(m=m, k=k, n=n, r_in=8, r_w=4)]
+    g = torch.Generator().manual_seed(k + m)
+    host = tprog.compile_program(specs, device="cpu")
+    params = host.init_params(g)
+    card = tprog.compile_program(specs).bind(params)
+    x = torch.randn((m, k), generator=g)
+    plan = card.plan
+    calls = plan.tile_calls(m)
+    assert len(calls) == len(plan.layers[0].k_slices) == k // 1024
+    assert [c[1] for c in calls] == [n] * len(calls)
+    assert plan.total_macro_evals == len(calls) * n // 64
+    y = card.serve(x)
+    before = tkernel.launch_counts()
+    again = card.serve(x)
+    torch.cuda.synchronize()
+    got = {c: v - before[c] for c, v in tkernel.launch_counts().items()}
+    assert got["launches"] == len(calls)
+    assert got["launches_" + route] == len(calls)
+    assert torch.equal(y, again)
+    assert torch.equal(y.cpu(), host.bind(params).serve(x))
+
+
+@pytest.mark.gpu
 def test_decode_full_width_depth2_fused_equals_sequential(cuda_device):
     """OLMo-1B widths (d 2048, 16 heads, d_ff 8192, vocab 50304, window
     2048) at depth 2, two operating points: every fused stream equals its
@@ -412,10 +442,11 @@ def test_decode_full_width_depth2_fused_equals_sequential(cuda_device):
     torch.cuda.synchronize()
     calls = {p: sum(len(r.prompt) for _, r in reqs if r.point == p)
              + sched.points_served.get(p, 0) for p in model.points}
-    tiles = {p: sum(b.qkv.program.plan.total_macro_evals
-                    + b.o.plan.total_macro_evals
-                    + b.gate_up.program.plan.total_macro_evals
-                    + b.down.plan.total_macro_evals
+    # one launch a row tile of each projection, whatever M
+    tiles = {p: sum(len(b.qkv.program.plan.tile_calls(1))
+                    + len(b.o.plan.tile_calls(1))
+                    + len(b.gate_up.program.plan.tile_calls(1))
+                    + len(b.down.plan.tile_calls(1))
                     for b in model.blocks_for(p)) for p in model.points}
     assert kern.launches == sum(tiles[p] * calls[p] for p in calls)
     assert kern.launches_splitk == kern.launches     # every tile: M <= 4
@@ -1314,7 +1345,7 @@ def test_cost_spearman_vs_event_time(cuda_device):
         heur = ttuner.heuristic_choice(spec, trt.EngineConfig())
         predicted.append(ttuner.layer_cost(spec, heur).total_s)
         mp = tmap.map_layer(spec)
-        measured.append(mp.macro_evals * tsearch._measure_choice_s(
+        measured.append(mp.row_tiles * tsearch._measure_choice_s(
             spec, heur, DEFAULT_MACRO, cuda_device))
     rho = _spearman(predicted, measured)
     assert rho >= 0.7, (rho, predicted, measured)

@@ -62,8 +62,9 @@ def test_lenet_logits_match_jax(r_in, r_w):
 
 def test_lenet_schedule_pinned(monkeypatch):
     """conv1 1 + conv2 1 + fc1 2x2 (K=1568 -> two row tiles, 128 channels
-    -> two col tiles at r_w=4) + fc2 1 = 7 kernel calls per forward; at
-    r_w=2 fc1's 128 channels fit one col tile (5 calls)."""
+    -> two col tiles at r_w=4) + fc2 1 = 7 macro tiles per forward; at
+    r_w=2 fc1's 128 channels fit one col tile (5).  The kernel runs once
+    a row tile over every col tile: 5 calls at either r_w."""
     calls = []
     real = tops.cim_mbiw_matmul_planes
 
@@ -81,7 +82,8 @@ def test_lenet_schedule_pinned(monkeypatch):
                                                                  cim=cim)))
         calls.clear()
         bound.serve(x)
-        assert len(calls) == sum(evals) == prog.plan.total_macro_evals
+        assert sum(evals) == prog.plan.total_macro_evals
+        assert len(calls) == len(prog.plan.tile_calls(BATCH)) == 5
     # r_w=2, r_in=8, batch 3 padded to the bucket of 4:
     # (GEMM rows, planes*K, N) per tile
     assert calls == [(4 * 784, 18, 16), (4 * 196, 288, 32),

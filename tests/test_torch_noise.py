@@ -43,16 +43,11 @@ from repro_torch.models import cnn as tcnn
 from repro_torch.runtime import engine as trt
 from repro_torch.runtime import program as tprog
 
+import torch_threads
 
-@pytest.fixture(autouse=True, scope="module")
-def one_intra_op_thread():
-    """One intra-op thread for this module, the previous count back after
-    it: where pytest-xdist workers share the cores, PyTorch's pool spins
-    at the barrier of each small CPU op (test_torch_sharding.py's note)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+
+one_intra_op_thread = pytest.fixture(autouse=True, scope="module")(
+    torch_threads.one_intra_op_thread)
 
 
 R_INS = (1, 2, 4, 8)

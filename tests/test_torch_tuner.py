@@ -185,6 +185,40 @@ def test_tuned_cost_never_above_heuristic(m, k, n, prec):
     assert rep["candidates"] == len(cands)
 
 
+@pytest.mark.parametrize("devices,kind", [(1, None), (2, "col"),
+                                          (2, "rows"), (4, None)])
+@pytest.mark.parametrize("m,k,n", [(16, 2048, 8192), (256, 8192, 2048),
+                                   (8, 144, 320), (3, 1300, 700)])
+def test_search_prices_the_launches_the_engine_makes(m, k, n, devices,
+                                                     kind):
+    """The shape the search tunes and times (`_dispatch`) is the one of
+    every call `tile_calls` lists for the plan (one a row tile over the
+    partition's padded width), the heuristic is `route_for`'s own tile
+    there, and the card term is one launch a row tile of it."""
+    spec = tmap.LayerSpec(m=m, k=k, n=n, r_in=8, r_w=4)
+    sharding = trt.ShardingConfig(devices=devices, fold_onto="cpu") \
+        if devices > 1 else None
+    cfg = trt.EngineConfig(sharding=sharding)
+    plan = trt.plan_network([spec], cfg, ["none"],
+                            schedule=[None if kind is None else (None, kind)])
+    lp = plan.layers[0]
+    rows, k_t, n_t, planes = tsearch._dispatch(spec, thw.DEFAULT_MACRO,
+                                               devices, kind)
+    calls = plan.tile_calls(m)
+    parts = devices if devices > 1 else 1
+    assert len(calls) == parts * len(lp.k_slices)
+    assert {(c[0], c[1], c[3]) for c in calls} == {(rows, n_t, planes)}
+    assert max(c[2] for c in calls) == k_t
+    if kind is None:
+        heur = ttuner.heuristic_choice(spec, cfg)
+        assert heur.blocks == tkernel.route_for(rows, n_t, k_t, planes).tile
+    choice = ttuner.ScheduleChoice(
+        *tkernel.route_for(rows, n_t, k_t, planes).tile, shard_kind=kind)
+    lc = ttuner.layer_cost(spec, choice, devices=devices, folded=True)
+    assert lc.dma_bytes == parts * len(lp.k_slices) * tcost.kernel_dma_bytes(
+        rows, k_t, n_t, choice.blocks, planes)
+
+
 def test_cost_and_chip_smoke_share_the_card_table():
     """The tuner's cost model and chip_smoke.py's bounds (through the
     kernels' cost table, `kernels/costs.py`) read the same objects of
